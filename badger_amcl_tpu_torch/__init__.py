@@ -1,0 +1,20 @@
+"""badger_amcl_tpu_torch — the PyTorch/CUDA port of badger_amcl_tpu.
+
+The 2D likelihood-field MCL step (diff-drive odometry -> likelihood-field
+sensor update -> KLD multinomial resample with cluster statistics ->
+convergence) as eager PyTorch on plain tensors, with three hand-written
+CUDA kernels for Hopper (``csrc/``) where the JAX package runs Pallas TPU
+kernels. Module paths, public function names and array layouts follow
+``badger_amcl_tpu`` so each counterpart is easy to find; the package never
+imports JAX or ``badger_amcl_tpu``.
+
+- ``maps``     — occupancy map, capped EDT, baked textures
+- ``pf``       — particle filter core (state, KLD, clustering, resampling)
+- ``sensors``  — odometry and planar likelihood-field models
+- ``ops``      — kernel wrappers, their plain PyTorch versions, the builder
+- ``mcl``      — the fused step entry points
+- ``scenario`` — seeded flagship scenario builder
+- ``convert``  — JAX-package objects (as numpy) -> port objects
+"""
+
+__version__ = "0.1.0"

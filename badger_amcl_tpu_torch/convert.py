@@ -1,0 +1,91 @@
+"""Carry JAX-package objects over to the port.
+
+Each function reads the attributes of a badger_amcl_tpu object, takes them
+through `np.asarray` and builds the port's counterpart on `device`. Nothing
+here imports JAX: the caller holds the JAX objects, and `np.asarray` copies
+their device buffers to the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from badger_amcl_tpu_torch.maps.occupancy_2d import OccupancyMap2D
+from badger_amcl_tpu_torch.pf.types import ClusterStats, MCLState, PFParams
+from badger_amcl_tpu_torch.sensors.planar import PlanarScan, PlanarScanParams
+
+
+def _t(x, device, dtype=None):
+    a = np.asarray(x)
+    t = torch.from_numpy(np.array(a, copy=True))
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _opt(x, device):
+    return None if x is None else _t(x, device)
+
+
+def map_from_numpy(omap, device="cpu") -> OccupancyMap2D:
+    """OccupancyMap2D (JAX) -> OccupancyMap2D (port), baked psi and factor
+    textures included with their fingerprints."""
+    return OccupancyMap2D(
+        resolution=float(omap.resolution), size_x=int(omap.size_x),
+        size_y=int(omap.size_y), origin_x=float(omap.origin_x),
+        origin_y=float(omap.origin_y),
+        cells=_t(omap.cells, device, torch.int8),
+        distances=_opt(omap.distances, device),
+        max_distance_to_object=float(omap.max_distance_to_object),
+        corr_psi_pad=_opt(omap.corr_psi_pad, device),
+        corr_psi_key=omap.corr_psi_key,
+        factor_tex=_opt(omap.factor_tex, device),
+        factor_key=omap.factor_key,
+    )
+
+
+def stats_from_numpy(stats, device="cpu") -> ClusterStats:
+    return ClusterStats(**{
+        f: _t(getattr(stats, f), device)
+        for f in ("cluster_count", "cluster_valid", "cluster_weights",
+                  "cluster_counts", "cluster_means", "cluster_covs", "mean",
+                  "cov", "particle_cluster")})
+
+
+def state_from_numpy(state, device="cpu") -> MCLState:
+    """MCLState (JAX) -> MCLState (port); the PRNG key is not carried."""
+    return MCLState(
+        poses=_t(state.poses, device, torch.float32),
+        weights=_t(state.weights, device, torch.float32),
+        n_active=_t(state.n_active, device, torch.int32),
+        w_slow=_t(state.w_slow, device, torch.float32),
+        w_fast=_t(state.w_fast, device, torch.float32),
+        alpha_slow=_t(state.alpha_slow, device, torch.float32),
+        alpha_fast=_t(state.alpha_fast, device, torch.float32),
+        converged=_t(state.converged, device, torch.bool),
+        stats=stats_from_numpy(state.stats, device),
+    )
+
+
+def scan_from_numpy(scan, device="cpu") -> PlanarScan:
+    return PlanarScan(ranges=_t(scan.ranges, device, torch.float32),
+                      angles=_t(scan.angles, device, torch.float32),
+                      range_max=float(np.asarray(scan.range_max)))
+
+
+def scan_params_from_numpy(params) -> PlanarScanParams:
+    """Likelihood-field parameters as Python floats."""
+    names = ("z_hit", "z_rand", "sigma_hit", "off_map_factor",
+             "non_free_space_factor", "non_free_space_radius")
+    kw = {n: float(np.asarray(getattr(params, n))) for n in names}
+    kw["scanner_pose"] = tuple(float(v) for v in np.asarray(params.scanner_pose))
+    return PlanarScanParams(**kw)
+
+
+def pf_params_from_jax(params) -> PFParams:
+    """PFParams (JAX, static fields) -> PFParams (port)."""
+    return PFParams(**{f: getattr(params, f) for f in (
+        "min_samples", "max_samples", "pop_err", "pop_z", "dist_threshold",
+        "convergence_threshold", "hist_x", "hist_y", "hist_a",
+        "stats_max_clusters")})

@@ -1,0 +1,120 @@
+"""2D occupancy map as device-resident tensors (counterpart of
+badger_amcl_tpu.maps.occupancy_2d).
+
+Conventions preserved exactly (reference occupancy_map.cpp):
+- cell states FREE=-1, UNKNOWN=0, OCCUPIED=1 (occupancy_map.h:36-41)
+- center-origin world<->map conversion (occupancy_map.cpp:75-98):
+    ij = floor((world - origin)/res + 0.5) + size//2
+- distance LUT capped at max_distance_to_object (occupancy_map.cpp:224-242)
+- textures are (size_y, size_x) tensors indexed [j, i] (row-major i + j*W).
+
+Baked textures carried for the likelihood-field slice: `corr_psi_pad` (the
+padded psi texture of the corr kernel, tagged by `corr_psi_key`) and
+`factor_tex` (the recalcWeight factor texture, tagged by `factor_key`);
+see sensors.planar.bake_corr_texture / bake_factor_texture.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional
+
+import numpy as np
+import torch
+
+from badger_amcl_tpu_torch.maps.edt import capped_distance_field
+from badger_amcl_tpu_torch.utils.numerics import fdiv
+
+
+class CellState(enum.IntEnum):
+    """MapCellState (reference occupancy_map.h:36-41)."""
+
+    FREE = -1
+    UNKNOWN = 0
+    OCCUPIED = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class OccupancyMap2D:
+    """Immutable 2D map bundle; tensor fields live on one device.
+
+    cells:     int8 (H, W) CellState values, indexed [j, i]
+    distances: float32 (H, W) capped distance-to-obstacle in meters, or
+               None until `with_distance_field` is called
+    """
+
+    resolution: float
+    size_x: int
+    size_y: int
+    origin_x: float
+    origin_y: float
+    cells: torch.Tensor
+    distances: Optional[torch.Tensor] = None
+    max_distance_to_object: float = 0.0
+    corr_psi_pad: Optional[torch.Tensor] = None
+    corr_psi_key: Optional[tuple] = None
+    factor_tex: Optional[torch.Tensor] = None
+    factor_key: Optional[tuple] = None
+
+    @staticmethod
+    def from_cells(cells: np.ndarray, resolution: float, origin_x: float = 0.0,
+                   origin_y: float = 0.0, device="cpu") -> "OccupancyMap2D":
+        """cells: int8 (H=size_y, W=size_x) CellState grid, indexed [j, i]."""
+        cells = np.asarray(cells, dtype=np.int8)
+        h, w = cells.shape
+        return OccupancyMap2D(
+            resolution=float(resolution), size_x=w, size_y=h,
+            origin_x=float(origin_x), origin_y=float(origin_y),
+            cells=torch.as_tensor(cells, device=device),
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.cells.device
+
+    def with_distance_field(self, max_distance_to_object: float) -> "OccupancyMap2D":
+        """Build the capped distance LUT (reference updateDistancesLUT,
+        occupancy_map.cpp:138-160): host-side exact EDT, device result."""
+        occ = self.cells.cpu().numpy() == int(CellState.OCCUPIED)
+        lut = capped_distance_field(occ, self.resolution,
+                                    float(max_distance_to_object))
+        return dataclasses.replace(
+            self, distances=torch.as_tensor(lut, device=self.device),
+            max_distance_to_object=float(max_distance_to_object),
+        )
+
+    # --- conversions ------------------------------------------------------
+
+    def cells_of(self, x: torch.Tensor, y: torch.Tensor):
+        """World meters -> int32 cell indices (ci, cj), occupancy_map.cpp:90-98."""
+        ci = torch.floor(fdiv(x - self.origin_x, self.resolution) + 0.5)
+        cj = torch.floor(fdiv(y - self.origin_y, self.resolution) + 0.5)
+        return (ci.to(torch.int32) + self.size_x // 2,
+                cj.to(torch.int32) + self.size_y // 2)
+
+    def world_to_map(self, xy: torch.Tensor) -> torch.Tensor:
+        """(..., 2) world meters -> (..., 2) int32 cell indices (i, j)."""
+        ci, cj = self.cells_of(xy[..., 0], xy[..., 1])
+        return torch.stack([ci, cj], dim=-1)
+
+    def in_bounds(self, ci: torch.Tensor, cj: torch.Tensor) -> torch.Tensor:
+        return (ci >= 0) & (ci < self.size_x) & (cj >= 0) & (cj < self.size_y)
+
+    def is_valid(self, ij: torch.Tensor) -> torch.Tensor:
+        """(..., 2) -> bool (...). Bounds check (occupancy_map.cpp:100-105)."""
+        return self.in_bounds(ij[..., 0], ij[..., 1])
+
+    def flat_index(self, ci: torch.Tensor, cj: torch.Tensor) -> torch.Tensor:
+        """Clipped int64 linear index into an (H, W) texture."""
+        i = ci.clamp(0, self.size_x - 1).long()
+        j = cj.clamp(0, self.size_y - 1).long()
+        return j * self.size_x + i
+
+    def distance_at(self, ij: torch.Tensor) -> torch.Tensor:
+        """Distance at (..., 2) cells; out of bounds -> max distance
+        (reference getDistanceToObject, occupancy_map.cpp:64-73)."""
+        ci, cj = ij[..., 0], ij[..., 1]
+        d = self.distances.reshape(-1)[self.flat_index(ci, cj)]
+        return torch.where(self.in_bounds(ci, cj), d,
+                           torch.full_like(d, self.max_distance_to_object))

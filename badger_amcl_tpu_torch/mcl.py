@@ -1,0 +1,107 @@
+"""Fused single-robot MCL step (counterpart of badger_amcl_tpu.mcl).
+
+motion update -> measurement update -> KLD resample -> cluster statistics
+-> convergence, as eager PyTorch. Random variates come in as `noise`
+(StepNoise: the odometry normals and the injection and pick uniforms, the
+draws the JAX package makes from its key), or are drawn from `generator`
+when `noise` is absent; nothing draws from a global RNG.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from badger_amcl_tpu_torch.pf import filter as pf_filter
+from badger_amcl_tpu_torch.pf.filter import ResampleModel
+from badger_amcl_tpu_torch.pf.types import MCLState, PFParams
+from badger_amcl_tpu_torch.sensors import odom as odom_models
+from badger_amcl_tpu_torch.sensors.planar import planar_likelihood
+
+
+@dataclasses.dataclass
+class StepNoise:
+    """Variates of one step: odom (3, M) standard normals (None without a
+    motion update), inject and pick (M,) uniforms in [0, 1)."""
+
+    odom: Optional[torch.Tensor]
+    inject: torch.Tensor
+    pick: torch.Tensor
+
+    @staticmethod
+    def draw(gen: torch.Generator, m: int, device, odom: bool = True) -> "StepNoise":
+        normals = torch.randn((3, m), generator=gen, device=device) if odom else None
+        return StepNoise(
+            odom=normals,
+            inject=torch.rand((m,), generator=gen, device=device),
+            pick=torch.rand((m,), generator=gen, device=device),
+        )
+
+
+def _noise(noise, generator, state, odom):
+    if noise is not None:
+        return noise
+    if generator is None:
+        raise ValueError("pass noise or a torch.Generator")
+    return StepNoise.draw(generator, state.poses.shape[0], state.poses.device, odom)
+
+
+def mcl_step_2d(state: MCLState, omap, scan_params, scan, random_pose_pool,
+                odom_pose, odom_delta, absolute_motion, alphas, params: PFParams,
+                odom_model=odom_models.OdomModel.DIFF,
+                laser_model: str = "likelihood_field",
+                resample_model=ResampleModel.MULTINOMIAL, do_resample: bool = True,
+                do_beamskip: bool = False, backend: str = "exact",
+                noise: Optional[StepNoise] = None,
+                generator: Optional[torch.Generator] = None) -> MCLState:
+    """One full 2D MCL step."""
+    noise = _noise(noise, generator, state, odom=True)
+    state = odom_models.motion_update(state, odom_model, alphas, odom_pose,
+                                      odom_delta, noise.odom, absolute_motion)
+    p, mf = planar_likelihood(
+        omap, scan_params, scan, state.poses, state.active_mask, state.n_active,
+        laser_model, converged=state.converged, do_beamskip=do_beamskip,
+        backend=backend, fold_factors=True)
+    state = pf_filter.sensor_update(state, p, mf)
+    if do_resample:
+        state = pf_filter.resample(state, params, random_pose_pool, noise.inject,
+                                   noise.pick, resample_model)
+    return state
+
+
+def sensor_resample_step(state: MCLState, omap, scan_params, scan, random_pose_pool,
+                         params: PFParams, laser_model: str = "likelihood_field",
+                         resample_model=ResampleModel.MULTINOMIAL,
+                         backend: str = "exact", resample_contract: str = "pick",
+                         noise: Optional[StepNoise] = None,
+                         generator: Optional[torch.Generator] = None) -> MCLState:
+    """Sensor update + KLD resample without the motion model (the unit the
+    JAX bench times), under the reference-exact "pick" contract."""
+    if resample_contract != "pick":
+        raise NotImplementedError("the port implements the pick contract only")
+    noise = _noise(noise, generator, state, odom=False)
+    p, mf = planar_likelihood(
+        omap, scan_params, scan, state.poses, state.active_mask, state.n_active,
+        laser_model, converged=state.converged, do_beamskip=False,
+        backend=backend, fold_factors=True)
+    state = pf_filter.sensor_update(state, p, mf)
+    return pf_filter.resample(state, params, random_pose_pool, noise.inject,
+                              noise.pick, resample_model)
+
+
+def likelihood_only(state: MCLState, omap, scan_params, scan,
+                    laser_model: str = "likelihood_field", backend: str = "exact"):
+    """The particle x beam likelihood evaluation alone: p * map factor."""
+    p, mf = planar_likelihood(
+        omap, scan_params, scan, state.poses, state.active_mask, state.n_active,
+        laser_model, converged=state.converged, do_beamskip=False,
+        backend=backend, fold_factors=True)
+    return p if mf is None else p * mf
+
+
+def default_backend(device) -> str:
+    """"corr" (the stencil-correlation kernel with its exact fallbacks) on
+    CUDA, "exact" elsewhere."""
+    return "corr" if torch.device(device).type == "cuda" else "exact"

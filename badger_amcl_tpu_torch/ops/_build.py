@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+`csrc/*.cu` compile at first use with nvcc into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), cached
+under `badger_amcl_tpu_torch/_build/` by a hash of the sources and flags,
+and loaded with ctypes. Every entry point takes raw device pointers and a
+CUDA stream (all `c_void_p`) and returns `cudaGetLastError()` after its
+launch; `check` raises on a nonzero code.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine class has no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of every C entry point in csrc/
+_SIGNATURES = {
+    "corr_table_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "spread_term_sums_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                                _F, _F, _F, _F, _F, _P, _P],
+    "lf_distances_f32_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _I,
+                                _I, _I, _I, _F, _P, _P],
+    "lf_distances_bf16_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _I,
+                                 _I, _I, _I, _F, _P, _P],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into BUILD_DIR (cached by content); return the path."""
+    srcs = sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out = BUILD_DIR / f"libamcl_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", str(tmp), *map(str, srcs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise when a launch reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

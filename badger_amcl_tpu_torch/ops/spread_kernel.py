@@ -1,0 +1,121 @@
+"""Per-particle beam-term sums for SPREAD particle clouds (counterpart of
+badger_amcl_tpu.ops.spread_kernel).
+
+Distances are read from the int8 ratio-quantized texture (`quantized_tex`:
+max_distance/127 levels, off-map = max_distance — the 2D twin of the 3D
+path's uint8 contract) at the endpoint cell floor(pxc + rca*ct - rsa*st),
+the TPU kernel's own formula. `spread_term_sums` is the kernel wrapper:
+CUDA tensors launch csrc/spread_term_sums.cu, which fixes the
+likelihood-field term (`LFTerm`, the only term on the slice); CPU tensors
+run `spread_term_sums_plain`, which takes any elementwise term.
+
+Not ported (TPU-only machinery): the yaw/block particle sort, the window
+tiers and their prepass, the capacity-bounded escape arm and `unsort`. The
+direct gather covers every (particle, beam) pair, so the JAX dispatch's
+escape-overflow fallback has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from badger_amcl_tpu_torch.ops import _build
+from badger_amcl_tpu_torch.utils.numerics import fdiv
+
+QLEVELS = 127.0
+MAX_TEX_CELLS = 4 * 1024 * 1024
+ROWS1 = 224
+LOAD_C1 = 256 + 128
+
+
+def tex_fits(omap) -> bool:
+    """The JAX package's static gate for its spread kernel (texture within
+    its VMEM budget, map at least one window) — kept as the dispatch
+    predicate so the port takes the same arm."""
+    return (omap.size_x * omap.size_y <= MAX_TEX_CELLS
+            and omap.size_y >= ROWS1 and omap.size_x >= LOAD_C1)
+
+
+def quantized_tex(omap) -> torch.Tensor:
+    """The int8 ratio-quantized distance texture (spread_kernel.py:161-165)."""
+    return torch.round(
+        omap.distances * (QLEVELS / omap.max_distance_to_object)).to(torch.int8)
+
+
+@dataclasses.dataclass(frozen=True)
+class LFTerm:
+    """Likelihood-field beam term pz^3, pz = z_hit exp(-z^2/denom) + zr
+    (calcLikelihoodFieldModel, planar_scanner.cpp:236-323)."""
+
+    z_hit: float
+    denom: float
+    zr: float
+
+    def __call__(self, z: torch.Tensor) -> torch.Tensor:
+        pz = self.z_hit * torch.exp(fdiv(-(z * z), self.denom)) + self.zr
+        return pz * pz * pz
+
+
+def endpoint_inputs(omap, spose, ranges, angles):
+    """Per-particle cell-space positions and cos/sin, per-beam r*cos(a)/res
+    and r*sin(a)/res (spread_kernel.py:511-521)."""
+    pxc = fdiv(spose[:, 0] - omap.origin_x, omap.resolution) + (0.5 + omap.size_x // 2)
+    pyc = fdiv(spose[:, 1] - omap.origin_y, omap.resolution) + (0.5 + omap.size_y // 2)
+    ct, st = torch.cos(spose[:, 2]), torch.sin(spose[:, 2])
+    inv_res = float(torch.tensor(1.0 / omap.resolution, dtype=torch.float32))
+    r = ranges.to(torch.float32)
+    a = angles.to(torch.float32)
+    rca = r * torch.cos(a) * inv_res
+    rsa = r * torch.sin(a) * inv_res
+    return pxc, pyc, ct, st, rca, rsa
+
+
+def spread_term_sums_plain(omap, qtex, pxc, pyc, ct, st, rca, rsa, valid, term):
+    """Plain PyTorch version: (M,) sums over valid beams of term(z)."""
+    ci = torch.floor(pxc[None, :] + rca[:, None] * ct[None, :]
+                     - rsa[:, None] * st[None, :]).to(torch.int32)
+    cj = torch.floor(pyc[None, :] + rsa[:, None] * ct[None, :]
+                     + rca[:, None] * st[None, :]).to(torch.int32)
+    maxd = omap.max_distance_to_object
+    q = qtex.reshape(-1)[omap.flat_index(ci, cj)].to(torch.float32)
+    z = torch.where(omap.in_bounds(ci, cj), q * (maxd / QLEVELS),
+                    torch.full_like(q, maxd))
+    return torch.where(valid[:, None], term(z), 0.0).sum(dim=0)
+
+
+def spread_term_sums(omap, spose, ranges, angles, valid, term):
+    """Per-particle sums of term(distance) over valid beams, (M,) f32 in
+    particle order."""
+    if spose.dim() != 2 or spose.shape[1] != 3 or spose.dtype != torch.float32:
+        raise ValueError("spose must be (M, 3) float32")
+    if not (ranges.shape == angles.shape == valid.shape) or ranges.dim() != 1:
+        raise ValueError("ranges, angles and valid must be matching (B,) vectors")
+    qtex = quantized_tex(omap)
+    pxc, pyc, ct, st, rca, rsa = endpoint_inputs(omap, spose, ranges, angles)
+    if spose.device.type != "cuda":
+        return spread_term_sums_plain(omap, qtex, pxc, pyc, ct, st, rca, rsa,
+                                      valid, term)
+    if not isinstance(term, LFTerm):
+        raise TypeError("the CUDA spread kernel computes the LFTerm only")
+    for t in (ranges, angles, valid, qtex):
+        if t.device != spose.device:
+            raise ValueError("all inputs must be on one device")
+    m, b = spose.shape[0], ranges.shape[0]
+    out = torch.empty((m,), dtype=torch.float32, device=spose.device)
+    if m == 0:
+        return out
+    v8 = valid.to(torch.uint8).contiguous()
+    code = _build.lib().spread_term_sums_launch(
+        qtex.data_ptr(), omap.size_y, omap.size_x, pxc.data_ptr(), pyc.data_ptr(),
+        ct.data_ptr(), st.data_ptr(), m, rca.data_ptr(), rsa.data_ptr(),
+        v8.data_ptr(), b, omap.max_distance_to_object / QLEVELS,
+        omap.max_distance_to_object, term.z_hit, term.denom, term.zr,
+        out.data_ptr(), _build.stream_ptr(spose.device))
+    _build.check(code, "spread_term_sums")
+    spread_term_sums.launches += 1
+    return out
+
+
+spread_term_sums.launches = 0

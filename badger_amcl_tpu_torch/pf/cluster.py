@@ -1,0 +1,232 @@
+"""Connected-component clustering of occupied pose-histogram bins and
+cluster/set statistics (counterpart of badger_amcl_tpu.pf.cluster).
+
+Two bins share a cluster when their keys are within the 3x3x3 neighborhood
+(pf_kdtree.cpp:58-76,169-194); statistics accumulate per cluster with
+circular yaw means (particle_filter.cpp:505-636). Labels start as each
+occupied grid cell's flat index and diffuse by separable 3x3x3
+min-dilation until fixpoint; dense root ranks come from a cumulative sum
+of root flags. Segment sums are `index_add_` (the JAX package's one-hot
+MXU contractions exist only for the TPU).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from badger_amcl_tpu_torch.pf import kld
+from badger_amcl_tpu_torch.pf.types import ClusterStats
+from badger_amcl_tpu_torch.utils.numerics import host_bool, host_values
+
+MAX_FAST_CLUSTERS = 128
+MAX_UNIQUE_BINS = 8192
+SMALL_GRID = (32, 32, 40)
+# dilation sweeps per convergence check: each check is a host sync, and
+# sweeps past the fixpoint change nothing
+_SWEEPS_PER_CHECK = 8
+
+
+def _box_min(g3: torch.Tensor) -> torch.Tensor:
+    """Separable 3x3x3 minimum via rolls; the 1-cell empty border kept by
+    kld.grid_cells stops roll wrap-around from leaking labels."""
+    for axis in range(3):
+        g3 = torch.minimum(g3, torch.minimum(torch.roll(g3, 1, dims=axis),
+                                             torch.roll(g3, -1, dims=axis)))
+    return g3
+
+
+def _cluster_grid(occ_flat: torch.Tensor, shape) -> torch.Tensor:
+    """Label the occupied-bin grid by connected component (26-neighborhood):
+    occupied cells hold their component's minimum flat index, empty cells
+    hold BIG. occ_flat: bool (gx*gy*ga,) in (a, x, y) packing."""
+    gx, gy, ga = shape
+    n = gx * gy * ga
+    occ3 = occ_flat.reshape(ga, gx, gy)
+    idx = torch.arange(n, dtype=torch.int32, device=occ_flat.device)
+    labels = torch.where(occ3, idx.reshape(ga, gx, gy), kld.BIG)
+    while True:
+        prev = labels
+        for _ in range(_SWEEPS_PER_CHECK):
+            labels = torch.where(occ3, _box_min(labels), kld.BIG)
+        if not host_bool(torch.any(labels != prev)):
+            return labels.reshape(-1)
+
+
+def _label_grid_machinery(occ: torch.Tensor, shape):
+    """Component labels, dense root ranks and the cluster count."""
+    labels_grid = _cluster_grid(occ, shape)
+    cell_idx = torch.arange(labels_grid.shape[0], dtype=torch.int32,
+                            device=occ.device)
+    is_root = occ & (labels_grid == cell_idx)
+    rank_grid = torch.cumsum(is_root.to(torch.int32), 0, dtype=torch.int32) - 1
+    cluster_count = is_root.sum().to(torch.int32)
+    return labels_grid, rank_grid, cluster_count
+
+
+def _ranks_grid_path(flat: torch.Tensor, active: torch.Tensor, shape):
+    """Per-particle cluster ranks from the full grid: occupancy scatter plus
+    two M-sized gathers (the arm past MAX_UNIQUE_BINS)."""
+    occ = kld.occupancy_grid(flat, active, shape)
+    labels_grid, rank_grid, cluster_count = _label_grid_machinery(occ, shape)
+    n_cells = labels_grid.shape[0]
+    lbl_p = labels_grid[flat.long()]
+    rank_p = rank_grid[lbl_p.clamp(0, n_cells - 1).long()]
+    return rank_p, cluster_count
+
+
+def _ranks_from_unique(uk_raw: torch.Tensor, valid_u: torch.Tensor, shape):
+    """(rank_u (u,), cluster_count) for compacted unique bins (big-grid flat
+    encodings; valid_u masks real entries, invalid slots get garbage ranks).
+    Labels on the compact SMALL_GRID when the valid bins' spans fit it
+    (identical ranks: the recode is a monotone per-axis shift), else on the
+    full hist grid."""
+    gx, gy, ga = shape
+    n_cells = gx * gy * ga
+    a_u = uk_raw // (gx * gy)
+    rem = uk_raw - a_u * (gx * gy)
+    x_u = rem // gy
+    y_u = rem - x_u * gy
+
+    def lo(v):
+        return torch.where(valid_u, v, kld.BIG).min()
+
+    def hi(v):
+        return torch.where(valid_u, v, -kld.BIG).max()
+
+    x_lo, y_lo, a_lo = lo(x_u), lo(y_u), lo(a_u)
+    gsx, gsy, gsa = SMALL_GRID
+    fits_small = ((hi(x_u) - x_lo <= gsx - 3) & (hi(y_u) - y_lo <= gsy - 3)
+                  & (hi(a_u) - a_lo <= gsa - 3))
+    if host_bool(fits_small):
+        xs = (x_u - x_lo + 1).clamp(0, gsx - 2)
+        ys = (y_u - y_lo + 1).clamp(0, gsy - 2)
+        as_ = (a_u - a_lo + 1).clamp(0, gsa - 2)
+        flat_s = (as_ * gsx + xs) * gsy + ys
+        n_s = gsx * gsy * gsa
+        occ = torch.zeros((n_s,), dtype=torch.bool, device=uk_raw.device)
+        occ[flat_s[valid_u].long()] = True
+        labels_grid, rank_grid, cluster_count = _label_grid_machinery(occ, SMALL_GRID)
+        lab_u = labels_grid[flat_s.clamp(0, n_s - 1).long()]
+        return rank_grid[lab_u.clamp(0, n_s - 1).long()], cluster_count
+    occ = torch.zeros((n_cells,), dtype=torch.bool, device=uk_raw.device)
+    occ[uk_raw[valid_u].long()] = True
+    labels_grid, rank_grid, cluster_count = _label_grid_machinery(occ, shape)
+    lab_u = labels_grid[uk_raw.clamp(0, n_cells - 1).long()]
+    return rank_grid[lab_u.clamp(0, n_cells - 1).long()], cluster_count
+
+
+def _compact_front(segstart: torch.Tensor, *carried: torch.Tensor):
+    """Stable partition: entries where segstart is set move to the front,
+    both halves keeping their order; returns the carried tensors permuted."""
+    _, order = torch.sort(torch.where(segstart, 0, 1).to(torch.int32), stable=True)
+    return [c[order] for c in carried]
+
+
+def _ranks_sorted_path(sb, shape):
+    """Per-particle cluster ranks from the pre-sorted bin structure: the
+    <= MAX_UNIQUE_BINS unique bins compacted to the front are ranked on the
+    occupancy grid, broadcast back to particles, restored to draw order."""
+    u = MAX_UNIQUE_BINS
+    ks, idx_s, _, segstart = sb
+    segid = torch.cumsum(segstart.to(torch.int32), 0, dtype=torch.int32) - 1
+    (ks_c,) = _compact_front(segstart, ks)
+    uk_raw = ks_c[:u]
+    valid_u = uk_raw < kld.BIG
+    rank_u, cluster_count = _ranks_from_unique(uk_raw, valid_u, shape)
+    rank_s = rank_u[segid.clamp(0, uk_raw.shape[0] - 1).long()]
+    return kld.to_draw_order(idx_s, rank_s), cluster_count
+
+
+def compute_cluster_stats(poses, weights, active, params,
+                          precomputed_ranks=None) -> ClusterStats:
+    """computeClusterStatsForSet (particle_filter.cpp:505-636): cluster the
+    histogram, then per-cluster and whole-set weighted statistics with
+    circular yaw means. precomputed_ranks: (rank_p, cluster_count) from the
+    fused resample, which already sorted these poses by bin."""
+    m = poses.shape[0]
+    shape = params.hist_shape
+    dev = poses.device
+
+    if precomputed_ranks is not None:
+        rank_p, cluster_count = precomputed_ranks
+    else:
+        _, flat = kld.grid_cells(kld.bin_keys(poses), active, shape)
+        sb = kld.sort_by_bin(flat, active)
+        if host_bool(sb[3].sum() <= MAX_UNIQUE_BINS):
+            rank_p, cluster_count = _ranks_sorted_path(sb, shape)
+        else:
+            rank_p, cluster_count = _ranks_grid_path(flat, active, shape)
+
+    pc = torch.where(active, rank_p, m - 1).clamp(0, m - 1).to(torch.int32)
+    w = torch.where(active, weights, 0.0)
+    x, y, th = poses[:, 0], poses[:, 1], poses[:, 2]
+    c, s = torch.cos(th), torch.sin(th)
+    vals = torch.stack([w, active.to(torch.float32), w * x, w * y, w * c,
+                        w * s, w * x * x, w * x * y, w * y * y]).to(torch.float32)
+    sums = torch.zeros((9, m), dtype=torch.float32, device=dev)
+    sums.index_add_(1, pc.long(), vals)
+    cap = params.stats_max_clusters
+    k_fast = min(cap if cap else MAX_FAST_CLUSTERS, m)
+    # the JAX fast arm (<= k_fast clusters) finalizes at width k_fast; both
+    # arms give the same statistics, the narrow one with less work
+    if cap or host_values(cluster_count <= k_fast)[0]:
+        width = k_fast
+    else:
+        width = m
+    return _finalize(sums[:, :width], width, m, cluster_count, pc)
+
+
+def _finalize(sums, width, m, cluster_count, pc) -> ClusterStats:
+    """Per-cluster means/covs and whole-set stats from (9, width) sums."""
+    dev = sums.device
+    cw, cnt_f, mx, my, mc, ms, cxx, cxy, cyy = sums
+    cnt = torch.round(cnt_f).to(torch.int32)
+    root = torch.arange(width, device=dev) < cluster_count
+    safe_w = torch.where(cw > 0, cw, 1.0)
+    mean_x = mx / safe_w
+    mean_y = my / safe_w
+    mean_a = torch.atan2(ms, mc)
+    cluster_means = torch.stack([mean_x, mean_y, mean_a], dim=1)
+    # covariance (normalizeCluster, particle_filter.cpp:555-568); yaw
+    # variance from the *raw* weighted cos/sin sums, as the reference
+    cov = torch.zeros((width, 3, 3), dtype=torch.float32, device=dev)
+    cov[:, 0, 0] = cxx / safe_w - mean_x * mean_x
+    cov[:, 0, 1] = cxy / safe_w - mean_x * mean_y
+    cov[:, 1, 0] = cxy / safe_w - mean_x * mean_y
+    cov[:, 1, 1] = cyy / safe_w - mean_y * mean_y
+    r = torch.sqrt(mc * mc + ms * ms)
+    cov[:, 2, 2] = -2.0 * torch.log(torch.clamp(r, min=1e-30))
+
+    # whole-set stats (computeSetStats, particle_filter.cpp:620-636)
+    rootf = root.to(torch.float32)
+    tw = (cw * rootf).sum()
+    safe_tw = torch.where(tw > 0, tw, 1.0)
+    smx = (mx * rootf).sum() / safe_tw
+    smy = (my * rootf).sum() / safe_tw
+    smc, sms = (mc * rootf).sum(), (ms * rootf).sum()
+    set_mean = torch.stack([smx, smy, torch.atan2(sms, smc)])
+    set_cov = torch.zeros((3, 3), dtype=torch.float32, device=dev)
+    set_cov[0, 0] = (cxx * rootf).sum() / safe_tw - smx * smx
+    set_cov[0, 1] = (cxy * rootf).sum() / safe_tw - smx * smy
+    set_cov[1, 0] = set_cov[0, 1]
+    set_cov[1, 1] = (cyy * rootf).sum() / safe_tw - smy * smy
+    sr = torch.sqrt(smc * smc + sms * sms)
+    set_cov[2, 2] = -2.0 * torch.log(torch.clamp(sr, min=1e-30))
+
+    def padm(a):
+        if width == m:
+            return a
+        return torch.cat([a, torch.zeros((m - width,) + a.shape[1:],
+                                         dtype=a.dtype, device=dev)])
+
+    return ClusterStats(
+        cluster_count=cluster_count,
+        cluster_valid=padm(root),
+        cluster_weights=padm(torch.where(root, cw, 0.0)),
+        cluster_counts=padm(torch.where(root, cnt, 0)),
+        cluster_means=padm(torch.where(root[:, None], cluster_means, 0.0)),
+        cluster_covs=padm(torch.where(root[:, None, None], cov, 0.0)),
+        mean=set_mean.to(torch.float32),
+        cov=set_cov,
+        particle_cluster=pc,
+    )

@@ -1,0 +1,245 @@
+"""The particle filter core (counterpart of badger_amcl_tpu.pf.filter, the
+multinomial pick-level slice).
+
+- `init_with_gaussian`   <- initWithGaussian (particle_filter.cpp:106-133)
+- `init_with_poses`      <- initWithPoseFn (particle_filter.cpp:136-162)
+- `sensor_update`        <- updateSensor with the w_slow/w_fast averages
+                            (particle_filter.cpp:223-267)
+- `resample`             <- updateResample + resampleMultinomial with
+                            random-pose injection and the mid-stream KLD stop
+                            (particle_filter.cpp:356-471)
+- `update_converged`     <- updateConverged (particle_filter.cpp:170-220)
+
+Random variates are arguments: `resample` takes the injection and pick
+uniforms (M,) each, as the JAX package draws them from its key
+(filter.py:351-353); mcl.StepNoise draws them from a torch.Generator when
+the caller does not pass them. The pick is `torch.searchsorted` on the
+cumulative weights (the JAX package's chunked one-hot search exists only
+because TPU searchsorted lowers to a scalar loop).
+"""
+
+from __future__ import annotations
+
+import enum
+
+import torch
+
+from badger_amcl_tpu_torch.pf import cluster, gaussian, kld
+from badger_amcl_tpu_torch.pf.types import MCLState, PFParams
+from badger_amcl_tpu_torch.utils.numerics import host_bool
+
+
+class ResampleModel(enum.IntEnum):
+    """PFResampleModelType; the slice ports MULTINOMIAL."""
+
+    MULTINOMIAL = 0
+    SYSTEMATIC = 1
+
+
+def _scalar(v, dtype, device):
+    return torch.full((), v, dtype=dtype, device=device)
+
+
+def _finalize_init(params, poses, alpha_slow, alpha_fast) -> MCLState:
+    m = params.max_samples
+    dev = poses.device
+    weights = torch.full((m,), 1.0 / m, dtype=torch.float32, device=dev)
+    active = torch.ones((m,), dtype=torch.bool, device=dev)
+    stats = cluster.compute_cluster_stats(poses, weights, active, params)
+    return MCLState(
+        poses=poses, weights=weights,
+        n_active=_scalar(m, torch.int32, dev),
+        w_slow=_scalar(0.0, torch.float32, dev),
+        w_fast=_scalar(0.0, torch.float32, dev),
+        alpha_slow=_scalar(alpha_slow, torch.float32, dev),
+        alpha_fast=_scalar(alpha_fast, torch.float32, dev),
+        converged=_scalar(False, torch.bool, dev),  # initConverged
+        stats=stats,
+    )
+
+
+def init_with_gaussian(params: PFParams, gen: torch.Generator, mean, cov,
+                       alpha_slow: float = 0.001, alpha_fast: float = 0.1,
+                       device="cpu") -> MCLState:
+    """max_samples poses from N(mean, cov) drawn from `gen`, uniform
+    weights, reset recovery averages, fresh cluster stats."""
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=device)
+    cov = torch.as_tensor(cov, dtype=torch.float32, device=device)
+    poses = gaussian.sample_poses_gen(gen, mean, cov, params.max_samples)
+    return _finalize_init(params, poses, alpha_slow, alpha_fast)
+
+
+def init_with_poses(params: PFParams, poses: torch.Tensor,
+                    alpha_slow: float = 0.001, alpha_fast: float = 0.1) -> MCLState:
+    """The caller supplies max_samples pre-drawn poses."""
+    if tuple(poses.shape) != (params.max_samples, 3):
+        raise ValueError(f"poses must be ({params.max_samples}, 3), got "
+                         f"{tuple(poses.shape)}")
+    return _finalize_init(params, poses.to(torch.float32), alpha_slow, alpha_fast)
+
+
+def sensor_update(state: MCLState, p_model: torch.Tensor, map_factor=None) -> MCLState:
+    """Multiply the model's particle likelihoods into the weights; the map
+    factor applies only when the model's total is positive
+    (planar_scanner.cpp:159-162). Passing the pre-folded product with
+    map_factor=None is exactly equivalent (p, factor >= 0). Then normalize
+    and update w_slow/w_fast (particle_filter.cpp:237-266); a zero total
+    resets to uniform."""
+    active = state.active_mask
+    w1 = torch.where(active, state.weights * p_model, 0.0)
+    t1 = w1.sum()
+    if map_factor is None:
+        w2, t2 = w1, t1
+    else:
+        w2 = torch.where(active, w1 * map_factor, 0.0)
+        t2 = w2.sum()
+    w_unnorm = torch.where(t1 > 0.0, w2, w1)
+    total = torch.where(t1 > 0.0, t2, 0.0)
+
+    n = state.n_active.to(torch.float32)
+    nf = torch.clamp(n, min=1.0)
+    w_avg = total / nf
+    new_wslow = torch.where(state.w_slow == 0.0, w_avg,
+                            state.w_slow + state.alpha_slow * (w_avg - state.w_slow))
+    new_wfast = torch.where(state.w_fast == 0.0, w_avg,
+                            state.w_fast + state.alpha_fast * (w_avg - state.w_fast))
+    uniform = torch.where(active, 1.0 / nf, 0.0)
+    ok = total > 0.0
+    new_weights = torch.where(ok, w_unnorm / torch.where(ok, total, 1.0), uniform)
+    return state.replace(
+        weights=new_weights.to(torch.float32),
+        w_slow=torch.where(ok, new_wslow, state.w_slow),
+        w_fast=torch.where(ok, new_wfast, state.w_fast),
+    )
+
+
+def update_converged(state: MCLState, params: PFParams, mean_xy=None) -> MCLState:
+    """Fraction of active particles within dist_threshold (L-inf) of the
+    mean x/y must reach convergence_threshold percent. mean_xy: the fresh
+    cluster stats' set mean (weights are uniform after resampling)."""
+    active = state.active_mask
+    n = torch.clamp(state.n_active.to(torch.float32), min=1.0)
+    if mean_xy is not None:
+        mx, my = mean_xy[0], mean_xy[1]
+    else:
+        mx = torch.where(active, state.poses[:, 0], 0.0).sum() / n
+        my = torch.where(active, state.poses[:, 1], 0.0).sum() / n
+    within = ((torch.abs(state.poses[:, 0] - mx) <= params.dist_threshold)
+              & (torch.abs(state.poses[:, 1] - my) <= params.dist_threshold)
+              & active)
+    pct = 100.0 * within.sum().to(torch.float32) / n
+    return state.replace(converged=pct >= params.convergence_threshold)
+
+
+def _pick_indices(weights: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Index i with cum[i-1] <= r < cum[i] (particle_filter.cpp:394-398),
+    clipped to the last particle."""
+    cum = torch.cumsum(weights, 0)
+    idx = torch.searchsorted(cum, r, right=True)
+    return idx.clamp(max=weights.shape[0] - 1)
+
+
+def _resample_multinomial_fused(state, params, w_diff, pool, u_inject, u_pick):
+    """resampleMultinomial (particle_filter.cpp:356-420) over all
+    max_samples candidates (iid draws commute) plus the cluster ranks of the
+    new set. Returns (new_poses, new_count, rank_p, cluster_count)."""
+    use_random = u_inject < w_diff
+    idx = _pick_indices(state.weights, u_pick)
+    picked = state.poses[idx]
+    new_poses = torch.where(use_random[:, None], pool, picked)
+    new_count, rank_p, cluster_count = _kld_stop_and_ranks(new_poses, params)
+    return new_poses, new_count, rank_p, cluster_count
+
+
+def _kld_stop_and_ranks(new_poses: torch.Tensor, params: PFParams):
+    """Mid-stream KLD stop (particle_filter.cpp:416) and cluster ranks over a
+    full (M, 3) candidate set in draw order, from one stable bin sort.
+
+    With <= MAX_UNIQUE_BINS occupied bins the stop comes from the sorted
+    new-bin event times: k_n == j for n in [D_j + 1, D_{j+1}] where D_j is
+    the j-th smallest first-occurrence draw index, so the first n with
+    n > limit(k_n) is min_j max(D_j + 1, limit(j) + 1) clipped to that
+    interval. Past it, the exact draw-order prefix scan and the grid rank
+    path run instead."""
+    m = params.max_samples
+    dev = new_poses.device
+    ones = torch.ones((m,), dtype=torch.bool, device=dev)
+    _, flat = kld.grid_cells(kld.bin_keys(new_poses), ones, params.hist_shape)
+    ks, idx_s = torch.sort(flat, stable=True)
+    segstart = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                          ks[1:] != ks[:-1]])
+    u_count = segstart.sum().to(torch.int32)
+    u = min(cluster.MAX_UNIQUE_BINS, m)
+    lim = (params.min_samples, params.max_samples, params.pop_err, params.pop_z)
+
+    if host_bool(u_count <= u):
+        ks_c, d_c = cluster._compact_front(segstart, ks, idx_s.to(torch.int32))
+        uk = ks_c[:u]
+        dmin = d_c[:u]
+        front = torch.arange(u, dtype=torch.int32, device=dev) < u_count
+        d_sorted = torch.sort(torch.where(front, dmin, m)).values
+        kj = torch.arange(1, u + 1, dtype=torch.int32, device=dev)
+        limit_j = kld.resample_limit(kj, *lim)
+        d_next = torch.cat([d_sorted[1:],
+                            torch.full((1,), m, dtype=torch.int32, device=dev)])
+        n0 = torch.maximum(d_sorted + 1, limit_j + 1)
+        cand = torch.where(n0 <= d_next, n0, m + 1)
+        new_count = torch.clamp(cand.min(), max=m).to(torch.int32)
+        # ranks among ACTIVE bins only: a bin holds an active particle iff
+        # its minimum draw index beat the stop
+        act_bin = front & (dmin < new_count)
+        rank_u, cluster_count = cluster._ranks_from_unique(
+            uk, act_bin, params.hist_shape)
+        segid = torch.cumsum(segstart.to(torch.int32), 0, dtype=torch.int32) - 1
+        rank_s = rank_u[segid.clamp(0, u - 1).long()]
+        return new_count, kld.to_draw_order(idx_s, rank_s), cluster_count
+
+    flags = kld.to_draw_order(idx_s, segstart.to(torch.int32))
+    k_n = torch.cumsum(flags, 0, dtype=torch.int32)
+    limit_n = kld.resample_limit(k_n, *lim)
+    draw = torch.arange(m, dtype=torch.int32, device=dev)
+    stop = (draw + 1) > limit_n
+    new_count = torch.where(stop.any(), torch.argmax(stop.to(torch.int32)) + 1,
+                            m).to(torch.int32)
+    active = draw < new_count
+    rank_p, cluster_count = cluster._ranks_grid_path(
+        torch.where(active, flat, 0), active, params.hist_shape)
+    return new_count, rank_p, cluster_count
+
+
+def resample(state: MCLState, params: PFParams, random_pose_pool: torch.Tensor,
+             u_inject: torch.Tensor, u_pick: torch.Tensor,
+             model: ResampleModel = ResampleModel.MULTINOMIAL) -> MCLState:
+    """updateResample (particle_filter.cpp:423-471), multinomial.
+
+    random_pose_pool: (M, 3) candidate random poses; u_inject, u_pick: (M,)
+    uniforms in [0, 1) for the injection decision and the pick."""
+    if model != ResampleModel.MULTINOMIAL or params.stats_max_clusters:
+        raise NotImplementedError(
+            "the port resamples multinomially without a cluster cap")
+    # w_diff = max(0, 1 - w_fast/w_slow), 0 when w_slow == 0
+    w_diff = torch.where(
+        state.w_slow > 0.0,
+        torch.clamp(1.0 - state.w_fast / torch.where(state.w_slow > 0,
+                                                      state.w_slow, 1.0), min=0.0),
+        0.0)
+    new_poses, new_count, rank_p, cluster_count = _resample_multinomial_fused(
+        state, params, w_diff, random_pose_pool, u_inject, u_pick)
+
+    m = params.max_samples
+    active = torch.arange(m, device=new_poses.device) < new_count
+    weights = torch.where(active, 1.0 / new_count.to(torch.float32), 0.0)
+    # reset averages to avoid spiraling into randomness (:453-455)
+    reset = w_diff > 0.0
+    new_state = state.replace(
+        poses=new_poses.to(torch.float32),
+        weights=weights.to(torch.float32),
+        n_active=new_count.to(torch.int32),
+        w_slow=torch.where(reset, 0.0, state.w_slow),
+        w_fast=torch.where(reset, 0.0, state.w_fast),
+    )
+    stats = cluster.compute_cluster_stats(
+        new_state.poses, new_state.weights, new_state.active_mask, params,
+        precomputed_ranks=(rank_p, cluster_count))
+    new_state = new_state.replace(stats=stats)
+    return update_converged(new_state, params, mean_xy=stats.mean[:2])

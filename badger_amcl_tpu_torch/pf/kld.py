@@ -1,0 +1,91 @@
+"""KLD-sampling support: pose-histogram binning and the Fox population
+bound (counterpart of badger_amcl_tpu.pf.kld, sorted formulation).
+
+Bins are floor(pose / [0.5 m, 0.5 m, 10 deg]) (pf_kdtree.cpp:33-56) placed
+on a dense grid relative to the cloud's minimum bin; yaw bins do not wrap
+(pf_kdtree.cpp treats the yaw key as a plain integer). Occupied-bin counts
+and first-occurrence flags come from stable sorts; the JAX package's grid
+scatter-min (`first_occurrence_flags`, kept there for vmapped fleets) is not
+ported. Keys stay int32 as in the JAX package: the single-robot grid holds
+at most hist_x*hist_y*hist_a < 2**30 cells.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from badger_amcl_tpu_torch.utils.numerics import fdiv
+
+CELL_X = 0.5
+CELL_Y = 0.5
+CELL_A = 10.0 * math.pi / 180.0
+
+BIG = 2 ** 30
+
+
+def bin_keys(poses: torch.Tensor) -> torch.Tensor:
+    """(N, 3) poses -> (N, 3) int32 histogram keys (pf_kdtree.cpp:49-56)."""
+    cell = torch.tensor([CELL_X, CELL_Y, CELL_A], dtype=poses.dtype).to(poses.device)
+    return torch.floor(poses / cell).to(torch.int32)
+
+
+def grid_cells(keys3: torch.Tensor, active: torch.Tensor, shape):
+    """Bin keys -> dense-grid cells relative to the active minimum:
+    (cells (N, 3) int32 clamped to [1, size-2] so the empty border keeps
+    roll dilation from wrapping, flat (N,) int32 with inactive -> 0)."""
+    gx, gy, ga = shape
+    masked = torch.where(active[:, None], keys3, BIG)
+    mins = masked.min(dim=0).values
+    mins = torch.where(mins == BIG, 0, mins)
+    sizes = torch.tensor([gx - 2, gy - 2, ga - 2], dtype=torch.int32).to(keys3.device)
+    rel = torch.minimum(torch.clamp(keys3 - mins[None, :], min=0), sizes - 1) + 1
+    flat = (rel[:, 2] * gx + rel[:, 0]) * gy + rel[:, 1]
+    return rel, torch.where(active, flat, 0).to(torch.int32)
+
+
+def occupancy_grid(flat: torch.Tensor, active: torch.Tensor, shape) -> torch.Tensor:
+    """bool (gx*gy*ga,) occupancy of the bin grid."""
+    gx, gy, ga = shape
+    occ = torch.zeros((gx * gy * ga,), dtype=torch.bool, device=flat.device)
+    occ[flat[active].long()] = True
+    return occ
+
+
+def sort_by_bin(flat: torch.Tensor, active: torch.Tensor):
+    """Stable sort of particle indices by bin key, inactive last. Returns
+    (keys_sorted, draw_idx_sorted, active_sorted, segstart); segstart marks
+    the first (draw-earliest) entry of each occupied bin."""
+    skey = torch.where(active, flat, BIG)
+    ks, idx_s = torch.sort(skey, stable=True)
+    act_s = ks < BIG
+    segstart = act_s & torch.cat([torch.ones(1, dtype=torch.bool, device=ks.device),
+                                  ks[1:] != ks[:-1]])
+    return ks, idx_s, act_s, segstart
+
+
+def to_draw_order(idx_s: torch.Tensor, vals_s: torch.Tensor) -> torch.Tensor:
+    """Values in sorted order -> draw order (idx_s is the sort permutation)."""
+    out = torch.empty_like(vals_s)
+    out[idx_s] = vals_s
+    return out
+
+
+def first_occurrence_flags_sorted(flat: torch.Tensor, active: torch.Tensor):
+    """Whether each entry's bin is unseen at any earlier active index."""
+    _, idx_s, _, segstart = sort_by_bin(flat, active)
+    return to_draw_order(idx_s, segstart)
+
+
+def resample_limit(k: torch.Tensor, min_samples: int, max_samples: int,
+                   pop_err: float, pop_z: float) -> torch.Tensor:
+    """Fox et al. KLD bound, exactly as particle_filter.cpp:475-502, in f32
+    like the JAX package. k <= 1 -> max_samples."""
+    kf = k.to(torch.float32)
+    b = 2.0 / (9.0 * (kf - 1.0))
+    c = torch.sqrt(b) * pop_z
+    x = 1.0 - b + c
+    n = torch.ceil(fdiv(kf - 1.0, 2.0 * pop_err) * x * x * x)
+    n = torch.clamp(n, min_samples, max_samples).to(torch.int32)
+    return torch.where(k <= 1, max_samples, n).to(torch.int32)

@@ -1,0 +1,143 @@
+"""PyTorch port: stencil-correlation prepass, table and fused read, held
+against the JAX package (its Pallas kernels in interpret mode) on the same
+inputs.
+
+Tolerances:
+- packed taps: >= 99.9% equal — oi/oj = round(r cos(theta) / res), and a
+  last-ulp difference between XLA's and PyTorch's f32 cos can flip a round;
+- the table: max |diff| <= 1e-5 x the table's max — the plain version sums
+  a bin's taps in another order than the TPU kernel's sequential loop;
+- per-particle p: rtol 1e-5 for the same reason (p = (1 + s) * factor).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from badger_amcl_tpu.maps import CellState
+from badger_amcl_tpu.maps import OccupancyMap2D as JaxMap
+from badger_amcl_tpu.ops import corr_kernel as jck
+from badger_amcl_tpu.sensors import planar as jplanar
+from badger_amcl_tpu_torch import convert
+from badger_amcl_tpu_torch.ops import corr_kernel as tck
+from badger_amcl_tpu_torch.sensors import planar as tplanar
+
+torch.set_num_threads(1)
+RANGE_MAX = 6.0
+
+
+@pytest.fixture(scope="module")
+def maps():
+    """The 448^2 map of tests/test_factor_fold.py, baked on both sides."""
+    rng = np.random.default_rng(23)
+    n = 448
+    cells = np.full((n, n), int(CellState.FREE), np.int8)
+    cells[0:2, :] = cells[-2:, :] = int(CellState.OCCUPIED)
+    cells[:, 0:2] = cells[:, -2:] = int(CellState.OCCUPIED)
+    for _ in range(12):
+        cx, cy = rng.integers(20, n - 28, 2)
+        cells[cy:cy + 6, cx:cx + 6] = int(CellState.OCCUPIED)
+    jparams = jplanar.PlanarScanParams(
+        non_free_space_factor=jnp.float32(0.6),
+        non_free_space_radius=jnp.float32(0.5), off_map_factor=jnp.float32(0.3))
+    jmap = JaxMap.from_cells(cells, 0.05).with_distance_field(2.0)
+    jmap = jplanar.bake_factor_texture(
+        jplanar.bake_corr_texture(jmap, jparams, RANGE_MAX, "likelihood_field"), jparams)
+    tparams = convert.scan_params_from_numpy(jparams)
+    tmap = convert.map_from_numpy(jmap)
+    # the port's own bakes from the same cells
+    tmap_own = tplanar.bake_factor_texture(
+        tplanar.bake_corr_texture(tmap, tparams, RANGE_MAX, "likelihood_field"), tparams)
+    return jmap, jparams, tmap, tmap_own, tparams
+
+
+def _scan(b):
+    angles = jnp.linspace(-2.2, 2.2, b).astype(jnp.float32)
+    ranges = jnp.clip(2.0 + jnp.sin(angles * 5.0), 0.3, RANGE_MAX - 0.1)
+    return jplanar.PlanarScan(ranges=ranges, angles=angles,
+                              range_max=jnp.float32(RANGE_MAX))
+
+
+def _poses(n, seed, xy_sig, yaw_sig, center=(0.0, 0.0)):
+    rng = np.random.default_rng(seed)
+    p = np.concatenate([np.asarray(center) + xy_sig * rng.standard_normal((n, 2)),
+                        yaw_sig * rng.standard_normal((n, 1))], axis=1)
+    return p.astype(np.float32)
+
+
+_jax_prepass = jax.jit(jck.corr_prepass, static_argnames=("dedup",))
+
+
+def _prepasses(jmap, tmap, poses, b, dedup):
+    jscan = _scan(b)
+    tscan = convert.scan_from_numpy(jscan)
+    jvalid = (jscan.ranges < jscan.range_max) & ~jnp.isnan(jscan.ranges)
+    jpre = _jax_prepass(jmap, jnp.asarray(poses), jscan.ranges, jscan.angles, jvalid,
+                        dedup=dedup)
+    tpre = tck.corr_prepass(tmap, torch.from_numpy(poses), tscan.ranges, tscan.angles,
+                            tscan.valid(), dedup=dedup)
+    return jpre, tpre
+
+
+@pytest.mark.parametrize("b,dedup,yaw_sig", [(64, False, 0.04), (400, True, 0.01)])
+def test_prepass_matches(maps, b, dedup, yaw_sig):
+    jmap, _, tmap, _, _ = maps
+    poses = _poses(600, 1, 0.15, yaw_sig)
+    jpre, tpre = _prepasses(jmap, tmap, poses, b, dedup)
+    off_j, off_t = np.asarray(jpre["off"]), tpre["off"].numpy()
+    assert (off_j == off_t).mean() >= 0.999
+    for k in ("nu", "t_slot", "ci", "cj"):
+        np.testing.assert_array_equal(tpre[k].numpy(), np.asarray(jpre[k]), err_msg=k)
+    for k in ("t_n", "nv", "i0", "j0", "j0_narrow", "j0_tight", "fits", "narrow",
+              "tight"):
+        assert int(tpre[k]) == int(jpre[k]), k
+
+
+@pytest.mark.parametrize("b,dedup", [(400, True)])
+def test_table_plain_matches_pallas_interpret(maps, b, dedup):
+    """The plain table fed JAX's own prepass against both TPU call variants
+    (baked-texture DMA and per-call slices) at every window height."""
+    jmap, _, tmap, _, _ = maps
+    jpre, _ = _prepasses(jmap, tmap, _poses(300, 2, 0.1, 0.02), b, dedup)
+    tex_pad = torch.from_numpy(np.array(jmap.corr_psi_pad))
+    off = torch.from_numpy(np.array(jpre["off"]))
+    nu = torch.from_numpy(np.array(jpre["nu"]))
+    t_n = torch.tensor(int(jpre["t_n"]), dtype=torch.int32)
+    i0 = int(jpre["i0"])
+    for rows, j0 in ((24, jpre["j0_tight"]), (32, jpre["j0_narrow"]), (64, jpre["j0"])):
+        org = torch.tensor([int(j0) + tck.PAD_R, i0 + tck.PAD_C], dtype=torch.int32)
+        got = tck.corr_table(tex_pad, off, nu, t_n, org, b, rows).numpy()
+        for tex_pre in (jmap.corr_psi_pre, None):
+            want = np.asarray(jck._corr_table(jmap.corr_psi_pad, jpre, b, rows, j0,
+                                              True, tex_pre))
+            assert got.shape == want.shape
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), (rows, tex_pre is None)
+
+
+@pytest.mark.parametrize("case", ["on_map", "edge"])
+def test_folded_likelihood_matches(maps, case):
+    """planar_likelihood on the corr backend with folded factors: the fused
+    arm (every particle on the map) and the generic arm (some off)."""
+    jmap, jparams, tmap, tmap_own, tparams = maps
+    if case == "on_map":
+        poses = _poses(600, 3, 0.15, 0.04)
+    else:
+        half = 448 * 0.05 / 2.0
+        poses = _poses(600, 4, 0.15, 0.04, center=(half - 0.7, 0.0))
+        poses[:5, 0] = half + 0.3
+    n = poses.shape[0]
+    jscan = _scan(64)
+    p_j, mf_j = jplanar.planar_likelihood(
+        jmap, jparams, jscan, jnp.asarray(poses), jnp.ones((n,), bool), jnp.int32(n),
+        "likelihood_field", backend="pallas_corr_interpret", fold_factors=True)
+    assert mf_j is None
+    tscan = convert.scan_from_numpy(jscan)
+    for omap in (tmap, tmap_own):
+        p_t, mf_t = tplanar.planar_likelihood(
+            omap, tparams, tscan, torch.from_numpy(poses), torch.ones(n, dtype=torch.bool),
+            torch.tensor(n, dtype=torch.int32), "likelihood_field", backend="corr",
+            fold_factors=True)
+        assert mf_t is None
+        np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=1e-5)

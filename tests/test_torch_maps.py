@@ -1,0 +1,130 @@
+"""PyTorch port: EDT copy, map, scenario builder and the no-JAX import
+contract, held against the JAX package on the same inputs.
+
+Tolerances: cells and distances are integer/EDT arithmetic done the same
+way in numpy on both sides, so they must be bit-equal; the psi and factor
+textures and the scan go through exp/sin, whose f32 implementations differ
+between XLA and PyTorch in the last ulp, hence atol 1e-6.
+"""
+
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from __graft_entry__ import _build_setup
+from badger_amcl_tpu.maps import edt as jax_edt
+from badger_amcl_tpu_torch import convert, scenario
+from badger_amcl_tpu_torch.maps import edt
+from badger_amcl_tpu_torch.pf import filter as pf_filter
+
+torch.set_num_threads(1)
+
+
+def test_capped_distance_field_bit_equal():
+    rng = np.random.default_rng(5)
+    occ = rng.random((61, 83)) < 0.03
+    got = edt.capped_distance_field(occ, 0.05, 1.0)
+    want = jax_edt.capped_distance_field(occ, 0.05, 1.0)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def both_setups():
+    kw = dict(n_particles=512, n_beams=180, seed=0)
+    j = _build_setup(kw["n_particles"], kw["n_beams"], 448, seed=kw["seed"])
+    t = scenario.build_setup(kw["n_particles"], kw["n_beams"], 448, seed=kw["seed"])
+    return j, t
+
+
+def test_scenario_map_and_textures_match(both_setups):
+    (jmap, jparams, _, jscan, jsp, jpool), (tmap, tparams, _, tscan, tsp, tpool) = both_setups
+    np.testing.assert_array_equal(tmap.cells.numpy(), np.asarray(jmap.cells))
+    np.testing.assert_array_equal(tmap.distances.numpy(), np.asarray(jmap.distances))
+    assert tmap.corr_psi_key == jmap.corr_psi_key
+    assert tmap.factor_key == jmap.factor_key
+    np.testing.assert_allclose(tmap.corr_psi_pad.numpy(), np.asarray(jmap.corr_psi_pad),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tmap.factor_tex.numpy(), np.asarray(jmap.factor_tex),
+                               rtol=0, atol=1e-6)
+    assert convert.pf_params_from_jax(jparams) == tparams
+    assert convert.scan_params_from_numpy(jsp) == tsp
+    np.testing.assert_allclose(tscan.angles.numpy(), np.asarray(jscan.angles), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(tscan.ranges.numpy(), np.asarray(jscan.ranges), rtol=0,
+                               atol=1e-6)
+    assert tscan.range_max == float(jscan.range_max)
+    assert tuple(tpool.shape) == tuple(jpool.shape)
+    assert float(tpool.min()) >= -3.0 and float(tpool.max()) < 3.0
+
+
+def test_converted_map_equals_scenario_map(both_setups):
+    (jmap, *_), (tmap, *_) = both_setups
+    cmap = convert.map_from_numpy(jmap)
+    for f in ("resolution", "size_x", "size_y", "origin_x", "origin_y",
+              "max_distance_to_object", "corr_psi_key", "factor_key"):
+        assert getattr(cmap, f) == getattr(tmap, f), f
+    assert torch.equal(cmap.cells, tmap.cells)
+
+
+def test_world_to_map_and_distance_at(both_setups):
+    (jmap, *_), (tmap, *_) = both_setups
+    rng = np.random.default_rng(2)
+    xy = rng.uniform(-13.0, 13.0, (4000, 2)).astype(np.float32)  # some off-map
+    ij_j = np.asarray(jmap.world_to_map(jnp.asarray(xy)))
+    ij_t = tmap.world_to_map(torch.from_numpy(xy))
+    np.testing.assert_array_equal(ij_t.numpy(), ij_j)
+    np.testing.assert_array_equal(tmap.is_valid(ij_t).numpy(),
+                                  np.asarray(jmap.is_valid(jnp.asarray(ij_j))))
+    np.testing.assert_array_equal(tmap.distance_at(ij_t).numpy(),
+                                  np.asarray(jmap.distance_at(jnp.asarray(ij_j))))
+
+
+def test_init_with_poses_stats_match(both_setups):
+    (_, jparams, jstate, *_), (_, tparams, *_) = both_setups
+    st = pf_filter.init_with_poses(tparams, torch.tensor(np.asarray(jstate.poses)))
+    js = jstate.stats
+    assert int(st.stats.cluster_count) == int(js.cluster_count)
+    np.testing.assert_array_equal(st.stats.particle_cluster.numpy(),
+                                  np.asarray(js.particle_cluster))
+    np.testing.assert_allclose(st.stats.mean.numpy(), np.asarray(js.mean), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(st.stats.cov.numpy(), np.asarray(js.cov), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_array_equal(st.weights.numpy(), np.asarray(jstate.weights))
+
+
+def test_port_imports_no_jax():
+    """Importing every port module and running a CPU step must work with JAX
+    and the JAX package made unimportable."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["badger_amcl_tpu"] = None
+        import torch
+        torch.set_num_threads(1)
+        import badger_amcl_tpu_torch
+        from badger_amcl_tpu_torch import convert, mcl, scenario
+        from badger_amcl_tpu_torch.ops import _build, corr_kernel, lf_kernel, spread_kernel
+        omap, params, state, scan, sp, pool = scenario.build_setup(
+            256, 64, 448, pose_cov=(0.02, 0.02, 0.002), min_particles=256)
+        gen = torch.Generator().manual_seed(0)
+        out = mcl.mcl_step_2d(state, omap, sp, scan, pool, [0.1, 0.0, 0.02],
+                              [0.1, 0.0, 0.02], None, [0.1] * 5, params,
+                              backend="corr", generator=gen)
+        assert torch.isfinite(out.weights).all()
+        assert not any(m == "jax" or m.startswith(("jax.", "badger_amcl_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=pathlib.Path(__file__).resolve().parent.parent)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

@@ -1,0 +1,145 @@
+"""PyTorch port: the spread-cloud term sums and the endpoint distance
+lookup, held against the JAX package's Pallas kernels in interpret mode on
+the same inputs.
+
+Tolerances:
+- spread sums: the JAX test's own bounds (tests/test_spread_kernel.py:82-85,
+  per-beam int8 quantization plus rare one-cell floor flips), since the JAX
+  arm mixes its kernel tiers with an exact-formula escape gather;
+- distances: >= 99.9% bit-equal; the rest are one-cell flips from a
+  last-ulp cos/sin difference, within res * sqrt(2) (the distance field is
+  1-Lipschitz) plus one bf16 spacing below the 2 m cap (2**-7) on the bf16
+  arm.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from badger_amcl_tpu.maps import CellState
+from badger_amcl_tpu.maps import OccupancyMap2D as JaxMap
+from badger_amcl_tpu.ops import lf_kernel as jlf
+from badger_amcl_tpu.ops import spread_kernel as jsk
+from badger_amcl_tpu.sensors import planar as jplanar
+from badger_amcl_tpu_torch import convert
+from badger_amcl_tpu_torch.ops import lf_kernel as tlf
+from badger_amcl_tpu_torch.ops import spread_kernel as tsk
+from badger_amcl_tpu_torch.sensors import planar as tplanar
+
+torch.set_num_threads(1)
+
+
+def _map(n, seed, blocks, size, lo, hi):
+    rng = np.random.default_rng(seed)
+    cells = np.full((n, n), int(CellState.FREE), np.int8)
+    cells[0:2, :] = cells[-2:, :] = int(CellState.OCCUPIED)
+    cells[:, 0:2] = cells[:, -2:] = int(CellState.OCCUPIED)
+    for _ in range(blocks):
+        cx, cy = rng.integers(lo, n - hi, 2)
+        cells[cy:cy + size, cx:cx + size] = int(CellState.OCCUPIED)
+    jmap = JaxMap.from_cells(cells, 0.05).with_distance_field(2.0)
+    return jmap, convert.map_from_numpy(jmap)
+
+
+@pytest.fixture(scope="module")
+def huge_map():
+    """tests/test_spread_kernel.py's 512^2 map."""
+    return _map(512, 11, 24, 6, 16, 24)
+
+
+@pytest.fixture(scope="module")
+def big_map():
+    """tests/test_lf_kernel.py's 448^2 map."""
+    return _map(448, 4, 10, 6, 20, 28)
+
+
+def _scan(b, range_max, lo, hi, freq):
+    angles = jnp.linspace(-2.2, 2.2, b).astype(jnp.float32)
+    ranges = jnp.clip(2.0 + jnp.sin(angles * freq), lo, hi).astype(jnp.float32)
+    jscan = jplanar.PlanarScan(ranges=ranges, angles=angles,
+                               range_max=jnp.float32(range_max))
+    return jscan, convert.scan_from_numpy(jscan)
+
+
+def _spread_poses(n, seed, half):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.uniform(-half, half, (n, 2)),
+                           rng.uniform(-3.14, 3.14, (n, 1))], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("term", ["identity", "lf"])
+def test_spread_plain_matches_pallas_interpret(huge_map, term):
+    jmap, tmap = huge_map
+    jscan, tscan = _scan(24, 6.0, 0.3, 2.5, 5.0)
+    poses = _spread_poses(4000, 3, 4.0)
+    if term == "identity":
+        jterm, tterm = (lambda z: z), (lambda z: z)
+    else:
+        jterm = jplanar._lf_term(jplanar.PlanarScanParams(), jscan)
+        tterm = tplanar._lf_term(tplanar.PlanarScanParams(), tscan.range_max)
+    valid = (jscan.ranges < jscan.range_max) & ~jnp.isnan(jscan.ranges)
+    pre = jsk.spread_prepass(jmap, jnp.asarray(poses), jscan.ranges, jscan.angles, valid)
+    s = jsk.spread_term_sums(jmap, jnp.asarray(poses), jscan.ranges, jscan.angles, valid,
+                             pre, jterm, interpret=True)
+    want = np.asarray(jsk.unsort(s, pre), np.float64)
+    got = tsk.spread_term_sums(tmap, torch.from_numpy(poses), tscan.ranges, tscan.angles,
+                               tscan.valid(), tterm).numpy()
+    b = 24
+    tol = b * 0.009 + 3 * tmap.resolution * 1.5
+    np.testing.assert_allclose(got, want, atol=tol)
+    assert np.abs(got - want).mean() < b * 0.01
+    # same formula and texture on both sides: nearly every particle agrees
+    # to the f32 summation order
+    assert np.mean(np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-6) >= 0.99
+
+
+def _compare_distances(got, want, res, bf16):
+    eq = got == want
+    assert eq.mean() >= 0.999, eq.mean()
+    tol = res * np.sqrt(2.0) + (2.0 ** -7 if bf16 else 0.0)
+    assert np.abs(got - want).max() <= tol
+
+
+def test_lf_plain_matches_windowed_kernel(big_map):
+    jmap, tmap = big_map
+    jscan, tscan = _scan(64, 6.0, 0.3, 5.9, 5.0)
+    rng = np.random.default_rng(0)
+    poses = np.concatenate([0.15 * rng.standard_normal((600, 2)),
+                            0.04 * rng.standard_normal((600, 1))], axis=1).astype(np.float32)
+    _, _, jfits = jlf.window_origins(jmap, jnp.asarray(poses), jscan.ranges, jscan.angles)
+    _, _, tfits = tlf.window_origins(tmap, torch.from_numpy(poses), tscan.ranges,
+                                     tscan.angles)
+    assert bool(jfits) and bool(tfits)
+    want = np.asarray(jlf.lf_distances_t(jmap, jnp.asarray(poses), jscan.ranges,
+                                         jscan.angles, interpret=True))
+    got = tlf.lf_distances_t(tmap, torch.from_numpy(poses), tscan.ranges,
+                             tscan.angles).numpy()
+    _compare_distances(got, want, tmap.resolution, bf16=True)
+
+
+def test_lf_spread_cloud_takes_exact_gather(big_map):
+    jmap, tmap = big_map
+    jscan, tscan = _scan(64, 6.0, 0.3, 5.9, 5.0)
+    poses = _spread_poses(500, 6, 9.0)
+    want = np.asarray(jlf.lf_distances_t(jmap, jnp.asarray(poses), jscan.ranges,
+                                         jscan.angles, interpret=True))
+    _, _, tfits = tlf.window_origins(tmap, torch.from_numpy(poses), tscan.ranges,
+                                     tscan.angles)
+    assert not bool(tfits)
+    got = tlf.lf_distances_t(tmap, torch.from_numpy(poses), tscan.ranges,
+                             tscan.angles).numpy()
+    _compare_distances(got, want, tmap.resolution, bf16=False)
+    assert (got == tmap.max_distance_to_object).any()  # some endpoints off the map
+
+
+def test_lf_wrapper_checks_inputs(big_map):
+    _, tmap = big_map
+    poses = torch.zeros((4, 3))
+    r = torch.ones(3)
+    with pytest.raises(TypeError):
+        tlf.lf_distances(tmap, tmap.distances.to(torch.float64), poses, r, r)
+    with pytest.raises(ValueError):
+        tlf.lf_distances(tmap, tmap.distances[:-1], poses, r, r)
+    with pytest.raises(ValueError):
+        tlf.lf_distances(tmap, tmap.distances, poses[:, :2], r, r)
