@@ -2,18 +2,18 @@
 
 The 2D likelihood-field MCL step (diff-drive odometry -> likelihood-field
 sensor update -> KLD multinomial resample with cluster statistics ->
-convergence) as eager PyTorch on plain tensors, with three hand-written
-CUDA kernels for Hopper (``csrc/``) where the JAX package runs Pallas TPU
-kernels. Module paths, public function names and array layouts follow
+convergence) and the 3D point-cloud path (voxel EDT, both cloud models)
+as eager PyTorch on plain tensors, with five hand-written CUDA kernels for
+Hopper (``csrc/``) where the JAX package runs Pallas TPU kernels. Module paths, public function names and array layouts follow
 ``badger_amcl_tpu`` so each counterpart is easy to find; the package never
 imports JAX or ``badger_amcl_tpu``.
 
-- ``maps``     — occupancy map, capped EDT, baked textures
+- ``maps``     — occupancy map, voxel map, capped EDT, baked textures
 - ``pf``       — particle filter core (state, KLD, clustering, resampling)
-- ``sensors``  — odometry and planar likelihood-field models
+- ``sensors``  — odometry, planar likelihood-field and point-cloud models
 - ``ops``      — kernel wrappers, their plain PyTorch versions, the builder
 - ``mcl``      — the fused step entry points
-- ``scenario`` — seeded flagship scenario builder
+- ``scenario`` — seeded 2D flagship and 3D scene builders
 - ``convert``  — JAX-package objects (as numpy) -> port objects
 """
 

@@ -8,12 +8,16 @@ their device buffers to the host.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from badger_amcl_tpu_torch.maps.occupancy_2d import OccupancyMap2D
+from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
 from badger_amcl_tpu_torch.pf.types import ClusterStats, MCLState, PFParams
 from badger_amcl_tpu_torch.sensors.planar import PlanarScan, PlanarScanParams
+from badger_amcl_tpu_torch.sensors.point_cloud import PointCloudParams
 
 
 def _t(x, device, dtype=None):
@@ -28,7 +32,7 @@ def _opt(x, device):
     return None if x is None else _t(x, device)
 
 
-def map_from_numpy(omap, device="cpu") -> OccupancyMap2D:
+def map_from_numpy(omap, device="cuda") -> OccupancyMap2D:
     """OccupancyMap2D (JAX) -> OccupancyMap2D (port), baked psi and factor
     textures included with their fingerprints."""
     return OccupancyMap2D(
@@ -45,7 +49,7 @@ def map_from_numpy(omap, device="cpu") -> OccupancyMap2D:
     )
 
 
-def stats_from_numpy(stats, device="cpu") -> ClusterStats:
+def stats_from_numpy(stats, device="cuda") -> ClusterStats:
     return ClusterStats(**{
         f: _t(getattr(stats, f), device)
         for f in ("cluster_count", "cluster_valid", "cluster_weights",
@@ -53,7 +57,7 @@ def stats_from_numpy(stats, device="cpu") -> ClusterStats:
                   "cov", "particle_cluster")})
 
 
-def state_from_numpy(state, device="cpu") -> MCLState:
+def state_from_numpy(state, device="cuda") -> MCLState:
     """MCLState (JAX) -> MCLState (port); the PRNG key is not carried."""
     return MCLState(
         poses=_t(state.poses, device, torch.float32),
@@ -68,7 +72,7 @@ def state_from_numpy(state, device="cpu") -> MCLState:
     )
 
 
-def scan_from_numpy(scan, device="cpu") -> PlanarScan:
+def scan_from_numpy(scan, device="cuda") -> PlanarScan:
     return PlanarScan(ranges=_t(scan.ranges, device, torch.float32),
                       angles=_t(scan.angles, device, torch.float32),
                       range_max=float(np.asarray(scan.range_max)))
@@ -89,3 +93,27 @@ def pf_params_from_jax(params) -> PFParams:
         "min_samples", "max_samples", "pop_err", "pop_z", "dist_threshold",
         "convergence_threshold", "hist_x", "hist_y", "hist_a",
         "stats_max_clusters")})
+
+
+def octomap_from_numpy(omap, device="cuda") -> OctoMap3D:
+    """OctoMap3D (JAX) -> OctoMap3D (port); the (nx, ny, nz) uint8 ratios
+    become the port's z-major texture."""
+    tex = None
+    if omap.distances_u8 is not None:
+        tex = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(omap.distances_u8, np.uint8).transpose(2, 1, 0))).to(device)
+    return OctoMap3D(
+        resolution=float(omap.resolution),
+        max_distance_to_object=float(omap.max_distance_to_object),
+        min_cells=tuple(int(v) for v in omap.min_cells),
+        max_cells=tuple(int(v) for v in omap.max_cells),
+        occupied_cells=np.array(omap.occupied_cells, dtype=np.int32, copy=True),
+        device=torch.device(device), tex_zyx=tex,
+    )
+
+
+def pc_params_from_numpy(params) -> PointCloudParams:
+    """Point-cloud model parameters as Python floats."""
+    return PointCloudParams(**{
+        f.name: float(np.asarray(getattr(params, f.name)))
+        for f in dataclasses.fields(PointCloudParams)})

@@ -1,4 +1,4 @@
-"""Exact Euclidean distance transform for map preprocessing (2D).
+"""Exact Euclidean distance transform for map preprocessing (2D and 3D).
 
 A copy of badger_amcl_tpu.maps.edt's numpy Felzenszwalb-Huttenlocher
 lower-envelope transform and its capping contract, kept here because any
@@ -72,6 +72,18 @@ def edt_2d(occupied: np.ndarray) -> np.ndarray:
     f = _edt_1d_sq(f)  # along W
     f = _edt_1d_sq(np.swapaxes(f, -1, -2))  # along H
     f = np.swapaxes(f, -1, -2)
+    return np.sqrt(f)
+
+
+def edt_3d(occupied: np.ndarray) -> np.ndarray:
+    """Exact Euclidean distance (cell units) to the nearest True voxel.
+
+    occupied: bool (X, Y, Z). Returns float64 (X, Y, Z)."""
+    f = np.where(occupied, 0.0, _INF)
+    f = _edt_1d_sq(f)  # along Z
+    f = _edt_1d_sq(np.swapaxes(f, -1, -2))  # along Y
+    f = np.swapaxes(f, -1, -2)
+    f = np.moveaxis(_edt_1d_sq(np.moveaxis(f, 0, -1)), -1, 0)  # along X
     return np.sqrt(f)
 
 

@@ -59,7 +59,7 @@ class OccupancyMap2D:
 
     @staticmethod
     def from_cells(cells: np.ndarray, resolution: float, origin_x: float = 0.0,
-                   origin_y: float = 0.0, device="cpu") -> "OccupancyMap2D":
+                   origin_y: float = 0.0, device="cuda") -> "OccupancyMap2D":
         """cells: int8 (H=size_y, W=size_x) CellState grid, indexed [j, i]."""
         cells = np.asarray(cells, dtype=np.int8)
         h, w = cells.shape

@@ -38,6 +38,10 @@ _SIGNATURES = {
                                 _I, _I, _I, _F, _P, _P],
     "lf_distances_bf16_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _I,
                                  _I, _I, _I, _F, _P, _P],
+    "pc_distances_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _I, _I, _I, _F, _F,
+                            _P, _P],
+    "pc_spread_term_sums_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _I, _I, _I,
+                                   _F, _F, _F, _F, _F, _I, _P, _P],
 }
 
 _lib = None
@@ -57,7 +61,8 @@ def sources() -> list:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into BUILD_DIR (cached by content); return the path."""
+    """Compile csrc/*.cu into BUILD_DIR (cached by content); return the path.
+    One nvcc per source, all started together, then one link."""
     srcs = sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
@@ -67,16 +72,36 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    if verbose:
+        compile_flags += ["-Xptxas", "-v"]
+    objs, procs = [], []
+    for s in srcs:
+        obj = BUILD_DIR / f"{s.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *compile_flags, "-c", "-o", str(obj), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs = []
+    for s, p in zip(srcs, procs):
+        err = p.communicate()[1]
+        logs.append((s.name, p.returncode, err))
+    failed = [(n, rc, err) for n, rc, err in logs if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{n} ({rc}):\n{err}" for n, rc, err in failed))
+    if verbose:
+        for _, _, err in logs:
+            print(err, end="")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 

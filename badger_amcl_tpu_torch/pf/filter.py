@@ -60,7 +60,7 @@ def _finalize_init(params, poses, alpha_slow, alpha_fast) -> MCLState:
 
 def init_with_gaussian(params: PFParams, gen: torch.Generator, mean, cov,
                        alpha_slow: float = 0.001, alpha_fast: float = 0.1,
-                       device="cpu") -> MCLState:
+                       device="cuda") -> MCLState:
     """max_samples poses from N(mean, cov) drawn from `gen`, uniform
     weights, reset recovery averages, fresh cluster stats."""
     mean = torch.as_tensor(mean, dtype=torch.float32, device=device)

@@ -1,12 +1,21 @@
-"""Seeded scenario builder: the port's JAX-free twin of the JAX package's
-`__graft_entry__._build_setup`.
+"""Seeded scenario builders: the port's JAX-free twins of the JAX
+package's `__graft_entry__._build_setup` (2D) and of the 3D scene of
+`benchmarks/parity_tpu.py:run_3d`.
 
-The map comes from the same `np.random.default_rng(seed)` recipe, so its
-cells are bit-identical, and the scan follows the same formulas (the
+2D: the map comes from the same `np.random.default_rng(seed)` recipe, so
+its cells are bit-identical, and the scan follows the same formulas (the
 angles reproduce jnp.linspace's f32 arithmetic). The psi and factor
-textures are baked as the JAX setup bakes them. Initial poses and the
-random-pose pool come from torch.Generators seeded with seed and seed + 1,
-so they differ from the JAX package's draws in value, not in law.
+textures are baked as the JAX setup bakes them.
+
+3D: a structured 20 x 20 x 1 m scene at 0.05 m (border walls and 14
+columns of occupied voxels, a 401 x 401 x 21 voxel EDT) and a cloud of
+points sampled from the occupied set around the true pose, expressed in
+the base frame, with the same `np.random.default_rng(3)` draws in the same
+order, so the occupied set and the 256-point cloud are bit-identical.
+
+Initial poses and the random-pose pool come from torch.Generators seeded
+with seed and seed + 1, so they differ from the JAX package's draws in
+value, not in law.
 """
 
 from __future__ import annotations
@@ -15,11 +24,13 @@ import numpy as np
 import torch
 
 from badger_amcl_tpu_torch.maps.occupancy_2d import CellState, OccupancyMap2D
+from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
 from badger_amcl_tpu_torch.pf import filter as pf_filter
 from badger_amcl_tpu_torch.pf.types import PFParams
 from badger_amcl_tpu_torch.sensors.planar import (
     PlanarScan, PlanarScanParams, bake_corr_texture, bake_factor_texture,
 )
+from badger_amcl_tpu_torch.sensors.point_cloud import PointCloudParams
 
 RANGE_MAX = 8.0
 RESOLUTION = 0.05
@@ -58,7 +69,7 @@ def scan_arrays(n_beams: int):
     return ranges, angles
 
 
-def build_map(map_size: int, seed: int = 0, device="cpu") -> OccupancyMap2D:
+def build_map(map_size: int, seed: int = 0, device="cuda") -> OccupancyMap2D:
     """The scenario's map with its distance field and baked textures."""
     omap = OccupancyMap2D.from_cells(map_cells(map_size, seed), RESOLUTION,
                                      device=device).with_distance_field(MAX_DIST)
@@ -67,7 +78,7 @@ def build_map(map_size: int, seed: int = 0, device="cpu") -> OccupancyMap2D:
     return bake_factor_texture(omap, scan_params)
 
 
-def build_scan(n_beams: int, device="cpu") -> PlanarScan:
+def build_scan(n_beams: int, device="cuda") -> PlanarScan:
     ranges, angles = scan_arrays(n_beams)
     return PlanarScan(ranges=torch.as_tensor(ranges, device=device),
                       angles=torch.as_tensor(angles, device=device),
@@ -75,9 +86,11 @@ def build_scan(n_beams: int, device="cpu") -> PlanarScan:
 
 
 def build_filter(n_particles: int, seed: int = 0, pose_cov=(0.5, 0.5, 0.1),
-                 min_particles=None, pose_mean=(0.0, 0.0, 0.0), device="cpu"):
+                 min_particles=None, pose_mean=(0.0, 0.0, 0.0), device="cuda",
+                 pool_lo=(-3.0, -3.0, -3.0), pool_hi=(3.0, 3.0, 3.0)):
     """(params, state, pool): a Gaussian cloud from a generator seeded with
-    `seed` and a uniform [-3, 3) random-pose pool from one seeded seed + 1."""
+    `seed` and a random-pose pool uniform in [pool_lo, pool_hi) per axis
+    from one seeded seed + 1."""
     if min_particles is None:
         min_particles = max(16, n_particles // 50)
     params = PFParams(min_samples=min_particles, max_samples=n_particles)
@@ -86,16 +99,80 @@ def build_filter(n_particles: int, seed: int = 0, pose_cov=(0.5, 0.5, 0.1),
         params, gen, list(pose_mean), torch.diag(torch.tensor(pose_cov)),
         device=device)
     gen_pool = torch.Generator(device=device).manual_seed(seed + 1)
-    pool = torch.rand((n_particles, 3), generator=gen_pool, device=device) * 6.0 - 3.0
+    lo = torch.tensor(pool_lo, dtype=torch.float32, device=device)
+    hi = torch.tensor(pool_hi, dtype=torch.float32, device=device)
+    pool = torch.rand((n_particles, 3), generator=gen_pool, device=device) * (hi - lo) + lo
     return params, state, pool
 
 
 def build_setup(n_particles: int, n_beams: int, map_size: int, seed: int = 0,
                 pose_cov=(0.5, 0.5, 0.1), min_particles=None,
-                pose_mean=(0.0, 0.0, 0.0), device="cpu"):
+                pose_mean=(0.0, 0.0, 0.0), device="cuda"):
     """(omap, params, state, scan, scan_params, pool) on `device`, in the
     order of the JAX package's `_build_setup`."""
     omap = build_map(map_size, seed, device)
     params, state, pool = build_filter(n_particles, seed, pose_cov, min_particles,
                                        pose_mean, device)
     return omap, params, state, build_scan(n_beams, device), PlanarScanParams(), pool
+
+
+# the 3D scene of benchmarks/parity_tpu.py:run_3d
+RESOLUTION_3D = 0.05
+MAX_DIST_3D = 0.36
+TRUE_POSE_3D = (6.0, 8.0, 0.7)  # x, y, yaw
+CLOUD_POINTS = 256  # the 3D default cloud_max_beams
+
+
+def scene_3d(n_points: int = CLOUD_POINTS, seed: int = 3):
+    """(occupied (K, 3) f32 voxel centers, cloud (B, 3) f32 in the base
+    frame of TRUE_POSE_3D), the JAX scene's draws in its order."""
+    rng = np.random.default_rng(seed)
+    occ = []
+    zz = np.arange(0.05, 1.0, 0.05)
+    for t in np.arange(0.05, 20.0, 0.05):
+        for z in zz[::3]:
+            occ += [(t, 0.1, z), (t, 19.9, z), (0.1, t, z), (19.9, t, z)]
+    for _ in range(14):
+        cx, cy = rng.uniform(2, 18, 2)
+        for dx in np.arange(-0.2, 0.25, 0.05):
+            for dy in np.arange(-0.2, 0.25, 0.05):
+                for z in zz[::2]:
+                    occ.append((cx + dx, cy + dy, z))
+    occ = np.asarray(occ, np.float32)
+    true_pose = np.array(TRUE_POSE_3D)
+    d = np.linalg.norm(occ[:, :2] - true_pose[:2], axis=1)
+    near = occ[(d > 0.5) & (d < 6.0)]
+    sel = near[rng.choice(len(near), n_points, replace=False)]
+    c, s = np.cos(-true_pose[2]), np.sin(-true_pose[2])
+    rel = sel[:, :2] - true_pose[:2]
+    base_xy = np.stack([c * rel[:, 0] - s * rel[:, 1],
+                        s * rel[:, 0] + c * rel[:, 1]], axis=1)
+    cloud = np.concatenate([base_xy, sel[:, 2:3]], axis=1).astype(np.float32)
+    return occ, cloud
+
+
+def build_octomap(occupied: np.ndarray, device="cuda") -> OctoMap3D:
+    """The 3D scene's voxel EDT: 20 x 20 x 1 m at 0.05 m, max distance
+    0.36 m."""
+    return OctoMap3D.from_occupied_points(
+        occupied, RESOLUTION_3D, MAX_DIST_3D, metric_min=(0, 0, 0),
+        metric_max=(20, 20, 1.0), device=device).with_distance_field()
+
+
+def build_filter_3d(n_particles: int, seed: int = 0, pose_cov=(0.02, 0.02, 0.002),
+                    min_particles=None, device="cuda"):
+    """(params, state, pool) for the 3D scene: a Gaussian cloud around
+    TRUE_POSE_3D and a random-pose pool over the map's footprint."""
+    return build_filter(n_particles, seed, pose_cov, min_particles, TRUE_POSE_3D, device,
+                        pool_lo=(0.0, 0.0, -np.pi), pool_hi=(20.0, 20.0, np.pi))
+
+
+def build_setup_3d(n_particles: int, n_points: int = CLOUD_POINTS, seed: int = 0,
+                   pose_cov=(0.02, 0.02, 0.002), min_particles=None, device="cuda"):
+    """(omap, params, state, cloud, pc_params, pool) on `device`: the 3D
+    scene and `build_filter_3d`'s filter."""
+    occ, cloud = scene_3d(n_points)
+    params, state, pool = build_filter_3d(n_particles, seed, pose_cov, min_particles,
+                                          device)
+    return (build_octomap(occ, device), params, state,
+            torch.as_tensor(cloud, device=device), PointCloudParams(), pool)

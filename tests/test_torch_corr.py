@@ -46,7 +46,7 @@ def maps():
     jmap = jplanar.bake_factor_texture(
         jplanar.bake_corr_texture(jmap, jparams, RANGE_MAX, "likelihood_field"), jparams)
     tparams = convert.scan_params_from_numpy(jparams)
-    tmap = convert.map_from_numpy(jmap)
+    tmap = convert.map_from_numpy(jmap, device="cpu")
     # the port's own bakes from the same cells
     tmap_own = tplanar.bake_factor_texture(
         tplanar.bake_corr_texture(tmap, tparams, RANGE_MAX, "likelihood_field"), tparams)
@@ -72,7 +72,7 @@ _jax_prepass = jax.jit(jck.corr_prepass, static_argnames=("dedup",))
 
 def _prepasses(jmap, tmap, poses, b, dedup):
     jscan = _scan(b)
-    tscan = convert.scan_from_numpy(jscan)
+    tscan = convert.scan_from_numpy(jscan, device="cpu")
     jvalid = (jscan.ranges < jscan.range_max) & ~jnp.isnan(jscan.ranges)
     jpre = _jax_prepass(jmap, jnp.asarray(poses), jscan.ranges, jscan.angles, jvalid,
                         dedup=dedup)
@@ -133,7 +133,7 @@ def test_folded_likelihood_matches(maps, case):
         jmap, jparams, jscan, jnp.asarray(poses), jnp.ones((n,), bool), jnp.int32(n),
         "likelihood_field", backend="pallas_corr_interpret", fold_factors=True)
     assert mf_j is None
-    tscan = convert.scan_from_numpy(jscan)
+    tscan = convert.scan_from_numpy(jscan, device="cpu")
     for omap in (tmap, tmap_own):
         p_t, mf_t = tplanar.planar_likelihood(
             omap, tparams, tscan, torch.from_numpy(poses), torch.ones(n, dtype=torch.bool),

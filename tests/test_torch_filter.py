@@ -63,7 +63,7 @@ def _states(case, seed=0):
     jstate = jfilter.sensor_update(jstate, jnp.asarray(p), None)
     # w_diff = 0.2: random-pose injection runs
     jstate = jstate.replace(w_slow=jnp.float32(0.5), w_fast=jnp.float32(0.4))
-    return jparams, jstate, convert.pf_params_from_jax(jparams), convert.state_from_numpy(jstate)
+    return jparams, jstate, convert.pf_params_from_jax(jparams), convert.state_from_numpy(jstate, device="cpu")
 
 
 def test_sensor_update_matches():

@@ -39,7 +39,8 @@ def test_capped_distance_field_bit_equal():
 def both_setups():
     kw = dict(n_particles=512, n_beams=180, seed=0)
     j = _build_setup(kw["n_particles"], kw["n_beams"], 448, seed=kw["seed"])
-    t = scenario.build_setup(kw["n_particles"], kw["n_beams"], 448, seed=kw["seed"])
+    t = scenario.build_setup(kw["n_particles"], kw["n_beams"], 448, seed=kw["seed"],
+                             device="cpu")
     return j, t
 
 
@@ -66,7 +67,7 @@ def test_scenario_map_and_textures_match(both_setups):
 
 def test_converted_map_equals_scenario_map(both_setups):
     (jmap, *_), (tmap, *_) = both_setups
-    cmap = convert.map_from_numpy(jmap)
+    cmap = convert.map_from_numpy(jmap, device="cpu")
     for f in ("resolution", "size_x", "size_y", "origin_x", "origin_y",
               "max_distance_to_object", "corr_psi_key", "factor_key"):
         assert getattr(cmap, f) == getattr(tmap, f), f
@@ -113,12 +114,20 @@ def test_port_imports_no_jax():
         from badger_amcl_tpu_torch import convert, mcl, scenario
         from badger_amcl_tpu_torch.ops import _build, corr_kernel, lf_kernel, spread_kernel
         omap, params, state, scan, sp, pool = scenario.build_setup(
-            256, 64, 448, pose_cov=(0.02, 0.02, 0.002), min_particles=256)
+            256, 64, 448, pose_cov=(0.02, 0.02, 0.002), min_particles=256,
+            device="cpu")
         gen = torch.Generator().manual_seed(0)
         out = mcl.mcl_step_2d(state, omap, sp, scan, pool, [0.1, 0.0, 0.02],
                               [0.1, 0.0, 0.02], None, [0.1] * 5, params,
                               backend="corr", generator=gen)
         assert torch.isfinite(out.weights).all()
+        from badger_amcl_tpu_torch.ops import pc_kernel, pc_spread_kernel
+        from badger_amcl_tpu_torch.sensors import point_cloud
+        omap3, _, state3, cloud, pcp, _ = scenario.build_setup_3d(
+            256, pose_cov=(0.004, 0.004, 0.0004), device="cpu")
+        p, mf = point_cloud.point_cloud_likelihood(
+            omap3, pcp, cloud, state3.poses, "likelihood_field_gompertz", backend="corr")
+        assert p.shape == (256,) and torch.isfinite(p).all() and (mf == 1.0).all()
         assert not any(m == "jax" or m.startswith(("jax.", "badger_amcl_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

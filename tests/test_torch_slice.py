@@ -58,8 +58,9 @@ def _setup(regime):
     j = _build_setup(N_PARTICLES, N_BEAMS, MAP_CELLS, pose_cov=REGIMES[regime],
                      min_particles=N_PARTICLES // 4)
     omap, params, state, scan, sp, pool = j
-    t = (convert.map_from_numpy(omap), convert.pf_params_from_jax(params),
-         convert.state_from_numpy(state), convert.scan_from_numpy(scan),
+    t = (convert.map_from_numpy(omap, device="cpu"), convert.pf_params_from_jax(params),
+         convert.state_from_numpy(state, device="cpu"),
+         convert.scan_from_numpy(scan, device="cpu"),
          convert.scan_params_from_numpy(sp), torch.tensor(np.asarray(pool)))
     return j, t
 

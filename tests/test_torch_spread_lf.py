@@ -39,7 +39,7 @@ def _map(n, seed, blocks, size, lo, hi):
         cx, cy = rng.integers(lo, n - hi, 2)
         cells[cy:cy + size, cx:cx + size] = int(CellState.OCCUPIED)
     jmap = JaxMap.from_cells(cells, 0.05).with_distance_field(2.0)
-    return jmap, convert.map_from_numpy(jmap)
+    return jmap, convert.map_from_numpy(jmap, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +59,7 @@ def _scan(b, range_max, lo, hi, freq):
     ranges = jnp.clip(2.0 + jnp.sin(angles * freq), lo, hi).astype(jnp.float32)
     jscan = jplanar.PlanarScan(ranges=ranges, angles=angles,
                                range_max=jnp.float32(range_max))
-    return jscan, convert.scan_from_numpy(jscan)
+    return jscan, convert.scan_from_numpy(jscan, device="cpu")
 
 
 def _spread_poses(n, seed, half):
