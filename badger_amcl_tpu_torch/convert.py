@@ -33,8 +33,9 @@ def _opt(x, device):
 
 
 def map_from_numpy(omap, device="cuda") -> OccupancyMap2D:
-    """OccupancyMap2D (JAX) -> OccupancyMap2D (port), baked psi and factor
-    textures included with their fingerprints."""
+    """OccupancyMap2D (JAX) -> OccupancyMap2D (port), the range image, its
+    transpose and the baked psi and factor textures included with their
+    fingerprints."""
     return OccupancyMap2D(
         resolution=float(omap.resolution), size_x=int(omap.size_x),
         size_y=int(omap.size_y), origin_x=float(omap.origin_x),
@@ -42,6 +43,8 @@ def map_from_numpy(omap, device="cuda") -> OccupancyMap2D:
         cells=_t(omap.cells, device, torch.int8),
         distances=_opt(omap.distances, device),
         max_distance_to_object=float(omap.max_distance_to_object),
+        range_image=_opt(omap.range_image, device),
+        range_rows=_opt(omap.range_rows, device),
         corr_psi_pad=_opt(omap.corr_psi_pad, device),
         corr_psi_key=omap.corr_psi_key,
         factor_tex=_opt(omap.factor_tex, device),
@@ -79,10 +82,9 @@ def scan_from_numpy(scan, device="cuda") -> PlanarScan:
 
 
 def scan_params_from_numpy(params) -> PlanarScanParams:
-    """Likelihood-field parameters as Python floats."""
-    names = ("z_hit", "z_rand", "sigma_hit", "off_map_factor",
-             "non_free_space_factor", "non_free_space_radius")
-    kw = {n: float(np.asarray(getattr(params, n))) for n in names}
+    """Every planar model parameter as a Python float."""
+    kw = {f.name: float(np.asarray(getattr(params, f.name)))
+          for f in dataclasses.fields(PlanarScanParams) if f.name != "scanner_pose"}
     kw["scanner_pose"] = tuple(float(v) for v in np.asarray(params.scanner_pose))
     return PlanarScanParams(**kw)
 

@@ -3,7 +3,11 @@
 // Replaces the Pallas TPU kernel badger_amcl_tpu/ops/spread_kernel.py
 // `_kernel` (via `_tiered_call` / `spread_term_sums`): for every particle m
 //
-//   s[m] = sum_{valid b} (z_hit * exp(-z^2 / denom) + zr)^3,
+//   s[m] = sum_{valid b} t(pz),  pz = z_hit * exp(-z^2 / denom) + zr,
+//   t    = pz^3 (form 0, likelihood_field), pz (form 1, Gompertz) or
+//          logf(pz) (form 2, prob) — the models' terms
+//          (badger_amcl_tpu/sensors/planar.py:403-411,
+//          :472-475, :514-518),
 //   z    = q[cj, ci] * max_d / 127   (int8 ratio-quantized distance),
 //          max_d when (ci, cj) is off the map,
 //   ci   = floor(pxc + rca_b * ct - rsa_b * st),
@@ -20,10 +24,11 @@
 // arm and unsort exist to make its one-hot MXU gathers dense, and a direct
 // gather needs none of them (so there is no escape capacity to overflow).
 // Every multiply and add of a term is rounded separately, in the order of
-// the plain PyTorch version, and expf is the full-precision one (no fast
-// math), so kernel and plain version pick the same cells and terms. The
-// terms are summed in double and rounded once: an f32 running sum over
-// 720 beams drifts by up to hundreds of ulp from any other summation order.
+// the plain PyTorch version, and expf and logf are the full-precision ones
+// (no fast math), so kernel and plain version pick the same cells and
+// terms. The terms are summed in double and rounded once: an f32 running
+// sum over 720 beams drifts by up to hundreds of ulp from any other
+// summation order.
 //
 // Bound on the H100: one dependent 1-byte texture read per (particle,
 // beam) — 36M scattered reads at 50k x 720, served from L2 (a 1024^2
@@ -44,7 +49,7 @@ __global__ void spread_term_sums_kernel(
     const float* __restrict__ pyc, const float* __restrict__ ct,
     const float* __restrict__ st, int m, const float* __restrict__ rca,
     const float* __restrict__ rsa, const uint8_t* __restrict__ valid, int n_beams,
-    float scale, float max_d, float z_hit, float denom, float zr,
+    float scale, float max_d, float z_hit, float denom, float zr, int form,
     float* __restrict__ out) {
   __shared__ float s_rca[kBeamChunk];
   __shared__ float s_rsa[kBeamChunk];
@@ -78,7 +83,8 @@ __global__ void spread_term_sums_kernel(
       }
       const float e = expf(__fdiv_rn(-__fmul_rn(z, z), denom));
       const float pz = __fadd_rn(__fmul_rn(z_hit, e), zr);
-      acc += (double)__fmul_rn(__fmul_rn(pz, pz), pz);
+      const float t = form == 0 ? __fmul_rn(__fmul_rn(pz, pz), pz) : form == 1 ? pz : logf(pz);
+      acc += (double)t;
     }
   }
   if (live) out[i] = (float)acc;
@@ -91,10 +97,10 @@ extern "C" int spread_term_sums_launch(const int8_t* tex, int h, int w, const fl
                                        int m, const float* rca, const float* rsa,
                                        const uint8_t* valid, int n_beams, float scale,
                                        float max_d, float z_hit, float denom, float zr,
-                                       float* out, void* stream) {
+                                       int form, float* out, void* stream) {
   const int blocks = (m + kThreads - 1) / kThreads;
   spread_term_sums_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       tex, h, w, pxc, pyc, ct, st, m, rca, rsa, valid, n_beams, scale, max_d, z_hit,
-      denom, zr, out);
+      denom, zr, form, out);
   return (int)cudaGetLastError();
 }

@@ -8,10 +8,11 @@ Conventions preserved exactly (reference occupancy_map.cpp):
 - distance LUT capped at max_distance_to_object (occupancy_map.cpp:224-242)
 - textures are (size_y, size_x) tensors indexed [j, i] (row-major i + j*W).
 
-Baked textures carried for the likelihood-field slice: `corr_psi_pad` (the
-padded psi texture of the corr kernel, tagged by `corr_psi_key`) and
-`factor_tex` (the recalcWeight factor texture, tagged by `factor_key`);
-see sensors.planar.bake_corr_texture / bake_factor_texture.
+Baked textures: `corr_psi_pad` (the padded psi texture of the corr
+kernel, tagged by `corr_psi_key`) and `factor_tex` (the recalcWeight factor
+texture, tagged by `factor_key`), see sensors.planar.bake_corr_texture /
+bake_factor_texture; `range_image` and `range_rows` for the beam model,
+see `with_range_image`.
 """
 
 from __future__ import annotations
@@ -52,6 +53,10 @@ class OccupancyMap2D:
     cells: torch.Tensor
     distances: Optional[torch.Tensor] = None
     max_distance_to_object: float = 0.0
+    # per-angle range image, uint16 (K, H, W) cells (maps.range_image), and
+    # its transpose (H * W, K) for the spread-cloud beam kernel
+    range_image: Optional[torch.Tensor] = None
+    range_rows: Optional[torch.Tensor] = None
     corr_psi_pad: Optional[torch.Tensor] = None
     corr_psi_key: Optional[tuple] = None
     factor_tex: Optional[torch.Tensor] = None
@@ -83,6 +88,17 @@ class OccupancyMap2D:
             self, distances=torch.as_tensor(lut, device=self.device),
             max_distance_to_object=float(max_distance_to_object),
         )
+
+    def with_range_image(self, n_angles: int = 256) -> "OccupancyMap2D":
+        """Bake the per-angle range image on the map's device, and its
+        transpose when it fits the JAX package's RANGE_ROWS_MAX_BYTES gate
+        (occupancy_2d.py:175-192)."""
+        from badger_amcl_tpu_torch.maps import range_image as ri
+        from badger_amcl_tpu_torch.ops.beam_spread_kernel import RANGE_ROWS_MAX_BYTES
+
+        img = ri.build_range_image(self.cells, n_angles)
+        rows = ri.range_rows(img) if 2 * img.numel() <= RANGE_ROWS_MAX_BYTES else None
+        return dataclasses.replace(self, range_image=img, range_rows=rows)
 
     # --- conversions ------------------------------------------------------
 

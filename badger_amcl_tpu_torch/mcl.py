@@ -5,6 +5,11 @@ motion update -> measurement update -> KLD resample -> cluster statistics
 (StepNoise: the odometry normals and the injection and pick uniforms, the
 draws the JAX package makes from its key), or are drawn from `generator`
 when `noise` is absent; nothing draws from a global RNG.
+
+Every planar model runs through these entry points. `log_space` selects
+the prob model's log-space pipeline as the JAX node composes it
+(node/node_2d.py:39-56): log p, `sensor_update_log`, and a resample over
+log-domain w_slow/w_fast (start from `pf.filter.init_log_averages`).
 """
 
 from __future__ import annotations
@@ -48,26 +53,44 @@ def _noise(noise, generator, state, odom):
     return StepNoise.draw(generator, state.poses.shape[0], state.poses.device, odom)
 
 
+def sensor_update_2d(state: MCLState, omap, scan_params, scan,
+                     laser_model: str = "likelihood_field", do_beamskip: bool = False,
+                     backend: str = "exact", log_space: bool = False) -> MCLState:
+    """The measurement update (node_2d.py:39-56): the model's likelihood
+    into the weights, factors folded where the model allows; with
+    log_space (likelihood_field_prob only) log p into sensor_update_log."""
+    if log_space:
+        if laser_model != "likelihood_field_prob":
+            raise ValueError("log_space is the likelihood_field_prob pipeline")
+        logp, mf = planar_likelihood(
+            omap, scan_params, scan, state.poses, state.active_mask, state.n_active,
+            laser_model, converged=state.converged, do_beamskip=do_beamskip,
+            backend=backend, fold_factors=False, prob_log_space=True)
+        return pf_filter.sensor_update_log(state, logp, mf)
+    p, mf = planar_likelihood(
+        omap, scan_params, scan, state.poses, state.active_mask, state.n_active,
+        laser_model, converged=state.converged, do_beamskip=do_beamskip,
+        backend=backend, fold_factors=True)
+    return pf_filter.sensor_update(state, p, mf)
+
+
 def mcl_step_2d(state: MCLState, omap, scan_params, scan, random_pose_pool,
                 odom_pose, odom_delta, absolute_motion, alphas, params: PFParams,
                 odom_model=odom_models.OdomModel.DIFF,
                 laser_model: str = "likelihood_field",
                 resample_model=ResampleModel.MULTINOMIAL, do_resample: bool = True,
                 do_beamskip: bool = False, backend: str = "exact",
-                noise: Optional[StepNoise] = None,
+                log_space: bool = False, noise: Optional[StepNoise] = None,
                 generator: Optional[torch.Generator] = None) -> MCLState:
     """One full 2D MCL step."""
     noise = _noise(noise, generator, state, odom=True)
     state = odom_models.motion_update(state, odom_model, alphas, odom_pose,
                                       odom_delta, noise.odom, absolute_motion)
-    p, mf = planar_likelihood(
-        omap, scan_params, scan, state.poses, state.active_mask, state.n_active,
-        laser_model, converged=state.converged, do_beamskip=do_beamskip,
-        backend=backend, fold_factors=True)
-    state = pf_filter.sensor_update(state, p, mf)
+    state = sensor_update_2d(state, omap, scan_params, scan, laser_model, do_beamskip,
+                             backend, log_space)
     if do_resample:
         state = pf_filter.resample(state, params, random_pose_pool, noise.inject,
-                                   noise.pick, resample_model)
+                                   noise.pick, resample_model, log_averages=log_space)
     return state
 
 
@@ -75,25 +98,23 @@ def sensor_resample_step(state: MCLState, omap, scan_params, scan, random_pose_p
                          params: PFParams, laser_model: str = "likelihood_field",
                          resample_model=ResampleModel.MULTINOMIAL,
                          backend: str = "exact", resample_contract: str = "pick",
-                         noise: Optional[StepNoise] = None,
+                         log_space: bool = False, noise: Optional[StepNoise] = None,
                          generator: Optional[torch.Generator] = None) -> MCLState:
     """Sensor update + KLD resample without the motion model (the unit the
     JAX bench times), under the reference-exact "pick" contract."""
     if resample_contract != "pick":
         raise NotImplementedError("the port implements the pick contract only")
     noise = _noise(noise, generator, state, odom=False)
-    p, mf = planar_likelihood(
-        omap, scan_params, scan, state.poses, state.active_mask, state.n_active,
-        laser_model, converged=state.converged, do_beamskip=False,
-        backend=backend, fold_factors=True)
-    state = pf_filter.sensor_update(state, p, mf)
+    state = sensor_update_2d(state, omap, scan_params, scan, laser_model, False, backend,
+                             log_space)
     return pf_filter.resample(state, params, random_pose_pool, noise.inject,
-                              noise.pick, resample_model)
+                              noise.pick, resample_model, log_averages=log_space)
 
 
 def likelihood_only(state: MCLState, omap, scan_params, scan,
                     laser_model: str = "likelihood_field", backend: str = "exact"):
-    """The particle x beam likelihood evaluation alone: p * map factor."""
+    """The particle x beam likelihood evaluation alone: p * map factor
+    (the beam model's factor comes back separately and is applied here)."""
     p, mf = planar_likelihood(
         omap, scan_params, scan, state.poses, state.active_mask, state.n_active,
         laser_model, converged=state.converged, do_beamskip=False,

@@ -33,7 +33,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "corr_table_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "spread_term_sums_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
-                                _F, _F, _F, _F, _F, _P, _P],
+                                _F, _F, _F, _F, _F, _I, _P, _P],
     "lf_distances_f32_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _I,
                                 _I, _I, _I, _F, _P, _P],
     "lf_distances_bf16_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _I,
@@ -42,6 +42,9 @@ _SIGNATURES = {
                             _P, _P],
     "pc_spread_term_sums_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _I, _I, _I,
                                    _F, _F, _F, _F, _F, _I, _P, _P],
+    "beam_table_launch": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _F, _F, _F, _F, _F,
+                          _F, _F, _F, _F, _F, _P, _I, _I, _P],
+    "beam_spread_sums_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
 }
 
 _lib = None

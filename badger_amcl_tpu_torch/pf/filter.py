@@ -5,6 +5,9 @@ multinomial pick-level slice).
 - `init_with_poses`      <- initWithPoseFn (particle_filter.cpp:136-162)
 - `sensor_update`        <- updateSensor with the w_slow/w_fast averages
                             (particle_filter.cpp:223-267)
+- `sensor_update_log`    <- the same with per-particle LOG likelihoods and
+                            log-domain averages (the JAX package's log-space
+                            pipeline, filter.py:158-237)
 - `resample`             <- updateResample + resampleMultinomial with
                             random-pose injection and the mid-stream KLD stop
                             (particle_filter.cpp:356-471)
@@ -113,6 +116,58 @@ def sensor_update(state: MCLState, p_model: torch.Tensor, map_factor=None) -> MC
     )
 
 
+# w_slow/w_fast "uninitialized" sentinel of the log-space pipeline: log
+# w_avg is finite or -inf, never +inf (filter.py:173-176)
+LOG_UNINIT = float("inf")
+
+
+def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    m = torch.maximum(a, b)
+    out = m + torch.log1p(torch.exp(-(a - b).abs()))
+    return torch.where(torch.isinf(m), m, out)
+
+
+def sensor_update_log(state: MCLState, log_p: torch.Tensor, map_factor=None) -> MCLState:
+    """`sensor_update` with per-particle LOG likelihoods (the prob model's
+    log-space output, filter.py:186-231): log weights through a
+    log-sum-exp normalization, w_slow/w_fast as log-domain averages (their
+    EMA is a logaddexp), normalized linear weights out; an all -inf total
+    is the zero-total uniform reset. Pair with resample(log_averages=True)
+    and a state from init_log_averages."""
+    active = state.active_mask
+    neg_inf = float("-inf")
+    logw_prev = torch.where(active & (state.weights > 0), torch.log(state.weights), neg_inf)
+    lw = logw_prev + log_p
+    if map_factor is not None:
+        lw = lw + torch.log(map_factor)
+    lse = torch.logsumexp(torch.where(active, lw, neg_inf), dim=0)
+    n = state.n_active.to(torch.float32).clamp(min=1.0)
+    log_wavg = lse - torch.log(n)
+    new_wslow = torch.where(
+        state.w_slow == LOG_UNINIT, log_wavg,
+        _logaddexp(torch.log1p(-state.alpha_slow) + state.w_slow,
+                   torch.log(state.alpha_slow) + log_wavg))
+    new_wfast = torch.where(
+        state.w_fast == LOG_UNINIT, log_wavg,
+        _logaddexp(torch.log1p(-state.alpha_fast) + state.w_fast,
+                   torch.log(state.alpha_fast) + log_wavg))
+    ok = torch.isfinite(lse)
+    uniform = torch.where(active, 1.0 / n, 0.0)
+    new_weights = torch.where(ok, torch.where(active, torch.exp(lw - lse), 0.0), uniform)
+    return state.replace(
+        weights=new_weights.to(torch.float32),
+        w_slow=torch.where(ok, new_wslow, state.w_slow),
+        w_fast=torch.where(ok, new_wfast, state.w_fast),
+    )
+
+
+def init_log_averages(state: MCLState) -> MCLState:
+    """w_slow/w_fast reset to the log-domain sentinel (the log twin of
+    initializing them to 0)."""
+    return state.replace(w_slow=torch.full_like(state.w_slow, LOG_UNINIT),
+                         w_fast=torch.full_like(state.w_fast, LOG_UNINIT))
+
+
 def update_converged(state: MCLState, params: PFParams, mean_xy=None) -> MCLState:
     """Fraction of active particles within dist_threshold (L-inf) of the
     mean x/y must reach convergence_threshold percent. mean_xy: the fresh
@@ -209,20 +264,30 @@ def _kld_stop_and_ranks(new_poses: torch.Tensor, params: PFParams):
 
 def resample(state: MCLState, params: PFParams, random_pose_pool: torch.Tensor,
              u_inject: torch.Tensor, u_pick: torch.Tensor,
-             model: ResampleModel = ResampleModel.MULTINOMIAL) -> MCLState:
+             model: ResampleModel = ResampleModel.MULTINOMIAL,
+             log_averages: bool = False) -> MCLState:
     """updateResample (particle_filter.cpp:423-471), multinomial.
 
     random_pose_pool: (M, 3) candidate random poses; u_inject, u_pick: (M,)
-    uniforms in [0, 1) for the injection decision and the pick."""
+    uniforms in [0, 1) for the injection decision and the pick.
+    log_averages: w_slow/w_fast hold log-domain averages (the
+    sensor_update_log contract): w_diff = 1 - exp(w_fast - w_slow), and the
+    recovery reset restores LOG_UNINIT (filter.py:499-555)."""
     if model != ResampleModel.MULTINOMIAL or params.stats_max_clusters:
         raise NotImplementedError(
             "the port resamples multinomially without a cluster cap")
-    # w_diff = max(0, 1 - w_fast/w_slow), 0 when w_slow == 0
-    w_diff = torch.where(
-        state.w_slow > 0.0,
-        torch.clamp(1.0 - state.w_fast / torch.where(state.w_slow > 0,
-                                                      state.w_slow, 1.0), min=0.0),
-        0.0)
+    if log_averages:
+        ok_ws = torch.isfinite(state.w_slow)
+        w_diff = torch.where(
+            ok_ws, torch.clamp(1.0 - torch.exp(
+                state.w_fast - torch.where(ok_ws, state.w_slow, 0.0)), min=0.0), 0.0)
+    else:
+        # w_diff = max(0, 1 - w_fast/w_slow), 0 when w_slow == 0
+        w_diff = torch.where(
+            state.w_slow > 0.0,
+            torch.clamp(1.0 - state.w_fast / torch.where(state.w_slow > 0,
+                                                          state.w_slow, 1.0), min=0.0),
+            0.0)
     new_poses, new_count, rank_p, cluster_count = _resample_multinomial_fused(
         state, params, w_diff, random_pose_pool, u_inject, u_pick)
 
@@ -231,12 +296,13 @@ def resample(state: MCLState, params: PFParams, random_pose_pool: torch.Tensor,
     weights = torch.where(active, 1.0 / new_count.to(torch.float32), 0.0)
     # reset averages to avoid spiraling into randomness (:453-455)
     reset = w_diff > 0.0
+    uninit = LOG_UNINIT if log_averages else 0.0
     new_state = state.replace(
         poses=new_poses.to(torch.float32),
         weights=weights.to(torch.float32),
         n_active=new_count.to(torch.int32),
-        w_slow=torch.where(reset, 0.0, state.w_slow),
-        w_fast=torch.where(reset, 0.0, state.w_fast),
+        w_slow=torch.where(reset, uninit, state.w_slow),
+        w_fast=torch.where(reset, uninit, state.w_fast),
     )
     stats = cluster.compute_cluster_stats(
         new_state.poses, new_state.weights, new_state.active_mask, params,

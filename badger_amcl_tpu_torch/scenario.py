@@ -69,12 +69,18 @@ def scan_arrays(n_beams: int):
     return ranges, angles
 
 
-def build_map(map_size: int, seed: int = 0, device="cuda") -> OccupancyMap2D:
-    """The scenario's map with its distance field and baked textures."""
+def build_map(map_size: int, seed: int = 0, device="cuda",
+              model: str = "likelihood_field", range_image_bins: int = 0) -> OccupancyMap2D:
+    """The scenario's map with its distance field, the psi texture of
+    `model` and the factor texture baked; with range_image_bins > 0 also
+    the beam model's range image, baked on `device` (the node bakes it for
+    the beam model, node_2d.py:200-207)."""
     omap = OccupancyMap2D.from_cells(map_cells(map_size, seed), RESOLUTION,
                                      device=device).with_distance_field(MAX_DIST)
     scan_params = PlanarScanParams()
-    omap = bake_corr_texture(omap, scan_params, RANGE_MAX, "likelihood_field")
+    omap = bake_corr_texture(omap, scan_params, RANGE_MAX, model)
+    if range_image_bins > 0:
+        omap = omap.with_range_image(range_image_bins)
     return bake_factor_texture(omap, scan_params)
 
 

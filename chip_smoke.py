@@ -2,14 +2,23 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
 Builds the port's CUDA kernels from badger_amcl_tpu_torch/csrc and drives
-both of the port's paths:
+the port's three paths:
 
-- 2D: holds the corr, spread and lf kernels against their plain PyTorch
-  versions at the flagship shapes (50,000 particles x 720 beams on a
-  1024^2 map at 0.05 m), drives the likelihood-field MCL step
+- 2D likelihood field: holds the corr, spread and lf kernels against their
+  plain PyTorch versions at the flagship shapes (50,000 particles x 720
+  beams on a 1024^2 map at 0.05 m), drives the likelihood-field MCL step
   (`mcl_step_2d`, `sensor_resample_step`) in the steady, tracking and
   spread regimes plus the steady regime on the "lf" backend, and compares
   the step on the card with the CPU at 4096 x 360;
+- 2D beam, Gompertz and prob models: bakes the K = 256 range image of the
+  1024^2 map on the card (and a 256^2 map on the card and the CPU, which
+  must agree bit for bit), holds the beam_table and beam_spread_sums
+  kernels and the spread kernel's three term forms against their plain
+  versions, drives the beam model in its tracking (5,000), steady and
+  spread (50,000) cells and the Gompertz and prob (log-space) models in
+  the steady and spread regimes at 50,000 x 720, and compares the card
+  with the CPU at 4096 x 360 on a 448^2 map, the beam model also in its
+  exact raycast arm (timed on the card at that size only);
 - 3D: builds the 20 x 20 x 1 m voxel scene at 0.05 m (401 x 401 x 21 EDT)
   and its 256-point cloud, holds the pc and pc_spread kernels against
   their plain versions, drives the point-cloud step (motion update ->
@@ -51,6 +60,15 @@ REGIMES = {
     "tracking": (0.02, 0.02, 0.002),
     "spread": (2.0, 2.0, 1.0),
 }
+# the beam model's cells: particles, pose cov, the kernel their arm runs
+# (benchmarks/run_all.py:81-137 and the steady regime)
+BEAM_CELLS = {
+    "beam_tracking": (5_000, REGIMES["tracking"], "beam_table"),
+    "beam_steady": (50_000, REGIMES["steady"], "beam_table"),
+    "beam_spread": (50_000, REGIMES["spread"], "beam_spread_sums"),
+}
+RANGE_IMAGE_BINS = 256  # config.py:201 beam_range_image_bins
+LF_MODELS = ("likelihood_field_gompertz", "likelihood_field_prob")
 # the 3D regimes of benchmarks/parity_tpu.py, with 10k x 256 the production
 # 3D scale for tracking
 PARTICLES_3D = {"steady": 50_000, "tracking": 10_000, "spread": 50_000}
@@ -119,6 +137,8 @@ def to_device(x, dev):
     import torch
 
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.uint16:  # copied through its int16 bit view
+            return x.view(torch.int16).to(dev).view(torch.uint16)
         return x.to(dev)
     if isinstance(x, torch.device):
         return torch.device(dev)
@@ -203,28 +223,36 @@ def phase_kernels(dev, omap, scan, states):
     results["corr_table"] = dict(max_abs_err=max(c[1] for c in corr), ms=rows32[2],
                                  plain_ms=rows32[3], **rows32[5], library_ms=rows32[4])
 
-    # spread_term_sums in the spread regime
+    # spread_term_sums in the spread regime, in its three term forms (the
+    # row reports the likelihood-field form)
     spose = planar.coord_add(sp.scanner_pose, states["spread"][1].poses)
-    term = planar._lf_term(sp, scan.range_max)
-    got = sk.spread_term_sums(omap, spose, scan.ranges, scan.angles, valid, term)
     inputs = sk.endpoint_inputs(omap, spose, scan.ranges, scan.angles)
     qtex = sk.quantized_tex(omap)
-    want = sk.spread_term_sums_plain(omap, qtex, *inputs, valid, term)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
-    check(rel <= 1e-5, f"spread_term_sums rel err {rel} > 1e-5")
-    ms = cuda_ms(lambda: sk.spread_term_sums(omap, spose, scan.ranges, scan.angles, valid,
-                                             term))
-    plain_ms = cuda_ms(lambda: sk.spread_term_sums_plain(omap, qtex, *inputs, valid, term))
     m, n_valid = spose.shape[0], int(valid.sum())
-    # the wrapper reads the f32 distance field (it quantizes on every call);
-    # 16 f32 operations per (particle, valid beam), exp counted as one
-    b = bound(omap.distances.numel() * 4 + m * 16 + N_BEAMS * 9, 16.0 * m * n_valid)
-    log(f"spread_term_sums (spread): max_abs_err={err:.3e} max_rel_err={rel:.3e} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
-    results["spread_term_sums"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
-                                       library_ms=None)
+    # 16 f32 operations per (particle, valid beam) with the cube, 14 for pz,
+    # 15 for log pz (exp and log counted as one)
+    ops_pair = {"cube": 16.0, "pz": 14.0, "log": 15.0}
+    for model in planar.CORR_MODELS:
+        term = planar.model_term(model, sp, scan.range_max)
+        got = sk.spread_term_sums(omap, spose, scan.ranges, scan.angles, valid, term)
+        want = sk.spread_term_sums_plain(omap, qtex, *inputs, valid, term)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+        check(rel <= 1e-5, f"spread_term_sums ({term.form}) rel err {rel} > 1e-5")
+        ms = cuda_ms(lambda: sk.spread_term_sums(omap, spose, scan.ranges, scan.angles,
+                                                 valid, term))
+        plain_ms = cuda_ms(lambda: sk.spread_term_sums_plain(omap, qtex, *inputs, valid,
+                                                             term))
+        # the wrapper reads the f32 distance field (it quantizes on every call)
+        b = bound(omap.distances.numel() * 4 + m * 16 + N_BEAMS * 9,
+                  ops_pair[term.form] * m * n_valid)
+        log(f"spread_term_sums (spread, {term.form}, {model}): max_abs_err={err:.3e} "
+            f"max_rel_err={rel:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
+        if term.form == "cube":
+            results["spread_term_sums"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                               **b, library_ms=None)
 
     # lf_distances: bf16 texture on the steady cloud, f32 on the spread one
     lf = []
@@ -308,9 +336,21 @@ class Launches:
         return rose
 
     def read(self):
-        return {k: dict(launches=c.launches,
-                        launches_per_step=c.launches / max(self.steps[k], 1))
-                for k, c in self.counters.items()}
+        """{kernel: (launches, steps of the runs in which it launched)}."""
+        return {k: (c.launches, self.steps[k]) for k, c in self.counters.items()}
+
+
+def merge_launches(*reads):
+    """Launches and launches per step of each kernel over the main-path
+    runs of every path that runs it."""
+    tot = {}
+    for r in reads:
+        for k, (n, steps) in r.items():
+            a = tot.setdefault(k, [0, 0])
+            a[0] += n
+            a[1] += steps
+    return {k: dict(launches=n, launches_per_step=n / max(steps, 1))
+            for k, (n, steps) in tot.items()}
 
 
 def phase_main_path(dev, omap, scan, states):
@@ -454,6 +494,303 @@ def phase_timings(dev, omap, scan, states):
         key = regime if backend == "corr" else f"{regime}_{backend}"
         out[key] = timing_row(
             key, lambda: mcl.likelihood_only(state, omap, sp, scan, backend=backend), step)
+    return out
+
+
+# --- 2D beam, Gompertz and prob models ----------------------------------------
+
+
+def phase_range_image(dev, omap):
+    """Bake the range image of the flagship map on the card (timed), and a
+    256^2 map on the card and the CPU, which must agree bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from badger_amcl_tpu_torch import scenario
+    from badger_amcl_tpu_torch.maps import range_image as ri
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bmap = omap.with_range_image(RANGE_IMAGE_BINS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(bmap.range_rows is not None, "range_rows were not baked")
+    nbytes = 2 * (bmap.range_image.numel() + bmap.range_rows.numel())
+    small = scenario.map_cells(256, 0)
+    card = ri.build_range_image(torch.as_tensor(small, device=dev), RANGE_IMAGE_BINS)
+    host = ri.build_range_image(torch.as_tensor(small), RANGE_IMAGE_BINS)
+    same = bool((card.view(torch.int16).cpu() == host.view(torch.int16)).all())
+    check(same, "the 256^2 range image baked on the card differs from the CPU bake")
+    log(f"range image: {RANGE_IMAGE_BINS} x {MAP_CELLS}^2 baked on the card in {secs:.4f} s "
+        f"(image + transposed rows: {nbytes / 2**20:.0f} MiB); 256^2 card bake bit-equal "
+        f"to the CPU bake: {same}")
+    return dataclasses.replace(omap, range_image=bmap.range_image,
+                               range_rows=bmap.range_rows), secs, nbytes
+
+
+def phase_kernels_beam(dev, bmap, scan, beam_states):
+    """beam_table on the steady (its 24-row window) and tracking (the 64-row
+    window) clouds, beam_spread_sums on the spread cloud, each against its
+    plain version."""
+    import torch
+
+    from badger_amcl_tpu_torch.ops import beam_kernel as bk
+    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.sensors import planar
+
+    sp = planar.PlanarScanParams()
+    k_angles = bmap.range_image.shape[0]
+    mix = bk.BeamMix.of(sp, scan.range_max, bmap.resolution)
+    results = {}
+    rows_out = []
+    for cell, rows in (("beam_steady", None), ("beam_tracking", 64)):
+        spose = planar.coord_add(sp.scanner_pose, beam_states[cell][1].poses)
+        pre = bk.beam_prepass(bmap, spose, scan.range_max)
+        check(bool(pre["fits"]), f"beam prepass does not fit the {cell} cloud")
+        if rows is None:
+            rows, j0 = ck.window_variant(pre, bool(pre["tight"]), bool(pre["narrow"]))
+        else:
+            j0 = pre["j0"]
+        args = (bmap.range_image, scan.ranges, scan.angles, pre["t_n"], pre["t_min"],
+                pre["t_order"], bk.window_origin(pre, j0), mix, pre["dtheta"], rows)
+        got = bk.beam_table(*args)
+        want = bk.beam_table_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= 1e-5 * scale, f"beam_table[{rows}] err {err} > 1e-5 x {scale}")
+        ms = cuda_ms(lambda: bk.beam_table(*args))
+        plain_ms = cuda_ms(lambda: bk.beam_table_plain(*args), iters=5, warmup=1)
+        t_n = int(pre["t_n"])
+        # the slabs it reads once, the table written once; 16 f32 operations
+        # per (bin, beam, cell) with exp as one
+        slabs = int(bk.slab_indices(pre["t_min"], pre["t_order"][:t_n], scan.angles,
+                                    pre["dtheta"], k_angles).unique().numel())
+        b = bound(slabs * rows * ck.PWIN_C * 2 + got.numel() * 4 + N_BEAMS * 8,
+                  16.0 * t_n * N_BEAMS * rows * ck.PWIN_C)
+        log(f"beam_table rows={rows} ({cell}, {beam_states[cell][1].poses.shape[0]} "
+            f"particles): t_n={t_n} slabs={slabs} max_abs_err={err:.3e} (table max "
+            f"{scale:.4g}) bit_equal={float((got == want).float().mean()):.6f} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
+        rows_out.append((err, ms, plain_ms, b))
+    results["beam_table"] = dict(max_abs_err=max(r[0] for r in rows_out), ms=rows_out[0][1],
+                                 plain_ms=rows_out[0][2], **rows_out[0][3], library_ms=None)
+
+    spose = planar.coord_add(sp.scanner_pose, beam_states["beam_spread"][1].poses)
+    check(bsk.fits(bmap, scan.range_max), "beam spread value table does not fit")
+    pre = bsk.beam_spread_prepass(bmap, spose, scan.angles)
+    phi = bsk.phi_tables(bmap, sp, scan, pre["kap"])
+    args = (bmap.range_rows, pre["flat"], pre["sig"], pre["gocc"], pre["n_g"], phi,
+            bsk.value_cap(bmap, scan.range_max))
+    got = bsk.beam_spread_sums(*args)
+    want = bsk.beam_spread_sums_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+    check(rel <= 1e-5, f"beam_spread_sums rel err {rel} > 1e-5")
+    ms = cuda_ms(lambda: bsk.beam_spread_sums(*args))
+    plain_ms = cuda_ms(lambda: bsk.beam_spread_sums_plain(*args), iters=5, warmup=1)
+    m, n_g = spose.shape[0], int(pre["n_g"])
+    cells = int(pre["flat"].unique().numel())
+    # the K-vectors of the cells the particles occupy, flat/sig/out and Phi;
+    # 3 operations per (particle, offset): index, min, add
+    b = bound(cells * k_angles * 2 + m * 16 + phi.numel() * 4, 3.0 * m * n_g)
+    log(f"beam_spread_sums (beam_spread, {m} particles): n_g={n_g} cells={cells} "
+        f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
+        f"bit_equal={float((got == want).float().mean()):.6f} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
+    results["beam_spread_sums"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
+                                       library_ms=None)
+    return results
+
+
+def model_step_fns(model, omap, sp, scan, pool, params, gen, state):
+    """(likelihood fn, pinned step, its box) of a 2D model: the prob model
+    in log space, composed as node_2d.py:39-56 composes it."""
+    from badger_amcl_tpu_torch import mcl
+    from badger_amcl_tpu_torch.sensors.planar import planar_likelihood
+
+    log_space = model == "likelihood_field_prob"
+
+    def like():
+        p, mf = planar_likelihood(omap, sp, scan, state.poses, state.active_mask,
+                                  state.n_active, model, converged=state.converged,
+                                  backend="corr", fold_factors=True,
+                                  prob_log_space=log_space)
+        return p if mf is None else (p + mf.log() if log_space else p * mf)
+
+    step, box = pinned_step_fn(
+        lambda s: mcl.sensor_resample_step(s, omap, sp, scan, pool, params,
+                                           laser_model=model, backend="corr",
+                                           log_space=log_space, generator=gen),
+        state, params.max_samples)
+    return like, step, box
+
+
+def phase_main_path_beam(dev, bmap, model_maps, scan, beam_states, states):
+    """Drive the beam cells and the Gompertz and prob cells through
+    `mcl_step_2d` and the pinned `sensor_resample_step`; returns the launch
+    counts of this run only."""
+    import torch
+
+    from badger_amcl_tpu_torch import mcl
+    from badger_amcl_tpu_torch.ops import beam_kernel as bk
+    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import lf_kernel as lk
+    from badger_amcl_tpu_torch.ops import spread_kernel as sk
+    from badger_amcl_tpu_torch.pf import filter as pf_filter
+    from badger_amcl_tpu_torch.sensors import planar
+
+    sp = planar.PlanarScanParams()
+    counts = Launches({"beam_table": bk.beam_table, "beam_spread_sums": bsk.beam_spread_sums,
+                       "corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums,
+                       "lf_distances": lk.lf_distances})
+    gen = torch.Generator(device=dev).manual_seed(6)
+    runs = [(cell, "beam", bmap, beam_states[cell], BEAM_CELLS[cell][2])
+            for cell in BEAM_CELLS]
+    runs += [(f"{model.split('_')[-1]}_{regime}", model, model_maps[model], states[regime],
+              "corr_table" if regime == "steady" else "spread_term_sums")
+             for model in LF_MODELS for regime in ("steady", "spread")]
+    for cell, model, omap, (params, state0, pool), name in runs:
+        log_space = model == "likelihood_field_prob"
+        state = pf_filter.init_log_averages(state0) if log_space else state0
+        _, step, box = model_step_fns(model, omap, sp, scan, pool, params, gen, state)
+
+        def run():
+            s = state
+            for _ in range(3):
+                s = mcl.mcl_step_2d(s, omap, sp, scan, pool, *ODOM, params,
+                                    laser_model=model, backend="corr", log_space=log_space,
+                                    generator=gen)
+            check_state(s, params, f"{cell} mcl_step_2d")
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+
+        rose = counts.run(run, 6)
+        out = box["out"]
+        check_state(out, params, f"{cell} sensor_resample_step")
+        check(rose[name] > 0, f"{cell}: {name} was not launched")
+        if cell == "beam_steady":
+            err = float(out.stats.mean[:2].norm())
+            check(err < 0.1, f"{cell}: mean {out.stats.mean.tolist()} is {err:.3f} m from "
+                             "the truth")
+        extra = ""
+        if log_space:
+            # the log-space update keeps information the exp form loses: at
+            # 720 beams exp(sum log pz) underflows f32
+            # (from LOG_UNINIT, a finite w_slow means a finite total: no reset)
+            upd = mcl.sensor_update_2d(state, omap, sp, scan, model, backend="corr",
+                                       log_space=True)
+            check(bool(torch.isfinite(upd.w_slow)),
+                  f"{cell}: the log-space update found a zero total")
+            p_exp, _ = planar.planar_likelihood(omap, sp, scan, state.poses,
+                                                state.active_mask, state.n_active, model,
+                                                backend="corr")
+            extra = (f", log w_avg {float(upd.w_slow):.4f}, exp-form p underflowed to 0 "
+                     f"for {float((p_exp == 0).float().mean()):.4f} of particles")
+        log(f"main path {cell} ({model}): {name} launches +{rose[name]}, n_active="
+            f"{int(out.n_active)}, clusters={int(out.stats.cluster_count)}, "
+            f"mean={[round(v, 4) for v in out.stats.mean.tolist()]}{extra}")
+    return counts.read()
+
+
+def phase_reference_beam(dev):
+    """The beam, Gompertz and prob (log-space) models on the card (kernels)
+    against the CPU (plain versions), same inputs and draws, at 4096 x 360
+    on a 448^2 map whose range image is baked on the card; and the beam
+    model's exact raycast arm (the same map without its range image),
+    timed on the card at this size only."""
+    import dataclasses
+
+    import torch
+
+    from badger_amcl_tpu_torch import mcl, scenario
+    from badger_amcl_tpu_torch.ops import beam_kernel as bk
+    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import lf_kernel as lk
+    from badger_amcl_tpu_torch.pf import filter as pf_filter
+    from badger_amcl_tpu_torch.sensors import planar
+
+    sp = planar.PlanarScanParams()
+    omap_g = scenario.build_map(448, device=dev, range_image_bins=RANGE_IMAGE_BINS)
+    maps_g = {"beam": omap_g,
+              "beam_exact": dataclasses.replace(omap_g, range_image=None, range_rows=None),
+              **{m: planar.bake_corr_texture(omap_g, sp, 8.0, m) for m in LF_MODELS}}
+    maps_c = {m: to_device(x, "cpu") for m, x in maps_g.items()}
+    scan_c = scenario.build_scan(360, device="cpu")
+    kernels = {("beam", "steady"): bk.beam_table, ("beam", "spread"): bsk.beam_spread_sums}
+    for label in maps_g:
+        model = "beam" if label.startswith("beam") else label
+        for regime in ("steady", "spread"):
+            kernel = kernels.get((label, regime),
+                                 ck.corr_table if regime == "steady" else lk.lf_distances)
+            params, state_c, pool_c = scenario.build_filter(
+                4096, pose_cov=REGIMES[regime], min_particles=1024, device="cpu")
+            log_space = model == "likelihood_field_prob"
+            if log_space:
+                state_c = pf_filter.init_log_averages(state_c)
+            noise_c = mcl.StepNoise.draw(torch.Generator().manual_seed(7), 4096, "cpu",
+                                         odom=False)
+            state_g = to_device(state_c, dev)
+            like_c, _, _ = model_step_fns(model, maps_c[label], sp, scan_c, pool_c, params,
+                                          None, state_c)
+            like_g, _, _ = model_step_fns(model, maps_g[label], sp, to_device(scan_c, dev),
+                                          to_device(pool_c, dev), params, None, state_g)
+            before = {k: k.launches for k in (bk.beam_table, bsk.beam_spread_sums, kernel)}
+            p_c, p_g = like_c(), like_g().cpu()
+            exact_ms = None
+            if label == "beam_exact":
+                check(all(k.launches == n for k, n in before.items()),
+                      f"reference {label}/{regime}: a kernel ran in the exact arm")
+                exact_ms = cuda_ms(like_g, iters=5, warmup=1)
+            else:
+                check(kernel.launches > before[kernel],
+                      f"reference {label}/{regime}: kernel not launched")
+            close = ((p_g - p_c).abs() <= 1e-4 * p_c.abs()).float().mean().item()
+            check(close >= 0.99, f"reference {label}/{regime}: only {close:.4f} of "
+                                 "likelihoods agree to 1e-4")
+            outs = [mcl.sensor_resample_step(
+                st, omap, sp, to_device(scan_c, d), to_device(pool_c, d), params,
+                laser_model=model, backend="corr", log_space=log_space,
+                noise=to_device(noise_c, d))
+                for st, omap, d in ((state_c, maps_c[label], "cpu"),
+                                    (state_g, maps_g[label], dev))]
+            out_c, out_g = outs
+            same = (out_g.poses.cpu() == out_c.poses).all(dim=1).float().mean().item()
+            dmean = float((out_g.stats.mean.cpu() - out_c.stats.mean)[:2].norm())
+            check(int(out_g.n_active) == int(out_c.n_active),
+                  f"reference {label}/{regime}: n_active differs")
+            check(same >= 0.99 and dmean < 0.01, f"reference {label}/{regime}: picks equal "
+                                                 f"{same:.4f}, mean diff {dmean:.4g} m")
+            arm = (f"exact raycast, likelihood_ms on the card {exact_ms:.4f}" if exact_ms
+                   else kernel.__name__)
+            log(f"reference {label}/{regime} (4096 x 360 on 448^2, card vs CPU, {arm}): "
+                f"likelihoods within 1e-4: {close:.4f}, picks equal: {same:.4f}, n_active "
+                f"{int(out_g.n_active)}, mean diff {dmean:.3e} m")
+
+
+def phase_timings_beam(dev, bmap, model_maps, scan, beam_states, states):
+    import torch
+
+    from badger_amcl_tpu_torch.pf import filter as pf_filter
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+
+    sp = PlanarScanParams()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    runs = [(cell, "beam", bmap, beam_states[cell]) for cell in BEAM_CELLS]
+    runs += [(f"{model.split('_')[-1]}_{regime}", model, model_maps[model], states[regime])
+             for model in LF_MODELS for regime in ("steady", "spread")]
+    for key, model, omap, (params, state, pool) in runs:
+        if model == "likelihood_field_prob":
+            state = pf_filter.init_log_averages(state)
+        like, step, _ = model_step_fns(model, omap, sp, scan, pool, params, gen, state)
+        out[key] = timing_row(key, like, step)
     return out
 
 
@@ -710,10 +1047,30 @@ def main():
     log(f"scenario: {N_PARTICLES} x {N_BEAMS} on {MAP_CELLS}^2 in "
         f"{time.perf_counter() - t0:.2f} s")
     kernels = phase_kernels(dev, omap, scan, states)
-    launches = phase_main_path(dev, omap, scan, states)
+    reads = [phase_main_path(dev, omap, scan, states)]
     phase_reference(dev)
     timings = phase_timings(dev, omap, scan, states)
-    del omap, scan, states
+
+    # 2D beam, Gompertz and prob models
+    from badger_amcl_tpu_torch.sensors import planar
+
+    bmap, bake_s, bake_bytes = phase_range_image(dev, omap)
+    model_maps = {m: planar.bake_corr_texture(omap, planar.PlanarScanParams(), 8.0, m)
+                  for m in LF_MODELS}
+    beam_states = {c: scenario.build_filter(n, pose_cov=cov, min_particles=n, device=dev)
+                   for c, (n, cov, _) in BEAM_CELLS.items()}
+    for cell, (_, st, _) in beam_states.items():
+        spose = planar.coord_add(planar.PlanarScanParams().scanner_pose, st.poses)
+        arm = planar.beam_arm(bmap, scan, spose)
+        log(f"{cell}: the beam dispatch takes the {arm} arm")
+        check(arm == {"beam_table": "table", "beam_spread_sums": "spread"}[
+            BEAM_CELLS[cell][2]], f"{cell} takes the {arm} arm")
+    kernels.update(phase_kernels_beam(dev, bmap, scan, beam_states))
+    reads.append(phase_main_path_beam(dev, bmap, model_maps, scan, beam_states, states))
+    phase_reference_beam(dev)
+    timings.update(phase_timings_beam(dev, bmap, model_maps, scan, beam_states, states))
+    timings["range_image_bake"] = dict(seconds=bake_s, bytes=bake_bytes)
+    del omap, bmap, model_maps, scan, states, beam_states
 
     # 3D path
     t0 = time.perf_counter()
@@ -728,7 +1085,8 @@ def main():
         f"{cloud.shape[0]}-point cloud, {dict(PARTICLES_3D)} particles in "
         f"{time.perf_counter() - t0:.2f} s")
     kernels.update(phase_kernels_3d(omap3, cloud, states3))
-    launches.update(phase_main_path_3d(dev, omap3, cloud, states3))
+    reads.append(phase_main_path_3d(dev, omap3, cloud, states3))
+    launches = merge_launches(*reads)
     phase_reference_3d(dev, omap3)
     timings.update(phase_timings_3d(dev, omap3, cloud, states3))
 
@@ -743,6 +1101,10 @@ def main():
                          "badger_amcl_tpu/ops/pc_kernel.py:168"),
         "pc_spread_term_sums": ("badger_amcl_tpu_torch/csrc/pc_spread_term_sums.cu",
                                 "badger_amcl_tpu/ops/pc_spread_kernel.py:490"),
+        "beam_table": ("badger_amcl_tpu_torch/csrc/beam_table.cu",
+                       "badger_amcl_tpu/ops/beam_kernel.py:132"),
+        "beam_spread_sums": ("badger_amcl_tpu_torch/csrc/beam_spread_sums.cu",
+                             "badger_amcl_tpu/ops/beam_spread_kernel.py:150"),
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],

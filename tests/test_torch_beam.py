@@ -1,0 +1,225 @@
+"""PyTorch port: the beam model — the lattice table (kernel #7's plain
+version), the spread-cloud sums (kernel #8's plain version), the beam
+dispatch of `planar_likelihood` and the exact raycast arm — held against
+the JAX package on the same map, range image, scan and poses
+(tests/test_beam_kernel.py's 320^2 map, K = 256, baked by the JAX
+package's numpy path and carried over with `convert.map_from_numpy`).
+
+Tolerances:
+- lattice table: rtol 1e-5. Both sides run the TPU kernel's arithmetic in
+  its order (beams summed in ascending order in f32); exp differs between
+  XLA and PyTorch in the last ulp, and that ulp rides through 64 beams;
+- spread sums: rtol 1e-5, the f32 order of the Phi segment sums (a one-hot
+  matmul in the JAX package, an index_add_ in the port) and of exp;
+- the prepasses (window origins, yaw-bin compaction, slabs, occupied
+  offsets) are integer results and must be equal;
+- the exact arm: rtol 1e-5 — the raycast ranges are bit-equal
+  (test_torch_raycast.py) and the mixture's exp differs in the last ulp.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import badger_amcl_tpu.utils.native as jax_native
+from badger_amcl_tpu.maps import CellState
+from badger_amcl_tpu.maps import OccupancyMap2D as JaxMap
+from badger_amcl_tpu.ops import beam_kernel as jbk
+from badger_amcl_tpu.ops import beam_spread_kernel as jbsk
+from badger_amcl_tpu.sensors import planar as jplanar
+from badger_amcl_tpu_torch import convert
+from badger_amcl_tpu_torch.ops import beam_kernel as tbk
+from badger_amcl_tpu_torch.ops import beam_spread_kernel as tbsk
+from badger_amcl_tpu_torch.ops import corr_kernel
+from badger_amcl_tpu_torch.sensors import planar as tplanar
+
+torch.set_num_threads(1)
+M, B, RANGE_MAX = 2048, 64, 8.0
+
+
+@pytest.fixture(scope="module")
+def beam_maps():
+    """tests/test_beam_kernel.py's map with its range image, numpy bake."""
+    rng = np.random.default_rng(6)
+    n = 320
+    cells = np.full((n, n), int(CellState.FREE), np.int8)
+    cells[0:2, :] = cells[-2:, :] = int(CellState.OCCUPIED)
+    cells[:, 0:2] = cells[:, -2:] = int(CellState.OCCUPIED)
+    for _ in range(12):
+        cx, cy = rng.integers(20, n - 28, 2)
+        cells[cy:cy + 6, cx:cx + 6] = int(CellState.OCCUPIED)
+    plain = JaxMap.from_cells(cells, 0.05).with_distance_field(2.0)
+    orig = jax_native.range_image
+    jax_native.range_image = lambda *a, **k: None
+    try:
+        jmap = plain.with_range_image(n_angles=256)
+    finally:
+        jax_native.range_image = orig
+    return (jmap, convert.map_from_numpy(jmap, device="cpu"),
+            convert.map_from_numpy(plain, device="cpu"))
+
+
+def _scan(nan_beam=None):
+    angles = np.linspace(-2.2, 2.2, B).astype(np.float32)
+    ranges = np.clip(2.0 + 0.5 * np.sin(3.0 * angles), 0.2, 7.9).astype(np.float32)
+    ranges[3] = RANGE_MAX  # one max-range reading: the z_max term
+    if nan_beam is not None:
+        ranges[nan_beam] = np.nan
+    jscan = jplanar.PlanarScan(ranges=jnp.asarray(ranges), angles=jnp.asarray(angles),
+                               range_max=jnp.float32(RANGE_MAX))
+    return jscan, convert.scan_from_numpy(jscan, device="cpu")
+
+
+# (x/y half-widths in m, yaw half-width in rad) -> window variant
+CLOUDS = {
+    "tight": (0.4, 0.4, 0.1),
+    "narrow": (0.4, 0.65, 0.1),
+    "standard": (0.4, 1.4, 0.1),
+    "spread": (7.0, 7.0, np.pi),
+}
+
+
+def _poses(cloud, m=M, seed=0):
+    hx, hy, ha = CLOUDS[cloud]
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-hx, hx, m), rng.uniform(-hy, hy, m),
+                     rng.uniform(-ha, ha, m)], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("cloud", ["tight", "narrow", "standard"])
+def test_beam_table_plain_matches_pallas(beam_maps, cloud):
+    jmap, tmap, _ = beam_maps
+    jscan, tscan = _scan()
+    poses = _poses(cloud)
+    jpre = jbk.beam_prepass(jmap, jnp.asarray(poses), RANGE_MAX)
+    want = np.asarray(jbk.beam_corr_values(jmap, jplanar.PlanarScanParams(), jscan,
+                                           jnp.asarray(poses), jpre, interpret=True))
+    tpre = tbk.beam_prepass(tmap, torch.from_numpy(poses), RANGE_MAX)
+    flags = [bool(tpre[k]) for k in ("fits", "tight", "narrow")]
+    assert flags == [bool(jpre[k]) for k in ("fits", "tight", "narrow")]
+    assert flags == {"tight": [True, True, True], "narrow": [True, False, True],
+                     "standard": [True, False, False]}[cloud]
+    for k in ("i0", "j0", "j0_narrow", "j0_tight", "t_min", "t_n", "t_order", "t_slot"):
+        np.testing.assert_array_equal(tpre[k].numpy(), np.asarray(jpre[k]), err_msg=k)
+    assert tpre["dtheta"] == float(jpre["dtheta"])
+    rows, j0 = corr_kernel.window_variant(tpre, flags[1], flags[2])
+    assert rows == {"tight": 24, "narrow": 32, "standard": 64}[cloud]
+    launches = tbk.beam_table.launches
+    got = tbk.beam_corr_values(tmap, tplanar.PlanarScanParams(), tscan, tpre, rows, j0)
+    assert tbk.beam_table.launches == launches  # CPU: the plain version
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+def test_beam_spread_plain_matches_pallas(beam_maps):
+    jmap, tmap, _ = beam_maps
+    jscan, tscan = _scan()
+    poses = _poses("spread")
+    jpre = jbsk.beam_spread_prepass(jmap, jnp.asarray(poses), jscan)
+    assert bool(jpre["fits"]) and tbsk.fits(tmap, RANGE_MAX)
+    want = np.asarray(jbsk.beam_spread_values(jmap, jplanar.PlanarScanParams(), jscan,
+                                              jnp.asarray(poses), jpre, interpret=True))
+    tpre = tbsk.beam_spread_prepass(tmap, torch.from_numpy(poses), tscan.angles)
+    assert int(tpre["n_g"]) == int(jpre["n_g"])
+    np.testing.assert_array_equal(tpre["gocc"].numpy(), np.asarray(jpre["gocc"]))
+    perm = np.asarray(jpre["perm"])
+    np.testing.assert_array_equal(tpre["sig"].numpy()[perm], np.asarray(jpre["sig_s"])[:M])
+    np.testing.assert_array_equal(tpre["flat"].numpy()[perm], np.asarray(jpre["flat_s"])[:M])
+    got = tbsk.beam_spread_values(tmap, tplanar.PlanarScanParams(), tscan,
+                                  torch.from_numpy(poses))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cloud,arm", [("tight", "table"), ("spread", "spread")])
+def test_planar_beam_corr_matches_jax(beam_maps, cloud, arm):
+    jmap, tmap, _ = beam_maps
+    jscan, tscan = _scan()
+    poses = _poses(cloud, seed=1)
+    act = jnp.ones((M,), bool)
+    pj, mfj = jplanar.planar_likelihood(
+        jmap, jplanar.PlanarScanParams(), jscan, jnp.asarray(poses), act, jnp.int32(M),
+        "beam", backend="pallas_corr_interpret", fold_factors=True)
+    tp = torch.from_numpy(poses)
+    assert tplanar.beam_arm(tmap, tscan, tp) == arm
+    pt, mft = tplanar.planar_likelihood(
+        tmap, tplanar.PlanarScanParams(), tscan, tp, torch.ones(M, dtype=torch.bool),
+        torch.tensor(M, dtype=torch.int32), "beam", backend="corr", fold_factors=True)
+    assert mft is not None and mfj is not None  # the beam model never folds
+    np.testing.assert_array_equal(mft.numpy(), np.asarray(mfj))
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-5)
+
+
+def test_beam_without_range_image_is_exact_xla(beam_maps):
+    jmap, _, tplain = beam_maps
+    jplain = JaxMap.from_cells(np.asarray(jmap.cells), 0.05).with_distance_field(2.0)
+    jscan, tscan = _scan()
+    poses = np.concatenate([_poses("tight", 256, seed=2), _poses("spread", 256, seed=3)])
+    act = jnp.ones((512,), bool)
+    pj, _ = jplanar.planar_likelihood(jplain, jplanar.PlanarScanParams(), jscan,
+                                      jnp.asarray(poses), act, jnp.int32(512), "beam",
+                                      backend="xla")
+    tp = torch.from_numpy(poses)
+    assert tplanar.beam_arm(tplain, tscan, tp) == "exact"
+    for backend in ("corr", "exact"):
+        pt, _ = tplanar.planar_likelihood(
+            tplain, tplanar.PlanarScanParams(), tscan, tp, torch.ones(512, dtype=torch.bool),
+            torch.tensor(512, dtype=torch.int32), "beam", backend=backend)
+        np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-5)
+
+
+@pytest.mark.parametrize("cloud,arm", [("tight", "table"), ("spread", "spread")])
+def test_nan_beam_poisons_every_particle(beam_maps, cloud, arm):
+    """calcBeamModel has no NaN-beam skip (beam_spread_kernel.py:229-235):
+    one NaN range makes every particle's p NaN in both kernel arms, as in
+    the exact arm."""
+    _, tmap, tplain = beam_maps
+    _, tscan = _scan(nan_beam=7)
+    tp = torch.from_numpy(_poses(cloud, 512, seed=4))
+    assert tplanar.beam_arm(tmap, tscan, tp) == arm
+    for omap in (tmap, tplain):
+        p, _ = tplanar.planar_likelihood(omap, tplanar.PlanarScanParams(), tscan, tp,
+                                         torch.ones(512, dtype=torch.bool),
+                                         torch.tensor(512, dtype=torch.int32), "beam",
+                                         backend="corr")
+        assert torch.isnan(p).all()
+
+
+def test_convert_carries_range_image_and_every_scan_param(beam_maps):
+    jmap, tmap, _ = beam_maps
+    assert tmap.range_image.dtype == torch.uint16 and tmap.range_rows.dtype == torch.uint16
+    np.testing.assert_array_equal(tmap.range_image.numpy(), np.asarray(jmap.range_image))
+    np.testing.assert_array_equal(tmap.range_rows.numpy(), np.asarray(jmap.range_rows))
+    for f in ("resolution", "size_x", "size_y", "origin_x", "origin_y",
+              "max_distance_to_object"):
+        assert getattr(tmap, f) == getattr(jmap, f), f
+    names = [f for f in tplanar.PlanarScanParams.__dataclass_fields__ if f != "scanner_pose"]
+    values = {n: 0.01 * (i + 3) for i, n in enumerate(names)}
+    jp = jplanar.PlanarScanParams(**values,
+                                  scanner_pose=jnp.array([0.1, -0.2, 0.3], jnp.float32))
+    tp = convert.scan_params_from_numpy(jp)
+    for n in names:
+        assert getattr(tp, n) == values[n], n
+    assert tp.scanner_pose == tuple(float(v) for v in np.float32([0.1, -0.2, 0.3]))
+
+
+def test_beam_wrappers_check_inputs(beam_maps):
+    _, tmap, _ = beam_maps
+    _, tscan = _scan()
+    pre = tbk.beam_prepass(tmap, torch.from_numpy(_poses("tight", 64)), RANGE_MAX)
+    mix = tbk.BeamMix.of(tplanar.PlanarScanParams(), RANGE_MAX, tmap.resolution)
+    org = tbk.window_origin(pre, pre["j0"])
+    args = (tscan.ranges, tscan.angles, pre["t_n"], pre["t_min"], pre["t_order"], org, mix,
+            pre["dtheta"])
+    with pytest.raises(ValueError):
+        tbk.beam_table(tmap.range_image.to(torch.int32), *args, 64)
+    with pytest.raises(ValueError):
+        tbk.beam_table(tmap.range_image, *args, 48)
+    spre = tbsk.beam_spread_prepass(tmap, torch.from_numpy(_poses("spread", 64)),
+                                    tscan.angles)
+    phi = tbsk.phi_tables(tmap, tplanar.PlanarScanParams(), tscan, spre["kap"])
+    sargs = (spre["flat"], spre["sig"], spre["gocc"], spre["n_g"])
+    with pytest.raises(ValueError):
+        tbsk.beam_spread_sums(tmap.range_rows, *sargs, phi[:, :128], 160)
+    with pytest.raises(ValueError):
+        tbsk.beam_spread_sums(tmap.range_rows, *sargs, phi, 256)
+    assert tbsk.value_cap(tmap, RANGE_MAX) == 160

@@ -128,6 +128,14 @@ def test_port_imports_no_jax():
         p, mf = point_cloud.point_cloud_likelihood(
             omap3, pcp, cloud, state3.poses, "likelihood_field_gompertz", backend="corr")
         assert p.shape == (256,) and torch.isfinite(p).all() and (mf == 1.0).all()
+        from badger_amcl_tpu_torch.ops import beam_kernel, beam_spread_kernel
+        from badger_amcl_tpu_torch.sensors import planar, raycast
+        bmap = scenario.build_map(256, device="cpu", range_image_bins=64)
+        assert planar.beam_arm(bmap, scan, state.poses) == "table"
+        out = mcl.mcl_step_2d(state, bmap, sp, scan, pool, [0.1, 0.0, 0.02],
+                              [0.1, 0.0, 0.02], None, [0.1] * 5, params,
+                              laser_model="beam", backend="corr", generator=gen)
+        assert torch.isfinite(out.weights).all()
         assert not any(m == "jax" or m.startswith(("jax.", "badger_amcl_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

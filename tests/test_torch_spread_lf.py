@@ -77,7 +77,8 @@ def test_spread_plain_matches_pallas_interpret(huge_map, term):
         jterm, tterm = (lambda z: z), (lambda z: z)
     else:
         jterm = jplanar._lf_term(jplanar.PlanarScanParams(), jscan)
-        tterm = tplanar._lf_term(tplanar.PlanarScanParams(), tscan.range_max)
+        tterm = tplanar.model_term("likelihood_field", tplanar.PlanarScanParams(),
+                                   tscan.range_max)
     valid = (jscan.ranges < jscan.range_max) & ~jnp.isnan(jscan.ranges)
     pre = jsk.spread_prepass(jmap, jnp.asarray(poses), jscan.ranges, jscan.angles, valid)
     s = jsk.spread_term_sums(jmap, jnp.asarray(poses), jscan.ranges, jscan.angles, valid,
