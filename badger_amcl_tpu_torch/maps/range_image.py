@@ -42,8 +42,7 @@ def gather_u16(x: torch.Tensor, *index) -> torch.Tensor:
     return u16_to_i32(x.view(torch.int16)[index])
 
 
-def build_range_image(cells: torch.Tensor, n_angles: int = 256,
-                      chunk_elements: int = CHUNK_ELEMENTS) -> torch.Tensor:
+def build_range_image(cells: torch.Tensor, n_angles: int = 256) -> torch.Tensor:
     """cells: int8 (H, W) CellState grid ([j, i]) on any device. Returns
     uint16 (n_angles, H, W) on that device: the range in cells along each
     theta_k, Euclidean cell distance, saturating at 65535."""
@@ -64,7 +63,7 @@ def build_range_image(cells: torch.Tensor, n_angles: int = 256,
     big = d + 10
     flat_blocked = blocked.reshape(-1)
     out = torch.empty((n_angles, h, w), dtype=torch.uint16, device=dev)
-    step = max(1, chunk_elements // (d * d))
+    step = max(1, CHUNK_ELEMENTS // (d * d))
     for k0 in range(0, n_angles, step):
         ks = np.arange(k0, min(k0 + step, n_angles))
         th = 2.0 * np.pi * ks / n_angles

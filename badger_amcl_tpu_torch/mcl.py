@@ -6,10 +6,11 @@ motion update -> measurement update -> KLD resample -> cluster statistics
 draws the JAX package makes from its key), or are drawn from `generator`
 when `noise` is absent; nothing draws from a global RNG.
 
-Every planar model runs through these entry points. `log_space` selects
-the prob model's log-space pipeline as the JAX node composes it
-(node/node_2d.py:39-56): log p, `sensor_update_log`, and a resample over
-log-domain w_slow/w_fast (start from `pf.filter.init_log_averages`).
+Every planar model runs through these entry points. The prob model's
+log-space pipeline is the node's to compose (node/node_2d.py:39-56):
+`sensor_update_2d(..., log_space=True)` (log p into `sensor_update_log`),
+then `pf.filter.resample(..., log_averages=True)` over log-domain
+w_slow/w_fast (start from `pf.filter.init_log_averages`).
 """
 
 from __future__ import annotations
@@ -80,17 +81,17 @@ def mcl_step_2d(state: MCLState, omap, scan_params, scan, random_pose_pool,
                 laser_model: str = "likelihood_field",
                 resample_model=ResampleModel.MULTINOMIAL, do_resample: bool = True,
                 do_beamskip: bool = False, backend: str = "exact",
-                log_space: bool = False, noise: Optional[StepNoise] = None,
+                noise: Optional[StepNoise] = None,
                 generator: Optional[torch.Generator] = None) -> MCLState:
     """One full 2D MCL step."""
     noise = _noise(noise, generator, state, odom=True)
     state = odom_models.motion_update(state, odom_model, alphas, odom_pose,
                                       odom_delta, noise.odom, absolute_motion)
     state = sensor_update_2d(state, omap, scan_params, scan, laser_model, do_beamskip,
-                             backend, log_space)
+                             backend)
     if do_resample:
         state = pf_filter.resample(state, params, random_pose_pool, noise.inject,
-                                   noise.pick, resample_model, log_averages=log_space)
+                                   noise.pick, resample_model)
     return state
 
 
@@ -98,17 +99,16 @@ def sensor_resample_step(state: MCLState, omap, scan_params, scan, random_pose_p
                          params: PFParams, laser_model: str = "likelihood_field",
                          resample_model=ResampleModel.MULTINOMIAL,
                          backend: str = "exact", resample_contract: str = "pick",
-                         log_space: bool = False, noise: Optional[StepNoise] = None,
+                         noise: Optional[StepNoise] = None,
                          generator: Optional[torch.Generator] = None) -> MCLState:
     """Sensor update + KLD resample without the motion model (the unit the
     JAX bench times), under the reference-exact "pick" contract."""
     if resample_contract != "pick":
         raise NotImplementedError("the port implements the pick contract only")
     noise = _noise(noise, generator, state, odom=False)
-    state = sensor_update_2d(state, omap, scan_params, scan, laser_model, False, backend,
-                             log_space)
+    state = sensor_update_2d(state, omap, scan_params, scan, laser_model, False, backend)
     return pf_filter.resample(state, params, random_pose_pool, noise.inject,
-                              noise.pick, resample_model, log_averages=log_space)
+                              noise.pick, resample_model)
 
 
 def likelihood_only(state: MCLState, omap, scan_params, scan,

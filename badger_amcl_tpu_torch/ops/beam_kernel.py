@@ -107,6 +107,7 @@ class BeamMix:
     denom_inv: float  # 1 / (2 sigma_hit^2)
     lam: float  # lambda_short
     res: float
+    denom: float  # 2 sigma_hit^2
 
     @staticmethod
     def of(params, range_max: float, resolution: float) -> "BeamMix":
@@ -115,7 +116,22 @@ class BeamMix:
         return BeamMix(*(float(f32(v)) for v in (
             params.z_hit, params.z_short, params.z_max,
             f32(params.z_rand) / f32(range_max), range_max, 1.0 / denom,
-            params.lambda_short, resolution)))
+            params.lambda_short, resolution, denom)))
+
+
+def beam_pz3(mix: BeamMix, obs, r, divide: bool = False) -> torch.Tensor:
+    """pz^3 of calcBeamModel's hit/short/max/rand mixture
+    (planar_scanner.cpp:168-234) at observed ranges `obs` and map ranges
+    `r` (broadcast). The hit exponent is multiplied by denom_inv, as the
+    TPU kernel does, or with `divide` divided by the denominator, as the
+    JAX package's XLA arms do."""
+    z = obs - r
+    e = fdiv(-(z * z), mix.denom) if divide else -(z * z) * mix.denom_inv
+    pz = mix.z_hit * torch.exp(e)
+    pz = pz + torch.where(z < 0, mix.z_short * mix.lam * torch.exp(-mix.lam * obs), 0.0)
+    pz = pz + torch.where(obs == mix.range_max, mix.z_max, 0.0)
+    pz = pz + torch.where(obs < mix.range_max, mix.z_rand_mult, 0.0)
+    return pz * pz * pz
 
 
 def slab_indices(t_min, t_order, angles, dth: float, k_angles: int) -> torch.Tensor:
@@ -139,16 +155,9 @@ def beam_table_plain(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix,
     win = gather_u16(rimg, slice(None), jj[:, None], ii[None, :])  # (K, rows, PWIN_C)
     acc = torch.zeros((t_max, rows, PWIN_C), dtype=torch.float32, device=dev)
     for b in range(obs.shape[0]):
-        o = obs[b]
         r = torch.minimum(win[kk[:, b]].to(torch.float32) * mix.res,
                           torch.tensor(mix.range_max, device=dev))
-        z = o - r
-        pz = mix.z_hit * torch.exp(-(z * z) * mix.denom_inv)
-        short = mix.z_short * mix.lam * torch.exp(-mix.lam * o)
-        pz = pz + torch.where(z < 0, short, 0.0)
-        pz = pz + torch.where(o == mix.range_max, mix.z_max, 0.0)
-        pz = pz + torch.where(o < mix.range_max, mix.z_rand_mult, 0.0)
-        acc = acc + pz * pz * pz
+        acc = acc + beam_pz3(mix, obs[b], r)
     live = torch.arange(t_max, device=dev) < torch.clamp(t_n, min=1)
     return torch.where(live[:, None, None], acc, 0.0)
 

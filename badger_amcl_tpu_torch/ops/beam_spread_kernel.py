@@ -29,9 +29,8 @@ import torch
 
 from badger_amcl_tpu_torch.maps.range_image import gather_u16
 from badger_amcl_tpu_torch.ops import _build
-from badger_amcl_tpu_torch.ops.beam_kernel import bin_inv
+from badger_amcl_tpu_torch.ops.beam_kernel import BeamMix, beam_pz3, bin_inv
 from badger_amcl_tpu_torch.ops.corr_kernel import _compaction
-from badger_amcl_tpu_torch.utils.numerics import fdiv
 
 V = 256  # range-value table size (cells); needs range_max / res < V
 # the JAX package's HBM budget for the transposed bake (1024^2 x 256 is
@@ -81,20 +80,12 @@ def phi_tables(omap, params, scan, kap) -> torch.Tensor:
     exact arm."""
     k = int(omap.range_image.shape[0])
     dev = scan.ranges.device
-    rmax = scan.range_max
+    mix = BeamMix.of(params, scan.range_max, omap.resolution)
     obs = scan.ranges.to(torch.float32)[:, None]  # (B, 1)
-    m_v = torch.clamp(torch.arange(V, dtype=torch.float32, device=dev) * omap.resolution,
-                      max=rmax)[None, :]  # (1, V)
-    z = obs - m_v
-    denom = 2.0 * params.sigma_hit * params.sigma_hit
-    pz = params.z_hit * torch.exp(fdiv(-(z * z), denom))
-    short = params.z_short * params.lambda_short * torch.exp(-params.lambda_short * obs)
-    pz = pz + torch.where(z < 0, short, 0.0)
-    pz = pz + torch.where(obs == rmax, params.z_max, 0.0)
-    zr = float(np.float32(params.z_rand) / np.float32(rmax))
-    pz = pz + torch.where(obs < rmax, zr, 0.0)
+    m_v = torch.clamp(torch.arange(V, dtype=torch.float32, device=dev) * mix.res,
+                      max=mix.range_max)[None, :]  # (1, V)
     phi = torch.zeros((k, V), dtype=torch.float32, device=dev)
-    return phi.index_add_(0, kap.long(), pz * pz * pz)
+    return phi.index_add_(0, kap.long(), beam_pz3(mix, obs, m_v, divide=True))
 
 
 def beam_spread_sums_plain(range_rows, flat, sig, gocc, n_g, phi, cap: int):

@@ -26,8 +26,9 @@ the port's three paths:
   cloud models in the steady (50k), tracking (10k) and spread (50k)
   regimes, and compares the step on the card with the CPU at 4096 x 128.
 
-Each path's launch counters are set to 0 just before it is driven and
-read just after; every regime must go through its kernel and leave a sane
+The launch counters are set to 0 just before each main-path run and read
+just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 3d) keeps
+its own count; every cell must go through its kernel and leave a sane
 filter state. Kernels, likelihoods and steps are timed with CUDA events.
 
     python3 chip_smoke.py
@@ -40,6 +41,7 @@ CUDA is unavailable, the package is missing or any phase fails.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -60,15 +62,33 @@ REGIMES = {
     "tracking": (0.02, 0.02, 0.002),
     "spread": (2.0, 2.0, 1.0),
 }
-# the beam model's cells: particles, pose cov, the kernel their arm runs
-# (benchmarks/run_all.py:81-137 and the steady regime)
-BEAM_CELLS = {
-    "beam_tracking": (5_000, REGIMES["tracking"], "beam_table"),
-    "beam_steady": (50_000, REGIMES["steady"], "beam_table"),
-    "beam_spread": (50_000, REGIMES["spread"], "beam_spread_sums"),
-}
-RANGE_IMAGE_BINS = 256  # config.py:201 beam_range_image_bins
 LF_MODELS = ("likelihood_field_gompertz", "likelihood_field_prob")
+Cell = collections.namedtuple("Cell", "path model particles cov backend kernel")
+
+
+def _cells_2d():
+    """The 2D cells: key -> Cell(path, laser model, particles, pose cov,
+    backend, the kernel its arm runs). The likelihood-field cells are
+    bench.py's regimes (plus steady on the "lf" backend), the beam cells
+    benchmarks/run_all.py:81-137 and the steady regime; Gompertz and prob
+    run the steady and spread regimes."""
+    cells = {r: Cell("2d_lf", "likelihood_field", N_PARTICLES, REGIMES[r], "corr", k)
+             for r, k in (("steady", "corr_table"), ("tracking", "corr_table"),
+                          ("spread", "spread_term_sums"))}
+    cells["steady_lf"] = Cell("2d_lf", "likelihood_field", N_PARTICLES, REGIMES["steady"],
+                              "lf", "lf_distances")
+    for r, n, k in (("tracking", 5_000, "beam_table"), ("steady", N_PARTICLES, "beam_table"),
+                    ("spread", N_PARTICLES, "beam_spread_sums")):
+        cells[f"beam_{r}"] = Cell("2d_beam", "beam", n, REGIMES[r], "corr", k)
+    for m in LF_MODELS:
+        short = m.split("_")[-1]
+        for r, k in (("steady", "corr_table"), ("spread", "spread_term_sums")):
+            cells[f"{short}_{r}"] = Cell(f"2d_{short}", m, N_PARTICLES, REGIMES[r], "corr", k)
+    return cells
+
+
+CELLS_2D = _cells_2d()
+RANGE_IMAGE_BINS = 256  # config.py:201 beam_range_image_bins
 # the 3D regimes of benchmarks/parity_tpu.py, with 10k x 256 the production
 # 3D scale for tracking
 PARTICLES_3D = {"steady": 50_000, "tracking": 10_000, "spread": 50_000}
@@ -317,125 +337,245 @@ def pinned_step_fn(step_fn, state, n):
 
 
 class Launches:
-    """Launch counts of a path's kernels: reset to 0 when the path starts,
-    and the steps of each run in which a kernel launched."""
+    """Launch counts of a path's kernels over its main-path runs: each run
+    sets every count to 0 just before it and reads them just after, so a
+    launch outside a run (a comparison, a diagnostic) is never counted."""
 
     def __init__(self, counters):
         self.counters = counters
+        self.launches = dict.fromkeys(counters, 0)
         self.steps = dict.fromkeys(counters, 0)
-        for fn in counters.values():
-            fn.launches = 0
 
     def run(self, fn, n_steps):
-        before = {k: c.launches for k, c in self.counters.items()}
+        for c in self.counters.values():
+            c.launches = 0
         fn()
-        rose = {k: c.launches - before[k] for k, c in self.counters.items()}
+        rose = {k: c.launches for k, c in self.counters.items()}
         for k, r in rose.items():
+            self.launches[k] += r
             if r > 0:
                 self.steps[k] += n_steps
         return rose
 
     def read(self):
         """{kernel: (launches, steps of the runs in which it launched)}."""
-        return {k: (c.launches, self.steps[k]) for k, c in self.counters.items()}
+        return {k: (self.launches[k], self.steps[k]) for k in self.counters}
 
 
-def merge_launches(*reads):
-    """Launches and launches per step of each kernel over the main-path
-    runs of every path that runs it."""
-    tot = {}
-    for r in reads:
-        for k, (n, steps) in r.items():
-            a = tot.setdefault(k, [0, 0])
-            a[0] += n
-            a[1] += steps
-    return {k: dict(launches=n, launches_per_step=n / max(steps, 1))
-            for k, (n, steps) in tot.items()}
+def launch_counts(paths):
+    """Per kernel, from {path: Launches.read()}: its launches over every
+    path's main-path runs, launches per step, and each path's own count."""
+    out = {}
+    for path, read in paths.items():
+        for k, (n, steps) in read.items():
+            e = out.setdefault(k, {"launches": 0, "steps": 0, "launches_by_path": {}})
+            if n > 0:
+                e["launches"] += n
+                e["steps"] += steps
+                e["launches_by_path"][path] = {"launches": n, "launches_per_step": n / steps}
+    return {k: {"launches": e["launches"],
+                "launches_per_step": e["launches"] / max(e["steps"], 1),
+                "launches_by_path": e["launches_by_path"]} for k, e in out.items()}
 
 
-def phase_main_path(dev, omap, scan, states):
-    """Drive the 2D main path; returns the per-kernel launch counts of this
-    run only."""
+def step_2d(state, omap, sp, scan, pool, params, model, backend, gen, motion=True,
+            noise=None):
+    """One 2D step through the port's entry points: `mcl_step_2d`, or
+    `sensor_resample_step` without the motion update. The prob model runs
+    the log-space pipeline as node_2d.py:39-56 composes it:
+    `sensor_update_2d(log_space=True)`, then a resample over log-domain
+    averages."""
+    from badger_amcl_tpu_torch import mcl
+    from badger_amcl_tpu_torch.pf import filter as pf_filter
+    from badger_amcl_tpu_torch.sensors import odom
+
+    if model != "likelihood_field_prob":
+        if motion:
+            return mcl.mcl_step_2d(state, omap, sp, scan, pool, *ODOM, params,
+                                   laser_model=model, backend=backend, noise=noise,
+                                   generator=gen)
+        return mcl.sensor_resample_step(state, omap, sp, scan, pool, params,
+                                        laser_model=model, backend=backend, noise=noise,
+                                        generator=gen)
+    if noise is None:
+        noise = mcl.StepNoise.draw(gen, state.poses.shape[0], state.poses.device, odom=motion)
+    if motion:
+        state = odom.motion_update(state, odom.OdomModel.DIFF, ODOM[3], ODOM[0], ODOM[1],
+                                   noise.odom, ODOM[2])
+    state = mcl.sensor_update_2d(state, omap, sp, scan, model, backend=backend, log_space=True)
+    return pf_filter.resample(state, params, pool, noise.inject, noise.pick,
+                              log_averages=True)
+
+
+def likelihood_fn(model, omap, sp, scan, state, backend="corr"):
+    """The particle x beam likelihood alone, with its map factor; the prob
+    model's as log p (log space), its factor added in log."""
+    from badger_amcl_tpu_torch.sensors.planar import planar_likelihood
+
+    log_space = model == "likelihood_field_prob"
+
+    def like():
+        p, mf = planar_likelihood(omap, sp, scan, state.poses, state.active_mask,
+                                  state.n_active, model, converged=state.converged,
+                                  backend=backend, fold_factors=True,
+                                  prob_log_space=log_space)
+        return p if mf is None else (p + mf.log() if log_space else p * mf)
+
+    return like
+
+
+def cell_state(cell, states):
+    """A cell's (params, state, pool); the prob model's with log-domain
+    averages."""
+    from badger_amcl_tpu_torch.pf import filter as pf_filter
+
+    params, state, pool = states[cell]
+    if CELLS_2D[cell].model == "likelihood_field_prob":
+        state = pf_filter.init_log_averages(state)
+    return params, state, pool
+
+
+def phase_main_path(dev, maps, scan, states):
+    """Drive every 2D cell through `mcl_step_2d` and the pinned
+    `sensor_resample_step` (the prob model through their log-space
+    composition); returns each path's launch counts of this run only."""
     import torch
 
     from badger_amcl_tpu_torch import mcl
+    from badger_amcl_tpu_torch.ops import beam_kernel as bk
+    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
     from badger_amcl_tpu_torch.ops import lf_kernel as lk
     from badger_amcl_tpu_torch.ops import spread_kernel as sk
-    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+    from badger_amcl_tpu_torch.sensors import planar
 
-    expect = {"steady": "corr_table", "tracking": "corr_table",
-              "spread": "spread_term_sums"}
-    sp = PlanarScanParams()
-    counts = Launches({"corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums,
-                       "lf_distances": lk.lf_distances})
+    sp = planar.PlanarScanParams()
+    counters = {"corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums,
+                "lf_distances": lk.lf_distances, "beam_table": bk.beam_table,
+                "beam_spread_sums": bsk.beam_spread_sums}
+    paths = {}
     gen = torch.Generator(device=dev).manual_seed(1)
-    for regime, backend in (("steady", "corr"), ("tracking", "corr"),
-                            ("spread", "corr"), ("steady", "lf")):
-        params, state, pool = states[regime]
-        name = expect[regime] if backend == "corr" else "lf_distances"
+    for key, c in CELLS_2D.items():
+        counts = paths.setdefault(c.path, Launches(counters))
+        omap = maps[c.model]
+        params, state, pool = cell_state(key, states)
         step, box = pinned_step_fn(
-            lambda s: mcl.sensor_resample_step(s, omap, sp, scan, pool, params,
-                                               backend=backend, generator=gen),
+            lambda s: step_2d(s, omap, sp, scan, pool, params, c.model, c.backend, gen,
+                              motion=False),
             state, params.max_samples)
 
         def run():
             s = state
             for _ in range(3):
-                s = mcl.mcl_step_2d(s, omap, sp, scan, pool, *ODOM, params,
-                                    backend=backend, generator=gen)
-            check_state(s, params, f"{regime}/{backend} mcl_step_2d")
+                s = step_2d(s, omap, sp, scan, pool, params, c.model, c.backend, gen)
+            check_state(s, params, f"{key} mcl_step_2d")
             for _ in range(3):
                 step()
             torch.cuda.synchronize()
 
         rose = counts.run(run, 6)
         out = box["out"]
-        check_state(out, params, f"{regime}/{backend} sensor_resample_step")
-        check(rose[name] > 0, f"{regime}/{backend}: {name} was not launched")
-        if regime == "steady":
+        check_state(out, params, f"{key} sensor_resample_step")
+        check(rose[c.kernel] > 0, f"{key}: {c.kernel} was not launched")
+        if key in ("steady", "steady_lf", "beam_steady"):
             err = float(out.stats.mean[:2].norm())
-            check(err < 0.1, f"steady/{backend}: mean {out.stats.mean.tolist()} "
-                             f"is {err:.3f} m from the truth")
-        log(f"main path {regime}/{backend}: {name} launches +{rose[name]}, n_active="
-            f"{int(out.n_active)}, clusters={int(out.stats.cluster_count)}, "
-            f"mean={[round(v, 4) for v in out.stats.mean.tolist()]}")
-    return counts.read()
+            check(err < 0.1, f"{key}: mean {out.stats.mean.tolist()} is {err:.3f} m from "
+                             "the truth")
+        extra = ""
+        if c.model == "likelihood_field_prob":
+            # outside the counted run: the log-space update keeps what the
+            # exp form loses (at 720 beams exp(sum log pz) underflows f32);
+            # from LOG_UNINIT a finite w_slow means a finite total: no reset
+            upd = mcl.sensor_update_2d(state, omap, sp, scan, c.model, backend="corr",
+                                       log_space=True)
+            check(bool(torch.isfinite(upd.w_slow)),
+                  f"{key}: the log-space update found a zero total")
+            p_exp, _ = planar.planar_likelihood(omap, sp, scan, state.poses,
+                                                state.active_mask, state.n_active, c.model,
+                                                backend="corr")
+            extra = (f", log w_avg {float(upd.w_slow):.4f}, exp-form p underflowed to 0 "
+                     f"for {float((p_exp == 0).float().mean()):.4f} of particles")
+        log(f"main path {key} ({c.path}, {c.model}/{c.backend}): launches "
+            f"{ {k: r for k, r in rose.items() if r} }, n_active={int(out.n_active)}, "
+            f"clusters={int(out.stats.cluster_count)}, "
+            f"mean={[round(v, 4) for v in out.stats.mean.tolist()]}{extra}")
+    return {path: counts.read() for path, counts in paths.items()}
 
 
 def phase_reference(dev):
-    """The whole 2D step on the card (kernels) against the same step on the
-    CPU (plain versions), same inputs and draws, at a small size."""
+    """Every 2D model's step on the card (kernels) against the same step on
+    the CPU (plain versions), same inputs and draws, at 4096 x 360 on a
+    448^2 map whose range image is baked on the card: the likelihood field
+    in the tracking regime, the beam, Gompertz and prob (log-space) models
+    in the steady and spread regimes, and the beam model's exact raycast arm
+    (the map without its range image), timed on the card at this size
+    only."""
+    import dataclasses
+
     import torch
 
     from badger_amcl_tpu_torch import mcl, scenario
-    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+    from badger_amcl_tpu_torch.ops import beam_kernel as bk
+    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import lf_kernel as lk
+    from badger_amcl_tpu_torch.pf import filter as pf_filter
+    from badger_amcl_tpu_torch.sensors import planar
 
-    omap_c = scenario.build_map(448, device="cpu")
+    sp = planar.PlanarScanParams()
+    omap_g = scenario.build_map(448, device=dev, range_image_bins=RANGE_IMAGE_BINS)
+    plain_g = dataclasses.replace(omap_g, range_image=None, range_rows=None)
+    maps_g = {"likelihood_field": plain_g, "beam": omap_g, "beam_exact": plain_g,
+              **{m: planar.bake_corr_texture(plain_g, sp, 8.0, m) for m in LF_MODELS}}
+    maps_c = {m: to_device(x, "cpu") for m, x in maps_g.items()}
     scan_c = scenario.build_scan(360, device="cpu")
-    params, state_c, pool_c = scenario.build_filter(
-        4096, pose_cov=(0.02, 0.02, 0.002), min_particles=1024, device="cpu")
-    noise_c = mcl.StepNoise.draw(torch.Generator().manual_seed(5), 4096, "cpu", odom=False)
-    sp = PlanarScanParams()
-
-    def to(x):
-        return to_device(x, dev)
-
-    p_c = mcl.likelihood_only(state_c, omap_c, sp, scan_c, backend="corr")
-    p_g = mcl.likelihood_only(to(state_c), to(omap_c), sp, to(scan_c), backend="corr").cpu()
-    close = ((p_g - p_c).abs() <= 1e-4 * p_c.abs()).float().mean().item()
-    check(close >= 0.99, f"reference: only {close:.4f} of likelihoods agree to 1e-4")
-    out_c = mcl.sensor_resample_step(state_c, omap_c, sp, scan_c, pool_c, params,
-                                     backend="corr", noise=noise_c)
-    out_g = mcl.sensor_resample_step(to(state_c), to(omap_c), sp, to(scan_c), to(pool_c),
-                                     params, backend="corr", noise=to(noise_c))
-    same = (out_g.poses.cpu() == out_c.poses).all(dim=1).float().mean().item()
-    dmean = float((out_g.stats.mean.cpu() - out_c.stats.mean)[:2].norm())
-    check(int(out_g.n_active) == int(out_c.n_active), "reference: n_active differs")
-    check(same >= 0.99 and dmean < 0.01,
-          f"reference: picks equal {same:.4f}, mean differs by {dmean:.4g} m")
-    log(f"reference (4096 x 360, card vs CPU): likelihoods within 1e-4: {close:.4f}, "
-        f"picks equal: {same:.4f}, mean diff {dmean:.3e} m")
+    kernels = {("likelihood_field", "tracking"): ck.corr_table,
+               ("beam", "steady"): bk.beam_table, ("beam", "spread"): bsk.beam_spread_sums}
+    rows = [("likelihood_field", "tracking")]
+    rows += [(label, r) for label in ("beam", "beam_exact", *LF_MODELS)
+             for r in ("steady", "spread")]
+    for label, regime in rows:
+        model = "beam" if label.startswith("beam") else label
+        kernel = kernels.get((label, regime),
+                             ck.corr_table if regime == "steady" else lk.lf_distances)
+        params, state_c, pool_c = scenario.build_filter(
+            4096, pose_cov=REGIMES[regime], min_particles=1024, device="cpu")
+        if model == "likelihood_field_prob":
+            state_c = pf_filter.init_log_averages(state_c)
+        noise_c = mcl.StepNoise.draw(torch.Generator().manual_seed(7), 4096, "cpu",
+                                     odom=False)
+        state_g = to_device(state_c, dev)
+        scan_g = to_device(scan_c, dev)
+        before = {k: k.launches for k in (bk.beam_table, bsk.beam_spread_sums, kernel)}
+        p_c = likelihood_fn(model, maps_c[label], sp, scan_c, state_c)()
+        like_g = likelihood_fn(model, maps_g[label], sp, scan_g, state_g)
+        p_g = like_g().cpu()
+        exact_ms = None
+        if label == "beam_exact":
+            check(all(k.launches == n for k, n in before.items()),
+                  f"reference {label}/{regime}: a kernel ran in the exact arm")
+            exact_ms = cuda_ms(like_g, iters=5, warmup=1)
+        else:
+            check(kernel.launches > before[kernel],
+                  f"reference {label}/{regime}: kernel not launched")
+        close = ((p_g - p_c).abs() <= 1e-4 * p_c.abs()).float().mean().item()
+        check(close >= 0.99, f"reference {label}/{regime}: only {close:.4f} of "
+                             "likelihoods agree to 1e-4")
+        out_c, out_g = (
+            step_2d(st, maps[label], sp, to_device(scan_c, d), to_device(pool_c, d), params,
+                    model, "corr", None, motion=False, noise=to_device(noise_c, d))
+            for st, maps, d in ((state_c, maps_c, "cpu"), (state_g, maps_g, dev)))
+        same = (out_g.poses.cpu() == out_c.poses).all(dim=1).float().mean().item()
+        dmean = float((out_g.stats.mean.cpu() - out_c.stats.mean)[:2].norm())
+        check(int(out_g.n_active) == int(out_c.n_active),
+              f"reference {label}/{regime}: n_active differs")
+        check(same >= 0.99 and dmean < 0.01, f"reference {label}/{regime}: picks equal "
+                                             f"{same:.4f}, mean diff {dmean:.4g} m")
+        arm = (f"exact raycast, likelihood_ms on the card {exact_ms:.4f}" if exact_ms
+               else kernel.__name__)
+        log(f"reference {label}/{regime} (4096 x 360 on 448^2, card vs CPU, {arm}): "
+            f"likelihoods within 1e-4: {close:.4f}, picks equal: {same:.4f}, n_active "
+            f"{int(out_g.n_active)}, mean diff {dmean:.3e} m")
 
 
 def device_busy(fn, steps=5, top=6):
@@ -475,25 +615,23 @@ def timing_row(key, like_fn, step):
                 device_idle_share=1.0 - busy_ms / step_ms, top_device_ops=top_ops)
 
 
-def phase_timings(dev, omap, scan, states):
+def phase_timings(dev, maps, scan, states):
     import torch
 
-    from badger_amcl_tpu_torch import mcl
     from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
 
     sp = PlanarScanParams()
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {}
-    for regime, backend in (("steady", "corr"), ("tracking", "corr"),
-                            ("spread", "corr"), ("steady", "lf")):
-        params, state, pool = states[regime]
+    for key, c in CELLS_2D.items():
+        omap = maps[c.model]
+        params, state, pool = cell_state(key, states)
         step, _ = pinned_step_fn(
-            lambda s: mcl.sensor_resample_step(s, omap, sp, scan, pool, params,
-                                               backend=backend, generator=gen),
+            lambda s: step_2d(s, omap, sp, scan, pool, params, c.model, c.backend, gen,
+                              motion=False),
             state, params.max_samples)
-        key = regime if backend == "corr" else f"{regime}_{backend}"
-        out[key] = timing_row(
-            key, lambda: mcl.likelihood_only(state, omap, sp, scan, backend=backend), step)
+        out[key] = timing_row(key, likelihood_fn(c.model, omap, sp, scan, state, c.backend),
+                              step)
     return out
 
 
@@ -529,7 +667,7 @@ def phase_range_image(dev, omap):
                                range_rows=bmap.range_rows), secs, nbytes
 
 
-def phase_kernels_beam(dev, bmap, scan, beam_states):
+def phase_kernels_beam(dev, bmap, scan, states):
     """beam_table on the steady (its 24-row window) and tracking (the 64-row
     window) clouds, beam_spread_sums on the spread cloud, each against its
     plain version."""
@@ -546,7 +684,7 @@ def phase_kernels_beam(dev, bmap, scan, beam_states):
     results = {}
     rows_out = []
     for cell, rows in (("beam_steady", None), ("beam_tracking", 64)):
-        spose = planar.coord_add(sp.scanner_pose, beam_states[cell][1].poses)
+        spose = planar.coord_add(sp.scanner_pose, states[cell][1].poses)
         pre = bk.beam_prepass(bmap, spose, scan.range_max)
         check(bool(pre["fits"]), f"beam prepass does not fit the {cell} cloud")
         if rows is None:
@@ -570,7 +708,7 @@ def phase_kernels_beam(dev, bmap, scan, beam_states):
                                     pre["dtheta"], k_angles).unique().numel())
         b = bound(slabs * rows * ck.PWIN_C * 2 + got.numel() * 4 + N_BEAMS * 8,
                   16.0 * t_n * N_BEAMS * rows * ck.PWIN_C)
-        log(f"beam_table rows={rows} ({cell}, {beam_states[cell][1].poses.shape[0]} "
+        log(f"beam_table rows={rows} ({cell}, {states[cell][1].poses.shape[0]} "
             f"particles): t_n={t_n} slabs={slabs} max_abs_err={err:.3e} (table max "
             f"{scale:.4g}) bit_equal={float((got == want).float().mean()):.6f} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
@@ -578,7 +716,7 @@ def phase_kernels_beam(dev, bmap, scan, beam_states):
     results["beam_table"] = dict(max_abs_err=max(r[0] for r in rows_out), ms=rows_out[0][1],
                                  plain_ms=rows_out[0][2], **rows_out[0][3], library_ms=None)
 
-    spose = planar.coord_add(sp.scanner_pose, beam_states["beam_spread"][1].poses)
+    spose = planar.coord_add(sp.scanner_pose, states["beam_spread"][1].poses)
     check(bsk.fits(bmap, scan.range_max), "beam spread value table does not fit")
     pre = bsk.beam_spread_prepass(bmap, spose, scan.angles)
     phi = bsk.phi_tables(bmap, sp, scan, pre["kap"])
@@ -604,194 +742,6 @@ def phase_kernels_beam(dev, bmap, scan, beam_states):
     results["beam_spread_sums"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
                                        library_ms=None)
     return results
-
-
-def model_step_fns(model, omap, sp, scan, pool, params, gen, state):
-    """(likelihood fn, pinned step, its box) of a 2D model: the prob model
-    in log space, composed as node_2d.py:39-56 composes it."""
-    from badger_amcl_tpu_torch import mcl
-    from badger_amcl_tpu_torch.sensors.planar import planar_likelihood
-
-    log_space = model == "likelihood_field_prob"
-
-    def like():
-        p, mf = planar_likelihood(omap, sp, scan, state.poses, state.active_mask,
-                                  state.n_active, model, converged=state.converged,
-                                  backend="corr", fold_factors=True,
-                                  prob_log_space=log_space)
-        return p if mf is None else (p + mf.log() if log_space else p * mf)
-
-    step, box = pinned_step_fn(
-        lambda s: mcl.sensor_resample_step(s, omap, sp, scan, pool, params,
-                                           laser_model=model, backend="corr",
-                                           log_space=log_space, generator=gen),
-        state, params.max_samples)
-    return like, step, box
-
-
-def phase_main_path_beam(dev, bmap, model_maps, scan, beam_states, states):
-    """Drive the beam cells and the Gompertz and prob cells through
-    `mcl_step_2d` and the pinned `sensor_resample_step`; returns the launch
-    counts of this run only."""
-    import torch
-
-    from badger_amcl_tpu_torch import mcl
-    from badger_amcl_tpu_torch.ops import beam_kernel as bk
-    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
-    from badger_amcl_tpu_torch.ops import corr_kernel as ck
-    from badger_amcl_tpu_torch.ops import lf_kernel as lk
-    from badger_amcl_tpu_torch.ops import spread_kernel as sk
-    from badger_amcl_tpu_torch.pf import filter as pf_filter
-    from badger_amcl_tpu_torch.sensors import planar
-
-    sp = planar.PlanarScanParams()
-    counts = Launches({"beam_table": bk.beam_table, "beam_spread_sums": bsk.beam_spread_sums,
-                       "corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums,
-                       "lf_distances": lk.lf_distances})
-    gen = torch.Generator(device=dev).manual_seed(6)
-    runs = [(cell, "beam", bmap, beam_states[cell], BEAM_CELLS[cell][2])
-            for cell in BEAM_CELLS]
-    runs += [(f"{model.split('_')[-1]}_{regime}", model, model_maps[model], states[regime],
-              "corr_table" if regime == "steady" else "spread_term_sums")
-             for model in LF_MODELS for regime in ("steady", "spread")]
-    for cell, model, omap, (params, state0, pool), name in runs:
-        log_space = model == "likelihood_field_prob"
-        state = pf_filter.init_log_averages(state0) if log_space else state0
-        _, step, box = model_step_fns(model, omap, sp, scan, pool, params, gen, state)
-
-        def run():
-            s = state
-            for _ in range(3):
-                s = mcl.mcl_step_2d(s, omap, sp, scan, pool, *ODOM, params,
-                                    laser_model=model, backend="corr", log_space=log_space,
-                                    generator=gen)
-            check_state(s, params, f"{cell} mcl_step_2d")
-            for _ in range(3):
-                step()
-            torch.cuda.synchronize()
-
-        rose = counts.run(run, 6)
-        out = box["out"]
-        check_state(out, params, f"{cell} sensor_resample_step")
-        check(rose[name] > 0, f"{cell}: {name} was not launched")
-        if cell == "beam_steady":
-            err = float(out.stats.mean[:2].norm())
-            check(err < 0.1, f"{cell}: mean {out.stats.mean.tolist()} is {err:.3f} m from "
-                             "the truth")
-        extra = ""
-        if log_space:
-            # the log-space update keeps information the exp form loses: at
-            # 720 beams exp(sum log pz) underflows f32
-            # (from LOG_UNINIT, a finite w_slow means a finite total: no reset)
-            upd = mcl.sensor_update_2d(state, omap, sp, scan, model, backend="corr",
-                                       log_space=True)
-            check(bool(torch.isfinite(upd.w_slow)),
-                  f"{cell}: the log-space update found a zero total")
-            p_exp, _ = planar.planar_likelihood(omap, sp, scan, state.poses,
-                                                state.active_mask, state.n_active, model,
-                                                backend="corr")
-            extra = (f", log w_avg {float(upd.w_slow):.4f}, exp-form p underflowed to 0 "
-                     f"for {float((p_exp == 0).float().mean()):.4f} of particles")
-        log(f"main path {cell} ({model}): {name} launches +{rose[name]}, n_active="
-            f"{int(out.n_active)}, clusters={int(out.stats.cluster_count)}, "
-            f"mean={[round(v, 4) for v in out.stats.mean.tolist()]}{extra}")
-    return counts.read()
-
-
-def phase_reference_beam(dev):
-    """The beam, Gompertz and prob (log-space) models on the card (kernels)
-    against the CPU (plain versions), same inputs and draws, at 4096 x 360
-    on a 448^2 map whose range image is baked on the card; and the beam
-    model's exact raycast arm (the same map without its range image),
-    timed on the card at this size only."""
-    import dataclasses
-
-    import torch
-
-    from badger_amcl_tpu_torch import mcl, scenario
-    from badger_amcl_tpu_torch.ops import beam_kernel as bk
-    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
-    from badger_amcl_tpu_torch.ops import corr_kernel as ck
-    from badger_amcl_tpu_torch.ops import lf_kernel as lk
-    from badger_amcl_tpu_torch.pf import filter as pf_filter
-    from badger_amcl_tpu_torch.sensors import planar
-
-    sp = planar.PlanarScanParams()
-    omap_g = scenario.build_map(448, device=dev, range_image_bins=RANGE_IMAGE_BINS)
-    maps_g = {"beam": omap_g,
-              "beam_exact": dataclasses.replace(omap_g, range_image=None, range_rows=None),
-              **{m: planar.bake_corr_texture(omap_g, sp, 8.0, m) for m in LF_MODELS}}
-    maps_c = {m: to_device(x, "cpu") for m, x in maps_g.items()}
-    scan_c = scenario.build_scan(360, device="cpu")
-    kernels = {("beam", "steady"): bk.beam_table, ("beam", "spread"): bsk.beam_spread_sums}
-    for label in maps_g:
-        model = "beam" if label.startswith("beam") else label
-        for regime in ("steady", "spread"):
-            kernel = kernels.get((label, regime),
-                                 ck.corr_table if regime == "steady" else lk.lf_distances)
-            params, state_c, pool_c = scenario.build_filter(
-                4096, pose_cov=REGIMES[regime], min_particles=1024, device="cpu")
-            log_space = model == "likelihood_field_prob"
-            if log_space:
-                state_c = pf_filter.init_log_averages(state_c)
-            noise_c = mcl.StepNoise.draw(torch.Generator().manual_seed(7), 4096, "cpu",
-                                         odom=False)
-            state_g = to_device(state_c, dev)
-            like_c, _, _ = model_step_fns(model, maps_c[label], sp, scan_c, pool_c, params,
-                                          None, state_c)
-            like_g, _, _ = model_step_fns(model, maps_g[label], sp, to_device(scan_c, dev),
-                                          to_device(pool_c, dev), params, None, state_g)
-            before = {k: k.launches for k in (bk.beam_table, bsk.beam_spread_sums, kernel)}
-            p_c, p_g = like_c(), like_g().cpu()
-            exact_ms = None
-            if label == "beam_exact":
-                check(all(k.launches == n for k, n in before.items()),
-                      f"reference {label}/{regime}: a kernel ran in the exact arm")
-                exact_ms = cuda_ms(like_g, iters=5, warmup=1)
-            else:
-                check(kernel.launches > before[kernel],
-                      f"reference {label}/{regime}: kernel not launched")
-            close = ((p_g - p_c).abs() <= 1e-4 * p_c.abs()).float().mean().item()
-            check(close >= 0.99, f"reference {label}/{regime}: only {close:.4f} of "
-                                 "likelihoods agree to 1e-4")
-            outs = [mcl.sensor_resample_step(
-                st, omap, sp, to_device(scan_c, d), to_device(pool_c, d), params,
-                laser_model=model, backend="corr", log_space=log_space,
-                noise=to_device(noise_c, d))
-                for st, omap, d in ((state_c, maps_c[label], "cpu"),
-                                    (state_g, maps_g[label], dev))]
-            out_c, out_g = outs
-            same = (out_g.poses.cpu() == out_c.poses).all(dim=1).float().mean().item()
-            dmean = float((out_g.stats.mean.cpu() - out_c.stats.mean)[:2].norm())
-            check(int(out_g.n_active) == int(out_c.n_active),
-                  f"reference {label}/{regime}: n_active differs")
-            check(same >= 0.99 and dmean < 0.01, f"reference {label}/{regime}: picks equal "
-                                                 f"{same:.4f}, mean diff {dmean:.4g} m")
-            arm = (f"exact raycast, likelihood_ms on the card {exact_ms:.4f}" if exact_ms
-                   else kernel.__name__)
-            log(f"reference {label}/{regime} (4096 x 360 on 448^2, card vs CPU, {arm}): "
-                f"likelihoods within 1e-4: {close:.4f}, picks equal: {same:.4f}, n_active "
-                f"{int(out_g.n_active)}, mean diff {dmean:.3e} m")
-
-
-def phase_timings_beam(dev, bmap, model_maps, scan, beam_states, states):
-    import torch
-
-    from badger_amcl_tpu_torch.pf import filter as pf_filter
-    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
-
-    sp = PlanarScanParams()
-    gen = torch.Generator(device=dev).manual_seed(8)
-    out = {}
-    runs = [(cell, "beam", bmap, beam_states[cell]) for cell in BEAM_CELLS]
-    runs += [(f"{model.split('_')[-1]}_{regime}", model, model_maps[model], states[regime])
-             for model in LF_MODELS for regime in ("steady", "spread")]
-    for key, model, omap, (params, state, pool) in runs:
-        if model == "likelihood_field_prob":
-            state = pf_filter.init_log_averages(state)
-        like, step, _ = model_step_fns(model, omap, sp, scan, pool, params, gen, state)
-        out[key] = timing_row(key, like, step)
-    return out
 
 
 # --- 3D --------------------------------------------------------------------
@@ -1036,41 +986,40 @@ def main():
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.2f} s ({len(_build.sources())} sources)")
 
-    # 2D path
+    # 2D paths: the likelihood field, the beam model, Gompertz and prob
+    from badger_amcl_tpu_torch.sensors import planar
+
     t0 = time.perf_counter()
     omap = scenario.build_map(MAP_CELLS, device=dev)
     scan = scenario.build_scan(N_BEAMS, device=dev)
-    states = {r: scenario.build_filter(N_PARTICLES, pose_cov=cov, min_particles=N_PARTICLES,
-                                       device=dev)
-              for r, cov in REGIMES.items()}
+    built = {}
+    for c in CELLS_2D.values():
+        if (c.particles, c.cov) not in built:
+            built[c.particles, c.cov] = scenario.build_filter(
+                c.particles, pose_cov=c.cov, min_particles=c.particles, device=dev)
+    states = {key: built[c.particles, c.cov] for key, c in CELLS_2D.items()}
     torch.cuda.synchronize()
     log(f"scenario: {N_PARTICLES} x {N_BEAMS} on {MAP_CELLS}^2 in "
         f"{time.perf_counter() - t0:.2f} s")
     kernels = phase_kernels(dev, omap, scan, states)
-    reads = [phase_main_path(dev, omap, scan, states)]
-    phase_reference(dev)
-    timings = phase_timings(dev, omap, scan, states)
-
-    # 2D beam, Gompertz and prob models
-    from badger_amcl_tpu_torch.sensors import planar
-
     bmap, bake_s, bake_bytes = phase_range_image(dev, omap)
-    model_maps = {m: planar.bake_corr_texture(omap, planar.PlanarScanParams(), 8.0, m)
-                  for m in LF_MODELS}
-    beam_states = {c: scenario.build_filter(n, pose_cov=cov, min_particles=n, device=dev)
-                   for c, (n, cov, _) in BEAM_CELLS.items()}
-    for cell, (_, st, _) in beam_states.items():
-        spose = planar.coord_add(planar.PlanarScanParams().scanner_pose, st.poses)
-        arm = planar.beam_arm(bmap, scan, spose)
-        log(f"{cell}: the beam dispatch takes the {arm} arm")
-        check(arm == {"beam_table": "table", "beam_spread_sums": "spread"}[
-            BEAM_CELLS[cell][2]], f"{cell} takes the {arm} arm")
-    kernels.update(phase_kernels_beam(dev, bmap, scan, beam_states))
-    reads.append(phase_main_path_beam(dev, bmap, model_maps, scan, beam_states, states))
-    phase_reference_beam(dev)
-    timings.update(phase_timings_beam(dev, bmap, model_maps, scan, beam_states, states))
+    maps = {"likelihood_field": omap, "beam": bmap,
+            **{m: planar.bake_corr_texture(omap, planar.PlanarScanParams(), 8.0, m)
+               for m in LF_MODELS}}
+    for key, c in CELLS_2D.items():
+        if c.model == "beam":
+            spose = planar.coord_add(planar.PlanarScanParams().scanner_pose,
+                                     states[key][1].poses)
+            arm = planar.beam_arm(bmap, scan, spose)
+            log(f"{key}: the beam dispatch takes the {arm} arm")
+            check(arm == {"beam_table": "table", "beam_spread_sums": "spread"}[c.kernel],
+                  f"{key} takes the {arm} arm")
+    kernels.update(phase_kernels_beam(dev, bmap, scan, states))
+    paths = phase_main_path(dev, maps, scan, states)
+    phase_reference(dev)
+    timings = phase_timings(dev, maps, scan, states)
     timings["range_image_bake"] = dict(seconds=bake_s, bytes=bake_bytes)
-    del omap, bmap, model_maps, scan, states, beam_states
+    del omap, bmap, maps, scan, states, built
 
     # 3D path
     t0 = time.perf_counter()
@@ -1085,8 +1034,8 @@ def main():
         f"{cloud.shape[0]}-point cloud, {dict(PARTICLES_3D)} particles in "
         f"{time.perf_counter() - t0:.2f} s")
     kernels.update(phase_kernels_3d(omap3, cloud, states3))
-    reads.append(phase_main_path_3d(dev, omap3, cloud, states3))
-    launches = merge_launches(*reads)
+    paths["3d"] = phase_main_path_3d(dev, omap3, cloud, states3)
+    launches = launch_counts(paths)
     phase_reference_3d(dev, omap3)
     timings.update(phase_timings_3d(dev, omap3, cloud, states3))
 
@@ -1106,6 +1055,8 @@ def main():
         "beam_spread_sums": ("badger_amcl_tpu_torch/csrc/beam_spread_sums.cu",
                              "badger_amcl_tpu/ops/beam_spread_kernel.py:150"),
     }
+    for k in meta:
+        check(launches[k]["launches"] > 0, f"{k} was not launched on any main path")
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          **launches[k], **kernels[k]} for k in meta]}

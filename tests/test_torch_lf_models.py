@@ -276,21 +276,22 @@ def test_log_space_update_and_resample_match_jax():
 
 
 def test_log_space_step_entry_points():
-    """mcl's log_space option runs the pipeline end to end; other models
-    refuse it."""
+    """The log-space pipeline composed as the node composes it:
+    `sensor_update_2d(log_space=True)`, then a resample over log-domain
+    averages, runs end to end; other models refuse log_space."""
     _, (tmaps, tparams, tstate, tscan, tsp, tpool) = _setup()
     model = "likelihood_field_prob"
     gen = torch.Generator().manual_seed(0)
     state = tfilter.init_log_averages(tstate)
-    out = tmcl.mcl_step_2d(state, tmaps[model], tsp, tscan, tpool, [0.1, 0.0, 0.02],
-                           [0.1, 0.0, 0.02], None, [0.1] * 5, tparams, laser_model=model,
-                           backend="corr", log_space=True, generator=gen)
-    out = tmcl.sensor_resample_step(out, tmaps[model], tsp, tscan, tpool, tparams,
-                                    laser_model=model, backend="corr", log_space=True,
-                                    generator=gen)
-    assert torch.isfinite(out.weights).all() and int(out.n_active) >= tparams.min_samples
-    assert not torch.isnan(out.w_slow)
+    for _ in range(2):
+        noise = tmcl.StepNoise.draw(gen, M, "cpu", odom=False)
+        upd = tmcl.sensor_update_2d(state, tmaps[model], tsp, tscan, model, backend="corr",
+                                    log_space=True)
+        assert torch.isfinite(upd.w_slow)  # a finite total: no reset
+        state = tfilter.resample(upd, tparams, tpool, noise.inject, noise.pick,
+                                 log_averages=True)
+    assert torch.isfinite(state.weights).all() and int(state.n_active) >= tparams.min_samples
+    assert not torch.isnan(state.w_slow)
     with pytest.raises(ValueError):
-        tmcl.sensor_resample_step(state, tmaps[model], tsp, tscan, tpool, tparams,
-                                  laser_model="likelihood_field", backend="corr",
-                                  log_space=True, generator=gen)
+        tmcl.sensor_update_2d(state, tmaps[model], tsp, tscan, "likelihood_field",
+                              backend="corr", log_space=True)

@@ -109,10 +109,11 @@ def test_range_image_bit_equal_to_numpy_path(maps):
 
 
 @pytest.mark.parametrize("chunk_elements", [1, 1 << 16, 1 << 30])
-def test_range_image_chunking_is_exact(chunk_elements):
+def test_range_image_chunking_is_exact(chunk_elements, monkeypatch):
+    monkeypatch.setattr(tri, "CHUNK_ELEMENTS", chunk_elements)
     cells = beam_cells(64, seed=2)
     want = numpy_range_image(cells, 32)
-    got = tri.build_range_image(torch.from_numpy(cells), 32, chunk_elements)
+    got = tri.build_range_image(torch.from_numpy(cells), 32)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
