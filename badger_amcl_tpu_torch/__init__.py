@@ -1,10 +1,11 @@
 """badger_amcl_tpu_torch — the PyTorch/CUDA port of badger_amcl_tpu.
 
-The 2D likelihood-field MCL step (diff-drive odometry -> likelihood-field
-sensor update -> KLD multinomial resample with cluster statistics ->
-convergence) and the 3D point-cloud path (voxel EDT, both cloud models)
-as eager PyTorch on plain tensors, with five hand-written CUDA kernels for
-Hopper (``csrc/``) where the JAX package runs Pallas TPU kernels. Module paths, public function names and array layouts follow
+The 2D MCL step (odometry -> any of the four planar laser models ->
+KLD multinomial resample with cluster statistics -> convergence), the 3D
+point-cloud path (voxel EDT, both cloud models) and the fleet step (R
+robots batched on one card) as eager PyTorch on plain tensors, with
+hand-written CUDA kernels for Hopper (``csrc/``) where the JAX package
+runs Pallas TPU kernels. Module paths, public function names and array layouts follow
 ``badger_amcl_tpu`` so each counterpart is easy to find; the package never
 imports JAX or ``badger_amcl_tpu``.
 
@@ -13,6 +14,7 @@ imports JAX or ``badger_amcl_tpu``.
 - ``sensors``  — odometry, planar likelihood-field and point-cloud models
 - ``ops``      — kernel wrappers, their plain PyTorch versions, the builder
 - ``mcl``      — the fused step entry points
+- ``fleet``    — many robots' filters stepped as one batch
 - ``scenario`` — seeded 2D flagship and 3D scene builders
 - ``convert``  — JAX-package objects (as numpy) -> port objects
 """

@@ -34,8 +34,8 @@ def _opt(x, device):
 
 def map_from_numpy(omap, device="cuda") -> OccupancyMap2D:
     """OccupancyMap2D (JAX) -> OccupancyMap2D (port), the range image, its
-    transpose and the baked psi and factor textures included with their
-    fingerprints."""
+    transpose and the baked psi (f32 and int8) and factor textures included
+    with their fingerprints."""
     return OccupancyMap2D(
         resolution=float(omap.resolution), size_x=int(omap.size_x),
         size_y=int(omap.size_y), origin_x=float(omap.origin_x),
@@ -47,6 +47,8 @@ def map_from_numpy(omap, device="cuda") -> OccupancyMap2D:
         range_rows=_opt(omap.range_rows, device),
         corr_psi_pad=_opt(omap.corr_psi_pad, device),
         corr_psi_key=omap.corr_psi_key,
+        corr_psi_pad_q=_opt(omap.corr_psi_pad_q, device),
+        corr_psi_q=_opt(omap.corr_psi_q, device),
         factor_tex=_opt(omap.factor_tex, device),
         factor_key=omap.factor_key,
     )
@@ -61,7 +63,9 @@ def stats_from_numpy(stats, device="cuda") -> ClusterStats:
 
 
 def state_from_numpy(state, device="cuda") -> MCLState:
-    """MCLState (JAX) -> MCLState (port); the PRNG key is not carried."""
+    """MCLState (JAX) -> MCLState (port); the PRNG key is not carried. A
+    stacked fleet state (leading robot axis) converts to the port's fleet
+    state."""
     return MCLState(
         poses=_t(state.poses, device, torch.float32),
         weights=_t(state.weights, device, torch.float32),
@@ -79,6 +83,16 @@ def scan_from_numpy(scan, device="cuda") -> PlanarScan:
     return PlanarScan(ranges=_t(scan.ranges, device, torch.float32),
                       angles=_t(scan.angles, device, torch.float32),
                       range_max=float(np.asarray(scan.range_max)))
+
+
+def fleet_scan_from_numpy(scans, device="cuda"):
+    """A stacked PlanarScan (JAX: ranges/angles (R, B), range_max (R,)) ->
+    fleet.FleetScan."""
+    from badger_amcl_tpu_torch.fleet import FleetScan
+
+    return FleetScan(ranges=_t(scans.ranges, device, torch.float32),
+                     angles=_t(scans.angles, device, torch.float32),
+                     range_max=tuple(float(v) for v in np.asarray(scans.range_max)))
 
 
 def scan_params_from_numpy(params) -> PlanarScanParams:

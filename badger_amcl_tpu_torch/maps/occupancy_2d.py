@@ -9,7 +9,8 @@ Conventions preserved exactly (reference occupancy_map.cpp):
 - textures are (size_y, size_x) tensors indexed [j, i] (row-major i + j*W).
 
 Baked textures: `corr_psi_pad` (the padded psi texture of the corr
-kernel, tagged by `corr_psi_key`) and `factor_tex` (the recalcWeight factor
+kernel, tagged by `corr_psi_key`) with its int8 twin `corr_psi_pad_q` and
+scale `corr_psi_q` (the corr_q backend), `factor_tex` (the recalcWeight factor
 texture, tagged by `factor_key`), see sensors.planar.bake_corr_texture /
 bake_factor_texture; `range_image` and `range_rows` for the beam model,
 see `with_range_image`.
@@ -59,6 +60,10 @@ class OccupancyMap2D:
     range_rows: Optional[torch.Tensor] = None
     corr_psi_pad: Optional[torch.Tensor] = None
     corr_psi_key: Optional[tuple] = None
+    # int8 ratio-quantized psi (PAD_RQ-row padding) and its (2,) f32 scale
+    # [qstep, qoff]; shares corr_psi_key's fingerprint
+    corr_psi_pad_q: Optional[torch.Tensor] = None
+    corr_psi_q: Optional[torch.Tensor] = None
     factor_tex: Optional[torch.Tensor] = None
     factor_key: Optional[tuple] = None
 

@@ -32,6 +32,8 @@ _F = ctypes.c_float
 # argtypes of every C entry point in csrc/
 _SIGNATURES = {
     "corr_table_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "fleet_corr_table_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "corr_table_q_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "spread_term_sums_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
                                 _F, _F, _F, _F, _F, _I, _P, _P],
     "lf_distances_f32_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _I,

@@ -9,16 +9,28 @@ with the per-cell beam-likelihood texture Psi:
 
 with per-(yaw-bin, beam) offsets oj/oi = round(r_b u(theta_t + a_b) / res).
 `corr_prepass` builds the packed offsets (compacted yaw bins and beams,
-per-bin duplicates merged into weighted taps) and the dispatch flags;
-`corr_table` builds the table (csrc/corr_table.cu on CUDA tensors,
-`corr_table_plain` on CPU tensors); particles then read their value with
-one take, fused with the model's combine and the recalcWeight factor when
-folding (`_folded_take`).
+per-bin duplicates merged into weighted taps) and the dispatch flags, for
+one robot or, with a leading robot axis, a fleet; particles then read
+their value with one take, fused with the model's combine and the
+recalcWeight factor when folding (`_folded_take`). Three tables, each a
+wrapper that launches its kernel on CUDA tensors (one templated tap loop
+in csrc/corr_table.cu) and runs its plain version on CPU tensors:
+
+- `corr_table`: one robot, f32 psi texture (TPU kernels `_kernel_pre`
+  and `_kernel`);
+- `fleet_corr_table`: R robots in one launch, each at its own window
+  origin, undeduplicated unit taps (TPU kernel `_kernel_fleet`); a robot
+  without valid beams gets zero taps (the JAX fleet kernel runs one);
+- `corr_table_q`: one robot over the int8 ratio-quantized texture
+  (`build_tex_pad_q`), int32 sums dequantized per particle as
+  acc * qstep + nv * qoff (TPU kernel `_kernel_q`).
 
 Not ported (TPU-only): the eight row-preshifted texture copies
 (`preshift_full`, `preshifted_slices`, `slice_origin*`) and the in-kernel
-DMA variant — the CUDA kernel reads the padded texture directly — plus
-the fleet and int8-quantized kernels (later work).
+DMA variant, the fleet kernel's per-robot (512, 1024) slices, 8-row
+robot blocking and row rolls, and the q kernel's four preshifted int8
+copies, 32-row aligned loads and bitcast rolls: every kernel reads its
+padded texture directly.
 """
 
 from __future__ import annotations
@@ -43,12 +55,24 @@ MAX_RANGE_CELLS = 183.0  # = PAD_R - 9, the offset magnitude the padding allows
 # the JAX kernel's active-region slice; kept for its static map gate
 SLICE_R = 512
 SLICE_C = 1024
+# the int8 texture's row padding (PAD_R + 32 for the TPU's aligned loads;
+# kept so the q texture and its gate match the JAX package's)
+PAD_RQ = 224
+BASE_RQ = 512 + 3  # the JAX q kernel's base slice rows (its map gate)
 
 
 def map_fits(omap) -> bool:
     """The JAX package's static gate: map large enough for its active-region
     slice (no upper size limit)."""
     return (omap.size_y + 2 * PAD_R >= SLICE_R + 8
+            and omap.size_x + 2 * PAD_C >= SLICE_C
+            and omap.size_y >= PWIN_R and omap.size_x >= PWIN_C)
+
+
+def map_fits_q(omap) -> bool:
+    """The JAX package's static gate of the int8 variant (laxer rows than
+    map_fits: its 224-row padding nearly covers the base slice)."""
+    return (omap.size_y + 2 * PAD_RQ >= BASE_RQ
             and omap.size_x + 2 * PAD_C >= SLICE_C
             and omap.size_y >= PWIN_R and omap.size_x >= PWIN_C)
 
@@ -63,15 +87,38 @@ def build_tex_pad(omap, tex_psi: torch.Tensor, offmap_psi: torch.Tensor) -> torc
     return pad
 
 
+def build_tex_pad_q(omap, tex_psi: torch.Tensor, offmap_psi: torch.Tensor):
+    """The psi texture ratio-quantized to int8 between its [lo, hi]
+    (corr_kernel.py:532-555) and padded by PAD_RQ rows / PAD_C columns with
+    the quantized off-map value. Returns (pad_q int8, qscale (2,) f32 =
+    [qstep, lo + 127 qstep]): sum_b psi ~ qstep * sum_b q + nv * qoff.
+    Both divisions are IEEE (`fdiv`, a tensor divisor), so a bake on the
+    card equals one on the CPU; a uniform texture takes qstep 1."""
+    tex = tex_psi.to(torch.float32)
+    off = offmap_psi.to(torch.float32)
+    lo = torch.minimum(tex.min(), off)
+    hi = torch.maximum(tex.max(), off)
+    step = torch.where(hi > lo, fdiv(hi - lo, 254.0), 1.0)
+
+    def quantize(x):
+        return (torch.round((x - lo) / step).clamp(0, 254).to(torch.int16) - 127).to(torch.int8)
+
+    pad = torch.empty((omap.size_y + 2 * PAD_RQ, omap.size_x + 2 * PAD_C), dtype=torch.int8,
+                      device=tex.device).fill_(quantize(off))
+    pad[PAD_RQ:PAD_RQ + omap.size_y, PAD_C:PAD_C + omap.size_x] = quantize(tex)
+    return pad, torch.stack([step, lo + 127.0 * step])
+
+
 def _compaction(flags: torch.Tensor, n_set: torch.Tensor):
-    """Stable set-first permutation of a flag vector: (dest of each entry,
-    order = inverse permutation), from cumulative sums."""
+    """Stable set-first permutation along the last axis of a flag tensor
+    (..., n): (dest of each entry, order = inverse permutation), from
+    cumulative sums; n_set (...) the set counts."""
     fi = flags.to(torch.int32)
-    dest = torch.where(flags, torch.cumsum(fi, 0, dtype=torch.int32) - 1,
-                       n_set + torch.cumsum(1 - fi, 0, dtype=torch.int32) - 1)
+    dest = torch.where(flags, torch.cumsum(fi, -1, dtype=torch.int32) - 1,
+                       n_set[..., None] + torch.cumsum(1 - fi, -1, dtype=torch.int32) - 1)
     order = torch.empty_like(dest)
-    order[dest.long()] = torch.arange(flags.shape[0], dtype=torch.int32,
-                                      device=flags.device)
+    iota = torch.arange(flags.shape[-1], dtype=torch.int32, device=flags.device)
+    order.scatter_(-1, dest.long(), iota.expand_as(dest).contiguous())
     return dest, order
 
 
@@ -79,16 +126,26 @@ def corr_prepass(omap, spose, ranges, angles, valid, dedup=False):
     """Lattice geometry: particle cells and windows, compacted yaw bins and
     beams, packed stencil offsets and the dynamic fits flags
     (corr_kernel.py:678-832). With dedup, per-bin duplicate offsets merge
-    into one weighted tap (the psi sum is only reassociated)."""
+    into one weighted tap (the psi sum is only reassociated).
+
+    One robot: spose (N, 3), ranges/angles/valid (B,). A fleet (the JAX
+    fleet's vmapped prepass, fleet.py:160-162): spose (R, N, 3) and
+    (R, B) scans; every output then carries the leading robot axis
+    ("off" is (R, T_MAX * B))."""
+    if spose.dim() == 2:
+        pre = corr_prepass(omap, spose[None], ranges[None], angles[None], valid[None],
+                           dedup)
+        return {k: v[0] for k, v in pre.items()}
     dev = spose.device
     res = omap.resolution
-    ci, cj = omap.cells_of(spose[:, 0], spose[:, 1])
+    r = spose.shape[0]
+    ci, cj = omap.cells_of(spose[..., 0], spose[..., 1])
     ci = ci.clamp(0, omap.size_x - 1)
     cj = cj.clamp(0, omap.size_y - 1)
-    i0 = ci.min()
-    j0_raw = cj.min()
-    row_span = cj.max() - j0_raw
-    span_ok = (ci.max() - i0 < PWIN_C) & (row_span < PWIN_R)
+    i0 = ci.min(-1).values
+    j0_raw = cj.min(-1).values
+    row_span = cj.max(-1).values - j0_raw
+    span_ok = (ci.max(-1).values - i0 < PWIN_C) & (row_span < PWIN_R)
     narrow_ok = span_ok & (row_span < PWIN_R_NARROW) & (omap.size_y >= PWIN_R_NARROW)
     tight_ok = span_ok & (row_span < PWIN_R_TIGHT) & (omap.size_y >= PWIN_R_TIGHT)
     # each variant clips from the RAW window origin
@@ -98,68 +155,71 @@ def corr_prepass(omap, spose, ranges, angles, valid, dedup=False):
     j0_t = j0_raw.clamp(0, max(omap.size_y - PWIN_R_TIGHT, 0))
 
     # the longest valid range bounds the stencil offsets
-    max_cells = fdiv(torch.where(valid, ranges, 0.0).max(), res)
+    max_cells = fdiv(torch.where(valid, ranges, 0.0).max(-1).values, res)
     range_ok = (max_cells < (PAD_C - 129)) & (max_cells < (PAD_R - 9))
     # adaptive yaw-bin width: rounding error r*delta/2 <= half a cell
     dtheta = 1.0 / torch.clamp(max_cells, MIN_RANGE_CELLS, MAX_RANGE_CELLS)
-    t_m = torch.round(spose[:, 2] / dtheta).to(torch.int32)
-    t_min = t_m.min()
-    yaw_ok = (t_m.max() - t_min + 1) <= T_MAX
+    t_m = torch.round(spose[..., 2] / dtheta[:, None]).to(torch.int32)
+    t_min = t_m.min(-1).values
+    yaw_ok = (t_m.max(-1).values - t_min + 1) <= T_MAX
 
     # occupied yaw bins compacted to the front, particles' compacted slots
-    t_rel = (t_m - t_min).clamp(0, T_MAX - 1)
-    t_occ = torch.zeros((T_MAX,), dtype=torch.bool, device=dev)
-    t_occ[t_rel.long()] = True
-    t_n = t_occ.sum().to(torch.int32)
+    t_rel = (t_m - t_min[:, None]).clamp(0, T_MAX - 1).long()
+    t_occ = torch.zeros((r, T_MAX), dtype=torch.bool, device=dev)
+    t_occ.scatter_(1, t_rel, True)
+    t_n = t_occ.sum(-1).to(torch.int32)
     t_dest, t_order = _compaction(t_occ, t_n)
-    t_slot = t_dest[t_rel.long()]
+    t_slot = torch.gather(t_dest, 1, t_rel)
 
     # beam compaction: valid beams first (beam order is irrelevant to sums)
-    nv = valid.sum().to(torch.int32)
-    nb = valid.shape[0]
+    nv = valid.sum(-1).to(torch.int32)
+    nb = valid.shape[-1]
     _, b_order = _compaction(valid, nv)
-    tail_ok = torch.arange(nb, dtype=torch.int32, device=dev) < nv
-    ranges_c = torch.where(tail_ok, ranges.to(torch.float32)[b_order.long()], 0.0)
-    angles_c = torch.where(tail_ok, angles.to(torch.float32)[b_order.long()], 0.0)
+    tail_ok = torch.arange(nb, dtype=torch.int32, device=dev) < nv[:, None]
+    b_order = b_order.long()
+    ranges_c = torch.where(tail_ok, torch.gather(ranges.to(torch.float32), 1, b_order), 0.0)
+    angles_c = torch.where(tail_ok, torch.gather(angles.to(torch.float32), 1, b_order), 0.0)
 
     # packed offsets (w << 20) | (oj & 0x3FF) << 10 | (oi & 0x3FF): 10-bit
     # signed offsets (|o| <= 183 by range_ok) and a 12-bit multiplicity
-    theta = (t_min + t_order[:, None]).to(torch.float32) * dtheta + angles_c[None, :]
+    theta = ((t_min[:, None, None] + t_order[:, :, None]).to(torch.float32)
+             * dtheta[:, None, None] + angles_c[:, None, :])
     inv_res = float(torch.tensor(1.0 / res, dtype=torch.float32))
-    oi = torch.round(ranges_c[None, :] * torch.cos(theta) * inv_res).to(torch.int32)
-    oj = torch.round(ranges_c[None, :] * torch.sin(theta) * inv_res).to(torch.int32)
+    oi = torch.round(ranges_c[:, None, :] * torch.cos(theta) * inv_res).to(torch.int32)
+    oj = torch.round(ranges_c[:, None, :] * torch.sin(theta) * inv_res).to(torch.int32)
     oo = ((oj & 0x3FF) << 10) | (oi & 0x3FF)
 
     if not dedup:
         off = (1 << 20) | oo
-        nu = torch.full((T_MAX,), 0, dtype=torch.int32, device=dev) + nv
+        nu = torch.zeros((r, T_MAX), dtype=torch.int32, device=dev) + nv[:, None]
     else:
         # per-bin sort, run-length encode with cummax/cummin scans, then a
         # stable sort compacts the unique taps to the front
         sent = 0x1FFFFF  # > any 20-bit payload; sorts last
-        x = torch.sort(torch.where(tail_ok[None, :], oo, sent), dim=1).values
-        bsz = x.shape[1]
+        x = torch.sort(torch.where(tail_ok[:, None, :], oo, sent), dim=-1).values
+        bsz = x.shape[-1]
         idx = torch.arange(bsz, dtype=torch.int32, device=dev).expand_as(x)
         real = x != sent
-        ones = torch.ones_like(real[:, :1])
-        uniq = torch.cat([ones, x[:, 1:] != x[:, :-1]], dim=1) & real
-        first = torch.cummax(torch.where(uniq, idx, -1), dim=1).values
-        bnext = torch.cat([x[:, :-1] != x[:, 1:], ones], dim=1)
-        last = torch.flip(torch.cummin(torch.flip(torch.where(bnext, idx, bsz), [1]),
-                                       dim=1).values, [1])
+        ones = torch.ones_like(real[..., :1])
+        uniq = torch.cat([ones, x[..., 1:] != x[..., :-1]], dim=-1) & real
+        first = torch.cummax(torch.where(uniq, idx, -1), dim=-1).values
+        bnext = torch.cat([x[..., :-1] != x[..., 1:], ones], dim=-1)
+        last = torch.flip(torch.cummin(torch.flip(torch.where(bnext, idx, bsz), [-1]),
+                                       dim=-1).values, [-1])
         w = torch.where(uniq, last - first + 1, 0)
         # sentinel slots pack to 0 (a read tail slot contributes nothing)
         packed = torch.where(real, (w << 20) | x, 0)
-        _, order = torch.sort(torch.where(uniq, 0, 1).to(torch.int32), dim=1,
+        _, order = torch.sort(torch.where(uniq, 0, 1).to(torch.int32), dim=-1,
                               stable=True)
-        off = torch.gather(packed, 1, order)
-        nu = uniq.sum(dim=1).to(torch.int32)
-        nu = torch.where(torch.arange(T_MAX, device=dev) < t_n, nu, 0).to(torch.int32)
+        off = torch.gather(packed, -1, order)
+        nu = uniq.sum(dim=-1).to(torch.int32)
+        nu = torch.where(torch.arange(T_MAX, device=dev) < t_n[:, None], nu,
+                         0).to(torch.int32)
 
     return {
         "ci": ci, "cj": cj, "i0": i0, "j0": j0, "j0_narrow": j0_n,
         "j0_tight": j0_t, "t_slot": t_slot, "t_n": t_n, "nv": nv, "nu": nu,
-        "off": off.reshape(-1).to(torch.int32).contiguous(),
+        "off": off.reshape(r, -1).to(torch.int32).contiguous(),
         "fits": span_ok & yaw_ok & range_ok,
         "narrow": narrow_ok & yaw_ok & range_ok,
         "tight": tight_ok & yaw_ok & range_ok,
@@ -185,25 +245,69 @@ def _unpack(off: torch.Tensor):
     return w, torch.where(oj >= 512, oj - 1024, oj), torch.where(oi >= 512, oi - 1024, oi)
 
 
-def corr_table_plain(tex_pad, off, nu, t_n, org, n_beams: int, rows: int):
-    """Plain PyTorch version of the kernel: (T_MAX, rows, PWIN_C) f32, bins
-    t >= t_n zero. org: (2,) int32 absolute window origin in tex_pad."""
-    dev = tex_pad.device
-    hp, wp = tex_pad.shape
-    t_max = nu.shape[0]
-    w, oj, oi = _unpack(off.reshape(t_max, n_beams))
-    live = torch.arange(n_beams, device=dev)[None, :] < nu[:, None]
-    wf = torch.where(live, w, 0).to(torch.float32)
+def _table_plain(tex, off, nu, t_n, org, n_beams: int, rows: int):
+    """The plain tap sum of every table kernel, R windows at once: off
+    (R, T_MAX * n_beams) packed taps, nu (R, T_MAX) taps per bin, t_n
+    (R,), org (R, 2) absolute window origins in `tex`. Returns (R, T_MAX,
+    rows, PWIN_C), bins t >= t_n zero: f32 for an f32 texture, int32
+    (exact) for the int8 one."""
+    dev = tex.device
+    hp, wp = tex.shape
+    n_r, t_max = nu.shape
+    w, oj, oi = _unpack(off.reshape(n_r, t_max, n_beams))
+    live = torch.arange(n_beams, device=dev) < nu[..., None]
+    integer = tex.dtype == torch.int8
+    w = torch.where(live, w, 0)
+    w = w if integer else w.to(torch.float32)
     org = org.to(torch.int64)
     dj = torch.arange(rows, device=dev)
     di = torch.arange(PWIN_C, device=dev)
-    out = torch.zeros((t_max, rows, PWIN_C), dtype=torch.float32, device=dev)
-    for t in range(int(t_n)):
-        r = (org[0] + oj[t][:, None] + dj[None, :]).clamp(0, hp - 1)  # (B, rows)
-        c = (org[1] + oi[t][:, None] + di[None, :]).clamp(0, wp - 1)  # (B, PWIN_C)
-        g = tex_pad[r[:, :, None], c[:, None, :]]  # (B, rows, PWIN_C)
-        out[t] = (wf[t][:, None, None] * g).sum(dim=0)
+    flat_tex = tex.reshape(-1)
+    out = torch.zeros((n_r, t_max, rows, PWIN_C), dtype=torch.int32 if integer else torch.float32,
+                      device=dev)
+    n_bins = int(t_n.max()) if n_r else 0
+    for t in range(n_bins):
+        r = (org[:, 0, None, None] + oj[:, t, :, None] + dj).clamp(0, hp - 1)  # (R, B, rows)
+        c = (org[:, 1, None, None] + oi[:, t, :, None] + di).clamp(0, wp - 1)  # (R, B, PWIN_C)
+        g = flat_tex[r[..., None] * wp + c[:, :, None, :]]  # (R, B, rows, PWIN_C)
+        if integer:
+            g = g.to(torch.int64)
+        s = (w[:, t, :, None, None] * g).sum(dim=1)
+        out[:, t] = torch.where((t < t_n)[:, None, None], s, 0).to(out.dtype)
     return out
+
+
+def _check_taps(tex, tex_dtype, off, tap_counts, t_n, org, n_beams, rows, row_choices):
+    """Argument checks shared by the table wrappers (robot axis first)."""
+    n_r = org.shape[0]
+    if tex.dim() != 2 or tex.dtype != tex_dtype:
+        raise ValueError(f"the texture must be a 2-D {tex_dtype} tensor")
+    if off.shape != (n_r, T_MAX * n_beams) or off.dtype != torch.int32:
+        raise ValueError("off must be (T_MAX * n_beams,) int32 per window")
+    if (tap_counts.dtype != torch.int32 or tap_counts.shape[0] != n_r
+            or org.shape != (n_r, 2) or org.dtype != torch.int32 or t_n.shape != (n_r,)):
+        raise ValueError("tap counts and t_n must be int32 and org (2,) int32 per window")
+    if rows not in row_choices:
+        raise ValueError(f"rows must be one of {row_choices}, got {rows}")
+    if not 0 < n_r <= 65535:
+        raise ValueError(f"1 to 65535 windows per launch, got {n_r}")
+    if tex.device.type == "cuda":
+        for t in (off, tap_counts, t_n, org):
+            if t.device != tex.device:
+                raise ValueError("all inputs must be on one device")
+
+
+def _launch(fn_name, tex, out, *ints_and_ptrs):
+    """Call a table kernel's C entry point on tex's stream."""
+    code = getattr(_build.lib(), fn_name)(*ints_and_ptrs, _build.stream_ptr(tex.device))
+    _build.check(code, fn_name)
+    return out
+
+
+def corr_table_plain(tex_pad, off, nu, t_n, org, n_beams: int, rows: int):
+    """Plain PyTorch version of `corr_table`."""
+    return _table_plain(tex_pad, off[None], nu[None], t_n.reshape(1), org[None],
+                        n_beams, rows)[0]
 
 
 def corr_table(tex_pad, off, nu, t_n, org, n_beams: int, rows: int):
@@ -211,30 +315,16 @@ def corr_table(tex_pad, off, nu, t_n, org, n_beams: int, rows: int):
     (T_MAX * n_beams,) int32, per-bin tap counts `nu` (T_MAX,) int32, the
     occupied-bin count `t_n` (0-dim int32) and window origin `org` (2,)
     int32 = (j0 + PAD_R, i0 + PAD_C) in the padded texture."""
-    t_max = nu.shape[0]
-    if tex_pad.dim() != 2 or tex_pad.dtype != torch.float32:
-        raise ValueError("tex_pad must be a 2-D float32 texture")
-    if off.shape != (t_max * n_beams,) or off.dtype != torch.int32:
-        raise ValueError("off must be (T_MAX * n_beams,) int32")
-    if nu.dtype != torch.int32 or org.shape != (2,) or org.dtype != torch.int32:
-        raise ValueError("nu must be int32 and org a (2,) int32 origin")
-    if rows not in (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R):
-        raise ValueError(f"rows must be one of 24, 32, 64, got {rows}")
+    t_n = t_n.to(torch.int32).reshape(1)
+    _check_taps(tex_pad, torch.float32, off[None], nu[None], t_n, org[None], n_beams, rows,
+                (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R))
     if tex_pad.device.type != "cuda":
         return corr_table_plain(tex_pad, off, nu, t_n, org, n_beams, rows)
-    for t in (off, nu, t_n, org):
-        if t.device != tex_pad.device:
-            raise ValueError("all inputs must be on one device")
-    tex_pad = tex_pad.contiguous()
-    off, nu, org = off.contiguous(), nu.contiguous(), org.contiguous()
-    t_n = t_n.to(torch.int32).reshape(1).contiguous()
-    out = torch.empty((t_max, rows, PWIN_C), dtype=torch.float32, device=tex_pad.device)
-    hp, wp = tex_pad.shape
-    code = _build.lib().corr_table_launch(
-        tex_pad.data_ptr(), hp, wp, off.data_ptr(), nu.data_ptr(), t_n.data_ptr(),
-        org.data_ptr(), out.data_ptr(), t_max, n_beams, rows,
-        _build.stream_ptr(tex_pad.device))
-    _build.check(code, "corr_table")
+    tex_pad, off, nu, org = (t.contiguous() for t in (tex_pad, off, nu, org))
+    out = torch.empty((T_MAX, rows, PWIN_C), dtype=torch.float32, device=tex_pad.device)
+    _launch("corr_table_launch", tex_pad, out, tex_pad.data_ptr(), *tex_pad.shape,
+            off.data_ptr(), nu.data_ptr(), t_n.data_ptr(), org.data_ptr(), out.data_ptr(),
+            T_MAX, n_beams, rows)
     corr_table.launches += 1
     return out
 
@@ -242,16 +332,74 @@ def corr_table(tex_pad, off, nu, t_n, org, n_beams: int, rows: int):
 corr_table.launches = 0
 
 
-def table_origin(pre, j0) -> torch.Tensor:
-    """(2,) int32 absolute origin of a table window in the padded texture."""
-    return torch.stack([j0 + PAD_R, pre["i0"] + PAD_C]).to(torch.int32)
+def fleet_corr_table_plain(tex_pad, off, nv, t_n, org, n_beams: int, rows: int):
+    """Plain PyTorch version of `fleet_corr_table`."""
+    return _table_plain(tex_pad, off, nv[:, None].expand(-1, T_MAX), t_n, org, n_beams, rows)
+
+
+def fleet_corr_table(tex_pad, off, nv, t_n, org, n_beams: int, rows: int):
+    """R robots' correlation tables (R, T_MAX, rows, PWIN_C) f32 in one
+    launch (the JAX fleet_corr_call, corr_kernel.py:333-374): packed unit
+    taps `off` (R, T_MAX * n_beams) int32 from the undeduplicated prepass,
+    valid-beam counts `nv` (R,) (every bin has nv taps; 0 taps when nv = 0,
+    where the JAX kernel reads one), occupied-bin counts `t_n` (R,) and
+    window origins `org` (R, 2) int32 in the shared padded texture."""
+    t_n = t_n.to(torch.int32)
+    _check_taps(tex_pad, torch.float32, off, nv[:, None], t_n, org, n_beams, rows,
+                (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R))
+    if tex_pad.device.type != "cuda":
+        return fleet_corr_table_plain(tex_pad, off, nv, t_n, org, n_beams, rows)
+    tex_pad, off, nv, t_n, org = (t.contiguous() for t in (tex_pad, off, nv, t_n, org))
+    n_r = org.shape[0]
+    out = torch.empty((n_r, T_MAX, rows, PWIN_C), dtype=torch.float32, device=tex_pad.device)
+    _launch("fleet_corr_table_launch", tex_pad, out, tex_pad.data_ptr(), *tex_pad.shape,
+            off.data_ptr(), nv.data_ptr(), t_n.data_ptr(), org.data_ptr(), out.data_ptr(),
+            n_r, T_MAX, n_beams, rows)
+    fleet_corr_table.launches += 1
+    return out
+
+
+fleet_corr_table.launches = 0
+
+
+def corr_table_q_plain(tex_q, off, nu, t_n, org, n_beams: int, rows: int):
+    """Plain PyTorch version of `corr_table_q`."""
+    return _table_plain(tex_q, off[None], nu[None], t_n.reshape(1), org[None],
+                        n_beams, rows)[0]
+
+
+def corr_table_q(tex_q, off, nu, t_n, org, n_beams: int, rows: int):
+    """`corr_table` over the int8 quantized texture (`build_tex_pad_q`):
+    (T_MAX, rows, PWIN_C) int32 exact sums of w * q, rows 32 or 64 (the
+    JAX q kernel has no 24-row variant), org = (j0 + PAD_RQ, i0 + PAD_C)."""
+    t_n = t_n.to(torch.int32).reshape(1)
+    _check_taps(tex_q, torch.int8, off[None], nu[None], t_n, org[None], n_beams, rows,
+                (PWIN_R_NARROW, PWIN_R))
+    if tex_q.device.type != "cuda":
+        return corr_table_q_plain(tex_q, off, nu, t_n, org, n_beams, rows)
+    tex_q, off, nu, org = (t.contiguous() for t in (tex_q, off, nu, org))
+    out = torch.empty((T_MAX, rows, PWIN_C), dtype=torch.int32, device=tex_q.device)
+    _launch("corr_table_q_launch", tex_q, out, tex_q.data_ptr(), *tex_q.shape,
+            off.data_ptr(), nu.data_ptr(), t_n.data_ptr(), org.data_ptr(), out.data_ptr(),
+            T_MAX, n_beams, rows)
+    corr_table_q.launches += 1
+    return out
+
+
+corr_table_q.launches = 0
+
+
+def table_origin(pre, j0, pad_r: int = PAD_R) -> torch.Tensor:
+    """Absolute int32 origin (j0 + pad_r, i0 + PAD_C) of a table window in
+    the padded texture: (2,), or (R, 2) for a fleet prepass."""
+    return torch.stack([j0 + pad_r, pre["i0"] + PAD_C], dim=-1).to(torch.int32)
 
 
 def particle_flat(pre, rows: int, j0) -> torch.Tensor:
-    """Flat int64 index of each particle's lattice cell in a (T_MAX, rows,
-    PWIN_C) table."""
-    dj = (pre["cj"] - j0).clamp(0, rows - 1)
-    di = (pre["ci"] - pre["i0"]).clamp(0, PWIN_C - 1)
+    """Flat int64 index of each particle's lattice cell in its (T_MAX,
+    rows, PWIN_C) table (per robot for a fleet prepass)."""
+    dj = (pre["cj"] - j0[..., None]).clamp(0, rows - 1)
+    di = (pre["ci"] - pre["i0"][..., None]).clamp(0, PWIN_C - 1)
     return ((pre["t_slot"] * rows + dj) * PWIN_C + di).long()
 
 
@@ -293,3 +441,25 @@ def corr_values(tex_pad, pre, n_beams: int, rows: int, j0, fold: Fold = None):
     if fold is not None:
         return _folded_take(corr, pre, rows, j0, fold)
     return corr.reshape(-1)[particle_flat(pre, rows, j0)]
+
+
+def _dequantize(acc, qscale, nv):
+    """acc * qstep + nv * qoff with the multiply-add rounded once, as XLA
+    fuses it (corr_kernel.py:580-585): the int32 sum times the f32 step and
+    the f32 offset are exact in float64, so one rounding to f32 remains."""
+    nv_off = nv.to(torch.float32) * qscale[1]
+    return (acc.to(torch.float64) * qscale[0].to(torch.float64)
+            + nv_off.to(torch.float64)).to(torch.float32)
+
+
+def corr_values_q(tex_q, qscale, pre, n_beams: int, narrow: bool, fold: Fold = None):
+    """`corr_values` over the int8 texture (corr_kernel.py:558-592): the
+    narrow (32) or standard (64) window (no tight variant), the int32 table
+    dequantized as acc * qstep + nv * qoff, per particle or, with `fold`,
+    table-side before the fused take."""
+    rows, j0 = (PWIN_R_NARROW, pre["j0_narrow"]) if narrow else (PWIN_R, pre["j0"])
+    corr = corr_table_q(tex_q, pre["off"], pre["nu"], pre["t_n"],
+                        table_origin(pre, j0, PAD_RQ), n_beams, rows)
+    if fold is not None:
+        return _folded_take(_dequantize(corr, qscale, pre["nv"]), pre, rows, j0, fold)
+    return _dequantize(corr.reshape(-1)[particle_flat(pre, rows, j0)], qscale, pre["nv"])

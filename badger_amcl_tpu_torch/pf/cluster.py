@@ -8,6 +8,12 @@ occupied grid cell's flat index and diffuse by separable 3x3x3
 min-dilation until fixpoint; dense root ranks come from a cumulative sum
 of root flags. Segment sums are `index_add_` (the JAX package's one-hot
 MXU contractions exist only for the TPU).
+
+A fleet (leading robot axis R) takes `_ranks_fleet`: one composite-key
+sort over R * M, the unique (robot, bin) keys compacted to the front, one
+batched dilation over (R, ga, gx, gy); `stats_from_ranks` serves one robot
+and a fleet alike (one `index_add_` over R * k segments, a batched
+`_finalize`).
 """
 
 from __future__ import annotations
@@ -15,11 +21,14 @@ from __future__ import annotations
 import torch
 
 from badger_amcl_tpu_torch.pf import kld
-from badger_amcl_tpu_torch.pf.types import ClusterStats
-from badger_amcl_tpu_torch.utils.numerics import host_bool, host_values
+from badger_amcl_tpu_torch.pf.types import ClusterStats, map_tensors
+from badger_amcl_tpu_torch.utils.numerics import host_bool
 
 MAX_FAST_CLUSTERS = 128
 MAX_UNIQUE_BINS = 8192
+# capacity of the fleet's unique (robot, bin) compaction, across all robots;
+# past it the ranks come from the per-robot grid path (cluster.py:200-203)
+FLEET_U_MAX = 32768
 SMALL_GRID = (32, 32, 40)
 # dilation sweeps per convergence check: each check is a host sync, and
 # sweeps past the fixpoint change nothing
@@ -27,9 +36,10 @@ _SWEEPS_PER_CHECK = 8
 
 
 def _box_min(g3: torch.Tensor) -> torch.Tensor:
-    """Separable 3x3x3 minimum via rolls; the 1-cell empty border kept by
-    kld.grid_cells stops roll wrap-around from leaking labels."""
-    for axis in range(3):
+    """Separable 3x3x3 minimum over the last three axes via rolls; the
+    1-cell empty border kept by kld.grid_cells stops roll wrap-around from
+    leaking labels."""
+    for axis in (-3, -2, -1):
         g3 = torch.minimum(g3, torch.minimum(torch.roll(g3, 1, dims=axis),
                                              torch.roll(g3, -1, dims=axis)))
     return g3
@@ -38,10 +48,12 @@ def _box_min(g3: torch.Tensor) -> torch.Tensor:
 def _cluster_grid(occ_flat: torch.Tensor, shape) -> torch.Tensor:
     """Label the occupied-bin grid by connected component (26-neighborhood):
     occupied cells hold their component's minimum flat index, empty cells
-    hold BIG. occ_flat: bool (gx*gy*ga,) in (a, x, y) packing."""
+    hold BIG. occ_flat: bool (..., gx*gy*ga) in (a, x, y) packing, one
+    grid per leading index (a fleet's robots dilate together, and the
+    fixpoint check stays one host sync per 8 sweeps for all of them)."""
     gx, gy, ga = shape
     n = gx * gy * ga
-    occ3 = occ_flat.reshape(ga, gx, gy)
+    occ3 = occ_flat.reshape(occ_flat.shape[:-1] + (ga, gx, gy))
     idx = torch.arange(n, dtype=torch.int32, device=occ_flat.device)
     labels = torch.where(occ3, idx.reshape(ga, gx, gy), kld.BIG)
     while True:
@@ -49,17 +61,18 @@ def _cluster_grid(occ_flat: torch.Tensor, shape) -> torch.Tensor:
         for _ in range(_SWEEPS_PER_CHECK):
             labels = torch.where(occ3, _box_min(labels), kld.BIG)
         if not host_bool(torch.any(labels != prev)):
-            return labels.reshape(-1)
+            return labels.reshape(occ_flat.shape)
 
 
 def _label_grid_machinery(occ: torch.Tensor, shape):
-    """Component labels, dense root ranks and the cluster count."""
+    """Component labels, dense root ranks and the cluster count (per
+    leading index of occ (..., n_cells))."""
     labels_grid = _cluster_grid(occ, shape)
-    cell_idx = torch.arange(labels_grid.shape[0], dtype=torch.int32,
+    cell_idx = torch.arange(labels_grid.shape[-1], dtype=torch.int32,
                             device=occ.device)
     is_root = occ & (labels_grid == cell_idx)
-    rank_grid = torch.cumsum(is_root.to(torch.int32), 0, dtype=torch.int32) - 1
-    cluster_count = is_root.sum().to(torch.int32)
+    rank_grid = torch.cumsum(is_root.to(torch.int32), -1, dtype=torch.int32) - 1
+    cluster_count = is_root.sum(-1).to(torch.int32)
     return labels_grid, rank_grid, cluster_count
 
 
@@ -137,6 +150,39 @@ def _ranks_sorted_path(sb, shape):
     return kld.to_draw_order(idx_s, rank_s), cluster_count
 
 
+def _ranks_fleet(flat: torch.Tensor, active: torch.Tensor, shape):
+    """Per-robot cluster ranks for a fleet (cluster.py:206-282): flat,
+    active (R, M). Returns (rank_p (R, M) int32, cluster_count (R,) int32),
+    or None when the fleet holds more than FLEET_U_MAX occupied (robot,
+    bin) keys (one host sync). Root ranks equal the per-robot grid path's:
+    the same occupancy grid, min-label components and cumsum ranking."""
+    r, m = flat.shape
+    gx, gy, ga = shape
+    n_cells = gx * gy * ga
+    u = min(FLEET_U_MAX, r * m)
+    dev = flat.device
+    ks, idx_s, segstart = kld.composite_sort(flat, active, n_cells)
+    if not host_bool(segstart.sum() <= u):
+        return None
+    segid = torch.cumsum(segstart.to(torch.int32), 0, dtype=torch.int32) - 1
+    # unique keys to the front, ascending: each segment start writes slot
+    # segid; every other entry lands in the spare slot u
+    uk = torch.full((u + 1,), kld.FLEET_SENTINEL, dtype=torch.int64, device=dev)
+    uk.scatter_(0, torch.where(segstart, segid, u).long(), ks)
+    uk = uk[:u]
+    valid_u = uk < kld.FLEET_SENTINEL
+    rk = (uk // n_cells).clamp(0, r - 1)
+    cell = (uk - rk * n_cells).clamp(0, n_cells - 1)
+    occ = torch.zeros((r * n_cells + 1,), dtype=torch.bool, device=dev)
+    occ[torch.where(valid_u, rk * n_cells + cell, r * n_cells)] = True
+    labels, rank_grid, cluster_count = _label_grid_machinery(
+        occ[:-1].reshape(r, n_cells), shape)
+    lab_u = labels[rk, cell].clamp(0, n_cells - 1).long()
+    rank_u = torch.where(valid_u, rank_grid[rk, lab_u], 0)
+    rank_s = rank_u[segid.clamp(0, u - 1).long()]
+    return kld.to_draw_order(idx_s, rank_s).reshape(r, m), cluster_count
+
+
 def compute_cluster_stats(poses, weights, active, params,
                           precomputed_ranks=None) -> ClusterStats:
     """computeClusterStatsForSet (particle_filter.cpp:505-636): cluster the
@@ -157,75 +203,93 @@ def compute_cluster_stats(poses, weights, active, params,
         else:
             rank_p, cluster_count = _ranks_grid_path(flat, active, shape)
 
+    return stats_from_ranks(poses, weights, active, params, rank_p, cluster_count)
+
+
+def stats_from_ranks(poses, weights, active, params, rank_p, cluster_count) -> ClusterStats:
+    """Per-cluster and whole-set statistics from cluster ranks, for one
+    robot (poses (M, 3), rank_p (M,), cluster_count 0-dim) or a fleet
+    (leading robot axis R): one `index_add_` over R * width segments and
+    one batched `_finalize`. width is the JAX fast arm's k (the cap, or
+    MAX_FAST_CLUSTERS when every robot has at most that many clusters),
+    else M; both arms give the same statistics, the narrow one with less
+    work. With the cap (the fleet setting) clusters past it drop out of
+    the statistics, as in the JAX package (cluster.py:415-420)."""
+    if weights.dim() == 1:
+        stats = stats_from_ranks(poses[None], weights[None], active[None], params,
+                                 rank_p[None], cluster_count.reshape(1))
+        return map_tensors(lambda t: t[0], stats)
+    r, m = weights.shape
+    dev = poses.device
+    cap = params.stats_max_clusters
+    k_fast = min(cap if cap else MAX_FAST_CLUSTERS, m)
+    width = k_fast if cap or host_bool(cluster_count.max() <= k_fast) else m
     pc = torch.where(active, rank_p, m - 1).clamp(0, m - 1).to(torch.int32)
     w = torch.where(active, weights, 0.0)
-    x, y, th = poses[:, 0], poses[:, 1], poses[:, 2]
+    x, y, th = poses[..., 0], poses[..., 1], poses[..., 2]
     c, s = torch.cos(th), torch.sin(th)
     vals = torch.stack([w, active.to(torch.float32), w * x, w * y, w * c,
                         w * s, w * x * x, w * x * y, w * y * y]).to(torch.float32)
-    sums = torch.zeros((9, m), dtype=torch.float32, device=dev)
-    sums.index_add_(1, pc.long(), vals)
-    cap = params.stats_max_clusters
-    k_fast = min(cap if cap else MAX_FAST_CLUSTERS, m)
-    # the JAX fast arm (<= k_fast clusters) finalizes at width k_fast; both
-    # arms give the same statistics, the narrow one with less work
-    if cap or host_values(cluster_count <= k_fast)[0]:
-        width = k_fast
-    else:
-        width = m
-    return _finalize(sums[:, :width], width, m, cluster_count, pc)
+    robot = torch.arange(r, device=dev)[:, None]
+    seg = torch.where(pc < width, robot * width + pc, r * width).reshape(-1)
+    sums = torch.zeros((9, r * width + 1), dtype=torch.float32, device=dev)
+    sums.index_add_(1, seg, vals.reshape(9, -1))
+    return _finalize(sums[:, :-1].reshape(9, r, width), width, m, cluster_count, pc)
 
 
 def _finalize(sums, width, m, cluster_count, pc) -> ClusterStats:
-    """Per-cluster means/covs and whole-set stats from (9, width) sums."""
+    """Per-cluster means/covs and whole-set stats from (9, ..., width)
+    sums (a fleet's robots ride the middle axes)."""
     dev = sums.device
     cw, cnt_f, mx, my, mc, ms, cxx, cxy, cyy = sums
     cnt = torch.round(cnt_f).to(torch.int32)
-    root = torch.arange(width, device=dev) < cluster_count
+    root = torch.arange(width, device=dev) < cluster_count[..., None]
     safe_w = torch.where(cw > 0, cw, 1.0)
     mean_x = mx / safe_w
     mean_y = my / safe_w
     mean_a = torch.atan2(ms, mc)
-    cluster_means = torch.stack([mean_x, mean_y, mean_a], dim=1)
+    cluster_means = torch.stack([mean_x, mean_y, mean_a], dim=-1)
     # covariance (normalizeCluster, particle_filter.cpp:555-568); yaw
     # variance from the *raw* weighted cos/sin sums, as the reference
-    cov = torch.zeros((width, 3, 3), dtype=torch.float32, device=dev)
-    cov[:, 0, 0] = cxx / safe_w - mean_x * mean_x
-    cov[:, 0, 1] = cxy / safe_w - mean_x * mean_y
-    cov[:, 1, 0] = cxy / safe_w - mean_x * mean_y
-    cov[:, 1, 1] = cyy / safe_w - mean_y * mean_y
+    cov = torch.zeros(cw.shape + (3, 3), dtype=torch.float32, device=dev)
+    cov[..., 0, 0] = cxx / safe_w - mean_x * mean_x
+    cov[..., 0, 1] = cxy / safe_w - mean_x * mean_y
+    cov[..., 1, 0] = cxy / safe_w - mean_x * mean_y
+    cov[..., 1, 1] = cyy / safe_w - mean_y * mean_y
     r = torch.sqrt(mc * mc + ms * ms)
-    cov[:, 2, 2] = -2.0 * torch.log(torch.clamp(r, min=1e-30))
+    cov[..., 2, 2] = -2.0 * torch.log(torch.clamp(r, min=1e-30))
 
     # whole-set stats (computeSetStats, particle_filter.cpp:620-636)
     rootf = root.to(torch.float32)
-    tw = (cw * rootf).sum()
+    tw = (cw * rootf).sum(-1)
     safe_tw = torch.where(tw > 0, tw, 1.0)
-    smx = (mx * rootf).sum() / safe_tw
-    smy = (my * rootf).sum() / safe_tw
-    smc, sms = (mc * rootf).sum(), (ms * rootf).sum()
-    set_mean = torch.stack([smx, smy, torch.atan2(sms, smc)])
-    set_cov = torch.zeros((3, 3), dtype=torch.float32, device=dev)
-    set_cov[0, 0] = (cxx * rootf).sum() / safe_tw - smx * smx
-    set_cov[0, 1] = (cxy * rootf).sum() / safe_tw - smx * smy
-    set_cov[1, 0] = set_cov[0, 1]
-    set_cov[1, 1] = (cyy * rootf).sum() / safe_tw - smy * smy
+    smx = (mx * rootf).sum(-1) / safe_tw
+    smy = (my * rootf).sum(-1) / safe_tw
+    smc, sms = (mc * rootf).sum(-1), (ms * rootf).sum(-1)
+    set_mean = torch.stack([smx, smy, torch.atan2(sms, smc)], dim=-1)
+    set_cov = torch.zeros(tw.shape + (3, 3), dtype=torch.float32, device=dev)
+    set_cov[..., 0, 0] = (cxx * rootf).sum(-1) / safe_tw - smx * smx
+    set_cov[..., 0, 1] = (cxy * rootf).sum(-1) / safe_tw - smx * smy
+    set_cov[..., 1, 0] = set_cov[..., 0, 1]
+    set_cov[..., 1, 1] = (cyy * rootf).sum(-1) / safe_tw - smy * smy
     sr = torch.sqrt(smc * smc + sms * sms)
-    set_cov[2, 2] = -2.0 * torch.log(torch.clamp(sr, min=1e-30))
+    set_cov[..., 2, 2] = -2.0 * torch.log(torch.clamp(sr, min=1e-30))
+
+    axis = cw.dim() - 1  # the cluster axis
 
     def padm(a):
         if width == m:
             return a
-        return torch.cat([a, torch.zeros((m - width,) + a.shape[1:],
-                                         dtype=a.dtype, device=dev)])
+        pad = a.shape[:axis] + (m - width,) + a.shape[axis + 1:]
+        return torch.cat([a, torch.zeros(pad, dtype=a.dtype, device=dev)], dim=axis)
 
     return ClusterStats(
         cluster_count=cluster_count,
         cluster_valid=padm(root),
         cluster_weights=padm(torch.where(root, cw, 0.0)),
         cluster_counts=padm(torch.where(root, cnt, 0)),
-        cluster_means=padm(torch.where(root[:, None], cluster_means, 0.0)),
-        cluster_covs=padm(torch.where(root[:, None, None], cov, 0.0)),
+        cluster_means=padm(torch.where(root[..., None], cluster_means, 0.0)),
+        cluster_covs=padm(torch.where(root[..., None, None], cov, 0.0)),
         mean=set_mean.to(torch.float32),
         cov=set_cov,
         particle_cluster=pc,

@@ -12,6 +12,12 @@ multinomial pick-level slice).
                             random-pose injection and the mid-stream KLD stop
                             (particle_filter.cpp:356-471)
 - `update_converged`     <- updateConverged (particle_filter.cpp:170-220)
+- `fleet_resample`       <- the JAX package's batched multinomial resample
+                            of a fleet (filter.py:570-658): composite-key
+                            KLD stop and cluster ranks over R * M
+
+`sensor_update` and `update_converged` take a fleet state (leading robot
+axis) as well as a single robot's.
 
 Random variates are arguments: `resample` takes the injection and pick
 uniforms (M,) each, as the JAX package draws them from its key
@@ -90,13 +96,13 @@ def sensor_update(state: MCLState, p_model: torch.Tensor, map_factor=None) -> MC
     resets to uniform."""
     active = state.active_mask
     w1 = torch.where(active, state.weights * p_model, 0.0)
-    t1 = w1.sum()
+    t1 = w1.sum(-1)
     if map_factor is None:
         w2, t2 = w1, t1
     else:
         w2 = torch.where(active, w1 * map_factor, 0.0)
-        t2 = w2.sum()
-    w_unnorm = torch.where(t1 > 0.0, w2, w1)
+        t2 = w2.sum(-1)
+    w_unnorm = torch.where((t1 > 0.0)[..., None], w2, w1)
     total = torch.where(t1 > 0.0, t2, 0.0)
 
     n = state.n_active.to(torch.float32)
@@ -106,9 +112,10 @@ def sensor_update(state: MCLState, p_model: torch.Tensor, map_factor=None) -> MC
                             state.w_slow + state.alpha_slow * (w_avg - state.w_slow))
     new_wfast = torch.where(state.w_fast == 0.0, w_avg,
                             state.w_fast + state.alpha_fast * (w_avg - state.w_fast))
-    uniform = torch.where(active, 1.0 / nf, 0.0)
+    uniform = torch.where(active, 1.0 / nf[..., None], 0.0)
     ok = total > 0.0
-    new_weights = torch.where(ok, w_unnorm / torch.where(ok, total, 1.0), uniform)
+    new_weights = torch.where(ok[..., None],
+                              w_unnorm / torch.where(ok, total, 1.0)[..., None], uniform)
     return state.replace(
         weights=new_weights.to(torch.float32),
         w_slow=torch.where(ok, new_wslow, state.w_slow),
@@ -174,15 +181,16 @@ def update_converged(state: MCLState, params: PFParams, mean_xy=None) -> MCLStat
     cluster stats' set mean (weights are uniform after resampling)."""
     active = state.active_mask
     n = torch.clamp(state.n_active.to(torch.float32), min=1.0)
+    x, y = state.poses[..., 0], state.poses[..., 1]
     if mean_xy is not None:
-        mx, my = mean_xy[0], mean_xy[1]
+        mx, my = mean_xy[..., 0], mean_xy[..., 1]
     else:
-        mx = torch.where(active, state.poses[:, 0], 0.0).sum() / n
-        my = torch.where(active, state.poses[:, 1], 0.0).sum() / n
-    within = ((torch.abs(state.poses[:, 0] - mx) <= params.dist_threshold)
-              & (torch.abs(state.poses[:, 1] - my) <= params.dist_threshold)
+        mx = torch.where(active, x, 0.0).sum(-1) / n
+        my = torch.where(active, y, 0.0).sum(-1) / n
+    within = ((torch.abs(x - mx[..., None]) <= params.dist_threshold)
+              & (torch.abs(y - my[..., None]) <= params.dist_threshold)
               & active)
-    pct = 100.0 * within.sum().to(torch.float32) / n
+    pct = 100.0 * within.sum(-1).to(torch.float32) / n
     return state.replace(converged=pct >= params.convergence_threshold)
 
 
@@ -309,3 +317,58 @@ def resample(state: MCLState, params: PFParams, random_pose_pool: torch.Tensor,
         precomputed_ranks=(rank_p, cluster_count))
     new_state = new_state.replace(stats=stats)
     return update_converged(new_state, params, mean_xy=stats.mean[:2])
+
+
+def fleet_resample(states: MCLState, params: PFParams, pools: torch.Tensor,
+                   u_inject: torch.Tensor, u_pick: torch.Tensor) -> MCLState:
+    """`resample` (multinomial, linear-domain averages) for a fleet state
+    with a leading robot axis R, as the JAX package's fleet_resample
+    (filter.py:570-658): the picks batched over robots, the KLD stop from
+    one composite-key sort over R * M, cluster ranks from `_ranks_fleet`
+    (the per-robot grid path, robot by robot, past cluster.FLEET_U_MAX).
+
+    pools: (R, M, 3); u_inject, u_pick: (R, M) uniforms in [0, 1) (the JAX
+    head's k1/k2 draws). The candidates are binned over ALL M draws, not
+    over the active subset: equal to vmap(resample) until the hist grid
+    clamps (ADVICE.md)."""
+    r, m = states.weights.shape
+    dev = states.poses.device
+    shape = params.hist_shape
+    w_slow, w_fast = states.w_slow, states.w_fast
+    w_diff = torch.where(
+        w_slow > 0.0,
+        torch.clamp(1.0 - w_fast / torch.where(w_slow > 0, w_slow, 1.0), min=0.0), 0.0)
+    use_random = u_inject < w_diff[:, None]
+    idx = torch.searchsorted(torch.cumsum(states.weights, 1), u_pick.contiguous(),
+                             right=True).clamp(max=m - 1)
+    picked = torch.gather(states.poses, 1, idx[..., None].expand(r, m, 3))
+    new_poses = torch.where(use_random[..., None], pools, picked)
+    ones = torch.ones((r, m), dtype=torch.bool, device=dev)
+    _, flat = kld.grid_cells(kld.bin_keys(new_poses), ones, shape)
+
+    # mid-stream KLD stop (particle_filter.cpp:416), batched prefix form
+    flags = kld.first_occurrence_flags_fleet(flat, ones, shape)
+    k_n = torch.cumsum(flags.to(torch.int32), 1, dtype=torch.int32)
+    limit_n = kld.resample_limit(k_n, params.min_samples, params.max_samples,
+                                 params.pop_err, params.pop_z)
+    stop = torch.arange(1, m + 1, dtype=torch.int32, device=dev) > limit_n
+    new_count = torch.where(stop.any(1), torch.argmax(stop.to(torch.int32), 1) + 1,
+                            m).to(torch.int32)
+    act = torch.arange(m, device=dev) < new_count[:, None]
+    flat_act = torch.where(act, flat, 0)
+    ranks = cluster._ranks_fleet(flat_act, act, shape)
+    if ranks is None:
+        per_robot = [cluster._ranks_grid_path(flat_act[i], act[i], shape) for i in range(r)]
+        ranks = (torch.stack([p[0] for p in per_robot]),
+                 torch.stack([p[1] for p in per_robot]))
+
+    weights = torch.where(act, 1.0 / new_count[:, None].to(torch.float32), 0.0)
+    reset = w_diff > 0.0
+    new_states = states.replace(
+        poses=new_poses.to(torch.float32), weights=weights.to(torch.float32),
+        n_active=new_count,
+        w_slow=torch.where(reset, 0.0, w_slow), w_fast=torch.where(reset, 0.0, w_fast))
+    stats = cluster.stats_from_ranks(new_states.poses, new_states.weights, act, params,
+                                     *ranks)
+    new_states = new_states.replace(stats=stats)
+    return update_converged(new_states, params, mean_xy=stats.mean[..., :2])

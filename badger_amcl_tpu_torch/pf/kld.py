@@ -7,7 +7,9 @@ on a dense grid relative to the cloud's minimum bin; yaw bins do not wrap
 and first-occurrence flags come from stable sorts; the JAX package's grid
 scatter-min (`first_occurrence_flags`, kept there for vmapped fleets) is not
 ported. Keys stay int32 as in the JAX package: the single-robot grid holds
-at most hist_x*hist_y*hist_a < 2**30 cells.
+at most hist_x*hist_y*hist_a < 2**30 cells. A fleet's composite keys
+robot * n_cells + bin are int64: in int32 with the JAX package's 2**30
+sentinel they collide past R * n_cells >= 2**30 (ADVICE.md).
 """
 
 from __future__ import annotations
@@ -32,16 +34,16 @@ def bin_keys(poses: torch.Tensor) -> torch.Tensor:
 
 
 def grid_cells(keys3: torch.Tensor, active: torch.Tensor, shape):
-    """Bin keys -> dense-grid cells relative to the active minimum:
-    (cells (N, 3) int32 clamped to [1, size-2] so the empty border keeps
+    """Bin keys (..., N, 3) -> dense-grid cells relative to the active
+    minimum (per robot for a fleet): (cells (..., N, 3) int32 clamped to [1, size-2] so the empty border keeps
     roll dilation from wrapping, flat (N,) int32 with inactive -> 0)."""
     gx, gy, ga = shape
-    masked = torch.where(active[:, None], keys3, BIG)
-    mins = masked.min(dim=0).values
+    masked = torch.where(active[..., None], keys3, BIG)
+    mins = masked.min(dim=-2).values
     mins = torch.where(mins == BIG, 0, mins)
     sizes = torch.tensor([gx - 2, gy - 2, ga - 2], dtype=torch.int32).to(keys3.device)
-    rel = torch.minimum(torch.clamp(keys3 - mins[None, :], min=0), sizes - 1) + 1
-    flat = (rel[:, 2] * gx + rel[:, 0]) * gy + rel[:, 1]
+    rel = torch.minimum(torch.clamp(keys3 - mins[..., None, :], min=0), sizes - 1) + 1
+    flat = (rel[..., 2] * gx + rel[..., 0]) * gy + rel[..., 1]
     return rel, torch.where(active, flat, 0).to(torch.int32)
 
 
@@ -76,6 +78,36 @@ def first_occurrence_flags_sorted(flat: torch.Tensor, active: torch.Tensor):
     """Whether each entry's bin is unseen at any earlier active index."""
     _, idx_s, _, segstart = sort_by_bin(flat, active)
     return to_draw_order(idx_s, segstart)
+
+
+FLEET_SENTINEL = 2 ** 62  # int64 composite-key sentinel: sorts after every key
+
+
+def composite_sort(flat: torch.Tensor, active: torch.Tensor, n_cells: int):
+    """One stable sort of a fleet's (R, M) bins by the int64 composite key
+    robot * n_cells + bin, inactive entries last. Returns (keys_sorted,
+    flat draw index sorted, segstart) over the flattened R * M axis;
+    segstart marks the first (draw-earliest) entry of each occupied
+    (robot, bin)."""
+    r = flat.shape[0]
+    robot = torch.arange(r, dtype=torch.int64, device=flat.device)[:, None]
+    comp = torch.where(active, robot * n_cells + flat.to(torch.int64),
+                       FLEET_SENTINEL).reshape(-1)
+    ks, idx_s = torch.sort(comp, stable=True)
+    segstart = (ks < FLEET_SENTINEL) & torch.cat(
+        [torch.ones(1, dtype=torch.bool, device=ks.device), ks[1:] != ks[:-1]])
+    return ks, idx_s, segstart
+
+
+def first_occurrence_flags_fleet(flat: torch.Tensor, active: torch.Tensor, shape):
+    """Per robot, whether each entry's bin is unseen at any earlier active
+    index (kld.py:141-167): one composite-key sort over R * M. Within a
+    robot the composite order is bin order and stability keeps draw order
+    inside a bin, so segment starts are the per-robot first occurrences.
+    flat, active: (R, M). Returns (R, M) bool."""
+    gx, gy, ga = shape
+    _, idx_s, segstart = composite_sort(flat, active, gx * gy * ga)
+    return to_draw_order(idx_s, segstart).reshape(flat.shape)
 
 
 def resample_limit(k: torch.Tensor, min_samples: int, max_samples: int,

@@ -6,6 +6,11 @@ Dense pose/weight tensors at a static `max_samples` capacity with an
 count, never the shape; entries at index >= n_active are inactive). The
 JAX state's PRNG key has no counterpart: random variates come from a
 `torch.Generator` or are passed in (mcl.StepNoise).
+
+A fleet of R robots is one MCLState with a leading robot axis on every
+tensor (the JAX package's vmapped pytree): poses (R, M, 3), n_active and
+the other scalars (R,), cluster arrays (R, M, ...). `stack_states` builds
+one from R single-robot states.
 """
 
 from __future__ import annotations
@@ -56,7 +61,8 @@ class ClusterStats:
 
 @dataclasses.dataclass
 class MCLState:
-    """The filter state; tensors sized to params.max_samples."""
+    """The filter state; tensors sized to params.max_samples (behind a
+    leading robot axis for a fleet)."""
 
     poses: torch.Tensor  # (M, 3) f32 (x, y, yaw)
     weights: torch.Tensor  # (M,) f32, normalized over active, 0 inactive
@@ -70,8 +76,31 @@ class MCLState:
 
     @property
     def active_mask(self) -> torch.Tensor:
-        m = self.poses.shape[0]
-        return torch.arange(m, device=self.poses.device) < self.n_active
+        """(..., M) bool: index < n_active (per robot for a fleet)."""
+        m = self.poses.shape[-2]
+        return torch.arange(m, device=self.poses.device) < self.n_active[..., None]
 
     def replace(self, **changes) -> "MCLState":
         return dataclasses.replace(self, **changes)
+
+
+def map_tensors(fn, *objs):
+    """fn over the matching tensors of (nested) dataclasses of tensors."""
+    first = objs[0]
+    if not dataclasses.is_dataclass(first):
+        return fn(*objs)
+    return type(first)(**{f.name: map_tensors(fn, *(getattr(o, f.name) for o in objs))
+                          for f in dataclasses.fields(first)})
+
+
+def stack_states(states) -> MCLState:
+    """R single-robot states -> one fleet state with a leading robot axis."""
+    return map_tensors(lambda *ts: torch.stack(ts), *states)
+
+
+def select_states(mask: torch.Tensor, new: MCLState, old: MCLState) -> MCLState:
+    """Per robot, `new` where mask (R,) is set and `old` elsewhere."""
+    def sel(a, b):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+    return map_tensors(sel, new, old)

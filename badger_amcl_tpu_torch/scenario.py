@@ -7,6 +7,10 @@ its cells are bit-identical, and the scan follows the same formulas (the
 angles reproduce jnp.linspace's f32 arithmetic). The psi and factor
 textures are baked as the JAX setup bakes them.
 
+Fleet: `build_fleet` is the set-up of the JAX fleet benchmark
+(`benchmarks/run_all.py:260-309`): R robots near the map's centre, each
+with its own cloud, the scenario scan tiled over the robots.
+
 3D: a structured 20 x 20 x 1 m scene at 0.05 m (border walls and 14
 columns of occupied voxels, a 401 x 401 x 21 voxel EDT) and a cloud of
 points sampled from the occupied set around the true pose, expressed in
@@ -23,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from badger_amcl_tpu_torch.fleet import FleetScan, fleet_init
 from badger_amcl_tpu_torch.maps.occupancy_2d import CellState, OccupancyMap2D
 from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
 from badger_amcl_tpu_torch.pf import filter as pf_filter
@@ -120,6 +125,32 @@ def build_setup(n_particles: int, n_beams: int, map_size: int, seed: int = 0,
     params, state, pool = build_filter(n_particles, seed, pose_cov, min_particles,
                                        pose_mean, device)
     return omap, params, state, build_scan(n_beams, device), PlanarScanParams(), pool
+
+
+FLEET_ODOM_DELTA = (0.05, 0.0, 0.01)  # diff-drive odometry per step
+FLEET_ALPHA = 0.05
+
+
+def build_fleet(n_robots: int, n_particles: int, n_beams: int, seed: int = 0,
+                pose_cov=(0.02, 0.02, 0.002), means=None, device="cuda"):
+    """(params, states, scans, pools, odom_poses, odom_deltas, alphas) of
+    the JAX fleet benchmark: PFParams(min n // 100, max n, a 32 x 32 x 40
+    KLD grid, 128 clusters in the statistics), robot means 0.1 N(0, I)
+    (or `means`, (R, 3)), clouds N(mean, diag(pose_cov)) from a generator
+    seeded with `seed`, the scenario scan for every robot, zero random-pose
+    pools, odometry deltas FLEET_ODOM_DELTA from zero poses, alphas 0.05."""
+    params = PFParams(min_samples=n_particles // 100, max_samples=n_particles, hist_x=32,
+                      hist_y=32, stats_max_clusters=128)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if means is None:
+        means = 0.1 * torch.randn((n_robots, 3), generator=gen, device=device)
+    covs = torch.diag(torch.tensor(pose_cov)).expand(n_robots, 3, 3)
+    states = fleet_init(params, means, covs, generator=gen, device=device)
+    deltas = torch.tensor(FLEET_ODOM_DELTA, dtype=torch.float32).to(device)
+    return (params, states, FleetScan.tile(build_scan(n_beams, device), n_robots),
+            torch.zeros((n_robots, n_particles, 3), device=device),
+            torch.zeros((n_robots, 3), device=device), deltas.expand(n_robots, 3).contiguous(),
+            [FLEET_ALPHA] * 5)
 
 
 # the 3D scene of benchmarks/parity_tpu.py:run_3d

@@ -19,6 +19,17 @@ the port's three paths:
   the steady and spread regimes at 50,000 x 720, and compares the card
   with the CPU at 4096 x 360 on a 448^2 map, the beam model also in its
   exact raycast arm (timed on the card at that size only);
+- 2D int8 corr backend ("corr_q"): holds corr_table_q against its plain
+  version at 50,000 x 720 (int32, bit-equal), drives the likelihood-field
+  step on "corr_q" in the steady and tracking regimes and compares the
+  card with the CPU at 4096 x 360;
+- fleet: holds fleet_corr_table against its plain version on 16 robots
+  scattered over the 1024^2 map (one without a valid beam) and at the
+  fleet's own shape, drives `fleet_init` and `fleet_step` at 256 robots x
+  10,000 particles x 180 beams (3 steps, then 3 pinned steps; the fleet
+  table must launch on every step), compares the card with the CPU at
+  4 x 2048 x 60 and times the fleet step (robot-steps/s, host syncs per
+  step at 16 and 256 robots);
 - 3D: builds the 20 x 20 x 1 m voxel scene at 0.05 m (401 x 401 x 21 EDT)
   and its 256-point cloud, holds the pc and pc_spread kernels against
   their plain versions, drives the point-cloud step (motion update ->
@@ -27,7 +38,8 @@ the port's three paths:
   regimes, and compares the step on the card with the CPU at 4096 x 128.
 
 The launch counters are set to 0 just before each main-path run and read
-just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 3d) keeps
+just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
+fleet, 3d) keeps
 its own count; every cell must go through its kernel and leave a sane
 filter state. Kernels, likelihoods and steps are timed with CUDA events.
 
@@ -71,7 +83,8 @@ def _cells_2d():
     backend, the kernel its arm runs). The likelihood-field cells are
     bench.py's regimes (plus steady on the "lf" backend), the beam cells
     benchmarks/run_all.py:81-137 and the steady regime; Gompertz and prob
-    run the steady and spread regimes."""
+    run the steady and spread regimes, the int8 backend the steady and
+    tracking ones."""
     cells = {r: Cell("2d_lf", "likelihood_field", N_PARTICLES, REGIMES[r], "corr", k)
              for r, k in (("steady", "corr_table"), ("tracking", "corr_table"),
                           ("spread", "spread_term_sums"))}
@@ -84,6 +97,9 @@ def _cells_2d():
         short = m.split("_")[-1]
         for r, k in (("steady", "corr_table"), ("spread", "spread_term_sums")):
             cells[f"{short}_{r}"] = Cell(f"2d_{short}", m, N_PARTICLES, REGIMES[r], "corr", k)
+    for r in ("steady", "tracking"):
+        cells[f"q_{r}"] = Cell("2d_q", "likelihood_field", N_PARTICLES, REGIMES[r], "corr_q",
+                               "corr_table_q")
     return cells
 
 
@@ -95,6 +111,8 @@ PARTICLES_3D = {"steady": 50_000, "tracking": 10_000, "spread": 50_000}
 MODELS_3D = ("likelihood_field", "likelihood_field_gompertz")
 ODOM = ([0.1, 0.0, 0.02], [0.1, 0.0, 0.02], [0.1, 0.0, 0.02], [0.1] * 5)
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the JAX fleet benchmark (benchmarks/run_all.py:260-309)
+FLEET_ROBOTS, FLEET_PARTICLES, FLEET_BEAMS = 256, 10_000, 180
 # H100 SXM published peaks (the bound of a kernel is the larger of bytes
 # over the memory rate and f32 operations over the non-tensor f32 rate)
 HBM_BYTES_PER_S = 3.35e12
@@ -233,7 +251,10 @@ def phase_kernels(dev, omap, scan, states):
         t_n = int(pre["t_n"])
         lib_err = float((conv()[0] - got[:t_n]).abs().max())
         lib_ms = cuda_ms(conv)
-        b = bound(got.numel() * 4 + taps * 4 + win_bytes, 2.0 * taps * rows * ck.PWIN_C)
+        # the t_n live bins written once (the zero bins past t_n are read by
+        # nothing), the taps and the window read once
+        b = bound(t_n * rows * ck.PWIN_C * 4 + taps * 4 + win_bytes,
+                  2.0 * taps * rows * ck.PWIN_C)
         log(f"corr_table rows={rows} ({regime}): t_n={t_n} taps={taps} "
             f"max_abs_err={err:.3e} (table max {scale:.4g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']}) conv2d_ms={lib_ms:.4f} "
@@ -452,7 +473,7 @@ def phase_main_path(dev, maps, scan, states):
     sp = planar.PlanarScanParams()
     counters = {"corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums,
                 "lf_distances": lk.lf_distances, "beam_table": bk.beam_table,
-                "beam_spread_sums": bsk.beam_spread_sums}
+                "beam_spread_sums": bsk.beam_spread_sums, "corr_table_q": ck.corr_table_q}
     paths = {}
     gen = torch.Generator(device=dev).manual_seed(1)
     for key, c in CELLS_2D.items():
@@ -477,7 +498,7 @@ def phase_main_path(dev, maps, scan, states):
         out = box["out"]
         check_state(out, params, f"{key} sensor_resample_step")
         check(rose[c.kernel] > 0, f"{key}: {c.kernel} was not launched")
-        if key in ("steady", "steady_lf", "beam_steady"):
+        if key in ("steady", "steady_lf", "beam_steady", "q_steady"):
             err = float(out.stats.mean[:2].norm())
             check(err < 0.1, f"{key}: mean {out.stats.mean.tolist()} is {err:.3f} m from "
                              "the truth")
@@ -507,9 +528,9 @@ def phase_reference(dev):
     the CPU (plain versions), same inputs and draws, at 4096 x 360 on a
     448^2 map whose range image is baked on the card: the likelihood field
     in the tracking regime, the beam, Gompertz and prob (log-space) models
-    in the steady and spread regimes, and the beam model's exact raycast arm
-    (the map without its range image), timed on the card at this size
-    only."""
+    in the steady and spread regimes, the likelihood field on "corr_q" in
+    the tracking regime, and the beam model's exact raycast arm (the map
+    without its range image), timed on the card at this size only."""
     import dataclasses
 
     import torch
@@ -525,17 +546,20 @@ def phase_reference(dev):
     sp = planar.PlanarScanParams()
     omap_g = scenario.build_map(448, device=dev, range_image_bins=RANGE_IMAGE_BINS)
     plain_g = dataclasses.replace(omap_g, range_image=None, range_rows=None)
-    maps_g = {"likelihood_field": plain_g, "beam": omap_g, "beam_exact": plain_g,
+    maps_g = {"likelihood_field": plain_g, "likelihood_field_q": plain_g, "beam": omap_g,
+              "beam_exact": plain_g,
               **{m: planar.bake_corr_texture(plain_g, sp, 8.0, m) for m in LF_MODELS}}
     maps_c = {m: to_device(x, "cpu") for m, x in maps_g.items()}
     scan_c = scenario.build_scan(360, device="cpu")
     kernels = {("likelihood_field", "tracking"): ck.corr_table,
+               ("likelihood_field_q", "tracking"): ck.corr_table_q,
                ("beam", "steady"): bk.beam_table, ("beam", "spread"): bsk.beam_spread_sums}
-    rows = [("likelihood_field", "tracking")]
+    rows = [("likelihood_field", "tracking"), ("likelihood_field_q", "tracking")]
     rows += [(label, r) for label in ("beam", "beam_exact", *LF_MODELS)
              for r in ("steady", "spread")]
     for label, regime in rows:
-        model = "beam" if label.startswith("beam") else label
+        model = {"beam_exact": "beam", "likelihood_field_q": "likelihood_field"}.get(label, label)
+        backend = "corr_q" if label.endswith("_q") else "corr"
         kernel = kernels.get((label, regime),
                              ck.corr_table if regime == "steady" else lk.lf_distances)
         params, state_c, pool_c = scenario.build_filter(
@@ -547,8 +571,8 @@ def phase_reference(dev):
         state_g = to_device(state_c, dev)
         scan_g = to_device(scan_c, dev)
         before = {k: k.launches for k in (bk.beam_table, bsk.beam_spread_sums, kernel)}
-        p_c = likelihood_fn(model, maps_c[label], sp, scan_c, state_c)()
-        like_g = likelihood_fn(model, maps_g[label], sp, scan_g, state_g)
+        p_c = likelihood_fn(model, maps_c[label], sp, scan_c, state_c, backend)()
+        like_g = likelihood_fn(model, maps_g[label], sp, scan_g, state_g, backend)
         p_g = like_g().cpu()
         exact_ms = None
         if label == "beam_exact":
@@ -563,7 +587,7 @@ def phase_reference(dev):
                              "likelihoods agree to 1e-4")
         out_c, out_g = (
             step_2d(st, maps[label], sp, to_device(scan_c, d), to_device(pool_c, d), params,
-                    model, "corr", None, motion=False, noise=to_device(noise_c, d))
+                    model, backend, None, motion=False, noise=to_device(noise_c, d))
             for st, maps, d in ((state_c, maps_c, "cpu"), (state_g, maps_g, dev)))
         same = (out_g.poses.cpu() == out_c.poses).all(dim=1).float().mean().item()
         dmean = float((out_g.stats.mean.cpu() - out_c.stats.mean)[:2].norm())
@@ -702,11 +726,11 @@ def phase_kernels_beam(dev, bmap, scan, states):
         ms = cuda_ms(lambda: bk.beam_table(*args))
         plain_ms = cuda_ms(lambda: bk.beam_table_plain(*args), iters=5, warmup=1)
         t_n = int(pre["t_n"])
-        # the slabs it reads once, the table written once; 16 f32 operations
-        # per (bin, beam, cell) with exp as one
+        # the slabs it reads once, the t_n live bins of the table written
+        # once; 16 f32 operations per (bin, beam, cell) with exp as one
         slabs = int(bk.slab_indices(pre["t_min"], pre["t_order"][:t_n], scan.angles,
                                     pre["dtheta"], k_angles).unique().numel())
-        b = bound(slabs * rows * ck.PWIN_C * 2 + got.numel() * 4 + N_BEAMS * 8,
+        b = bound(slabs * rows * ck.PWIN_C * 2 + t_n * rows * ck.PWIN_C * 4 + N_BEAMS * 8,
                   16.0 * t_n * N_BEAMS * rows * ck.PWIN_C)
         log(f"beam_table rows={rows} ({cell}, {states[cell][1].poses.shape[0]} "
             f"particles): t_n={t_n} slabs={slabs} max_abs_err={err:.3e} (table max "
@@ -742,6 +766,307 @@ def phase_kernels_beam(dev, bmap, scan, states):
     results["beam_spread_sums"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
                                        library_ms=None)
     return results
+
+
+# --- 2D int8 corr backend ------------------------------------------------------
+
+
+def phase_kernels_q(omap, scan, states):
+    """corr_table_q on the tracking cloud in its narrow 32-row window (the
+    window "corr_q" takes) and the standard 64-row one, against its plain
+    version: int32, bit-equal."""
+    import torch
+
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.sensors import planar
+
+    sp = planar.PlanarScanParams()
+    spose = planar.coord_add(sp.scanner_pose, states["tracking"][1].poses)
+    pre = ck.corr_prepass(omap, spose, scan.ranges, scan.angles, scan.valid(), dedup=True)
+    check(bool(pre["fits"]) and bool(pre["narrow"]), "the tracking cloud is not narrow")
+    tex_q, qscale = omap.corr_psi_pad_q, omap.corr_psi_q
+    qstep, qoff = float(qscale[0]), float(qscale[1])
+    # the conv2d yardstick reads the dequantized texture (one f32 copy)
+    deq = tex_q.to(torch.float32) * qscale[0] + qscale[1]
+    out = []
+    for rows, j0 in ((32, pre["j0_narrow"]), (64, pre["j0"])):
+        args = (tex_q, pre["off"], pre["nu"], pre["t_n"], ck.table_origin(pre, j0, ck.PAD_RQ),
+                N_BEAMS, rows)
+        got = ck.corr_table_q(*args)
+        want = ck.corr_table_q_plain(*args)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"corr_table_q[{rows}] differs from plain in "
+              f"{int((got != want).sum())} cells")
+        ms = cuda_ms(lambda: ck.corr_table_q(*args))
+        plain_ms = cuda_ms(lambda: ck.corr_table_q_plain(*args))
+        conv, win_bytes, taps = corr_conv2d(ck, deq, *args[1:])
+        t_n = int(pre["t_n"])
+        deq_got = got[:t_n].to(torch.float32) * qstep + int(pre["nv"]) * qoff
+        lib_err = float(((conv()[0] - deq_got).abs() / deq_got.abs().max()).max())
+        lib_ms = cuda_ms(conv)
+        # the t_n live bins, int8 texels (a quarter of the f32 window) and 2
+        # integer ops per (tap, cell): multiply by the tap's weight, add
+        b = bound(t_n * rows * ck.PWIN_C * 4 + taps * 4 + win_bytes // 4,
+                  2.0 * taps * rows * ck.PWIN_C)
+        log(f"corr_table_q rows={rows} (tracking): t_n={t_n} taps={taps} bit_equal=True "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} "
+            f"({b['bound_by']}) conv2d_ms={lib_ms:.4f} (conv2d over the dequantized "
+            f"texture, max rel err {lib_err:.3e})")
+        out.append(dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b, library_ms=lib_ms))
+    return {"corr_table_q": out[0]}
+
+
+# --- fleet -------------------------------------------------------------------
+
+
+def fleet_conv2d(ck, tex_pad, off, nv, t_n, org, n_beams, rows):
+    """All R fleet tables as ONE grouped torch.nn.functional.conv2d: robot
+    r's bins are output channels of group r, their unit taps scattered into
+    one (kh, kw) weight spanning every robot's offsets, over the robot's
+    own texture window. Returns (call, window bytes, live taps, bins per
+    robot in the output)."""
+    import torch
+    import torch.nn.functional as F
+
+    r, t_max = org.shape[0], ck.T_MAX
+    dev = tex_pad.device
+    w, oj, oi = ck._unpack(off.reshape(r, t_max, n_beams))
+    live = ((torch.arange(n_beams, device=dev) < nv[:, None, None])
+            & (torch.arange(t_max, device=dev)[:, None] < t_n[:, None, None]))
+    j_lo, j_hi = int(oj[live].min()), int(oj[live].max())
+    i_lo, i_hi = int(oi[live].min()), int(oi[live].max())
+    kh, kw = j_hi - j_lo + 1, i_hi - i_lo + 1
+    tm = int(t_n.max())
+    rr, tt, bb = live.nonzero(as_tuple=True)
+    weight = torch.zeros((r * tm, 1, kh, kw), dtype=torch.float32, device=dev)
+    weight.index_put_((rr * tm + tt, torch.zeros_like(rr), oj[rr, tt, bb] - j_lo,
+                       oi[rr, tt, bb] - i_lo), w[rr, tt, bb].to(torch.float32), accumulate=True)
+    org = org.to(torch.int64)
+    rows_i = org[:, 0, None] + j_lo + torch.arange(rows + kh - 1, device=dev)
+    cols_i = org[:, 1, None] + i_lo + torch.arange(ck.PWIN_C + kw - 1, device=dev)
+    check(int(rows_i.min()) >= 0 and int(rows_i.max()) < tex_pad.shape[0]
+          and int(cols_i.min()) >= 0 and int(cols_i.max()) < tex_pad.shape[1],
+          "fleet conv2d window leaves the padded texture")
+    inp = tex_pad[rows_i[:, :, None], cols_i[:, None, :]][None].contiguous()
+    return (lambda: F.conv2d(inp, weight, groups=r)), inp.numel() * 4, int(live.sum()), tm
+
+
+def phase_kernels_fleet(dev, omap, fl):
+    """fleet_corr_table against its plain version on 16 robots scattered
+    over the map (their own origins, yaw spreads and bin counts; robot 15
+    without a valid beam, whose table must be zero), then at the fleet's
+    own shape, timed beside its plain version and one grouped conv2d."""
+    import torch
+
+    from badger_amcl_tpu_torch.fleet import FleetScan, fleet_init, fleet_window
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.pf.types import PFParams
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    r = 16
+    # yaw means inside +-2.5 rad: a cloud across +-pi wraps in coord_add and
+    # spans the whole circle of yaw bins, outside the lattice envelope
+    span = torch.tensor([40.0, 40.0, 5.0], device=dev)
+    means = torch.rand((r, 3), generator=g, device=dev) * span - span / 2
+    covs = torch.stack([torch.diag(torch.tensor([0.02, 0.02, 0.0005 * (i + 1)]))
+                        for i in range(r)])
+    states = fleet_init(PFParams(min_samples=20, max_samples=2000, hist_x=32, hist_y=32,
+                                 stats_max_clusters=128), means, covs, generator=g, device=dev)
+    scans = FleetScan.tile(fl[2].robot(0), r)
+    scans.ranges[15] = scans.range_max[15]
+    pre, _, fits, rows, j0 = fleet_window(omap, PlanarScanParams(), scans, states)
+    check(fits, "scattered robots leave the lattice envelope: fits "
+                f"{pre['fits'].tolist()}, t_n {pre['t_n'].tolist()}")
+    args = (omap.corr_psi_pad, pre["off"], pre["nv"], pre["t_n"], ck.table_origin(pre, j0),
+            FLEET_BEAMS, rows)
+    got = ck.fleet_corr_table(*args)
+    want = ck.fleet_corr_table_plain(*args)
+    torch.cuda.synchronize()
+    err16 = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err16 <= 1e-5 * scale, f"fleet_corr_table (16 scattered) err {err16} > 1e-5 x {scale}")
+    check(int(pre["nv"][15]) == 0 and not bool(got[15].any()),
+          "the robot without a valid beam has a nonzero table")
+    log(f"fleet_corr_table (16 robots scattered, rows={rows}): t_n "
+        f"{pre['t_n'].tolist()}, origins {len(set(map(tuple, ck.table_origin(pre, j0).tolist())))}"
+        f" distinct, max_abs_err={err16:.3e} (table max {scale:.4g}), robot 15 (nv=0) zero")
+
+    params, states, scans = fl[0], fl[1], fl[2]
+    pre, _, fits, rows, j0 = fleet_window(omap, PlanarScanParams(), scans, states)
+    check(fits, "a fleet robot leaves the lattice envelope")
+    args = (omap.corr_psi_pad, pre["off"], pre["nv"], pre["t_n"], ck.table_origin(pre, j0),
+            FLEET_BEAMS, rows)
+    got = ck.fleet_corr_table(*args)
+    want = ck.fleet_corr_table_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= 1e-5 * scale, f"fleet_corr_table (fleet) err {err} > 1e-5 x {scale}")
+    del want
+    ms = cuda_ms(lambda: ck.fleet_corr_table(*args))
+    plain_ms = cuda_ms(lambda: ck.fleet_corr_table_plain(*args), iters=3, warmup=1)
+    conv, win_bytes, taps, tm = fleet_conv2d(ck, *args)
+    lib_err = float((conv()[0].reshape(got.shape[0], tm, rows, ck.PWIN_C)
+                     - got[:, :tm]).abs().max())
+    lib_ms = cuda_ms(conv, iters=3, warmup=1)
+    del conv
+    # each robot's t_n live bins written once (the zero bins past t_n are
+    # read by nothing), the taps and the texture (or the robots' windows,
+    # whichever is smaller) read once; one add per (tap, cell): the fleet's
+    # taps are unweighted
+    tex_bytes = omap.corr_psi_pad.numel() * 4
+    live_bytes = int(pre["t_n"].sum()) * rows * ck.PWIN_C * 4
+    b = bound(live_bytes + taps * 4 + min(win_bytes, tex_bytes),
+              1.0 * taps * rows * ck.PWIN_C)
+    t_n = pre["t_n"].to(torch.float32)
+    log(f"fleet_corr_table ({got.shape[0]} robots x {params.max_samples} x {FLEET_BEAMS}, "
+        f"rows={rows}): t_n mean {float(t_n.mean()):.2f} max {int(t_n.max())}, taps={taps} "
+        f"max_abs_err={err:.3e} (table max {scale:.4g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']}) grouped_conv2d_ms={lib_ms:.4f} "
+        f"(conv2d max_abs_err {lib_err:.3e})")
+    return {"fleet_corr_table": dict(max_abs_err=max(err, err16), ms=ms, plain_ms=plain_ms,
+                                     **b, library_ms=lib_ms)}
+
+
+def fleet_step_fn(fl, omap, gen, noise=None):
+    """s -> fleet_step(s) on "corr" with the fleet's scans, pools and
+    odometry, variates from `noise` or `gen`."""
+    from badger_amcl_tpu_torch.fleet import fleet_step
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+
+    params, _, scans, pools, odom_poses, deltas, alphas = fl
+    sp = PlanarScanParams()
+    return lambda s: fleet_step(s, omap, sp, scans, pools, odom_poses, deltas, deltas, alphas,
+                                params, backend="corr", noise=noise, generator=gen)
+
+
+def check_fleet(s, params, label):
+    """check_state for every robot of a fleet state."""
+    import torch
+
+    n = s.n_active
+    check(bool(((n >= params.min_samples) & (n <= params.max_samples)).all()),
+          f"{label}: n_active {n.min().item()}..{n.max().item()}")
+    check(bool(torch.isfinite(s.weights).all() & torch.isfinite(s.poses).all()
+               & torch.isfinite(s.stats.mean).all()), f"{label}: non-finite state")
+    sums = s.weights.sum(1)
+    check(bool(((sums - 1.0).abs() < 1e-4).all()), f"{label}: weight sums "
+          f"{sums.min().item()}..{sums.max().item()}")
+    check(bool((s.stats.cluster_count >= 1).all()), f"{label}: a robot has no cluster")
+
+
+def phase_main_path_fleet(dev, omap, fl):
+    """Drive the fleet from `fleet_init` through 3 `fleet_step`s with motion
+    and 3 pinned steps; the fleet table must launch on each of the 6."""
+    import torch
+
+    from badger_amcl_tpu_torch.fleet import fleet_window
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import lf_kernel as lk
+    from badger_amcl_tpu_torch.ops import spread_kernel as sk
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+
+    params, states, scans = fl[0], fl[1], fl[2]
+    counts = Launches({"fleet_corr_table": ck.fleet_corr_table, "corr_table": ck.corr_table,
+                       "spread_term_sums": sk.spread_term_sums,
+                       "lf_distances": lk.lf_distances})
+    gen = torch.Generator(device=dev).manual_seed(5)
+    step_fn = fleet_step_fn(fl, omap, gen)
+    step, box = pinned_step_fn(step_fn, states, params.max_samples)
+    moved = {}
+
+    def run():
+        s = states
+        for _ in range(3):
+            s = step_fn(s)
+        check_fleet(s, params, "fleet fleet_step")
+        moved["s"] = s
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+
+    rose = counts.run(run, 6)
+    out = box["out"]
+    check_fleet(out, params, "fleet pinned step")
+    check(rose["fleet_corr_table"] == 6,
+          f"fleet_corr_table launched {rose['fleet_corr_table']} times in 6 fleet steps")
+    pre, _, _, rows, _ = fleet_window(omap, PlanarScanParams(), scans, moved["s"])
+    t_n = pre["t_n"].to(torch.float32)
+    log(f"main path fleet ({states.poses.shape[0]} x {params.max_samples} x {FLEET_BEAMS}): "
+        f"launches { {k: v for k, v in rose.items() if v} }, window rows={rows}, t_n mean "
+        f"{float(t_n.mean()):.2f} max {int(t_n.max())} (after the motion steps), n_active "
+        f"{int(out.n_active.min())}..{int(out.n_active.max())}, clusters "
+        f"{int(out.stats.cluster_count.min())}..{int(out.stats.cluster_count.max())}, "
+        f"converged {float(out.converged.float().mean()):.3f}")
+    return counts.read()
+
+
+def phase_reference_fleet(dev, omap):
+    """The fleet step on the card (kernel) against the same step on the CPU
+    (plain version), same inputs and draws, at 4 x 2048 x 60; picks equal
+    where the poses agree to 1e-5."""
+    import torch
+
+    from badger_amcl_tpu_torch import scenario
+    from badger_amcl_tpu_torch.fleet import FleetNoise, fleet_likelihood
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+
+    sp = PlanarScanParams()
+    omap_c = to_device(omap, "cpu")
+    fl_c = scenario.build_fleet(4, 2048, 60, seed=3, device="cpu")
+    fl_g = tuple(to_device(x, dev) for x in fl_c)
+    noise_c = FleetNoise.draw(torch.Generator().manual_seed(8), 4, 2048, "cpu")
+    before = ck.fleet_corr_table.launches
+    p_c, mf_c = fleet_likelihood(omap_c, sp, fl_c[2], fl_c[1])
+    p_g, mf_g = fleet_likelihood(omap, sp, fl_g[2], fl_g[1])
+    check(ck.fleet_corr_table.launches == before + 1, "fleet reference: kernel not launched")
+    p_c, p_g = p_c * mf_c, (p_g * mf_g).cpu()
+    close = ((p_g - p_c).abs() <= 1e-4 * p_c.abs()).float().mean().item()
+    check(close >= 0.999, f"fleet reference: only {close:.4f} of likelihoods agree to 1e-4")
+    out_c = fleet_step_fn(fl_c, omap_c, None, noise_c)(fl_c[1])
+    out_g = fleet_step_fn(fl_g, omap, None, to_device(noise_c, dev))(fl_g[1])
+    # a pick is the same particle: the fleet step runs the motion update,
+    # whose f32 trig differs between the card and the CPU in the last ulp
+    same = ((out_g.poses.cpu() - out_c.poses).abs() <= 1e-5).all(dim=-1).float().mean().item()
+    check(torch.equal(out_g.n_active.cpu(), out_c.n_active), "fleet reference: n_active differs")
+    check(same >= 0.999, f"fleet reference: picks equal {same:.4f}")
+    log(f"reference fleet (4 x 2048 x 60 on {MAP_CELLS}^2, card vs CPU): likelihoods within "
+        f"1e-4: {close:.4f}, picks equal (poses within 1e-5): {same:.4f}, poses bit-equal: "
+        f"{(out_g.poses.cpu() == out_c.poses).all(dim=-1).float().mean().item():.4f}, "
+        f"n_active {out_g.n_active.tolist()}")
+
+
+def phase_timings_fleet(dev, omap, fl):
+    """timing_row for the fleet step and its likelihood, robot-steps/s, and
+    the host syncs of one step at 16 robots, which must equal 256's."""
+    import torch
+
+    from badger_amcl_tpu_torch import scenario
+    from badger_amcl_tpu_torch.fleet import fleet_likelihood
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+    from badger_amcl_tpu_torch.utils.numerics import SYNCS
+
+    sp = PlanarScanParams()
+    params, states, scans = fl[0], fl[1], fl[2]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    step, _ = pinned_step_fn(fleet_step_fn(fl, omap, gen), states, params.max_samples)
+    row = timing_row("fleet", lambda: fleet_likelihood(omap, sp, scans, states), step)
+    row["robot_steps_per_s"] = states.poses.shape[0] / (row["step_ms"] / 1e3)
+    fl16 = scenario.build_fleet(16, FLEET_PARTICLES, FLEET_BEAMS, device=dev)
+    step16, _ = pinned_step_fn(fleet_step_fn(fl16, omap, gen), fl16[1], params.max_samples)
+    step16()
+    s0 = SYNCS.count
+    step16()
+    row["host_syncs_per_step_16_robots"] = SYNCS.count - s0
+    log(f"timing fleet: robot_steps_per_s={row['robot_steps_per_s']:.1f}, host syncs per step "
+        f"{row['host_syncs_per_step']} at {states.poses.shape[0]} robots, "
+        f"{row['host_syncs_per_step_16_robots']} at 16")
+    check(row["host_syncs_per_step_16_robots"] == row["host_syncs_per_step"],
+          "the fleet step's host syncs grow with the robot count")
+    return row
 
 
 # --- 3D --------------------------------------------------------------------
@@ -1002,6 +1327,7 @@ def main():
     log(f"scenario: {N_PARTICLES} x {N_BEAMS} on {MAP_CELLS}^2 in "
         f"{time.perf_counter() - t0:.2f} s")
     kernels = phase_kernels(dev, omap, scan, states)
+    kernels.update(phase_kernels_q(omap, scan, states))
     bmap, bake_s, bake_bytes = phase_range_image(dev, omap)
     maps = {"likelihood_field": omap, "beam": bmap,
             **{m: planar.bake_corr_texture(omap, planar.PlanarScanParams(), 8.0, m)
@@ -1019,7 +1345,21 @@ def main():
     phase_reference(dev)
     timings = phase_timings(dev, maps, scan, states)
     timings["range_image_bake"] = dict(seconds=bake_s, bytes=bake_bytes)
-    del omap, bmap, maps, scan, states, built
+    del bmap, maps, scan, states, built
+    torch.cuda.empty_cache()
+
+    # fleet path on the likelihood-field map
+    t0 = time.perf_counter()
+    fl = scenario.build_fleet(FLEET_ROBOTS, FLEET_PARTICLES, FLEET_BEAMS, device=dev)
+    torch.cuda.synchronize()
+    log(f"scenario fleet: {FLEET_ROBOTS} robots x {FLEET_PARTICLES} x {FLEET_BEAMS} on "
+        f"{MAP_CELLS}^2, fleet_init in {time.perf_counter() - t0:.2f} s")
+    kernels.update(phase_kernels_fleet(dev, omap, fl))
+    paths["fleet"] = phase_main_path_fleet(dev, omap, fl)
+    phase_reference_fleet(dev, omap)
+    timings["fleet"] = phase_timings_fleet(dev, omap, fl)
+    del omap, fl
+    torch.cuda.empty_cache()
 
     # 3D path
     t0 = time.perf_counter()
@@ -1054,6 +1394,10 @@ def main():
                        "badger_amcl_tpu/ops/beam_kernel.py:132"),
         "beam_spread_sums": ("badger_amcl_tpu_torch/csrc/beam_spread_sums.cu",
                              "badger_amcl_tpu/ops/beam_spread_kernel.py:150"),
+        "fleet_corr_table": ("badger_amcl_tpu_torch/csrc/corr_table.cu",
+                             "badger_amcl_tpu/ops/corr_kernel.py:366"),
+        "corr_table_q": ("badger_amcl_tpu_torch/csrc/corr_table.cu",
+                         "badger_amcl_tpu/ops/corr_kernel.py:489"),
     }
     for k in meta:
         check(launches[k]["launches"] > 0, f"{k} was not launched on any main path")

@@ -102,8 +102,9 @@ def test_init_with_poses_stats_match(both_setups):
 
 
 def test_port_imports_no_jax():
-    """Importing every port module and running a CPU step must work with JAX
-    and the JAX package made unimportable."""
+    """Importing every port module and running a CPU step (2D, 3D, beam, a
+    corr_q likelihood and a fleet step) must work with JAX and the JAX
+    package made unimportable."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -136,6 +137,20 @@ def test_port_imports_no_jax():
                               [0.1, 0.0, 0.02], None, [0.1] * 5, params,
                               laser_model="beam", backend="corr", generator=gen)
         assert torch.isfinite(out.weights).all()
+        p, _ = planar.planar_likelihood(omap, sp, scan, state.poses, state.active_mask,
+                                        state.n_active, backend="corr_q")
+        assert omap.corr_psi_pad_q is not None and torch.isfinite(p).all()
+        from badger_amcl_tpu_torch import fleet
+        fparams = type(params)(min_samples=16, max_samples=256, hist_x=32, hist_y=32,
+                               stats_max_clusters=64)
+        cov = [[0.02, 0.0, 0.0], [0.0, 0.02, 0.0], [0.0, 0.0, 0.002]]
+        fs = fleet.fleet_init(fparams, [[0.0, 0.0, 0.0], [0.5, 0.2, 0.1]], [cov, cov],
+                              generator=gen, device="cpu")
+        odom = torch.tensor([[0.05, 0.0, 0.01]] * 2)
+        fs = fleet.fleet_step(fs, omap, sp, fleet.FleetScan.tile(scan, 2),
+                              torch.zeros(2, 256, 3), torch.zeros(2, 3), odom, odom,
+                              [0.05] * 5, fparams, backend="corr", generator=gen)
+        assert fs.poses.shape == (2, 256, 3) and torch.isfinite(fs.weights).all()
         assert not any(m == "jax" or m.startswith(("jax.", "badger_amcl_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
