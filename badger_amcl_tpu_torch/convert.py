@@ -15,6 +15,7 @@ import torch
 
 from badger_amcl_tpu_torch.maps.occupancy_2d import OccupancyMap2D
 from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
+from badger_amcl_tpu_torch.ops.spread_kernel import quantized_tex
 from badger_amcl_tpu_torch.pf.types import ClusterStats, MCLState, PFParams
 from badger_amcl_tpu_torch.sensors.planar import PlanarScan, PlanarScanParams
 from badger_amcl_tpu_torch.sensors.point_cloud import PointCloudParams
@@ -35,8 +36,9 @@ def _opt(x, device):
 def map_from_numpy(omap, device="cuda") -> OccupancyMap2D:
     """OccupancyMap2D (JAX) -> OccupancyMap2D (port), the range image, its
     transpose and the baked psi (f32 and int8) and factor textures included
-    with their fingerprints."""
-    return OccupancyMap2D(
+    with their fingerprints; the spread kernel's int8 distance texture is
+    baked from the distances, as `with_distance_field` bakes it."""
+    omap = OccupancyMap2D(
         resolution=float(omap.resolution), size_x=int(omap.size_x),
         size_y=int(omap.size_y), origin_x=float(omap.origin_x),
         origin_y=float(omap.origin_y),
@@ -52,6 +54,9 @@ def map_from_numpy(omap, device="cuda") -> OccupancyMap2D:
         factor_tex=_opt(omap.factor_tex, device),
         factor_key=omap.factor_key,
     )
+    if omap.distances is None:
+        return omap
+    return dataclasses.replace(omap, distances_q=quantized_tex(omap))
 
 
 def stats_from_numpy(stats, device="cuda") -> ClusterStats:

@@ -34,8 +34,9 @@ _SIGNATURES = {
     "corr_table_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "fleet_corr_table_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "corr_table_q_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "spread_term_sums_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
-                                _F, _F, _F, _F, _F, _I, _P, _P],
+    "spread_prep_launch": [_P, _I, _P, _P, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P,
+                           _P, _P],
+    "spread_term_sums_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
     "lf_distances_f32_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _I,
                                 _I, _I, _I, _F, _P, _P],
     "lf_distances_bf16_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _F, _F, _F, _I,

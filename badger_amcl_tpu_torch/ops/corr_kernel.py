@@ -13,8 +13,9 @@ per-bin duplicates merged into weighted taps) and the dispatch flags, for
 one robot or, with a leading robot axis, a fleet; particles then read
 their value with one take, fused with the model's combine and the
 recalcWeight factor when folding (`_folded_take`). Three tables, each a
-wrapper that launches its kernel on CUDA tensors (one templated tap loop
-in csrc/corr_table.cu) and runs its plain version on CPU tensors:
+wrapper that launches its kernel on CUDA tensors (csrc/corr_table.cu: one
+templated tap loop for the single-robot tables, a kernel of its own for the
+fleet) and runs its plain version on CPU tensors:
 
 - `corr_table`: one robot, f32 psi texture (TPU kernels `_kernel_pre`
   and `_kernel`);
@@ -277,6 +278,39 @@ def _table_plain(tex, off, nu, t_n, org, n_beams: int, rows: int):
     return out
 
 
+def _table_in_order(tex, off, nu, t_n, org, n_beams: int, rows: int):
+    """`_table_plain` for an f32 texture with every cell's taps added one at
+    a time in tap order, `acc + w * g` with the product and the sum each
+    rounded: the order of the TPU kernels' sequential tap loop
+    (corr_kernel.py:140-153, :310-323) and of the CUDA kernels, which
+    agree with it bit for bit. So does the JAX fleet kernel in interpret
+    mode (unit taps leave no product to round); XLA's CPU compile of the
+    single-robot loop fuses a weighted tap's `acc + w * block` into one
+    multiply-add instead."""
+    dev = tex.device
+    hp, wp = tex.shape
+    n_r, t_max = nu.shape
+    w, oj, oi = _unpack(off.reshape(n_r, t_max, n_beams))
+    out = torch.zeros((n_r, t_max, rows, PWIN_C), dtype=torch.float32, device=dev)
+    n_bins = int(t_n.max()) if n_r else 0
+    if n_bins == 0:
+        return out
+    org = org.to(torch.int64)
+    dj = torch.arange(rows, device=dev)
+    di = torch.arange(PWIN_C, device=dev)
+    flat_tex = tex.reshape(-1)
+    live_bin = (torch.arange(n_bins, device=dev) < t_n[:, None])[..., None, None]
+    acc = out[:, :n_bins]
+    for b in range(int(nu[:, :n_bins].max())):
+        r = (org[:, 0, None, None] + oj[:, :n_bins, b, None] + dj).clamp(0, hp - 1)
+        c = (org[:, 1, None, None] + oi[:, :n_bins, b, None] + di).clamp(0, wp - 1)
+        g = flat_tex[r[..., None] * wp + c[:, :, None, :]]  # (R, n_bins, rows, PWIN_C)
+        live = live_bin & (b < nu[:, :n_bins])[..., None, None]
+        acc = torch.where(live, acc + w[:, :n_bins, b, None, None].to(torch.float32) * g, acc)
+    out[:, :n_bins] = acc
+    return out
+
+
 def _check_taps(tex, tex_dtype, off, tap_counts, t_n, org, n_beams, rows, row_choices):
     """Argument checks shared by the table wrappers (robot axis first)."""
     n_r = org.shape[0]
@@ -343,7 +377,12 @@ def fleet_corr_table(tex_pad, off, nv, t_n, org, n_beams: int, rows: int):
     taps `off` (R, T_MAX * n_beams) int32 from the undeduplicated prepass,
     valid-beam counts `nv` (R,) (every bin has nv taps; 0 taps when nv = 0,
     where the JAX kernel reads one), occupied-bin counts `t_n` (R,) and
-    window origins `org` (R, 2) int32 in the shared padded texture."""
+    window origins `org` (R, 2) int32 in the shared padded texture.
+
+    Every tap must be a unit tap (w == 1), as the undeduplicated prepass
+    makes them: the kernel, like the JAX one, adds each tap's texel and
+    reads no weight. Every table cell then equals `_table_in_order` bit
+    for bit."""
     t_n = t_n.to(torch.int32)
     _check_taps(tex_pad, torch.float32, off, nv[:, None], t_n, org, n_beams, rows,
                 (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R))

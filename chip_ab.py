@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Compare checkouts of the port on one CUDA card, in turns: the cells and
+kernels that the spread term sums (#3) and the fleet table (#5) serve.
+
+    python3 chip_ab.py OUT_DIR ROOT [ROOT ...]
+
+Each ROOT is a checkout holding chip_smoke.py and badger_amcl_tpu_torch/;
+each runs in a process of its own, in the order given (for two versions A
+and B: A B B A), building its kernels under its own tree. Per run:
+chip_smoke's timing rows (step_ms, likelihood_ms, device busy, idle share)
+of the spread, gompertz_spread, prob_spread and fleet cells, and the
+wrapper and device ms of spread_term_sums (50,000 x 720, spread cloud,
+pz^3) and fleet_corr_table (256 robots x 10,000 x 180), the device ms
+summed over the ops of chip_smoke.kernel_ms (a ROOT must have it).
+Every run prints one JSON line, also appended to OUT_DIR/ab.jsonl, with
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def one(root):
+    """Time one checkout; returns its result dict."""
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from badger_amcl_tpu_torch import scenario
+    from badger_amcl_tpu_torch.fleet import fleet_window
+    from badger_amcl_tpu_torch.ops import _build
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import spread_kernel as sk
+    from badger_amcl_tpu_torch.sensors import planar
+
+    if not cs.__file__.startswith(os.path.abspath(root)):
+        raise RuntimeError(f"chip_smoke imported from {cs.__file__}, not {root}")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.lib()
+    out = {"root": root, "device": torch.cuda.get_device_name(0), "smi": cs.nvidia_smi_line(),
+           "build_s": time.perf_counter() - t0}
+    sp = planar.PlanarScanParams()
+    omap = scenario.build_map(cs.MAP_CELLS, device=dev)
+    scan = scenario.build_scan(cs.N_BEAMS, device=dev)
+    maps = {"likelihood_field": omap,
+            **{m: planar.bake_corr_texture(omap, sp, 8.0, m) for m in cs.LF_MODELS}}
+    spread = scenario.build_filter(cs.N_PARTICLES, pose_cov=cs.REGIMES["spread"],
+                                   min_particles=cs.N_PARTICLES, device=dev)
+    states = {k: spread for k in ("spread", "gompertz_spread", "prob_spread")}
+
+    spose = planar.coord_add(sp.scanner_pose, spread[1].poses)
+    term = planar.model_term("likelihood_field", sp, scan.range_max)
+    valid = scan.valid()
+
+    def run_spread():
+        return sk.spread_term_sums(omap, spose, scan.ranges, scan.angles, valid, term)
+
+    out["spread_term_sums"] = {"ms": cs.cuda_ms(run_spread),
+                               "device_ms": sum(cs.kernel_ms(run_spread).values())}
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for key in states:
+        c = cs.CELLS_2D[key]
+        params, state, pool = cs.cell_state(key, states)
+        step, _ = cs.pinned_step_fn(
+            lambda s: cs.step_2d(s, maps[c.model], sp, scan, pool, params, c.model, c.backend,
+                                 gen, motion=False),
+            state, params.max_samples)
+        out[key] = cs.timing_row(key, cs.likelihood_fn(c.model, maps[c.model], sp, scan, state,
+                                                       c.backend), step)
+    del states, spread
+    torch.cuda.empty_cache()
+
+    fl = scenario.build_fleet(cs.FLEET_ROBOTS, cs.FLEET_PARTICLES, cs.FLEET_BEAMS, device=dev)
+    pre, _, _, rows, j0 = fleet_window(omap, sp, fl[2], fl[1])
+    args = (omap.corr_psi_pad, pre["off"], pre["nv"], pre["t_n"], ck.table_origin(pre, j0),
+            cs.FLEET_BEAMS, rows)
+
+    def run_fleet():
+        return ck.fleet_corr_table(*args)
+
+    out["fleet_corr_table"] = {"rows": rows, "ms": cs.cuda_ms(run_fleet),
+                               "device_ms": sum(cs.kernel_ms(run_fleet, calls=5).values())}
+    out["fleet"] = cs.phase_timings_fleet(dev, omap, fl)
+    return out
+
+
+def main(argv):
+    if len(argv) >= 3 and argv[1] == "--one":
+        print("AB " + json.dumps(one(argv[2])), flush=True)
+        return 0
+    if len(argv) < 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    out_dir, roots = argv[1], argv[2:]
+    os.makedirs(out_dir, exist_ok=True)
+    code = 0
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
+                               os.path.abspath(root)],
+                              capture_output=True, text=True, cwd=os.path.abspath(root))
+        lines = [ln[3:] for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
+        if proc.returncode != 0 or not lines:
+            print(f"chip_ab: {root} failed ({proc.returncode}):\n{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+            code = 1
+            continue
+        with open(os.path.join(out_dir, "ab.jsonl"), "a") as f:
+            f.write(lines[-1] + "\n")
+        res = json.loads(lines[-1])
+        print(f"{root}: " + json.dumps(
+            {k: ({kk: vv for kk, vv in v.items() if kk != "top_device_ops"}
+                 if isinstance(v, dict) else v) for k, v in res.items()}), flush=True)
+    return code
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -265,35 +265,42 @@ def phase_kernels(dev, omap, scan, states):
                                  plain_ms=rows32[3], **rows32[5], library_ms=rows32[4])
 
     # spread_term_sums in the spread regime, in its three term forms (the
-    # row reports the likelihood-field form)
+    # row reports the likelihood-field form); the CUDA prepass against the
+    # torch endpoint inputs, the baked texture against a fresh one
     spose = planar.coord_add(sp.scanner_pose, states["spread"][1].poses)
     inputs = sk.endpoint_inputs(omap, spose, scan.ranges, scan.angles)
     qtex = sk.quantized_tex(omap)
+    check(torch.equal(omap.distances_q, qtex), "the baked spread texture differs")
+    prep = sk.endpoint_inputs_cuda(omap, spose, scan.ranges, scan.angles)
+    for k, name in enumerate(("pxc", "pyc", "ct", "st", "rca", "rsa")):
+        check(torch.equal(prep[k], inputs[k]), f"spread prepass: {name} differs from torch")
     m, n_valid = spose.shape[0], int(valid.sum())
-    # 16 f32 operations per (particle, valid beam) with the cube, 14 for pz,
-    # 15 for log pz (exp and log counted as one)
-    ops_pair = {"cube": 16.0, "pz": 14.0, "log": 15.0}
+    # the bytes each call must move: poses in, sums out, the scan, the
+    # baked int8 texture and the 257-entry term table; 12 operations per
+    # (particle, valid beam): the endpoint (8), two floors, the lookup, the add
+    b = bound(m * 16 + N_BEAMS * 9 + qtex.numel() + 257 * 4, 12.0 * m * n_valid)
     for model in planar.CORR_MODELS:
         term = planar.model_term(model, sp, scan.range_max)
-        got = sk.spread_term_sums(omap, spose, scan.ranges, scan.angles, valid, term)
+        run = (lambda t=term: sk.spread_term_sums(omap, spose, scan.ranges, scan.angles, valid,
+                                                  t))
+        got = run()
         want = sk.spread_term_sums_plain(omap, qtex, *inputs, valid, term)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
         check(rel <= 1e-5, f"spread_term_sums ({term.form}) rel err {rel} > 1e-5")
-        ms = cuda_ms(lambda: sk.spread_term_sums(omap, spose, scan.ranges, scan.angles,
-                                                 valid, term))
+        ms = cuda_ms(run)
         plain_ms = cuda_ms(lambda: sk.spread_term_sums_plain(omap, qtex, *inputs, valid,
                                                              term))
-        # the wrapper reads the f32 distance field (it quantizes on every call)
-        b = bound(omap.distances.numel() * 4 + m * 16 + N_BEAMS * 9,
-                  ops_pair[term.form] * m * n_valid)
+        # the device ops of one wrapper call (prepass and sums), profiled
+        ops = kernel_ms(run)
         log(f"spread_term_sums (spread, {term.form}, {model}): max_abs_err={err:.3e} "
-            f"max_rel_err={rel:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"max_rel_err={rel:.3e} ms={ms:.4f} (wrapper) device_ms={device_text(ops)} "
+            f"({'; '.join(f'{n} {t:.4f}' for n, t in ops.items())}) plain_ms={plain_ms:.4f} "
             f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
         if term.form == "cube":
-            results["spread_term_sums"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                               **b, library_ms=None)
+            results["spread_term_sums"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, library_ms=None)
 
     # lf_distances: bf16 texture on the steady cloud, f32 on the spread one
     lf = []
@@ -602,6 +609,30 @@ def phase_reference(dev):
             f"{int(out_g.n_active)}, mean diff {dmean:.3e} m")
 
 
+def kernel_ms(fn, calls=10):
+    """{device op name: ms per launch} of fn over a torch.profiler window
+    of `calls` calls, after one warm-up call: each op's time over the
+    launches the profiler recorded (it can drop some), so a wrapper that
+    launches each op once per call sums to its device ms per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:48]: e.self_device_time_total / e.count / 1e3 for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
+
+
+def device_text(ops):
+    """The summed ms of a kernel_ms dict, or "not measured" when the
+    profiler recorded no launch."""
+    return f"{sum(ops.values()):.4f}" if ops else "not measured (no launch recorded)"
+
+
 def device_busy(fn, steps=5, top=6):
     """(device ms, device ops, the `top` device ops by time as [name, ms])
     per call of fn: the summed kernel times of a torch.profiler window of
@@ -879,19 +910,39 @@ def phase_kernels_fleet(dev, omap, fl):
     pre, _, fits, rows, j0 = fleet_window(omap, PlanarScanParams(), scans, states)
     check(fits, "scattered robots leave the lattice envelope: fits "
                 f"{pre['fits'].tolist()}, t_n {pre['t_n'].tolist()}")
-    args = (omap.corr_psi_pad, pre["off"], pre["nv"], pre["t_n"], ck.table_origin(pre, j0),
-            FLEET_BEAMS, rows)
+    org = ck.table_origin(pre, j0)
+    args = (omap.corr_psi_pad, pre["off"], pre["nv"], pre["t_n"], org, FLEET_BEAMS, rows)
     got = ck.fleet_corr_table(*args)
     want = ck.fleet_corr_table_plain(*args)
+    in_order = ck._table_in_order(*args[:2], pre["nv"][:, None].expand(-1, ck.T_MAX).contiguous(),
+                                  *args[3:])
     torch.cuda.synchronize()
     err16 = float((got - want).abs().max())
     scale = float(want.abs().max())
     check(err16 <= 1e-5 * scale, f"fleet_corr_table (16 scattered) err {err16} > 1e-5 x {scale}")
+    live = torch.arange(ck.T_MAX, device=dev)[None, :] < pre["t_n"][:, None]
+    check(torch.equal(got[live], in_order[live]),
+          f"fleet_corr_table (16 scattered) differs from _table_in_order in "
+          f"{int((got[live] != in_order[live]).sum())} live cells")
+    check(not bool(got[~live].any()), "fleet_corr_table has a nonzero bin past t_n")
     check(int(pre["nv"][15]) == 0 and not bool(got[15].any()),
           "the robot without a valid beam has a nonzero table")
+    # robot 3 moved to the texture's corner: its taps leave the texture, and
+    # the kernel's clamped loop must still give the plain version's cells
+    org_c = org.clone()
+    org_c[3] = 0
+    args_c = (*args[:4], org_c, *args[5:])
+    got_c = ck.fleet_corr_table(*args_c)
+    in_order_c = ck._table_in_order(*args_c[:2], pre["nv"][:, None].expand(-1, ck.T_MAX),
+                                    *args_c[3:])
+    torch.cuda.synchronize()
+    check(torch.equal(got_c[live], in_order_c[live]),
+          "fleet_corr_table with a window at the texture's corner differs from _table_in_order")
     log(f"fleet_corr_table (16 robots scattered, rows={rows}): t_n "
-        f"{pre['t_n'].tolist()}, origins {len(set(map(tuple, ck.table_origin(pre, j0).tolist())))}"
-        f" distinct, max_abs_err={err16:.3e} (table max {scale:.4g}), robot 15 (nv=0) zero")
+        f"{pre['t_n'].tolist()}, origins {len(set(map(tuple, org.tolist())))} distinct, "
+        f"max_abs_err={err16:.3e} (table max {scale:.4g}), live bins bit-equal to "
+        f"_table_in_order (also with robot 3's window at the texture's corner), robot 15 "
+        f"(nv=0) zero")
 
     params, states, scans = fl[0], fl[1], fl[2]
     pre, _, fits, rows, j0 = fleet_window(omap, PlanarScanParams(), scans, states)
@@ -906,6 +957,7 @@ def phase_kernels_fleet(dev, omap, fl):
     check(err <= 1e-5 * scale, f"fleet_corr_table (fleet) err {err} > 1e-5 x {scale}")
     del want
     ms = cuda_ms(lambda: ck.fleet_corr_table(*args))
+    device_ms = device_text(kernel_ms(lambda: ck.fleet_corr_table(*args), calls=5))
     plain_ms = cuda_ms(lambda: ck.fleet_corr_table_plain(*args), iters=3, warmup=1)
     conv, win_bytes, taps, tm = fleet_conv2d(ck, *args)
     lib_err = float((conv()[0].reshape(got.shape[0], tm, rows, ck.PWIN_C)
@@ -921,13 +973,18 @@ def phase_kernels_fleet(dev, omap, fl):
     b = bound(live_bytes + taps * 4 + min(win_bytes, tex_bytes),
               1.0 * taps * rows * ck.PWIN_C)
     t_n = pre["t_n"].to(torch.float32)
+    # the floor of any gather: one 4-byte texel per (tap, cell) from shared
+    # memory or L1 (~30 TB/s over 132 SMs)
+    gather_bytes = 4.0 * taps * rows * ck.PWIN_C
     log(f"fleet_corr_table ({got.shape[0]} robots x {params.max_samples} x {FLEET_BEAMS}, "
         f"rows={rows}): t_n mean {float(t_n.mean()):.2f} max {int(t_n.max())}, taps={taps} "
-        f"max_abs_err={err:.3e} (table max {scale:.4g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']}) grouped_conv2d_ms={lib_ms:.4f} "
+        f"max_abs_err={err:.3e} (table max {scale:.4g}) ms={ms:.4f} device_ms={device_ms} "
+        f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}) gather bytes "
+        f"{gather_bytes:.4g} "
+        f"({gather_bytes / 30e12 * 1e3:.4f} ms at 30 TB/s) grouped_conv2d_ms={lib_ms:.4f} "
         f"(conv2d max_abs_err {lib_err:.3e})")
-    return {"fleet_corr_table": dict(max_abs_err=max(err, err16), ms=ms, plain_ms=plain_ms,
-                                     **b, library_ms=lib_ms)}
+    return {"fleet_corr_table": dict(
+        max_abs_err=max(err, err16), ms=ms, plain_ms=plain_ms, **b, library_ms=lib_ms)}
 
 
 def fleet_step_fn(fl, omap, gen, noise=None):

@@ -95,25 +95,75 @@ def test_prepass_matches(maps, b, dedup, yaw_sig):
         assert int(tpre[k]) == int(jpre[k]), k
 
 
-@pytest.mark.parametrize("b,dedup", [(400, True)])
-def test_table_plain_matches_pallas_interpret(maps, b, dedup):
-    """The plain table fed JAX's own prepass against both TPU call variants
-    (baked-texture DMA and per-call slices) at every window height."""
+@pytest.fixture(scope="module")
+def pallas_tables(maps):
+    """Both TPU call variants (baked-texture DMA and per-call slices) in
+    interpret mode at every window height, fed JAX's own 400-beam dedup
+    prepass, with the port's table inputs: [(rows, org, [want, ...])] and
+    (tex_pad, off, nu, t_n)."""
     jmap, _, tmap, _, _ = maps
-    jpre, _ = _prepasses(jmap, tmap, _poses(300, 2, 0.1, 0.02), b, dedup)
-    tex_pad = torch.from_numpy(np.array(jmap.corr_psi_pad))
-    off = torch.from_numpy(np.array(jpre["off"]))
-    nu = torch.from_numpy(np.array(jpre["nu"]))
-    t_n = torch.tensor(int(jpre["t_n"]), dtype=torch.int32)
-    i0 = int(jpre["i0"])
+    b = 400
+    jpre, _ = _prepasses(jmap, tmap, _poses(300, 2, 0.1, 0.02), b, True)
+    inputs = (torch.from_numpy(np.array(jmap.corr_psi_pad)),
+              torch.from_numpy(np.array(jpre["off"])), torch.from_numpy(np.array(jpre["nu"])),
+              torch.tensor(int(jpre["t_n"]), dtype=torch.int32))
+    tables = []
     for rows, j0 in ((24, jpre["j0_tight"]), (32, jpre["j0_narrow"]), (64, jpre["j0"])):
-        org = torch.tensor([int(j0) + tck.PAD_R, i0 + tck.PAD_C], dtype=torch.int32)
+        org = torch.tensor([int(j0) + tck.PAD_R, int(jpre["i0"]) + tck.PAD_C],
+                           dtype=torch.int32)
+        tables.append((rows, org, [np.asarray(jck._corr_table(
+            jmap.corr_psi_pad, jpre, b, rows, j0, True, tex_pre))
+            for tex_pre in (jmap.corr_psi_pre, None)]))
+    return b, tables, inputs
+
+
+def test_table_plain_matches_pallas_interpret(pallas_tables):
+    """The plain table fed JAX's own prepass against both TPU call variants
+    at every window height."""
+    b, tables, (tex_pad, off, nu, t_n) = pallas_tables
+    for rows, org, wants in tables:
         got = tck.corr_table(tex_pad, off, nu, t_n, org, b, rows).numpy()
-        for tex_pre in (jmap.corr_psi_pre, None):
-            want = np.asarray(jck._corr_table(jmap.corr_psi_pad, jpre, b, rows, j0,
-                                              True, tex_pre))
+        for want, variant in zip(wants, ("baked", "slices")):
             assert got.shape == want.shape
-            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), (rows, tex_pre is None)
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), (rows, variant)
+
+
+def _fused_in_order(tex, off, nu, t_n, org, n_beams, rows):
+    """The tap-order sum with each `acc + w * g` rounded ONCE (a fused
+    multiply-add: the product is exact in float64, the sum rounds to f32)."""
+    hp, wp = tex.shape
+    w, oj, oi = tck._unpack(off.reshape(tck.T_MAX, n_beams))
+    n = int(t_n)
+    acc = torch.zeros((n, rows, tck.PWIN_C), dtype=torch.float32)
+    dj, di = torch.arange(rows), torch.arange(tck.PWIN_C)
+    for k in range(int(nu[:n].max())):
+        r = (org[0] + oj[:n, k, None] + dj).clamp(0, hp - 1)
+        c = (org[1] + oi[:n, k, None] + di).clamp(0, wp - 1)
+        g = tex.reshape(-1)[r[..., None] * wp + c[:, None, :]].double()
+        step = (acc.double() + w[:n, k, None, None].double() * g).float()
+        acc = torch.where((k < nu[:n])[:, None, None], step, acc)
+    return acc.numpy()
+
+
+def test_table_in_order_vs_pallas_interpret(pallas_tables):
+    """The single-robot kernels with dedup weights: XLA's CPU compile of the
+    TPU tap loop fuses `acc + w * block` (corr_kernel.py:130, :143) into one
+    multiply-add, so the interpret-mode table equals the tap-order sum with
+    one rounding per tap bit for bit. `_table_in_order` and the CUDA kernel
+    round the product first (the weighted taps' products are rounded; the
+    fleet's unit taps have none to round and agree everywhere,
+    test_torch_fleet.py): about 1% of live cells differ, by an ulp or two."""
+    b, tables, (tex_pad, off, nu, t_n) = pallas_tables
+    n = int(t_n)
+    assert n > 1 and int(off.numpy().view(np.uint32).max() >> 20) > 1  # weights > 1
+    for rows, org, wants in tables:
+        got = tck._table_in_order(tex_pad, off[None], nu[None], t_n.reshape(1), org[None], b,
+                                  rows)[0].numpy()[:n]
+        fused = _fused_in_order(tex_pad, off, nu, t_n, org, b, rows)
+        for want in wants:
+            np.testing.assert_array_equal(fused, want[:n], err_msg=str(rows))
+            np.testing.assert_allclose(got, want[:n], rtol=1e-6, atol=0, err_msg=str(rows))
+            assert (got == want[:n]).mean() >= 0.98
 
 
 @pytest.mark.parametrize("case", ["on_map", "edge"])

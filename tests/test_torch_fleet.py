@@ -130,12 +130,16 @@ def test_fleet_prepass_matches(maps):
         np.testing.assert_array_equal(tpre[k].numpy(), np.asarray(jpre[k]), err_msg=k)
 
 
-@pytest.mark.parametrize("rows,j0_key", [(24, "j0_tight"), (64, "j0")])
-def test_fleet_table_plain_matches_pallas_interpret(maps, rows, j0_key):
-    """The plain fleet table fed JAX's own vmapped prepass against
-    fleet_corr_call in interpret mode (its per-robot slices and metas built
-    as fleet.py:174-193 builds them)."""
-    jmap, jsp, _, _ = maps
+_PALLAS_TABLES = {}
+
+
+def _pallas_fleet_table(jmap, jsp, rows, j0_key):
+    """fleet_corr_call in interpret mode fed JAX's own vmapped prepass (its
+    per-robot slices and metas built as fleet.py:174-193 builds them), and
+    the port's table inputs: (want, (tex_pad, off, nv, t_n, org)), once per
+    window for the module's one map."""
+    if (rows, j0_key) in _PALLAS_TABLES:
+        return _PALLAS_TABLES[rows, j0_key]
     jscans, _ = _scans()
     js, _ = _fleet()
     jpre = _jax_prepass(jmap, jsp, jscans, js.poses)
@@ -149,13 +153,37 @@ def test_fleet_table_plain_matches_pallas_interpret(maps, rows, j0_key):
     want = np.asarray(jck.fleet_corr_call(slices, metas, jpre["off"], n_beams=B, rows=rows,
                                           interpret=True))
     org = np.stack([np.asarray(j0) + tck.PAD_R, np.asarray(jpre["i0"]) + tck.PAD_C], 1)
-    got = tck.fleet_corr_table(torch.from_numpy(np.array(tex_pad)),
-                               torch.from_numpy(np.array(jpre["off"])),
-                               torch.from_numpy(np.array(jpre["nv"])),
-                               torch.from_numpy(np.array(jpre["t_n"])),
-                               torch.from_numpy(org.astype(np.int32)), B, rows).numpy()
+    args = tuple(torch.from_numpy(np.array(a)) for a in (
+        tex_pad, jpre["off"], jpre["nv"], jpre["t_n"], org.astype(np.int32)))
+    _PALLAS_TABLES[rows, j0_key] = want, args
+    return want, args
+
+
+@pytest.mark.parametrize("rows,j0_key", [(24, "j0_tight"), (64, "j0")])
+def test_fleet_table_plain_matches_pallas_interpret(maps, rows, j0_key):
+    """The plain fleet table fed JAX's own vmapped prepass against
+    fleet_corr_call in interpret mode."""
+    jmap, jsp, _, _ = maps
+    want, args = _pallas_fleet_table(jmap, jsp, rows, j0_key)
+    got = tck.fleet_corr_table(*args, B, rows).numpy()
     assert got.shape == want.shape == (R, tck.T_MAX, rows, tck.PWIN_C)
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("rows,j0_key", [(24, "j0_tight"), (64, "j0")])
+def test_fleet_table_in_order_bit_equal_to_pallas_interpret(maps, rows, j0_key):
+    """`_table_in_order`, the sum order of the CUDA fleet kernel, equals
+    fleet_corr_call in interpret mode bit for bit on every live bin: both
+    add each cell's unit taps one at a time in tap order."""
+    jmap, jsp, _, _ = maps
+    want, (tex_pad, off, nv, t_n, org) = _pallas_fleet_table(jmap, jsp, rows, j0_key)
+    got = tck._table_in_order(tex_pad, off, nv[:, None].expand(-1, tck.T_MAX), t_n, org, B,
+                              rows).numpy()
+    assert got.shape == want.shape
+    live = np.arange(tck.T_MAX)[None, :] < t_n.numpy()[:, None]
+    assert live.sum() > R
+    np.testing.assert_array_equal(got[live], want[live])
+    assert not got[~live].any()
 
 
 @pytest.mark.parametrize("spread_robot", [None, 2])

@@ -23,6 +23,7 @@ from badger_amcl_tpu.ops import lf_kernel as jlf
 from badger_amcl_tpu.ops import spread_kernel as jsk
 from badger_amcl_tpu.sensors import planar as jplanar
 from badger_amcl_tpu_torch import convert
+from badger_amcl_tpu_torch.maps.occupancy_2d import OccupancyMap2D as TorchMap
 from badger_amcl_tpu_torch.ops import lf_kernel as tlf
 from badger_amcl_tpu_torch.ops import spread_kernel as tsk
 from badger_amcl_tpu_torch.sensors import planar as tplanar
@@ -93,6 +94,50 @@ def test_spread_plain_matches_pallas_interpret(huge_map, term):
     # same formula and texture on both sides: nearly every particle agrees
     # to the f32 summation order
     assert np.mean(np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-6) >= 0.99
+
+
+def test_baked_texture_equals_quantized_tex(huge_map):
+    """`with_distance_field` and `convert.map_from_numpy` bake the int8
+    texture once: it equals the port's `quantized_tex` and the JAX
+    package's (spread_kernel.py:161)."""
+    jmap, tmap = huge_map
+    own = TorchMap.from_cells(np.array(jmap.cells), 0.05, device="cpu").with_distance_field(2.0)
+    want = np.asarray(jsk.quantized_tex(jmap))
+    for m in (own, tmap):
+        assert m.distances_q.dtype == torch.int8
+        np.testing.assert_array_equal(m.distances_q.numpy(), tsk.quantized_tex(m).numpy())
+        np.testing.assert_array_equal(m.distances_q.numpy(), want)
+
+
+@pytest.mark.parametrize("model,form", [("likelihood_field", "cube"),
+                                        ("likelihood_field_gompertz", "pz"),
+                                        ("likelihood_field_prob", "log")])
+def test_term_table_equals_plain_terms(huge_map, model, form):
+    """`term_table` holds the plain version's term bit for bit at every int8
+    level and off the map: one-beam sums of the plain version over particles
+    whose endpoint is a cell of each level, or off the map."""
+    _, tmap = huge_map
+    term = tplanar.model_term(model, tplanar.PlanarScanParams(), 6.0)
+    assert term.form == form
+    levels = np.arange(-128, 128, dtype=np.int8)
+    rng = np.random.default_rng(9)
+    qtex = rng.integers(-128, 128, (tmap.size_y, tmap.size_x), dtype=np.int8)
+    cells = rng.choice(tmap.size_x * tmap.size_y, levels.size, replace=False)
+    qtex.reshape(-1)[cells] = levels
+    qtex = torch.from_numpy(qtex)
+    # endpoint = the particle's own cell (zero-length beam); then 3 off the map
+    px = np.concatenate([cells % tmap.size_x + 0.5, [-3.5, tmap.size_x + 2.5, 7.5]])
+    py = np.concatenate([cells // tmap.size_x + 0.5, [4.5, 9.5, -0.5]])
+    n = px.size
+    one = torch.ones(n)
+    zero = torch.zeros(1)
+    s = tsk.spread_term_sums_plain(tmap, qtex, torch.tensor(px, dtype=torch.float32),
+                                   torch.tensor(py, dtype=torch.float32), one, 0 * one, zero,
+                                   zero, torch.ones(1, dtype=torch.bool), term)
+    table = tsk.term_table(term, tmap.max_distance_to_object, torch.device("cpu"))
+    assert table.shape == (257,) and table.dtype == torch.float32
+    want = torch.cat([table[torch.from_numpy(levels.astype(np.int64) + 128)], table[256:].repeat(3)])
+    assert torch.equal(s, want)
 
 
 def _compare_distances(got, want, res, bf16):
