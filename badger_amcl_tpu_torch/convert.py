@@ -15,7 +15,6 @@ import torch
 
 from badger_amcl_tpu_torch.maps.occupancy_2d import OccupancyMap2D
 from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
-from badger_amcl_tpu_torch.ops.spread_kernel import quantized_tex
 from badger_amcl_tpu_torch.pf.types import ClusterStats, MCLState, PFParams
 from badger_amcl_tpu_torch.sensors.planar import PlanarScan, PlanarScanParams
 from badger_amcl_tpu_torch.sensors.point_cloud import PointCloudParams
@@ -36,8 +35,8 @@ def _opt(x, device):
 def map_from_numpy(omap, device="cuda") -> OccupancyMap2D:
     """OccupancyMap2D (JAX) -> OccupancyMap2D (port), the range image, its
     transpose and the baked psi (f32 and int8) and factor textures included
-    with their fingerprints; the spread kernel's int8 distance texture is
-    baked from the distances, as `with_distance_field` bakes it."""
+    with their fingerprints; the int8 and bf16 distance textures are baked
+    from the distances, as `with_distance_field` bakes them."""
     omap = OccupancyMap2D(
         resolution=float(omap.resolution), size_x=int(omap.size_x),
         size_y=int(omap.size_y), origin_x=float(omap.origin_x),
@@ -56,7 +55,7 @@ def map_from_numpy(omap, device="cuda") -> OccupancyMap2D:
     )
     if omap.distances is None:
         return omap
-    return dataclasses.replace(omap, distances_q=quantized_tex(omap))
+    return omap.with_distance_bakes()
 
 
 def stats_from_numpy(stats, device="cuda") -> ClusterStats:

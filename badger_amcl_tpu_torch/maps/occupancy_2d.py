@@ -9,7 +9,8 @@ Conventions preserved exactly (reference occupancy_map.cpp):
 - textures are (size_y, size_x) tensors indexed [j, i] (row-major i + j*W).
 
 Baked textures: `distances_q` (the int8 ratio-quantized distance texture
-of the spread kernel, filled with the distance field), `corr_psi_pad` (the
+of the spread kernel) and `distances_bf16` (the lf kernels' bf16 copy),
+both filled with the distance field, `corr_psi_pad` (the
 padded psi texture of the corr kernel, tagged by `corr_psi_key`) with its
 int8 twin `corr_psi_pad_q` and
 scale `corr_psi_q` (the corr_q backend), `factor_tex` (the recalcWeight factor
@@ -47,6 +48,7 @@ class OccupancyMap2D:
     distances: float32 (H, W) capped distance-to-obstacle in meters, or
                None until `with_distance_field` is called
     distances_q: int8 (H, W) `ops.spread_kernel.quantized_tex` of them
+    distances_bf16: bfloat16 (H, W) copy of them (`ops.lf_kernel.lf_texture`)
     """
 
     resolution: float
@@ -58,6 +60,7 @@ class OccupancyMap2D:
     distances: Optional[torch.Tensor] = None
     max_distance_to_object: float = 0.0
     distances_q: Optional[torch.Tensor] = None
+    distances_bf16: Optional[torch.Tensor] = None
     # per-angle range image, uint16 (K, H, W) cells (maps.range_image), and
     # its transpose (H * W, K) for the spread-cloud beam kernel
     range_image: Optional[torch.Tensor] = None
@@ -90,17 +93,21 @@ class OccupancyMap2D:
     def with_distance_field(self, max_distance_to_object: float) -> "OccupancyMap2D":
         """Build the capped distance LUT (reference updateDistancesLUT,
         occupancy_map.cpp:138-160): host-side exact EDT, device result;
-        and bake its int8 quantized texture on the device."""
-        from badger_amcl_tpu_torch.ops.spread_kernel import quantized_tex
-
+        and bake its textures on the device (`with_distance_bakes`)."""
         occ = self.cells.cpu().numpy() == int(CellState.OCCUPIED)
         lut = capped_distance_field(occ, self.resolution,
                                     float(max_distance_to_object))
-        omap = dataclasses.replace(
+        return dataclasses.replace(
             self, distances=torch.as_tensor(lut, device=self.device),
             max_distance_to_object=float(max_distance_to_object),
-        )
-        return dataclasses.replace(omap, distances_q=quantized_tex(omap))
+        ).with_distance_bakes()
+
+    def with_distance_bakes(self) -> "OccupancyMap2D":
+        """Bake the distance field's int8 quantized texture and bf16 copy."""
+        from badger_amcl_tpu_torch.ops.spread_kernel import quantized_tex
+
+        return dataclasses.replace(self, distances_q=quantized_tex(self),
+                                   distances_bf16=self.distances.to(torch.bfloat16))
 
     def with_range_image(self, n_angles: int = 256) -> "OccupancyMap2D":
         """Bake the per-angle range image on the map's device, and its

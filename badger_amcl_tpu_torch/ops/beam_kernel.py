@@ -12,6 +12,9 @@ round((t_min + t_order[t]) * dtheta + a_b) * K / 2pi) mod K. `beam_prepass`
 finds the particle window and compacts the occupied yaw bins; `beam_table`
 is the kernel wrapper (csrc/beam_table.cu on CUDA tensors,
 `beam_table_plain` on CPU tensors); each particle then takes its value.
+On the card phi_b is first tabulated per beam over the uint16 range values
+(`beam_value_table`, Phi[b, v] for v <= `table_cap`), and the table kernel
+sums Phi[b, min(R, cap)]: the same values, bit for bit.
 
 Not ported (TPU-only): the per-call XLA `dynamic_slice` of the range image
 down to a (K, rows, 128) VMEM window (beam_kernel.py:218-222): the CUDA
@@ -21,6 +24,7 @@ kernel reads R at the window origin directly.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -56,6 +60,7 @@ def dtheta(omap, range_max: float) -> float:
     return float(f32(1.0) / f32(cells))
 
 
+@functools.lru_cache(maxsize=None)
 def bin_inv(k_angles: int) -> float:
     """K / 2pi in f32, as the TPU kernel computes it."""
     return float(np.float32(k_angles) / np.float32(2.0 * np.pi))
@@ -162,13 +167,61 @@ def beam_table_plain(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix,
     return torch.where(live[:, None, None], acc, 0.0)
 
 
+@functools.lru_cache(maxsize=64)
+def table_cap(mix: BeamMix) -> int:
+    """The smallest v with f32(v) * res >= range_max in f32 (65535 if no
+    uint16 v reaches it): min(v * res, range_max) is range_max for every
+    v >= cap."""
+    res, rmax = np.float32(mix.res), np.float32(mix.range_max)
+    v = max(int(np.ceil(float(rmax) / float(res))) - 2, 0)
+    while v <= 65535 and np.float32(v) * res < rmax:
+        v += 1
+    while v > 0 and np.float32(v - 1) * res >= rmax:
+        v -= 1
+    return min(v, 65535)
+
+
+def beam_value_table_plain(obs, mix: BeamMix, cap: int) -> torch.Tensor:
+    """Plain PyTorch version of the value-table kernel: (B, cap + 1) f32,
+    Phi[b, v] = beam_pz3 at obs[b] and min(f32(v) * res, range_max)."""
+    v = torch.arange(cap + 1, dtype=torch.float32, device=obs.device)
+    m = torch.minimum(v * mix.res, torch.tensor(mix.range_max, device=obs.device))
+    return beam_pz3(mix, obs[:, None], m[None, :])
+
+
+def beam_value_table(obs, mix: BeamMix, cap: int) -> torch.Tensor:
+    """Per-beam value table (B, cap + 1) f32 of the observed ranges `obs`
+    (B,) f32: one launch of csrc/beam_table.cu on a CUDA tensor, the plain
+    version on a CPU one."""
+    if obs.dim() != 1 or obs.dtype != torch.float32:
+        raise ValueError("obs must be a (B,) float32 vector")
+    if not 0 <= cap <= 65535:
+        raise ValueError(f"cap must be in [0, 65535], got {cap}")
+    if obs.device.type != "cuda":
+        return beam_value_table_plain(obs, mix, cap)
+    table = torch.empty((obs.shape[0], cap + 1), dtype=torch.float32, device=obs.device)
+    if obs.shape[0] == 0:
+        return table
+    code = _build.lib().beam_value_table_launch(
+        obs.contiguous().data_ptr(), obs.shape[0], cap + 1, mix.z_hit, mix.z_short, mix.z_max,
+        mix.z_rand_mult, mix.range_max, mix.denom_inv, mix.lam, mix.res, table.data_ptr(),
+        _build.stream_ptr(obs.device))
+    _build.check(code, "beam_value_table")
+    return table
+
+
+# rows per thread (1, 2, 4), + 8 to stage the value table in shared memory
+TABLE_DESIGN = 2
+
+
 def beam_table(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix, dth: float,
                rows: int):
     """The beam correlation table (T_MAX, rows, PWIN_C) f32 over the range
     image `rimg` uint16 (K, H, W): observed ranges and bearings `obs`,
     `angles` (B,) f32, occupied-bin count `t_n` and first raw bin `t_min`
     (0-dim int32), slot -> raw bin offset `t_order` (T_MAX,) int32, window
-    origin `org` (2,) int32 = (j0, i0) in the image."""
+    origin `org` (2,) int32 = (j0, i0) in the image. On the card one call
+    launches the value table, then the table kernel's lookups."""
     if rimg.dim() != 3 or rimg.dtype != torch.uint16:
         raise ValueError("the range image must be (K, H, W) uint16")
     if obs.shape != angles.shape or obs.dim() != 1 or obs.dtype != torch.float32 \
@@ -186,17 +239,25 @@ def beam_table(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix, dth: f
     for t in (obs, angles, t_n, t_min, t_order, org):
         if t.device != rimg.device:
             raise ValueError("all inputs must be on one device")
+    if obs.shape[0] == 0:
+        return torch.zeros((T_MAX, rows, PWIN_C), dtype=torch.float32, device=rimg.device)
     k_angles, h, w = rimg.shape
-    meta = torch.stack([t_n.to(torch.int32), t_min.to(torch.int32)]).contiguous()
-    out = torch.empty((T_MAX, rows, PWIN_C), dtype=torch.float32, device=rimg.device)
-    rimg, obs, angles = rimg.contiguous(), obs.contiguous(), angles.contiguous()
+    cap = table_cap(mix)
+    n_out = T_MAX * rows * PWIN_C
+    # one allocation: the table, then the value table the kernel reads, its
+    # rows padded to a multiple of 4 floats
+    buf = torch.empty((n_out + obs.shape[0] * (((cap + 4) & ~3) + T_MAX // 2),),
+                      dtype=torch.float32, device=rimg.device)
+    t_n, t_min = t_n.to(torch.int32), t_min.to(torch.int32)
     code = _build.lib().beam_table_launch(
-        rimg.data_ptr(), k_angles, h, w, obs.data_ptr(), angles.data_ptr(),
-        obs.shape[0], meta.data_ptr(), t_order.contiguous().data_ptr(),
-        org.contiguous().data_ptr(), mix.z_hit, mix.z_short, mix.z_max, mix.z_rand_mult,
-        mix.range_max, mix.denom_inv, mix.lam, mix.res, dth, bin_inv(k_angles),
-        out.data_ptr(), T_MAX, rows, _build.stream_ptr(rimg.device))
+        rimg.contiguous().data_ptr(), k_angles, h, w, obs.contiguous().data_ptr(),
+        angles.contiguous().data_ptr(), obs.shape[0], t_n.data_ptr(), t_min.data_ptr(),
+        t_order.contiguous().data_ptr(), org.contiguous().data_ptr(), mix.z_hit, mix.z_short,
+        mix.z_max, mix.z_rand_mult, mix.range_max, mix.denom_inv, mix.lam, mix.res, dth,
+        bin_inv(k_angles), buf.data_ptr() + 4 * n_out, cap, buf.data_ptr(), T_MAX, rows,
+        TABLE_DESIGN, _build.stream_ptr(rimg.device))
     _build.check(code, "beam_table")
+    out = buf[:n_out].view(T_MAX, rows, PWIN_C)
     beam_table.launches += 1
     return out
 

@@ -17,7 +17,9 @@ Backends:
 - "exact" (JAX "xla"): the LF models read every endpoint from the f32
   distance texture; the beam model raycasts (sensors.raycast);
 - "lf" (JAX "pallas"): the LF models read through ops.lf_kernel (bf16
-  where the TPU kernel's windows fit); the beam model raycasts;
+  where the TPU kernel's windows fit); the beam model raycasts. On both
+  arms the term sums are fused (`lf_kernel.lf_term_sums`); beam skipping
+  reads the (B, M) distances (`lf_kernel.lf_distances`);
 - "corr" (JAX "pallas_corr"): the JAX dispatch tree — for the LF models
   the correlation table (ops.corr_kernel) with the model's psi texture,
   spread clouds to ops.spread_kernel, everything else to "lf"; for the
@@ -315,9 +317,10 @@ def _lf_model(omap, params, scan, spose, model, backend="exact", fold_poses=None
                 omap, scan, spose, term, lambda s: combine(s, n_valid),
                 lambda: _lf_model(omap, params, scan, spose, model, "lf", log_p=log_p))),
             fold_poses=fold_poses, quantized=quantized)
-    zt = _endpoint_distances(omap, scan, spose, backend)
+    tex = (lf_kernel.lf_texture(omap, spose, scan.ranges, scan.angles) if backend == "lf"
+           else omap.distances)
     valid = scan.valid()
-    s = torch.where(valid[:, None], term(zt), 0.0).sum(dim=0)
+    s = lf_kernel.lf_term_sums(omap, tex, spose, scan.ranges, scan.angles, valid, term)
     return combine(s, valid.sum())
 
 

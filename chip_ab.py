@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port on one CUDA card, in turns: the cells and
-kernels that the spread term sums (#3) and the fleet table (#5) serve.
+kernels that the spread term sums (#3), the fleet table (#5), the beam
+lattice table (#7) and the lf kernels (#4) serve.
 
     python3 chip_ab.py OUT_DIR ROOT [ROOT ...]
 
@@ -8,12 +9,16 @@ Each ROOT is a checkout holding chip_smoke.py and badger_amcl_tpu_torch/;
 each runs in a process of its own, in the order given (for two versions A
 and B: A B B A), building its kernels under its own tree. Per run:
 chip_smoke's timing rows (step_ms, likelihood_ms, device busy, idle share)
-of the spread, gompertz_spread, prob_spread and fleet cells, and the
-wrapper and device ms of spread_term_sums (50,000 x 720, spread cloud,
-pz^3) and fleet_corr_table (256 robots x 10,000 x 180), the device ms
-summed over the ops of chip_smoke.kernel_ms (a ROOT must have it).
-Every run prints one JSON line, also appended to OUT_DIR/ab.jsonl, with
-the card's name and power limit.
+of the spread, gompertz_spread, prob_spread, beam_steady, beam_tracking,
+steady_lf and fleet cells, and the wrapper and device ms of
+spread_term_sums (50,000 x 720, spread cloud, pz^3), beam_table
+(beam_steady's 24-row window) and fleet_corr_table (256 robots x 10,000 x
+180), the device ms summed over the ops of chip_smoke.kernel_ms (a ROOT
+must have it); where a ROOT's beam kernel has table designs
+(`beam_kernel.TABLE_DESIGN`), each design's, in turns within the run;
+where it has the fused lf sums, theirs and the lf prepass's on the
+steady_lf cloud. Every run prints one JSON line, also appended to
+OUT_DIR/ab.jsonl, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ def one(root):
     from badger_amcl_tpu_torch import scenario
     from badger_amcl_tpu_torch.fleet import fleet_window
     from badger_amcl_tpu_torch.ops import _build
+    from badger_amcl_tpu_torch.ops import beam_kernel as bk
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import lf_kernel as lk
     from badger_amcl_tpu_torch.ops import spread_kernel as sk
     from badger_amcl_tpu_torch.sensors import planar
 
@@ -48,11 +55,14 @@ def one(root):
     sp = planar.PlanarScanParams()
     omap = scenario.build_map(cs.MAP_CELLS, device=dev)
     scan = scenario.build_scan(cs.N_BEAMS, device=dev)
-    maps = {"likelihood_field": omap,
+    maps = {"likelihood_field": omap, "beam": omap.with_range_image(cs.RANGE_IMAGE_BINS),
             **{m: planar.bake_corr_texture(omap, sp, 8.0, m) for m in cs.LF_MODELS}}
-    spread = scenario.build_filter(cs.N_PARTICLES, pose_cov=cs.REGIMES["spread"],
-                                   min_particles=cs.N_PARTICLES, device=dev)
-    states = {k: spread for k in ("spread", "gompertz_spread", "prob_spread")}
+    spread, steady, tracking = (
+        scenario.build_filter(n, pose_cov=cs.REGIMES[r], min_particles=n, device=dev)
+        for r, n in (("spread", cs.N_PARTICLES), ("steady", cs.N_PARTICLES),
+                     ("tracking", 5_000)))
+    states = {"spread": spread, "gompertz_spread": spread, "prob_spread": spread,
+              "beam_steady": steady, "beam_tracking": tracking, "steady_lf": steady}
 
     spose = planar.coord_add(sp.scanner_pose, spread[1].poses)
     term = planar.model_term("likelihood_field", sp, scan.range_max)
@@ -64,6 +74,48 @@ def one(root):
     out["spread_term_sums"] = {"ms": cs.cuda_ms(run_spread),
                                "device_ms": sum(cs.kernel_ms(run_spread).values())}
 
+    bmap = maps["beam"]
+    bpose = planar.coord_add(sp.scanner_pose, steady[1].poses)
+    pre = bk.beam_prepass(bmap, bpose, scan.range_max)
+    rows, j0 = ck.window_variant(pre, bool(pre["tight"]), bool(pre["narrow"]))
+    bargs = (bmap.range_image, scan.ranges, scan.angles, pre["t_n"], pre["t_min"],
+             pre["t_order"], bk.window_origin(pre, j0),
+             bk.BeamMix.of(sp, scan.range_max, bmap.resolution), pre["dtheta"], rows)
+
+    def run_beam():
+        return bk.beam_table(*bargs)
+
+    out["beam_table"] = {"rows": rows, "ms": cs.cuda_ms(run_beam),
+                         "device_ms": sum(cs.kernel_ms(run_beam).values())}
+    if hasattr(bk, "TABLE_DESIGN"):
+        keep = bk.TABLE_DESIGN
+        designs = {"b1": 1, "b4": 4, "a4": 12, "c4": 20, "c8": 24, "c16": 32}
+        want = bk.beam_table_plain(*bargs)
+        turns = {k: {"ms": [], "device_ms": []} for k in designs}
+        for order in (list(designs), list(designs)[::-1]):
+            for name in order:
+                bk.TABLE_DESIGN = designs[name]
+                if not torch.equal(run_beam(), want):
+                    raise RuntimeError(f"beam_table design {name} differs from plain")
+                turns[name]["ms"].append(cs.cuda_ms(run_beam))
+                turns[name]["device_ms"].append(sum(cs.kernel_ms(run_beam).values()))
+        bk.TABLE_DESIGN = keep
+        out["beam_table"]["designs"] = turns
+    if hasattr(lk, "lf_term_sums"):
+        lpose = planar.coord_add(sp.scanner_pose, steady[1].poses)
+        tex = lk.lf_texture(omap, lpose, scan.ranges, scan.angles)
+
+        def run_sums():
+            return lk.lf_term_sums(omap, tex, lpose, scan.ranges, scan.angles, valid, term)
+
+        def run_prepass():
+            return lk.window_origins(omap, lpose, scan.ranges, scan.angles)
+
+        out["lf_term_sums"] = {"tex": str(tex.dtype), "ms": cs.cuda_ms(run_sums),
+                               "device_ms": sum(cs.kernel_ms(run_sums).values())}
+        out["lf_prepass"] = {"ms": cs.cuda_ms(run_prepass),
+                             "device_ms": sum(cs.kernel_ms(run_prepass).values())}
+
     gen = torch.Generator(device=dev).manual_seed(2)
     for key in states:
         c = cs.CELLS_2D[key]
@@ -74,7 +126,7 @@ def one(root):
             state, params.max_samples)
         out[key] = cs.timing_row(key, cs.likelihood_fn(c.model, maps[c.model], sp, scan, state,
                                                        c.backend), step)
-    del states, spread
+    del states, spread, steady, tracking, maps, bmap, bargs
     torch.cuda.empty_cache()
 
     fl = scenario.build_fleet(cs.FLEET_ROBOTS, cs.FLEET_PARTICLES, cs.FLEET_BEAMS, device=dev)

@@ -6,19 +6,25 @@ the port's three paths:
 
 - 2D likelihood field: holds the corr, spread and lf kernels against their
   plain PyTorch versions at the flagship shapes (50,000 particles x 720
-  beams on a 1024^2 map at 0.05 m), drives the likelihood-field MCL step
-  (`mcl_step_2d`, `sensor_resample_step`) in the steady, tracking and
+  beams on a 1024^2 map at 0.05 m): the lf kernels' (B, M) distances, their
+  fused term sums in the three term forms (rel 1e-5) and their window
+  prepass (fits and origins against window_origins' plain version) on the
+  bf16 steady and the f32 spread cloud; drives the likelihood-field MCL
+  step (`mcl_step_2d`, `sensor_resample_step`) in the steady, tracking and
   spread regimes plus the steady regime on the "lf" backend, and compares
   the step on the card with the CPU at 4096 x 360;
 - 2D beam, Gompertz and prob models: bakes the K = 256 range image of the
   1024^2 map on the card (and a 256^2 map on the card and the CPU, which
-  must agree bit for bit), holds the beam_table and beam_spread_sums
-  kernels and the spread kernel's three term forms against their plain
-  versions, drives the beam model in its tracking (5,000), steady and
-  spread (50,000) cells and the Gompertz and prob (log-space) models in
-  the steady and spread regimes at 50,000 x 720, and compares the card
-  with the CPU at 4096 x 360 on a 448^2 map, the beam model also in its
-  exact raycast arm (timed on the card at that size only);
+  must agree bit for bit), holds the beam_table kernel (bit-equal, at its
+  24- and 64-row windows and with a 65,536-entry value table), its value
+  table, beam_spread_sums and the spread kernel's three term forms against
+  their plain versions, drives the beam model in its tracking (5,000),
+  steady and spread (50,000) cells and the Gompertz and prob (log-space)
+  models in the steady and spread regimes at 50,000 x 720, the prob model
+  also with beam skipping on a converged steady cloud (prob_beamskip: the
+  node's do_beamskip path and the (B, M) lf_distances), and compares the
+  card with the CPU at 4096 x 360 on a 448^2 map, the beam model also in
+  its exact raycast arm (timed on the card at that size only);
 - 2D int8 corr backend ("corr_q"): holds corr_table_q against its plain
   version at 50,000 x 720 (int32, bit-equal), drives the likelihood-field
   step on "corr_q" in the steady and tracking regimes and compares the
@@ -75,7 +81,8 @@ REGIMES = {
     "spread": (2.0, 2.0, 1.0),
 }
 LF_MODELS = ("likelihood_field_gompertz", "likelihood_field_prob")
-Cell = collections.namedtuple("Cell", "path model particles cov backend kernel")
+Cell = collections.namedtuple("Cell", "path model particles cov backend kernel beamskip",
+                              defaults=(False,))
 
 
 def _cells_2d():
@@ -84,12 +91,13 @@ def _cells_2d():
     bench.py's regimes (plus steady on the "lf" backend), the beam cells
     benchmarks/run_all.py:81-137 and the steady regime; Gompertz and prob
     run the steady and spread regimes, the int8 backend the steady and
-    tracking ones."""
+    tracking ones; prob also the steady regime with beam skipping on a
+    converged state (the node's do_beamskip path)."""
     cells = {r: Cell("2d_lf", "likelihood_field", N_PARTICLES, REGIMES[r], "corr", k)
              for r, k in (("steady", "corr_table"), ("tracking", "corr_table"),
                           ("spread", "spread_term_sums"))}
     cells["steady_lf"] = Cell("2d_lf", "likelihood_field", N_PARTICLES, REGIMES["steady"],
-                              "lf", "lf_distances")
+                              "lf", "lf_term_sums")
     for r, n, k in (("tracking", 5_000, "beam_table"), ("steady", N_PARTICLES, "beam_table"),
                     ("spread", N_PARTICLES, "beam_spread_sums")):
         cells[f"beam_{r}"] = Cell("2d_beam", "beam", n, REGIMES[r], "corr", k)
@@ -97,6 +105,8 @@ def _cells_2d():
         short = m.split("_")[-1]
         for r, k in (("steady", "corr_table"), ("spread", "spread_term_sums")):
             cells[f"{short}_{r}"] = Cell(f"2d_{short}", m, N_PARTICLES, REGIMES[r], "corr", k)
+    cells["prob_beamskip"] = Cell("2d_prob", "likelihood_field_prob", N_PARTICLES,
+                                  REGIMES["steady"], "corr", "lf_distances", beamskip=True)
     for r in ("steady", "tracking"):
         cells[f"q_{r}"] = Cell("2d_q", "likelihood_field", N_PARTICLES, REGIMES[r], "corr_q",
                                "corr_table_q")
@@ -302,34 +312,119 @@ def phase_kernels(dev, omap, scan, states):
             results["spread_term_sums"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, library_ms=None)
 
-    # lf_distances: bf16 texture on the steady cloud, f32 on the spread one
-    lf = []
-    for regime, dtype in (("steady", torch.bfloat16), ("spread", torch.float32)):
+    results.update(phase_kernels_lf(omap, scan, states))
+    return results
+
+
+def phase_kernels_lf(omap, scan, states):
+    """The lf kernels on the bf16 steady cloud and the f32 spread cloud:
+    the (B, M) distances, the window prepass (extents, then fits and
+    origins against window_origins' plain version) and the fused term
+    sums in their three forms, each against its plain version."""
+    import torch
+
+    from badger_amcl_tpu_torch.ops import lf_kernel as lk
+    from badger_amcl_tpu_torch.sensors import planar
+
+    sp = planar.PlanarScanParams()
+    valid = scan.valid()
+    n_valid = int(valid.sum())
+    check(torch.equal(omap.distances_bf16, omap.distances.to(torch.bfloat16)),
+          "the baked bf16 texture differs from the distance field in bf16")
+    lf, sums = [], []
+    for regime, tex in (("steady", omap.distances_bf16), ("spread", omap.distances)):
+        dtype = str(tex.dtype).split(".")[-1]
         spose = planar.coord_add(sp.scanner_pose, states[regime][1].poses)
-        tex = omap.distances.to(dtype)
-        got = lk.lf_distances(omap, tex, spose, scan.ranges, scan.angles)
-        want = lk.lf_distances_plain(omap, tex, spose, scan.ranges, scan.angles)
+        args = (omap, tex, spose, scan.ranges, scan.angles)
+        got = lk.lf_distances(*args)
+        want = lk.lf_distances_plain(*args)
         torch.cuda.synchronize()
         diff = (got - want).abs()
         eq = float((diff == 0).float().mean())
         err = float(diff.max())
-        tol = omap.resolution * math.sqrt(2.0) + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+        tol = omap.resolution * math.sqrt(2.0) + (2.0 ** -7 if dtype == "bfloat16" else 0.0)
         check(eq >= 0.9999 and err <= tol,
               f"lf_distances {dtype}: {eq:.6f} bit-equal, max err {err} (tol {tol})")
-        ms = cuda_ms(lambda: lk.lf_distances(omap, tex, spose, scan.ranges, scan.angles))
-        plain_ms = cuda_ms(lambda: lk.lf_distances_plain(omap, tex, spose, scan.ranges,
-                                                         scan.angles))
+        # beams on which the kernel's endpoint cells differ from the plain
+        # version's somewhere (a last-ulp cos/sin flip)
+        flip_beams = set((diff > 0).any(dim=1).nonzero().flatten().tolist())
+        del diff, want
+        ms = cuda_ms(lambda: lk.lf_distances(*args))
+        dev_ms = device_text(kernel_ms(lambda: lk.lf_distances(*args)))
+        plain_ms = cuda_ms(lambda: lk.lf_distances_plain(*args), iters=5, warmup=1)
         m = spose.shape[0]
         # 12 f32 operations per element (cos and sin counted as one each)
         b = bound(got.numel() * 4 + tex.numel() * tex.element_size() + m * 12 + N_BEAMS * 8,
                   12.0 * got.numel())
-        log(f"lf_distances {str(dtype).split('.')[-1]} ({regime}): bit_equal={eq:.6f} "
-            f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        del got
+        log(f"lf_distances {dtype} ({regime}): bit_equal={eq:.6f} max_abs_err={err:.3e} "
+            f"ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f} "
             f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
         lf.append((err, ms, plain_ms, b))
-    results["lf_distances"] = dict(max_abs_err=max(x[0] for x in lf), ms=lf[0][1],
-                                   plain_ms=lf[0][2], **lf[0][3], library_ms=None)
-    return results
+
+        # the window prepass: extents on the card against the plain version,
+        # then fits / row0 / col0 against window_origins' plain version
+        ext = lk.beam_extents(omap, spose, scan.ranges, scan.angles)
+        ext_plain = lk.beam_extents_plain(omap, spose, scan.ranges, scan.angles)
+        r0, c0, fits = lk.window_finish(omap, ext)
+        r0_p, c0_p, fits_p = lk.window_finish(omap, ext_plain)
+        torch.cuda.synchronize()
+        check(bool(fits) == bool(fits_p), f"lf prepass ({regime}): fits {bool(fits)} != "
+                                          f"window_origins' {bool(fits_p)}")
+        check(bool(fits) == (regime == "steady"), f"lf prepass ({regime}): fits {bool(fits)}")
+        odd = ((ext != ext_plain).any(dim=0) | (r0 != r0_p) | (c0 != c0_p)).nonzero()
+        odd = odd.flatten().tolist()
+        check(set(odd) <= flip_beams, f"lf prepass ({regime}): beams {odd} differ from "
+                                      f"window_origins where lf_distances agrees")
+        for k in odd:
+            log(f"lf prepass ({regime}): beam {k} extents {ext[:, k].tolist()} vs plain "
+                f"{ext_plain[:, k].tolist()} (a beam with a cell flip in lf_distances)")
+
+        def prepass():
+            return lk.window_finish(omap, lk.beam_extents(omap, spose, scan.ranges,
+                                                          scan.angles))
+
+        pre_ms = cuda_ms(prepass)
+        pre_dev = kernel_ms(lambda: lk.beam_extents(omap, spose, scan.ranges, scan.angles))
+        pre_plain_ms = cuda_ms(lambda: lk.window_finish(
+            omap, lk.beam_extents_plain(omap, spose, scan.ranges, scan.angles)),
+            iters=5, warmup=1)
+        # 16 operations per (particle, beam): the endpoint (12) and 4 min/max
+        pre_b = bound(m * 12 + N_BEAMS * 8 + 16 * N_BEAMS, 16.0 * m * N_BEAMS)
+        log(f"lf prepass ({regime}): fits={bool(fits)} beams differing from window_origins "
+            f"{len(odd)} ms={pre_ms:.4f} (extents + finish) device_ms={device_text(pre_dev)} "
+            f"({'; '.join(f'{n} {t:.4f}' for n, t in pre_dev.items())}) "
+            f"plain_ms={pre_plain_ms:.4f} bound_ms={pre_b['bound_ms']:.5f} "
+            f"({pre_b['bound_by']})")
+
+        # fused term sums in the three forms: ~21 operations per (particle,
+        # valid beam), the endpoint (12), the term (8), the add; beside it
+        # the (B, M) form's bound
+        b_sum = bound(m * 12 + N_BEAMS * 9 + tex.numel() * tex.element_size() + m * 4,
+                      21.0 * m * n_valid)
+        for model in planar.CORR_MODELS:
+            term = planar.model_term(model, sp, scan.range_max)
+            sargs = (*args, valid, term)
+            got = lk.lf_term_sums(*sargs)
+            want = lk.lf_term_sums_plain(*sargs)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+            check(rel <= 1e-5, f"lf_term_sums ({regime}, {term.form}) rel err {rel} > 1e-5")
+            ms = cuda_ms(lambda: lk.lf_term_sums(*sargs))
+            ops = kernel_ms(lambda: lk.lf_term_sums(*sargs))
+            plain_ms = cuda_ms(lambda: lk.lf_term_sums_plain(*sargs), iters=5, warmup=1)
+            log(f"lf_term_sums {dtype} ({regime}, {term.form}, {model}): max_abs_err={err:.3e} "
+                f"max_rel_err={rel:.3e} ms={ms:.4f} (wrapper) device_ms={device_text(ops)} "
+                f"plain_ms={plain_ms:.4f} bound_ms={b_sum['bound_ms']:.5f} "
+                f"({b_sum['bound_by']}; the (B, M) form's {b['bound_ms']:.5f}, "
+                f"{b['bound_by']})")
+            sums.append((regime, term.form, err, ms, plain_ms, b_sum))
+    steady = [x for x in sums if x[:2] == ("steady", "cube")][0]
+    return {"lf_distances": dict(max_abs_err=max(x[0] for x in lf), ms=lf[0][1],
+                                 plain_ms=lf[0][2], **lf[0][3], library_ms=None),
+            "lf_term_sums": dict(max_abs_err=max(x[2] for x in sums), ms=steady[3],
+                                 plain_ms=steady[4], **steady[5], library_ms=None)}
 
 
 def check_state(s, params, regime):
@@ -407,12 +502,12 @@ def launch_counts(paths):
 
 
 def step_2d(state, omap, sp, scan, pool, params, model, backend, gen, motion=True,
-            noise=None):
+            noise=None, beamskip=False):
     """One 2D step through the port's entry points: `mcl_step_2d`, or
     `sensor_resample_step` without the motion update. The prob model runs
     the log-space pipeline as node_2d.py:39-56 composes it:
-    `sensor_update_2d(log_space=True)`, then a resample over log-domain
-    averages."""
+    `sensor_update_2d(log_space=True)` (with beam skipping where
+    `beamskip`), then a resample over log-domain averages."""
     from badger_amcl_tpu_torch import mcl
     from badger_amcl_tpu_torch.pf import filter as pf_filter
     from badger_amcl_tpu_torch.sensors import odom
@@ -430,12 +525,13 @@ def step_2d(state, omap, sp, scan, pool, params, model, backend, gen, motion=Tru
     if motion:
         state = odom.motion_update(state, odom.OdomModel.DIFF, ODOM[3], ODOM[0], ODOM[1],
                                    noise.odom, ODOM[2])
-    state = mcl.sensor_update_2d(state, omap, sp, scan, model, backend=backend, log_space=True)
+    state = mcl.sensor_update_2d(state, omap, sp, scan, model, do_beamskip=beamskip,
+                                 backend=backend, log_space=True)
     return pf_filter.resample(state, params, pool, noise.inject, noise.pick,
                               log_averages=True)
 
 
-def likelihood_fn(model, omap, sp, scan, state, backend="corr"):
+def likelihood_fn(model, omap, sp, scan, state, backend="corr", beamskip=False):
     """The particle x beam likelihood alone, with its map factor; the prob
     model's as log p (log space), its factor added in log."""
     from badger_amcl_tpu_torch.sensors.planar import planar_likelihood
@@ -445,7 +541,7 @@ def likelihood_fn(model, omap, sp, scan, state, backend="corr"):
     def like():
         p, mf = planar_likelihood(omap, sp, scan, state.poses, state.active_mask,
                                   state.n_active, model, converged=state.converged,
-                                  backend=backend, fold_factors=True,
+                                  do_beamskip=beamskip, backend=backend, fold_factors=True,
                                   prob_log_space=log_space)
         return p if mf is None else (p + mf.log() if log_space else p * mf)
 
@@ -454,12 +550,17 @@ def likelihood_fn(model, omap, sp, scan, state, backend="corr"):
 
 def cell_state(cell, states):
     """A cell's (params, state, pool); the prob model's with log-domain
-    averages."""
+    averages, the beam-skipping cell's converged."""
+    import torch
+
     from badger_amcl_tpu_torch.pf import filter as pf_filter
 
     params, state, pool = states[cell]
-    if CELLS_2D[cell].model == "likelihood_field_prob":
+    c = CELLS_2D[cell]
+    if c.model == "likelihood_field_prob":
         state = pf_filter.init_log_averages(state)
+    if c.beamskip:
+        state = state.replace(converged=torch.ones_like(state.converged))
     return params, state, pool
 
 
@@ -479,7 +580,8 @@ def phase_main_path(dev, maps, scan, states):
 
     sp = planar.PlanarScanParams()
     counters = {"corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums,
-                "lf_distances": lk.lf_distances, "beam_table": bk.beam_table,
+                "lf_distances": lk.lf_distances, "lf_term_sums": lk.lf_term_sums,
+                "lf_extents": lk.beam_extents, "beam_table": bk.beam_table,
                 "beam_spread_sums": bsk.beam_spread_sums, "corr_table_q": ck.corr_table_q}
     paths = {}
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -489,13 +591,20 @@ def phase_main_path(dev, maps, scan, states):
         params, state, pool = cell_state(key, states)
         step, box = pinned_step_fn(
             lambda s: step_2d(s, omap, sp, scan, pool, params, c.model, c.backend, gen,
-                              motion=False),
+                              motion=False, beamskip=c.beamskip),
             state, params.max_samples)
 
         def run():
             s = state
+            if c.beamskip:
+                # the node's entry point with beam skipping, in its exp form
+                s1 = mcl.mcl_step_2d(s, omap, sp, scan, pool, *ODOM, params,
+                                     laser_model=c.model, do_beamskip=True,
+                                     backend=c.backend, generator=gen)
+                check_state(s1, params, f"{key} mcl_step_2d(do_beamskip=True)")
             for _ in range(3):
-                s = step_2d(s, omap, sp, scan, pool, params, c.model, c.backend, gen)
+                s = step_2d(s, omap, sp, scan, pool, params, c.model, c.backend, gen,
+                            beamskip=c.beamskip)
             check_state(s, params, f"{key} mcl_step_2d")
             for _ in range(3):
                 step()
@@ -505,6 +614,8 @@ def phase_main_path(dev, maps, scan, states):
         out = box["out"]
         check_state(out, params, f"{key} sensor_resample_step")
         check(rose[c.kernel] > 0, f"{key}: {c.kernel} was not launched")
+        if c.backend == "lf":
+            check(rose["lf_extents"] > 0, f"{key}: the lf window prepass was not launched")
         if key in ("steady", "steady_lf", "beam_steady", "q_steady"):
             err = float(out.stats.mean[:2].norm())
             check(err < 0.1, f"{key}: mean {out.stats.mean.tolist()} is {err:.3f} m from "
@@ -536,8 +647,9 @@ def phase_reference(dev):
     448^2 map whose range image is baked on the card: the likelihood field
     in the tracking regime, the beam, Gompertz and prob (log-space) models
     in the steady and spread regimes, the likelihood field on "corr_q" in
-    the tracking regime, and the beam model's exact raycast arm (the map
-    without its range image), timed on the card at this size only."""
+    the tracking regime, the prob model with beam skipping on a converged
+    steady cloud, and the beam model's exact raycast arm (the map without
+    its range image), timed on the card at this size only."""
     import dataclasses
 
     import torch
@@ -556,30 +668,37 @@ def phase_reference(dev):
     maps_g = {"likelihood_field": plain_g, "likelihood_field_q": plain_g, "beam": omap_g,
               "beam_exact": plain_g,
               **{m: planar.bake_corr_texture(plain_g, sp, 8.0, m) for m in LF_MODELS}}
+    maps_g["prob_beamskip"] = maps_g["likelihood_field_prob"]
     maps_c = {m: to_device(x, "cpu") for m, x in maps_g.items()}
     scan_c = scenario.build_scan(360, device="cpu")
     kernels = {("likelihood_field", "tracking"): ck.corr_table,
                ("likelihood_field_q", "tracking"): ck.corr_table_q,
-               ("beam", "steady"): bk.beam_table, ("beam", "spread"): bsk.beam_spread_sums}
+               ("beam", "steady"): bk.beam_table, ("beam", "spread"): bsk.beam_spread_sums,
+               ("prob_beamskip", "steady"): lk.lf_distances}
     rows = [("likelihood_field", "tracking"), ("likelihood_field_q", "tracking")]
     rows += [(label, r) for label in ("beam", "beam_exact", *LF_MODELS)
              for r in ("steady", "spread")]
+    rows += [("prob_beamskip", "steady")]
     for label, regime in rows:
-        model = {"beam_exact": "beam", "likelihood_field_q": "likelihood_field"}.get(label, label)
+        model = {"beam_exact": "beam", "likelihood_field_q": "likelihood_field",
+                 "prob_beamskip": "likelihood_field_prob"}.get(label, label)
         backend = "corr_q" if label.endswith("_q") else "corr"
+        skip = label == "prob_beamskip"
         kernel = kernels.get((label, regime),
-                             ck.corr_table if regime == "steady" else lk.lf_distances)
+                             ck.corr_table if regime == "steady" else lk.lf_term_sums)
         params, state_c, pool_c = scenario.build_filter(
             4096, pose_cov=REGIMES[regime], min_particles=1024, device="cpu")
         if model == "likelihood_field_prob":
             state_c = pf_filter.init_log_averages(state_c)
+        if skip:
+            state_c = state_c.replace(converged=torch.ones_like(state_c.converged))
         noise_c = mcl.StepNoise.draw(torch.Generator().manual_seed(7), 4096, "cpu",
                                      odom=False)
         state_g = to_device(state_c, dev)
         scan_g = to_device(scan_c, dev)
         before = {k: k.launches for k in (bk.beam_table, bsk.beam_spread_sums, kernel)}
-        p_c = likelihood_fn(model, maps_c[label], sp, scan_c, state_c, backend)()
-        like_g = likelihood_fn(model, maps_g[label], sp, scan_g, state_g, backend)
+        p_c = likelihood_fn(model, maps_c[label], sp, scan_c, state_c, backend, skip)()
+        like_g = likelihood_fn(model, maps_g[label], sp, scan_g, state_g, backend, skip)
         p_g = like_g().cpu()
         exact_ms = None
         if label == "beam_exact":
@@ -594,7 +713,8 @@ def phase_reference(dev):
                              "likelihoods agree to 1e-4")
         out_c, out_g = (
             step_2d(st, maps[label], sp, to_device(scan_c, d), to_device(pool_c, d), params,
-                    model, backend, None, motion=False, noise=to_device(noise_c, d))
+                    model, backend, None, motion=False, noise=to_device(noise_c, d),
+                    beamskip=skip)
             for st, maps, d in ((state_c, maps_c, "cpu"), (state_g, maps_g, dev)))
         same = (out_g.poses.cpu() == out_c.poses).all(dim=1).float().mean().item()
         dmean = float((out_g.stats.mean.cpu() - out_c.stats.mean)[:2].norm())
@@ -683,10 +803,10 @@ def phase_timings(dev, maps, scan, states):
         params, state, pool = cell_state(key, states)
         step, _ = pinned_step_fn(
             lambda s: step_2d(s, omap, sp, scan, pool, params, c.model, c.backend, gen,
-                              motion=False),
+                              motion=False, beamskip=c.beamskip),
             state, params.max_samples)
-        out[key] = timing_row(key, likelihood_fn(c.model, omap, sp, scan, state, c.backend),
-                              step)
+        out[key] = timing_row(key, likelihood_fn(c.model, omap, sp, scan, state, c.backend,
+                                                 c.beamskip), step)
     return out
 
 
@@ -723,9 +843,10 @@ def phase_range_image(dev, omap):
 
 
 def phase_kernels_beam(dev, bmap, scan, states):
-    """beam_table on the steady (its 24-row window) and tracking (the 64-row
-    window) clouds, beam_spread_sums on the spread cloud, each against its
-    plain version."""
+    """The value table and beam_table on the steady (its 24-row window) and
+    tracking (the 64-row window) clouds, bit-equal to their plain versions,
+    beam_table also with a value table of every uint16 value;
+    beam_spread_sums on the spread cloud against its plain version."""
     import torch
 
     from badger_amcl_tpu_torch.ops import beam_kernel as bk
@@ -736,6 +857,11 @@ def phase_kernels_beam(dev, bmap, scan, states):
     sp = planar.PlanarScanParams()
     k_angles = bmap.range_image.shape[0]
     mix = bk.BeamMix.of(sp, scan.range_max, bmap.resolution)
+    cap = bk.table_cap(mix)
+    phi = bk.beam_value_table(scan.ranges, mix, cap)
+    torch.cuda.synchronize()
+    check(torch.equal(phi, bk.beam_value_table_plain(scan.ranges, mix, cap)),
+          "beam_value_table differs from its plain version")
     results = {}
     rows_out = []
     for cell, rows in (("beam_steady", None), ("beam_tracking", 64)):
@@ -753,23 +879,44 @@ def phase_kernels_beam(dev, bmap, scan, states):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
-        check(err <= 1e-5 * scale, f"beam_table[{rows}] err {err} > 1e-5 x {scale}")
+        check(torch.equal(got, want), f"beam_table[{rows}] differs from its plain version in "
+                                      f"{int((got != want).sum())} cells (max err {err})")
         ms = cuda_ms(lambda: bk.beam_table(*args))
+        ops = kernel_ms(lambda: bk.beam_table(*args))
         plain_ms = cuda_ms(lambda: bk.beam_table_plain(*args), iters=5, warmup=1)
         t_n = int(pre["t_n"])
         # the slabs it reads once, the t_n live bins of the table written
-        # once; 16 f32 operations per (bin, beam, cell) with exp as one
+        # once; 2 operations per (bin, beam, cell) (min, add) and 16 per
+        # (beam, v) of the value table; beside it the per-element mixture's
+        # count, 16 operations per (bin, beam, cell) with exp as one
         slabs = int(bk.slab_indices(pre["t_min"], pre["t_order"][:t_n], scan.angles,
                                     pre["dtheta"], k_angles).unique().numel())
-        b = bound(slabs * rows * ck.PWIN_C * 2 + t_n * rows * ck.PWIN_C * 4 + N_BEAMS * 8,
-                  16.0 * t_n * N_BEAMS * rows * ck.PWIN_C)
+        nbytes = slabs * rows * ck.PWIN_C * 2 + t_n * rows * ck.PWIN_C * 4 + N_BEAMS * 8
+        cells = t_n * N_BEAMS * rows * ck.PWIN_C
+        b = bound(nbytes, 2.0 * cells + 16.0 * N_BEAMS * (cap + 1))
+        b_old = bound(nbytes, 16.0 * cells)
         log(f"beam_table rows={rows} ({cell}, {states[cell][1].poses.shape[0]} "
-            f"particles): t_n={t_n} slabs={slabs} max_abs_err={err:.3e} (table max "
-            f"{scale:.4g}) bit_equal={float((got == want).float().mean()):.6f} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
+            f"particles): t_n={t_n} slabs={slabs} cap={cap} bit_equal=True (table max "
+            f"{scale:.4g}) ms={ms:.4f} (wrapper) device_ms={device_text(ops)} "
+            f"({'; '.join(f'{n} {t:.4f}' for n, t in ops.items())}) plain_ms={plain_ms:.4f} "
+            f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']}; the per-element mixture's "
+            f"{b_old['bound_ms']:.5f}, {b_old['bound_by']})")
         rows_out.append((err, ms, plain_ms, b))
     results["beam_table"] = dict(max_abs_err=max(r[0] for r in rows_out), ms=rows_out[0][1],
                                  plain_ms=rows_out[0][2], **rows_out[0][3], library_ms=None)
+
+    # no cap limit: at 1e-4 m per range unit no uint16 value reaches 8 m,
+    # so the value table takes all 65,536 values (189 MB at 720 beams)
+    mix_w = bk.BeamMix.of(sp, scan.range_max, 1e-4)
+    check(bk.table_cap(mix_w) == 65535, "the wide value table's cap is not 65535")
+    args_w = (*args[:7], mix_w, *args[8:])
+    got = bk.beam_table(*args_w)
+    want = bk.beam_table_plain(*args_w)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "beam_table with a 65,536-entry value table differs from "
+                                  "its plain version")
+    log(f"beam_table rows={rows} (beam_tracking, cap 65535): bit_equal=True")
+    del got, want
 
     spose = planar.coord_add(sp.scanner_pose, states["beam_spread"][1].poses)
     check(bsk.fits(bmap, scan.range_max), "beam spread value table does not fit")
@@ -1028,7 +1175,7 @@ def phase_main_path_fleet(dev, omap, fl):
     params, states, scans = fl[0], fl[1], fl[2]
     counts = Launches({"fleet_corr_table": ck.fleet_corr_table, "corr_table": ck.corr_table,
                        "spread_term_sums": sk.spread_term_sums,
-                       "lf_distances": lk.lf_distances})
+                       "lf_term_sums": lk.lf_term_sums})
     gen = torch.Generator(device=dev).manual_seed(5)
     step_fn = fleet_step_fn(fl, omap, gen)
     step, box = pinned_step_fn(step_fn, states, params.max_samples)
@@ -1442,6 +1589,8 @@ def main():
         "spread_term_sums": ("badger_amcl_tpu_torch/csrc/spread_term_sums.cu",
                              "badger_amcl_tpu/ops/spread_kernel.py:556"),
         "lf_distances": ("badger_amcl_tpu_torch/csrc/lf_distances.cu",
+                         "badger_amcl_tpu/ops/lf_kernel.py:182"),
+        "lf_term_sums": ("badger_amcl_tpu_torch/csrc/lf_distances.cu",
                          "badger_amcl_tpu/ops/lf_kernel.py:182"),
         "pc_distances": ("badger_amcl_tpu_torch/csrc/pc_distances.cu",
                          "badger_amcl_tpu/ops/pc_kernel.py:168"),

@@ -223,3 +223,77 @@ def test_beam_wrappers_check_inputs(beam_maps):
     with pytest.raises(ValueError):
         tbsk.beam_spread_sums(tmap.range_rows, *sargs, phi, 256)
     assert tbsk.value_cap(tmap, RANGE_MAX) == 160
+
+
+def _table_from_values(rimg, obs, angles, pre, org, mix, rows):
+    """The lattice table as the CUDA kernel forms it: Phi[b, min(v, cap)]
+    of the plain value table, summed over beams in ascending order."""
+    cap = tbk.table_cap(mix)
+    phi = tbk.beam_value_table(obs, mix, cap)
+    assert phi.shape == (obs.shape[0], cap + 1)
+    assert torch.equal(phi, tbk.beam_value_table_plain(obs, mix, cap))
+    kk = tbk.slab_indices(pre["t_min"], pre["t_order"], angles, pre["dtheta"], rimg.shape[0])
+    jj = (org[0] + torch.arange(rows)).long()
+    ii = (org[1] + torch.arange(corr_kernel.PWIN_C)).long()
+    win = torch.from_numpy(rimg.numpy()[:, jj.numpy()[:, None], ii.numpy()[None, :]]
+                           .astype(np.int64))
+    acc = torch.zeros((corr_kernel.T_MAX, rows, corr_kernel.PWIN_C))
+    for b in range(obs.shape[0]):
+        acc = acc + phi[b][win[kk[:, b]].clamp(max=cap)]
+    live = torch.arange(corr_kernel.T_MAX) < torch.clamp(pre["t_n"], min=1)
+    return torch.where(live[:, None, None], acc, 0.0)
+
+
+@pytest.mark.parametrize("cloud", ["tight", "narrow", "standard"])
+def test_value_table_lookups_equal_beam_table_plain(beam_maps, cloud):
+    """Summing the per-beam value table at min(v, cap) in beam order is the
+    plain table bit for bit, at each window variant."""
+    _, tmap, _ = beam_maps
+    _, tscan = _scan()
+    pre = tbk.beam_prepass(tmap, torch.from_numpy(_poses(cloud)), RANGE_MAX)
+    rows, j0 = corr_kernel.window_variant(pre, bool(pre["tight"]), bool(pre["narrow"]))
+    mix = tbk.BeamMix.of(tplanar.PlanarScanParams(), RANGE_MAX, tmap.resolution)
+    org = tbk.window_origin(pre, j0)
+    args = (tscan.ranges, tscan.angles, pre["t_n"], pre["t_min"], pre["t_order"], org, mix,
+            pre["dtheta"], rows)
+    want = tbk.beam_table_plain(tmap.range_image, *args)
+    assert torch.equal(tbk.beam_table(tmap.range_image, *args), want)
+    got = _table_from_values(tmap.range_image, tscan.ranges, tscan.angles, pre, org, mix, rows)
+    assert torch.equal(got, want)
+
+
+def test_value_table_cap_edges(beam_maps):
+    """cap = the first v at range_max (160 at 8 m / 0.05 m): the window's
+    ranges set to cap - 1, cap, cap + 1 and 65535 still give the plain
+    table bit for bit; a cap past the uint16 range stops at 65535."""
+    _, tmap, _ = beam_maps
+    _, tscan = _scan()
+    mix = tbk.BeamMix.of(tplanar.PlanarScanParams(), RANGE_MAX, tmap.resolution)
+    cap = tbk.table_cap(mix)
+    assert cap == 160
+    res = np.float32(mix.res)
+    assert np.float32(cap) * res >= np.float32(RANGE_MAX) > np.float32(cap - 1) * res
+    assert tbk.table_cap(tbk.BeamMix.of(tplanar.PlanarScanParams(), RANGE_MAX, 1e-4)) == 65535
+    pre = tbk.beam_prepass(tmap, torch.from_numpy(_poses("tight")), RANGE_MAX)
+    org = tbk.window_origin(pre, pre["j0_tight"])
+    img = tmap.range_image.numpy().copy()
+    j0, i0 = (int(v) for v in org)
+    rng = np.random.default_rng(3)
+    edge = np.array([cap - 1, cap, cap + 1, 65535], np.uint16)
+    img[:, j0:j0 + 24, i0:i0 + 128] = edge[rng.integers(0, 4, (img.shape[0], 24, 128))]
+    rimg = torch.from_numpy(img)
+    args = (tscan.ranges, tscan.angles, pre["t_n"], pre["t_min"], pre["t_order"], org, mix,
+            pre["dtheta"], 24)
+    want = tbk.beam_table_plain(rimg, *args)
+    got = _table_from_values(rimg, tscan.ranges, tscan.angles, pre, org, mix, 24)
+    assert torch.equal(got, want)
+
+
+def test_value_table_checks_inputs():
+    mix = tbk.BeamMix.of(tplanar.PlanarScanParams(), RANGE_MAX, 0.05)
+    with pytest.raises(ValueError):
+        tbk.beam_value_table(torch.ones((2, 3)), mix, 160)
+    with pytest.raises(ValueError):
+        tbk.beam_value_table(torch.ones(3, dtype=torch.float64), mix, 160)
+    with pytest.raises(ValueError):
+        tbk.beam_value_table(torch.ones(3), mix, 65536)

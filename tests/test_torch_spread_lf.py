@@ -1,6 +1,7 @@
-"""PyTorch port: the spread-cloud term sums and the endpoint distance
-lookup, held against the JAX package's Pallas kernels in interpret mode on
-the same inputs.
+"""PyTorch port: the spread-cloud term sums, the endpoint distance lookup,
+the fused lf term sums and the lf window prepass, held against the JAX
+package's Pallas kernels in interpret mode (and its window_origins) on the
+same inputs.
 
 Tolerances:
 - spread sums: the JAX test's own bounds (tests/test_spread_kernel.py:82-85,
@@ -9,8 +10,15 @@ Tolerances:
 - distances: >= 99.9% bit-equal; the rest are one-cell flips from a
   last-ulp cos/sin difference, within res * sqrt(2) (the distance field is
   1-Lipschitz) plus one bf16 spacing below the 2 m cap (2**-7) on the bf16
-  arm.
+  arm;
+- fused lf term sums: bit-equal to the port's own (B, M) combine; against
+  the JAX model's sums over its interpret-mode distances >= 99% of
+  particles to rtol 1e-5 (f32 sums in another order) and all within 2.0 (a
+  one-cell flip moves one beam's pz^3, pz or log pz by at most ~0.8);
+- window prepass: integer results, equal.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -147,18 +155,31 @@ def _compare_distances(got, want, res, bf16):
     assert np.abs(got - want).max() <= tol
 
 
+def _steady_poses():
+    rng = np.random.default_rng(0)
+    return np.concatenate([0.15 * rng.standard_normal((600, 2)),
+                           0.04 * rng.standard_normal((600, 1))], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_steady_distances():
+    """The JAX lf kernel in interpret mode on the steady cloud (compiled
+    once per file)."""
+    jmap, _ = _map(448, 4, 10, 6, 20, 28)
+    jscan, _ = _scan(64, 6.0, 0.3, 5.9, 5.0)
+    return np.asarray(jlf.lf_distances_t(jmap, jnp.asarray(_steady_poses()), jscan.ranges,
+                                         jscan.angles, interpret=True))
+
+
 def test_lf_plain_matches_windowed_kernel(big_map):
     jmap, tmap = big_map
     jscan, tscan = _scan(64, 6.0, 0.3, 5.9, 5.0)
-    rng = np.random.default_rng(0)
-    poses = np.concatenate([0.15 * rng.standard_normal((600, 2)),
-                            0.04 * rng.standard_normal((600, 1))], axis=1).astype(np.float32)
+    poses = _steady_poses()
     _, _, jfits = jlf.window_origins(jmap, jnp.asarray(poses), jscan.ranges, jscan.angles)
     _, _, tfits = tlf.window_origins(tmap, torch.from_numpy(poses), tscan.ranges,
                                      tscan.angles)
     assert bool(jfits) and bool(tfits)
-    want = np.asarray(jlf.lf_distances_t(jmap, jnp.asarray(poses), jscan.ranges,
-                                         jscan.angles, interpret=True))
+    want = _jax_steady_distances()
     got = tlf.lf_distances_t(tmap, torch.from_numpy(poses), tscan.ranges,
                              tscan.angles).numpy()
     _compare_distances(got, want, tmap.resolution, bf16=True)
@@ -189,3 +210,106 @@ def test_lf_wrapper_checks_inputs(big_map):
         tlf.lf_distances(tmap, tmap.distances[:-1], poses, r, r)
     with pytest.raises(ValueError):
         tlf.lf_distances(tmap, tmap.distances, poses[:, :2], r, r)
+
+
+# the JAX side of each term form (sensors/planar.py:_lf_term, the Gompertz
+# model's pz with z_rand raw, the prob model's log pz)
+def _jax_term(form, range_max):
+    sp = jplanar.PlanarScanParams()
+    denom = 2.0 * sp.sigma_hit * sp.sigma_hit
+    if form == "pz":
+        return lambda z: sp.z_hit * jnp.exp(-(z * z) / denom) + sp.z_rand
+    zr = sp.z_rand / jnp.float32(range_max)
+    if form == "log":
+        return lambda z: jnp.log(sp.z_hit * jnp.exp(-(z * z) / denom) + zr)
+    jscan, _ = _scan(64, range_max, 0.3, 5.9, 5.0)
+    return jplanar._lf_term(sp, jscan)
+
+
+@pytest.mark.parametrize("model,form", [("likelihood_field", "cube"),
+                                        ("likelihood_field_gompertz", "pz"),
+                                        ("likelihood_field_prob", "log")])
+def test_lf_term_sums_plain_matches_combine_and_pallas(big_map, model, form):
+    """The fused sums' plain version is the (B, M) combine the lf arm took,
+    bit for bit, on the bf16 texture of the steady cloud; and it matches the
+    JAX model's sums over its interpret-mode kernel's distances."""
+    _, tmap = big_map
+    _, tscan = _scan(64, 6.0, 0.3, 5.9, 5.0)
+    valid = tscan.valid().clone()
+    valid[5] = False  # one skipped beam
+    term = tplanar.model_term(model, tplanar.PlanarScanParams(), tscan.range_max)
+    assert term.form == form
+    poses = torch.from_numpy(_steady_poses())
+    tex = tmap.distances_bf16
+    got = tlf.lf_term_sums(tmap, tex, poses, tscan.ranges, tscan.angles, valid, term)
+    z = tlf.lf_distances_plain(tmap, tex, poses, tscan.ranges, tscan.angles)
+    assert torch.equal(got, torch.where(valid[:, None], term(z), 0.0).sum(dim=0))
+    jz = jnp.asarray(_jax_steady_distances())
+    jvalid = jnp.asarray(valid.numpy())
+    want = np.asarray(jnp.sum(jnp.where(jvalid[:, None], _jax_term(form, 6.0)(jz), 0.0),
+                              axis=0), np.float64)
+    err = np.abs(got.numpy().astype(np.float64) - want)
+    assert np.mean(err <= 1e-5 * np.abs(want)) >= 0.99
+    assert err.max() <= 2.0
+
+
+@pytest.mark.parametrize("cloud", ["steady", "spread", "edge", "off_map"])
+def test_window_prepass_matches_jax_window_origins(big_map, cloud):
+    """The extents' plain version plus the finish give the JAX package's
+    window origins and fits, also where a beam (edge) or every beam
+    (off_map) has no endpoint on the map."""
+    jmap, tmap = big_map
+    jscan, tscan = _scan(64, 6.0, 0.3, 5.9, 5.0)
+    if cloud == "steady":
+        poses = _steady_poses()
+    elif cloud == "spread":
+        poses = _spread_poses(500, 6, 9.0)
+    else:
+        poses = _steady_poses()[:200] + np.float32([10.5 if cloud == "edge" else 30.0, 0, 0])
+    jr0, jc0, jfits = jlf.window_origins(jmap, jnp.asarray(poses), jscan.ranges, jscan.angles)
+    tp = torch.from_numpy(poses)
+    ext = tlf.beam_extents(tmap, tp, tscan.ranges, tscan.angles)
+    assert ext.shape == (4, 64) and ext.dtype == torch.int32
+    assert torch.equal(ext, tlf.beam_extents_plain(tmap, tp, tscan.ranges, tscan.angles))
+    no_end = ext[0] == tlf.BIG
+    assert bool(no_end.any()) == (cloud in ("edge", "off_map"))
+    assert bool(no_end.all()) == (cloud == "off_map")
+    assert bool((ext[1][no_end] == -tlf.BIG).all() and (ext[2][no_end] == tlf.BIG).all())
+    for r0, c0, fits in (tlf.window_finish(tmap, ext),
+                         tlf.window_origins(tmap, tp, tscan.ranges, tscan.angles)):
+        np.testing.assert_array_equal(r0.numpy(), np.asarray(jr0))
+        np.testing.assert_array_equal(c0.numpy(), np.asarray(jc0))
+        assert bool(fits) == bool(jfits)
+    assert bool(jfits) == (cloud != "spread")
+
+
+def test_baked_bf16_texture(big_map):
+    """`with_distance_field` and `convert.map_from_numpy` bake the lf
+    kernels' bf16 texture: the distance field rounded to bf16."""
+    jmap, tmap = big_map
+    own = TorchMap.from_cells(np.array(jmap.cells), 0.05, device="cpu").with_distance_field(2.0)
+    for m in (own, tmap):
+        assert m.distances_bf16.dtype == torch.bfloat16
+        assert torch.equal(m.distances_bf16, m.distances.to(torch.bfloat16))
+
+
+def test_lf_term_sums_and_extents_check_inputs(big_map):
+    _, tmap = big_map
+    poses = torch.zeros((4, 3))
+    r = torch.ones(3)
+    valid = torch.ones(3, dtype=torch.bool)
+    term = tplanar.model_term("likelihood_field", tplanar.PlanarScanParams(), 8.0)
+    with pytest.raises(TypeError):
+        tlf.lf_term_sums(tmap, tmap.distances.to(torch.float64), poses, r, r, valid, term)
+    with pytest.raises(ValueError):
+        tlf.lf_term_sums(tmap, tmap.distances[:, :-1], poses, r, r, valid, term)
+    with pytest.raises(ValueError):
+        tlf.lf_term_sums(tmap, tmap.distances, poses, r, r, valid.to(torch.int32), term)
+    with pytest.raises(ValueError):
+        tlf.lf_term_sums(tmap, tmap.distances, poses, r, r, valid[:2], term)
+    with pytest.raises(ValueError):
+        tlf.lf_term_sums(tmap, tmap.distances, poses[:, :2], r, r, valid, term)
+    with pytest.raises(ValueError):
+        tlf.beam_extents(tmap, poses.to(torch.float64), r, r)
+    with pytest.raises(ValueError):
+        tlf.beam_extents(tmap, poses, r, r[:2])
