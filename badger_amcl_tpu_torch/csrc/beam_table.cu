@@ -251,6 +251,127 @@ int launch_cells(const uint16_t* rimg, int k_angles, int h, int w, const float* 
   return (int)cudaGetLastError();
 }
 
+// design (d): design (c) with the value table and slab rows staged in
+// shared memory, kStageBeams beams at a time, double-buffered with async
+// copies; one block per SM-sized group of cells; lanes t and t + 32 (when
+// t_n > 32) share each staged chunk
+constexpr int kStageBeams = 32;
+
+template <int kWarps, bool kStaged>
+__global__ void __launch_bounds__(32 * kWarps) beam_cells_staged_kernel(
+    const uint16_t* __restrict__ rimg, int k_angles, int h, int w, int n_beams,
+    const int32_t* __restrict__ t_n, const uint16_t* __restrict__ slabs,
+    const int32_t* __restrict__ org, const float* __restrict__ table, int cap, int ld,
+    float* __restrict__ out, int t_max, int rows, int vec_bytes) {
+  extern __shared__ float4 s_dyn[];
+  uint16_t* s_vec = reinterpret_cast<uint16_t*>(s_dyn);
+  float* s_tab = reinterpret_cast<float*>(reinterpret_cast<char*>(s_dyn) + vec_bytes);
+  uint16_t* s_slab = reinterpret_cast<uint16_t*>(s_tab + 2 * kStageBeams * ld);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_cells = rows * kCols;
+  const int cell = blockIdx.x * kWarps + warp;
+  const int64_t plane = (int64_t)h * w;
+  for (int i = threadIdx.x; i < k_angles * kWarps; i += blockDim.x) {
+    const int k = i / kWarps;
+    const int c = i - k * kWarps;
+    const int cc = blockIdx.x * kWarps + c;
+    if (cc < n_cells) {
+      s_vec[c * k_angles + k] = __ldg(rimg + k * plane + (int64_t)(org[0] + cc / kCols) * w
+                                      + org[1] + cc % kCols);
+    }
+  }
+  const uint16_t* vec = s_vec + warp * k_angles;
+  const int nt = max(*t_n, 1);
+  const bool two = nt > 32;
+  const int n_chunks = (n_beams + kStageBeams - 1) / kStageBeams;
+  const int tab4 = kStageBeams * ld / 4;       // float4s of one table buffer
+  const int slab4 = kStageBeams * t_max / 8;  // float4s of one slab buffer
+  auto stage = [&](int c) {
+    const int buf = c & 1;
+    const int n = min(kStageBeams, n_beams - c * kStageBeams);
+    const float4* tsrc = reinterpret_cast<const float4*>(table + (int64_t)c * kStageBeams * ld);
+    float4* tdst = reinterpret_cast<float4*>(s_tab) + buf * tab4;
+    for (int i = threadIdx.x; i < n * ld / 4; i += blockDim.x) {
+      __pipeline_memcpy_async(tdst + i, tsrc + i, sizeof(float4));
+    }
+    const float4* ssrc =
+        reinterpret_cast<const float4*>(slabs + (int64_t)c * kStageBeams * t_max);
+    float4* sdst = reinterpret_cast<float4*>(s_slab) + buf * slab4;
+    for (int i = threadIdx.x; i < n * t_max / 8; i += blockDim.x) {
+      __pipeline_memcpy_async(sdst + i, ssrc + i, sizeof(float4));
+    }
+  };
+  if (kStaged) {
+    stage(0);
+    __pipeline_commit();
+  }
+  __syncthreads();
+  float acc0 = 0.0f, acc1 = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int base = c * kStageBeams;
+    const int n = min(kStageBeams, n_beams - base);
+    if (kStaged) {
+      if (c + 1 < n_chunks) stage(c + 1);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);
+      __syncthreads();
+    }
+    const float* tab = kStaged ? s_tab + (c & 1) * kStageBeams * ld : table + (int64_t)base * ld;
+    const uint16_t* sl =
+        kStaged ? s_slab + (c & 1) * kStageBeams * t_max : slabs + (int64_t)base * t_max;
+    if (cell < n_cells) {
+#pragma unroll 8
+      for (int b = 0; b < n; ++b) {
+        const float* phi = tab + b * ld;
+        const uint16_t* sb = sl + b * t_max;
+        acc0 = __fadd_rn(acc0, phi[min((int)vec[sb[lane]], cap)]);
+        if (two) acc1 = __fadd_rn(acc1, phi[min((int)vec[sb[32 + lane]], cap)]);
+      }
+    }
+    if (kStaged) __syncthreads();
+  }
+  if (cell < n_cells) {
+    const int row = cell / kCols;
+    const int col = cell % kCols;
+    out[((int64_t)lane * rows + row) * kCols + col] = lane < nt ? acc0 : 0.0f;
+    if (32 + lane < t_max) {
+      out[((int64_t)(32 + lane) * rows + row) * kCols + col] = 32 + lane < nt ? acc1 : 0.0f;
+    }
+  }
+}
+
+template <int kWarps>
+int launch_cells_staged(const uint16_t* rimg, int k_angles, int h, int w, const float* angles,
+                        int n_beams, const int32_t* t_n, const int32_t* t_min,
+                        const int32_t* t_order, const int32_t* org, float dtheta, float bin_inv,
+                        const float* table, int cap, int ld, float* out, int t_max, int rows,
+                        cudaStream_t stream) {
+  if (t_max > 64 || t_max % 8 != 0) return (int)cudaErrorInvalidValue;
+  uint16_t* slabs = (uint16_t*)(table + (int64_t)n_beams * ld);
+  const int n = n_beams * t_max;
+  beam_slab_kernel<<<(n + 255) / 256, 256, 0, stream>>>(angles, n_beams, t_min, t_order, t_max,
+                                                        k_angles, dtheta, bin_inv, slabs);
+  const int vec_bytes = (kWarps * k_angles * (int)sizeof(uint16_t) + 15) & ~15;
+  const size_t stage_bytes = (size_t)2 * kStageBeams * (ld * sizeof(float) + t_max * 2);
+  const int blocks = (rows * kCols + kWarps - 1) / kWarps;
+  if (vec_bytes + stage_bytes <= 200 * 1024) {
+    const size_t smem = vec_bytes + stage_bytes;
+    cudaFuncSetAttribute(beam_cells_staged_kernel<kWarps, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    beam_cells_staged_kernel<kWarps, true><<<blocks, 32 * kWarps, smem, stream>>>(
+        rimg, k_angles, h, w, n_beams, t_n, slabs, org, table, cap, ld, out, t_max, rows,
+        vec_bytes);
+  } else {
+    cudaFuncSetAttribute(beam_cells_staged_kernel<kWarps, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, vec_bytes);
+    beam_cells_staged_kernel<kWarps, false><<<blocks, 32 * kWarps, vec_bytes, stream>>>(
+        rimg, k_angles, h, w, n_beams, t_n, slabs, org, table, cap, ld, out, t_max, rows,
+        vec_bytes);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int kRows, bool kStaged>
 int launch_table(const uint16_t* rimg, int k_angles, int h, int w, const float* angles,
                  int n_beams, const int32_t* t_n, const int32_t* t_min,
@@ -319,6 +440,8 @@ extern "C" int beam_table_launch(const uint16_t* rimg, int k_angles, int h, int 
 #define BEAM_TABLE_ARGS                                                                     \
   rimg, k_angles, h, w, angles, n_beams, t_n, t_min, t_order, org, dtheta, bin_inv, table, \
       cap, ld, out, t_max, rows, s
+  if (design == 64) return launch_cells_staged<16>(BEAM_TABLE_ARGS);
+  if (design == 65) return launch_cells_staged<24>(BEAM_TABLE_ARGS);
   if (design == 20) return launch_cells<4>(BEAM_TABLE_ARGS);
   if (design == 24) return launch_cells<8>(BEAM_TABLE_ARGS);
   if (design == 32) return launch_cells<16>(BEAM_TABLE_ARGS);

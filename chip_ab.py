@@ -89,7 +89,7 @@ def one(root):
                          "device_ms": sum(cs.kernel_ms(run_beam).values())}
     if hasattr(bk, "TABLE_DESIGN"):
         keep = bk.TABLE_DESIGN
-        designs = {"b1": 1, "b4": 4, "a4": 12, "c4": 20, "c8": 24, "c16": 32}
+        designs = {"b1": 1, "a4": 12, "c16": 32, "d16": 64, "d24": 65}
         want = bk.beam_table_plain(*bargs)
         turns = {k: {"ms": [], "device_ms": []} for k in designs}
         for order in (list(designs), list(designs)[::-1]):
