@@ -18,32 +18,33 @@
 // beams summed in ascending order, full-precision expf (no fast math). A k
 // off by one would move the beam by a whole angular slab.
 //
-// Two entry points, launched in turn by the wrapper:
-// - beam_value_table_launch: Phi (B, cap + 1), one thread per (beam, v),
-//   with the per-element mixture of the earlier design; the mixture
-//   depends on the beam and on v only, so the table holds it for every
-//   (bin, cell) that reads it;
-// - beam_table_launch: the value table into a scratch buffer, then one
-//   block per (compacted yaw bin, group of kRows window rows), one thread
-//   per window column (128) holding kRows independent sums. The block
-//   stages each beam's slab index k(t, b) in shared memory; per (beam, row)
-//   a thread does one u16 load of R, one min, one read of the beam's table
-//   row and one add. The sums are serial in the beam order, so the kernel
-//   is bound by the latency of the u16 loads (L2 hits: the window does not
-//   fit L1): a thread issues the loads of the next kBatch beams before it
-//   adds the current ones. The table (B x (cap + 1) x 4 B, 453 KiB at 720
-//   beams and cap 160) is read through the read-only L1 path: a warp's 32
-//   neighbouring columns read a few 32-byte sectors of one beam's row. Any
-//   cap runs in this kernel.
-//   The TPU kernel compacts R to a (K, rows, 128) VMEM window with an XLA
-//   dynamic_slice on every call; here each thread reads R[k, j0 + row,
-//   i0 + col] from the full image. t_n, t_min and the window origin are
-//   read on the device, so launching needs no host sync.
+// Two launches per table (beam_table_launch):
+// - beam_prep_kernel: the value table Phi (B rows of ld = cap + 1 rounded
+//   up to 4 floats), one thread per (beam, v), with the mixture's
+//   per-element arithmetic, and the slab table k(t, b) (B, t_max) uint16;
+//   the mixture depends on the beam and on v only, so the table holds it
+//   for every (bin, cell) that reads it;
+// - beam_table_kernel: one warp per window cell, lane t per compacted yaw
+//   bin (t and t + 32 when t_n > 32), kWarps cells per block, about one
+//   block per SM at the 24-row window. The block stages its cells'
+//   K-vectors R[:, j, i] (the window transposed to cell-major) and,
+//   kStageBeams beams at a time, double-buffered with async copies, the
+//   beams' table and slab rows in shared memory. Per (bin, beam, cell) a
+//   lane reads its slab index, the cell's range at that slab and the
+//   beam's table entry (a beam's 32 lanes read neighbouring slabs of one
+//   vector and nearby entries of one table row) and adds. A table row too
+//   large to stage (cap up to 65535) takes the kernel's device-memory arm,
+//   which reads the table and slab rows from device memory.
+// The TPU kernel compacts R to a (K, rows, 128) VMEM window with an XLA
+// dynamic_slice on every call; here each block reads its cells' vectors
+// from the full image. t_n, t_min and the window origin are read on the
+// device, so launching needs no host sync.
 //
 // Bound on the H100: 2 operations per (slot, beam, cell) (the min and the
-// add; 44M-64M cells x beams in the beam cells) plus the table, 16
-// operations per (beam, v); the window's bytes (K x rows x 128 x 2 B,
-// 1.5-4 MiB) stay L2-resident.
+// add; 44M-64M cells x beams in the beam cells) plus the value table, 16
+// operations per (beam, v). A thread per window column (the table read
+// through L1, or staged per block) measured slower: a warp's 32 columns
+// read 32 scattered entries of a table row.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -52,217 +53,54 @@
 namespace {
 
 constexpr int kCols = 128;        // PWIN_C
-constexpr int kBeamChunk = 1024;  // beams staged in shared memory per pass
-constexpr int kTableThreads = 128;
-constexpr int kBatch = 8;         // beams whose range loads are in flight together
-// design (a): table rows staged per beam chunk in dynamic shared memory
-constexpr int kStageBytes = 96 * 1024;
+constexpr int kWarps = 24;        // window cells per block
+constexpr int kStageBeams = 32;   // beams per staged chunk
+constexpr int kMaxBins = 64;      // T_MAX: two bins per lane
+constexpr int kStageLimit = 200 * 1024;
+constexpr int kPrepThreads = 256;
 
-__global__ void beam_value_table_kernel(const float* __restrict__ obs, int n_v, float z_hit,
-                                        float z_short, float z_max, float z_rand_mult,
-                                        float range_max, float denom_inv, float lam,
-                                        float res, int ld, float* __restrict__ table) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (v >= n_v) return;
-  const float o = obs[b];
-  const float s_short = __fmul_rn(__fmul_rn(z_short, lam), expf(__fmul_rn(-lam, o)));
-  const float s_max = o == range_max ? z_max : 0.0f;
-  const float s_rand = o < range_max ? z_rand_mult : 0.0f;
-  const float m = fminf(__fmul_rn((float)v, res), range_max);
-  const float z = __fsub_rn(o, m);
-  float pz = __fmul_rn(z_hit, expf(__fmul_rn(-__fmul_rn(z, z), denom_inv)));
-  pz = __fadd_rn(pz, z < 0.0f ? s_short : 0.0f);
-  pz = __fadd_rn(pz, s_max);
-  pz = __fadd_rn(pz, s_rand);
-  table[(int64_t)b * ld + v] = __fmul_rn(__fmul_rn(pz, pz), pz);
-}
-
-// u16 range values of beams b .. b + kBatch - 1 at this thread's rows
-template <int kRows>
-__device__ __forceinline__ void load_values(const uint16_t* __restrict__ cell,
-                                            const int32_t* s_k, int b, int64_t plane, int w,
-                                            int (&v)[kBatch][kRows]) {
-#pragma unroll
-  for (int j = 0; j < kBatch; ++j) {
-    const uint16_t* slab = cell + s_k[b + j] * plane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) v[j][r] = __ldg(slab + (int64_t)r * w);
-  }
-}
-
-template <int kRows, bool kStaged>
-__global__ void __launch_bounds__(kCols) beam_table_kernel(
-    const uint16_t* __restrict__ rimg, int k_angles, int h, int w,
-    const float* __restrict__ angles, int n_beams, const int32_t* __restrict__ t_n,
-    const int32_t* __restrict__ t_min, const int32_t* __restrict__ t_order,
-    const int32_t* __restrict__ org, float dtheta, float bin_inv,
-    const float* __restrict__ table, int cap, int ld, int stage_beams,
-    float* __restrict__ out, int rows) {
-  __shared__ int32_t s_k[kBeamChunk];
-  extern __shared__ float4 s_dyn[];
-  float* s_tab = reinterpret_cast<float*>(s_dyn);
-  const int t = blockIdx.x;
-  const int row0 = blockIdx.y * kRows;
-  const int col = threadIdx.x;
-  float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
-  if (t < max(*t_n, 1)) {
-    const float t_raw = __fmul_rn((float)(*t_min + t_order[t]), dtheta);
-    const int64_t plane = (int64_t)h * w;
-    const uint16_t* cell = rimg + (int64_t)(org[0] + row0) * w + (org[1] + col);
-    const int chunk = kStaged ? stage_beams : kBeamChunk;
-    for (int base = 0; base < n_beams; base += chunk) {
-      const int n = min(chunk, n_beams - base);
-      __syncthreads();
-      for (int b = threadIdx.x; b < n; b += blockDim.x) {
-        const float theta = __fadd_rn(t_raw, angles[base + b]);
-        int k = __float2int_rn(__fmul_rn(theta, bin_inv));
-        s_k[b] = ((k % k_angles) + k_angles) % k_angles;
-      }
-      if (kStaged) {
-        // the chunk's table rows (ld a multiple of 4 floats) by async copies
-        const float4* src = reinterpret_cast<const float4*>(table + (int64_t)base * ld);
-        const int n4 = n * ld / 4;
-        for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-          __pipeline_memcpy_async(s_dyn + i, src + i, sizeof(float4));
-        }
-        __pipeline_commit();
-        __pipeline_wait_prior(0);
-      }
-      __syncthreads();
-      const float* tab = kStaged ? s_tab : table + (int64_t)base * ld;
-      // the u16 loads of the next batch of beams are in flight while this
-      // batch's table reads and adds run; beams are added in ascending order
-      const int n_full = n - n % kBatch;
-      int v[kBatch][kRows];
-      if (n_full > 0) load_values<kRows>(cell, s_k, 0, plane, w, v);
-      for (int b = 0; b < n_full; b += kBatch) {
-        int nv[kBatch][kRows];
-        const bool more = b + kBatch < n_full;
-        if (more) load_values<kRows>(cell, s_k, b + kBatch, plane, w, nv);
-#pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-          const float* phi = tab + (int64_t)(b + j) * ld;
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const int i = min(v[j][r], cap);
-            acc[r] = __fadd_rn(acc[r], kStaged ? phi[i] : __ldg(phi + i));
-          }
-        }
-        if (more) {
-#pragma unroll
-          for (int j = 0; j < kBatch; ++j) {
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) v[j][r] = nv[j][r];
-          }
-        }
-      }
-      for (int b = n_full; b < n; ++b) {
-        const uint16_t* slab = cell + s_k[b] * plane;
-        const float* phi = tab + (int64_t)b * ld;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int i = min((int)__ldg(slab + (int64_t)r * w), cap);
-          acc[r] = __fadd_rn(acc[r], kStaged ? phi[i] : __ldg(phi + i));
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) out[((int64_t)t * rows + row0 + r) * kCols + col] = acc[r];
-}
-
-// design (c): one warp per window cell, lane t = compacted yaw bin (32 at a
-// time); the block first stages its cells' K-vectors R[:, j, i] (the
-// window transposed to cell-major, as the spread kernel's range_rows) in
-// shared memory, so a beam's 32 lanes read neighbouring slabs of one
-// vector and nearly the same entry of the beam's table row. The slab
-// indices k(t, b) come from a (B, t_max) uint16 table built beside the
-// value table, so the beam loop has no branch and its loads overlap.
-__global__ void beam_slab_kernel(const float* __restrict__ angles, int n_beams,
+// threads [0, B * n_v): the value table; then [.., + B * t_max): the slabs
+__global__ void beam_prep_kernel(const float* __restrict__ obs, int n_beams, int n_v, int ld,
+                                 float z_hit, float z_short, float z_max, float z_rand_mult,
+                                 float range_max, float denom_inv, float lam, float res,
+                                 float* __restrict__ table, const float* __restrict__ angles,
                                  const int32_t* __restrict__ t_min,
                                  const int32_t* __restrict__ t_order, int t_max, int k_angles,
                                  float dtheta, float bin_inv, uint16_t* __restrict__ slabs) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_beams * t_max) return;
-  const int b = i / t_max;
-  const int t = i - b * t_max;
-  const float t_raw = __fmul_rn((float)(*t_min + t_order[t]), dtheta);
-  const int k = __float2int_rn(__fmul_rn(__fadd_rn(t_raw, angles[b]), bin_inv));
-  slabs[i] = (uint16_t)(((k % k_angles) + k_angles) % k_angles);
-}
-
-template <int kWarps>
-__global__ void __launch_bounds__(32 * kWarps) beam_table_cells_kernel(
-    const uint16_t* __restrict__ rimg, int k_angles, int h, int w, int n_beams,
-    const int32_t* __restrict__ t_n, const uint16_t* __restrict__ slabs,
-    const int32_t* __restrict__ org, const float* __restrict__ table, int cap, int ld,
-    float* __restrict__ out, int t_max, int rows) {
-  extern __shared__ uint16_t s_vec[];  // kWarps x K
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int cell0 = blockIdx.x * kWarps;  // kWarps cells of one window row
-  const int row = cell0 / kCols;
-  const int col = cell0 % kCols + warp;
-  const int64_t plane = (int64_t)h * w;
-  const uint16_t* src = rimg + (int64_t)(org[0] + row) * w + org[1] + cell0 % kCols;
-  for (int i = threadIdx.x; i < k_angles * kWarps; i += blockDim.x) {
-    const int k = i / kWarps;
-    const int c = i - k * kWarps;
-    s_vec[c * k_angles + k] = __ldg(src + k * plane + c);
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < (int64_t)n_beams * n_v) {
+    const int b = (int)(i / n_v);
+    const int v = (int)(i - (int64_t)b * n_v);
+    const float o = obs[b];
+    const float s_short = __fmul_rn(__fmul_rn(z_short, lam), expf(__fmul_rn(-lam, o)));
+    const float s_max = o == range_max ? z_max : 0.0f;
+    const float s_rand = o < range_max ? z_rand_mult : 0.0f;
+    const float m = fminf(__fmul_rn((float)v, res), range_max);
+    const float z = __fsub_rn(o, m);
+    float pz = __fmul_rn(z_hit, expf(__fmul_rn(-__fmul_rn(z, z), denom_inv)));
+    pz = __fadd_rn(pz, z < 0.0f ? s_short : 0.0f);
+    pz = __fadd_rn(pz, s_max);
+    pz = __fadd_rn(pz, s_rand);
+    table[(int64_t)b * ld + v] = __fmul_rn(__fmul_rn(pz, pz), pz);
+    return;
   }
-  __syncthreads();
-  const uint16_t* vec = s_vec + warp * k_angles;
-  const int nt = max(*t_n, 1);
-  for (int g = 0; g < t_max; g += 32) {
-    const int t = g + lane;
-    float acc = 0.0f;
-    if (g < nt) {
-      const uint16_t* ks = slabs + min(t, t_max - 1);
-      const float* phi = table;
-#pragma unroll 8
-      for (int b = 0; b < n_beams; ++b, ks += t_max, phi += ld) {
-        acc = __fadd_rn(acc, __ldg(phi + min((int)vec[__ldg(ks)], cap)));
-      }
-    }
-    if (t < t_max) out[((int64_t)t * rows + row) * kCols + col] = t < nt ? acc : 0.0f;
+  i -= (int64_t)n_beams * n_v;
+  if (i < (int64_t)n_beams * t_max) {
+    const int b = (int)(i / t_max);
+    const int t = (int)(i - (int64_t)b * t_max);
+    const float t_raw = __fmul_rn((float)(*t_min + t_order[t]), dtheta);
+    const int k = __float2int_rn(__fmul_rn(__fadd_rn(t_raw, angles[b]), bin_inv));
+    slabs[i] = (uint16_t)(((k % k_angles) + k_angles) % k_angles);
   }
 }
 
-template <int kWarps>
-int launch_cells(const uint16_t* rimg, int k_angles, int h, int w, const float* angles,
-                 int n_beams, const int32_t* t_n, const int32_t* t_min, const int32_t* t_order,
-                 const int32_t* org, float dtheta, float bin_inv, const float* table, int cap,
-                 int ld, float* out, int t_max, int rows, cudaStream_t stream) {
-  // the slab table sits behind the value table (B rows of ld floats)
-  uint16_t* slabs = (uint16_t*)(table + (int64_t)n_beams * ld);
-  const int n = n_beams * t_max;
-  beam_slab_kernel<<<(n + 255) / 256, 256, 0, stream>>>(angles, n_beams, t_min, t_order, t_max,
-                                                        k_angles, dtheta, bin_inv, slabs);
-  const size_t smem = (size_t)kWarps * k_angles * sizeof(uint16_t);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(beam_table_cells_kernel<kWarps>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  beam_table_cells_kernel<kWarps><<<rows * kCols / kWarps, 32 * kWarps, smem, stream>>>(
-      rimg, k_angles, h, w, n_beams, t_n, slabs, org, table, cap, ld, out, t_max, rows);
-  return (int)cudaGetLastError();
-}
-
-// design (d): design (c) with the value table and slab rows staged in
-// shared memory, kStageBeams beams at a time, double-buffered with async
-// copies; one block per SM-sized group of cells; lanes t and t + 32 (when
-// t_n > 32) share each staged chunk
-constexpr int kStageBeams = 32;
-
-template <int kWarps, bool kStaged>
-__global__ void __launch_bounds__(32 * kWarps) beam_cells_staged_kernel(
+template <bool kStaged>
+__global__ void __launch_bounds__(32 * kWarps) beam_table_kernel(
     const uint16_t* __restrict__ rimg, int k_angles, int h, int w, int n_beams,
     const int32_t* __restrict__ t_n, const uint16_t* __restrict__ slabs,
     const int32_t* __restrict__ org, const float* __restrict__ table, int cap, int ld,
     float* __restrict__ out, int t_max, int rows, int vec_bytes) {
+  // [kWarps x K uint16 vectors][2 x kStageBeams x ld table][2 x kStageBeams x t_max slabs]
   extern __shared__ float4 s_dyn[];
   uint16_t* s_vec = reinterpret_cast<uint16_t*>(s_dyn);
   float* s_tab = reinterpret_cast<float*>(reinterpret_cast<char*>(s_dyn) + vec_bytes);
@@ -285,19 +123,18 @@ __global__ void __launch_bounds__(32 * kWarps) beam_cells_staged_kernel(
   const int nt = max(*t_n, 1);
   const bool two = nt > 32;
   const int n_chunks = (n_beams + kStageBeams - 1) / kStageBeams;
-  const int tab4 = kStageBeams * ld / 4;       // float4s of one table buffer
-  const int slab4 = kStageBeams * t_max / 8;  // float4s of one slab buffer
+  // a chunk's table rows (ld a multiple of 4 floats) and slab rows (t_max a
+  // multiple of 8) into buffer c & 1
   auto stage = [&](int c) {
-    const int buf = c & 1;
     const int n = min(kStageBeams, n_beams - c * kStageBeams);
     const float4* tsrc = reinterpret_cast<const float4*>(table + (int64_t)c * kStageBeams * ld);
-    float4* tdst = reinterpret_cast<float4*>(s_tab) + buf * tab4;
+    float4* tdst = reinterpret_cast<float4*>(s_tab) + (c & 1) * (kStageBeams * ld / 4);
     for (int i = threadIdx.x; i < n * ld / 4; i += blockDim.x) {
       __pipeline_memcpy_async(tdst + i, tsrc + i, sizeof(float4));
     }
     const float4* ssrc =
         reinterpret_cast<const float4*>(slabs + (int64_t)c * kStageBeams * t_max);
-    float4* sdst = reinterpret_cast<float4*>(s_slab) + buf * slab4;
+    float4* sdst = reinterpret_cast<float4*>(s_slab) + (c & 1) * (kStageBeams * t_max / 8);
     for (int i = threadIdx.x; i < n * t_max / 8; i += blockDim.x) {
       __pipeline_memcpy_async(sdst + i, ssrc + i, sizeof(float4));
     }
@@ -323,7 +160,7 @@ __global__ void __launch_bounds__(32 * kWarps) beam_cells_staged_kernel(
     if (cell < n_cells) {
 #pragma unroll 8
       for (int b = 0; b < n; ++b) {
-        const float* phi = tab + b * ld;
+        const float* phi = tab + (int64_t)b * ld;
         const uint16_t* sb = sl + b * t_max;
         acc0 = __fadd_rn(acc0, phi[min((int)vec[sb[lane]], cap)]);
         if (two) acc1 = __fadd_rn(acc1, phi[min((int)vec[sb[32 + lane]], cap)]);
@@ -331,127 +168,71 @@ __global__ void __launch_bounds__(32 * kWarps) beam_cells_staged_kernel(
     }
     if (kStaged) __syncthreads();
   }
+  // out is (t_max, rows, 128): bin t's table starts at t * n_cells
   if (cell < n_cells) {
-    const int row = cell / kCols;
-    const int col = cell % kCols;
-    out[((int64_t)lane * rows + row) * kCols + col] = lane < nt ? acc0 : 0.0f;
-    if (32 + lane < t_max) {
-      out[((int64_t)(32 + lane) * rows + row) * kCols + col] = 32 + lane < nt ? acc1 : 0.0f;
-    }
+    out[(int64_t)lane * n_cells + cell] = lane < nt ? acc0 : 0.0f;
+    const int t1 = 32 + lane;
+    if (t1 < t_max) out[(int64_t)t1 * n_cells + cell] = t1 < nt ? acc1 : 0.0f;
   }
 }
 
-template <int kWarps>
-int launch_cells_staged(const uint16_t* rimg, int k_angles, int h, int w, const float* angles,
-                        int n_beams, const int32_t* t_n, const int32_t* t_min,
-                        const int32_t* t_order, const int32_t* org, float dtheta, float bin_inv,
-                        const float* table, int cap, int ld, float* out, int t_max, int rows,
-                        cudaStream_t stream) {
-  if (t_max > 64 || t_max % 8 != 0) return (int)cudaErrorInvalidValue;
-  uint16_t* slabs = (uint16_t*)(table + (int64_t)n_beams * ld);
-  const int n = n_beams * t_max;
-  beam_slab_kernel<<<(n + 255) / 256, 256, 0, stream>>>(angles, n_beams, t_min, t_order, t_max,
-                                                        k_angles, dtheta, bin_inv, slabs);
-  const int vec_bytes = (kWarps * k_angles * (int)sizeof(uint16_t) + 15) & ~15;
-  const size_t stage_bytes = (size_t)2 * kStageBeams * (ld * sizeof(float) + t_max * 2);
+void launch_prep(const float* obs, int n_beams, int n_v, int ld, float z_hit, float z_short,
+                 float z_max, float z_rand_mult, float range_max, float denom_inv, float lam,
+                 float res, float* table, const float* angles, const int32_t* t_min,
+                 const int32_t* t_order, int t_max, int k_angles, float dtheta, float bin_inv,
+                 uint16_t* slabs, cudaStream_t stream) {
+  const int64_t n = (int64_t)n_beams * (n_v + t_max);
+  beam_prep_kernel<<<(unsigned)((n + kPrepThreads - 1) / kPrepThreads), kPrepThreads, 0,
+                     stream>>>(obs, n_beams, n_v, ld, z_hit, z_short, z_max, z_rand_mult,
+                               range_max, denom_inv, lam, res, table, angles, t_min, t_order,
+                               t_max, k_angles, dtheta, bin_inv, slabs);
+}
+
+template <bool kStaged>
+void launch_table(const uint16_t* rimg, int k_angles, int h, int w, int n_beams,
+                  const int32_t* t_n, const uint16_t* slabs, const int32_t* org,
+                  const float* table, int cap, int ld, float* out, int t_max, int rows,
+                  int vec_bytes, int smem, cudaStream_t stream) {
+  static int granted = 48 * 1024;  // dynamic shared memory the kernel may take
+  if (smem > granted) {
+    cudaFuncSetAttribute(beam_table_kernel<kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    granted = smem;
+  }
   const int blocks = (rows * kCols + kWarps - 1) / kWarps;
-  if (vec_bytes + stage_bytes <= 200 * 1024) {
-    const size_t smem = vec_bytes + stage_bytes;
-    cudaFuncSetAttribute(beam_cells_staged_kernel<kWarps, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    beam_cells_staged_kernel<kWarps, true><<<blocks, 32 * kWarps, smem, stream>>>(
-        rimg, k_angles, h, w, n_beams, t_n, slabs, org, table, cap, ld, out, t_max, rows,
-        vec_bytes);
-  } else {
-    cudaFuncSetAttribute(beam_cells_staged_kernel<kWarps, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, vec_bytes);
-    beam_cells_staged_kernel<kWarps, false><<<blocks, 32 * kWarps, vec_bytes, stream>>>(
-        rimg, k_angles, h, w, n_beams, t_n, slabs, org, table, cap, ld, out, t_max, rows,
-        vec_bytes);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int kRows, bool kStaged>
-int launch_table(const uint16_t* rimg, int k_angles, int h, int w, const float* angles,
-                 int n_beams, const int32_t* t_n, const int32_t* t_min,
-                 const int32_t* t_order, const int32_t* org, float dtheta, float bin_inv,
-                 const float* table, int cap, int ld, float* out, int t_max, int rows,
-                 cudaStream_t stream) {
-  int stage_beams = 0;
-  size_t smem = 0;
-  if (kStaged) {
-    stage_beams = min(kBeamChunk, kStageBytes / (int)(ld * sizeof(float)));
-    smem = (size_t)stage_beams * ld * sizeof(float);
-    cudaFuncSetAttribute(beam_table_kernel<kRows, kStaged>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes);
-  }
-  dim3 grid(t_max, rows / kRows);
-  beam_table_kernel<kRows, kStaged><<<grid, kCols, smem, stream>>>(
-      rimg, k_angles, h, w, angles, n_beams, t_n, t_min, t_order, org, dtheta, bin_inv,
-      table, cap, ld, stage_beams, out, rows);
-  return (int)cudaGetLastError();
-}
-
-void launch_value_table(const float* obs, int n_beams, int n_v, float z_hit, float z_short,
-                        float z_max, float z_rand_mult, float range_max, float denom_inv,
-                        float lam, float res, int ld, float* table, cudaStream_t stream) {
-  dim3 grid((n_v + kTableThreads - 1) / kTableThreads, n_beams);
-  beam_value_table_kernel<<<grid, kTableThreads, 0, stream>>>(
-      obs, n_v, z_hit, z_short, z_max, z_rand_mult, range_max, denom_inv, lam, res, ld,
-      table);
+  beam_table_kernel<kStaged><<<blocks, 32 * kWarps, smem, stream>>>(
+      rimg, k_angles, h, w, n_beams, t_n, slabs, org, table, cap, ld, out, t_max, rows,
+      vec_bytes);
 }
 
 }  // namespace
 
-extern "C" int beam_value_table_launch(const float* obs, int n_beams, int n_v, float z_hit,
-                                       float z_short, float z_max, float z_rand_mult,
-                                       float range_max, float denom_inv, float lam, float res,
-                                       float* table, void* stream) {
-  launch_value_table(obs, n_beams, n_v, z_hit, z_short, z_max, z_rand_mult, range_max,
-                     denom_inv, lam, res, n_v, table, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
-}
-
-// The value table into `table` (B rows of ld = cap + 1 rounded up to a
-// multiple of 4 floats), then the lattice table.
-// design: rows per thread (1, 2 or 4) + 8 for the staged table (design a);
-// the staged design takes the device-memory arm when one beam's table row
-// does not fit the staging buffer
+// The lattice table (t_max, rows, 128) at `out`. `scratch` takes the value
+// table (B x ld floats, ld = cap + 1 rounded up to a multiple of 4), then
+// the slab table (B x t_max uint16); it must be 16-byte aligned.
 extern "C" int beam_table_launch(const uint16_t* rimg, int k_angles, int h, int w,
                                  const float* obs, const float* angles, int n_beams,
                                  const int32_t* t_n, const int32_t* t_min,
                                  const int32_t* t_order, const int32_t* org, float z_hit,
                                  float z_short, float z_max, float z_rand_mult,
                                  float range_max, float denom_inv, float lam, float res,
-                                 float dtheta, float bin_inv, float* table, int cap,
-                                 float* out, int t_max, int rows, int design, void* stream) {
+                                 float dtheta, float bin_inv, float* scratch, int cap,
+                                 float* out, int t_max, int rows, void* stream) {
+  if (t_max > kMaxBins || t_max % 8 != 0 || n_beams <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool staged = design >= 8 && ((cap + 4) & ~3) * (int)sizeof(float) <= kStageBytes;
-  const int per = design & 7;
-  if (design < 16 && ((per != 1 && per != 2 && per != 4) || rows % per != 0)) {
-    return (int)cudaErrorInvalidValue;
-  }
   const int ld = (cap + 4) & ~3;
-  launch_value_table(obs, n_beams, cap + 1, z_hit, z_short, z_max, z_rand_mult, range_max,
-                     denom_inv, lam, res, ld, table, s);
-  const int code = (int)cudaGetLastError();
-  if (code != 0) return code;
-#define BEAM_TABLE_ARGS                                                                     \
-  rimg, k_angles, h, w, angles, n_beams, t_n, t_min, t_order, org, dtheta, bin_inv, table, \
-      cap, ld, out, t_max, rows, s
-  if (design == 64) return launch_cells_staged<16>(BEAM_TABLE_ARGS);
-  if (design == 65) return launch_cells_staged<24>(BEAM_TABLE_ARGS);
-  if (design == 20) return launch_cells<4>(BEAM_TABLE_ARGS);
-  if (design == 24) return launch_cells<8>(BEAM_TABLE_ARGS);
-  if (design == 32) return launch_cells<16>(BEAM_TABLE_ARGS);
-  if (staged) {
-    if (per == 4) return launch_table<4, true>(BEAM_TABLE_ARGS);
-    if (per == 2) return launch_table<2, true>(BEAM_TABLE_ARGS);
-    return launch_table<1, true>(BEAM_TABLE_ARGS);
+  uint16_t* slabs = reinterpret_cast<uint16_t*>(scratch + (int64_t)n_beams * ld);
+  launch_prep(obs, n_beams, cap + 1, ld, z_hit, z_short, z_max, z_rand_mult, range_max,
+              denom_inv, lam, res, scratch, angles, t_min, t_order, t_max, k_angles, dtheta,
+              bin_inv, slabs, s);
+  const int vec_bytes = (kWarps * k_angles * (int)sizeof(uint16_t) + 15) & ~15;
+  const int64_t stage_bytes = (int64_t)2 * kStageBeams * (ld * 4 + t_max * 2);
+  if (vec_bytes + stage_bytes <= kStageLimit) {
+    launch_table<true>(rimg, k_angles, h, w, n_beams, t_n, slabs, org, scratch, cap, ld, out,
+                       t_max, rows, vec_bytes, vec_bytes + (int)stage_bytes, s);
+  } else {
+    launch_table<false>(rimg, k_angles, h, w, n_beams, t_n, slabs, org, scratch, cap, ld, out,
+                        t_max, rows, vec_bytes, vec_bytes, s);
   }
-  if (per == 4) return launch_table<4, false>(BEAM_TABLE_ARGS);
-  if (per == 2) return launch_table<2, false>(BEAM_TABLE_ARGS);
-  return launch_table<1, false>(BEAM_TABLE_ARGS);
-#undef BEAM_TABLE_ARGS
+  return (int)cudaGetLastError();
 }

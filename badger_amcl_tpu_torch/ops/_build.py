@@ -50,9 +50,8 @@ _SIGNATURES = {
                             _P, _P],
     "pc_spread_term_sums_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _I, _I, _I,
                                    _F, _F, _F, _F, _F, _I, _P, _P],
-    "beam_value_table_launch": [_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "beam_table_launch": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F, _F, _F,
-                          _F, _F, _F, _F, _F, _P, _I, _P, _I, _I, _I, _P],
+                          _F, _F, _F, _F, _F, _P, _I, _P, _I, _I, _P],
     "beam_spread_sums_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
 }
 
@@ -138,6 +137,9 @@ def check(code: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw pointer of the current CUDA stream of `device`, read without
+    building a torch Stream object."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -13,8 +13,8 @@ finds the particle window and compacts the occupied yaw bins; `beam_table`
 is the kernel wrapper (csrc/beam_table.cu on CUDA tensors,
 `beam_table_plain` on CPU tensors); each particle then takes its value.
 On the card phi_b is first tabulated per beam over the uint16 range values
-(`beam_value_table`, Phi[b, v] for v <= `table_cap`), and the table kernel
-sums Phi[b, min(R, cap)]: the same values, bit for bit.
+(Phi[b, v] for v <= `table_cap`, `beam_value_table_plain` on the CPU), and
+the table kernel sums Phi[b, min(R, cap)]: the same values, bit for bit.
 
 Not ported (TPU-only): the per-call XLA `dynamic_slice` of the range image
 down to a (K, rows, 128) VMEM window (beam_kernel.py:218-222): the CUDA
@@ -182,36 +182,15 @@ def table_cap(mix: BeamMix) -> int:
 
 
 def beam_value_table_plain(obs, mix: BeamMix, cap: int) -> torch.Tensor:
-    """Plain PyTorch version of the value-table kernel: (B, cap + 1) f32,
+    """Plain PyTorch version of the kernel's value table: (B, cap + 1) f32,
     Phi[b, v] = beam_pz3 at obs[b] and min(f32(v) * res, range_max)."""
     v = torch.arange(cap + 1, dtype=torch.float32, device=obs.device)
     m = torch.minimum(v * mix.res, torch.tensor(mix.range_max, device=obs.device))
     return beam_pz3(mix, obs[:, None], m[None, :])
 
 
-def beam_value_table(obs, mix: BeamMix, cap: int) -> torch.Tensor:
-    """Per-beam value table (B, cap + 1) f32 of the observed ranges `obs`
-    (B,) f32: one launch of csrc/beam_table.cu on a CUDA tensor, the plain
-    version on a CPU one."""
-    if obs.dim() != 1 or obs.dtype != torch.float32:
-        raise ValueError("obs must be a (B,) float32 vector")
-    if not 0 <= cap <= 65535:
-        raise ValueError(f"cap must be in [0, 65535], got {cap}")
-    if obs.device.type != "cuda":
-        return beam_value_table_plain(obs, mix, cap)
-    table = torch.empty((obs.shape[0], cap + 1), dtype=torch.float32, device=obs.device)
-    if obs.shape[0] == 0:
-        return table
-    code = _build.lib().beam_value_table_launch(
-        obs.contiguous().data_ptr(), obs.shape[0], cap + 1, mix.z_hit, mix.z_short, mix.z_max,
-        mix.z_rand_mult, mix.range_max, mix.denom_inv, mix.lam, mix.res, table.data_ptr(),
-        _build.stream_ptr(obs.device))
-    _build.check(code, "beam_value_table")
-    return table
-
-
-# rows per thread (1, 2, 4), + 8 to stage the value table in shared memory
-TABLE_DESIGN = 2
+# the table kernel stages each window cell's K-vector in shared memory
+MAX_ANGLES = 4096
 
 
 def beam_table(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix, dth: float,
@@ -231,8 +210,12 @@ def beam_table(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix, dth: f
         raise ValueError("t_order must be (T_MAX,) int32")
     if org.shape != (2,) or org.dtype != torch.int32:
         raise ValueError("org must be a (2,) int32 origin")
+    if t_n.dtype != torch.int32 or t_min.dtype != torch.int32:
+        raise ValueError("t_n and t_min must be 0-dim int32")
     if rows not in (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R):
         raise ValueError(f"rows must be one of 24, 32, 64, got {rows}")
+    if rimg.shape[0] > MAX_ANGLES:
+        raise ValueError(f"the range image has {rimg.shape[0]} > {MAX_ANGLES} angle bins")
     if rimg.device.type != "cuda":
         return beam_table_plain(rimg, obs, angles, t_n, t_min, t_order, org, mix, dth,
                                 rows)
@@ -244,18 +227,17 @@ def beam_table(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix, dth: f
     k_angles, h, w = rimg.shape
     cap = table_cap(mix)
     n_out = T_MAX * rows * PWIN_C
-    # one allocation: the table, then the value table the kernel reads, its
-    # rows padded to a multiple of 4 floats
+    # one allocation: the table, then the kernel's scratch (the value table,
+    # its rows padded to a multiple of 4 floats, and the uint16 slab table)
     buf = torch.empty((n_out + obs.shape[0] * (((cap + 4) & ~3) + T_MAX // 2),),
                       dtype=torch.float32, device=rimg.device)
-    t_n, t_min = t_n.to(torch.int32), t_min.to(torch.int32)
     code = _build.lib().beam_table_launch(
         rimg.contiguous().data_ptr(), k_angles, h, w, obs.contiguous().data_ptr(),
         angles.contiguous().data_ptr(), obs.shape[0], t_n.data_ptr(), t_min.data_ptr(),
         t_order.contiguous().data_ptr(), org.contiguous().data_ptr(), mix.z_hit, mix.z_short,
         mix.z_max, mix.z_rand_mult, mix.range_max, mix.denom_inv, mix.lam, mix.res, dth,
         bin_inv(k_angles), buf.data_ptr() + 4 * n_out, cap, buf.data_ptr(), T_MAX, rows,
-        TABLE_DESIGN, _build.stream_ptr(rimg.device))
+        _build.stream_ptr(rimg.device))
     _build.check(code, "beam_table")
     out = buf[:n_out].view(T_MAX, rows, PWIN_C)
     beam_table.launches += 1

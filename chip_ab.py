@@ -14,10 +14,8 @@ steady_lf and fleet cells, and the wrapper and device ms of
 spread_term_sums (50,000 x 720, spread cloud, pz^3), beam_table
 (beam_steady's 24-row window) and fleet_corr_table (256 robots x 10,000 x
 180), the device ms summed over the ops of chip_smoke.kernel_ms (a ROOT
-must have it); where a ROOT's beam kernel has table designs
-(`beam_kernel.TABLE_DESIGN`), each design's, in turns within the run;
-where it has the fused lf sums, theirs and the lf prepass's on the
-steady_lf cloud. Every run prints one JSON line, also appended to
+must have it); where a ROOT has the fused lf sums, theirs and the lf
+prepass's on the steady_lf cloud. Every run prints one JSON line, also appended to
 OUT_DIR/ab.jsonl, with the card's name and power limit.
 """
 
@@ -87,20 +85,6 @@ def one(root):
 
     out["beam_table"] = {"rows": rows, "ms": cs.cuda_ms(run_beam),
                          "device_ms": sum(cs.kernel_ms(run_beam).values())}
-    if hasattr(bk, "TABLE_DESIGN"):
-        keep = bk.TABLE_DESIGN
-        designs = {"b1": 1, "a4": 12, "c16": 32, "d16": 64, "d24": 65}
-        want = bk.beam_table_plain(*bargs)
-        turns = {k: {"ms": [], "device_ms": []} for k in designs}
-        for order in (list(designs), list(designs)[::-1]):
-            for name in order:
-                bk.TABLE_DESIGN = designs[name]
-                if not torch.equal(run_beam(), want):
-                    raise RuntimeError(f"beam_table design {name} differs from plain")
-                turns[name]["ms"].append(cs.cuda_ms(run_beam))
-                turns[name]["device_ms"].append(sum(cs.kernel_ms(run_beam).values()))
-        bk.TABLE_DESIGN = keep
-        out["beam_table"]["designs"] = turns
     if hasattr(lk, "lf_term_sums"):
         lpose = planar.coord_add(sp.scanner_pose, steady[1].poses)
         tex = lk.lf_texture(omap, lpose, scan.ranges, scan.angles)

@@ -16,9 +16,9 @@ the port's three paths:
 - 2D beam, Gompertz and prob models: bakes the K = 256 range image of the
   1024^2 map on the card (and a 256^2 map on the card and the CPU, which
   must agree bit for bit), holds the beam_table kernel (bit-equal, at its
-  24- and 64-row windows and with a 65,536-entry value table), its value
-  table, beam_spread_sums and the spread kernel's three term forms against
-  their plain versions, drives the beam model in its tracking (5,000),
+  24- and 64-row windows and with a 65,536-entry value table),
+  beam_spread_sums and the spread kernel's three term forms against their
+  plain versions, drives the beam model in its tracking (5,000),
   steady and spread (50,000) cells and the Gompertz and prob (log-space)
   models in the steady and spread regimes at 50,000 x 720, the prob model
   also with beam skipping on a converged steady cloud (prob_beamskip: the
@@ -843,9 +843,9 @@ def phase_range_image(dev, omap):
 
 
 def phase_kernels_beam(dev, bmap, scan, states):
-    """The value table and beam_table on the steady (its 24-row window) and
-    tracking (the 64-row window) clouds, bit-equal to their plain versions,
-    beam_table also with a value table of every uint16 value;
+    """beam_table on the steady (its 24-row window) and tracking (the 64-row
+    window) clouds, bit-equal to its plain version, also with a value table
+    of every uint16 value (the kernel's device-memory arm);
     beam_spread_sums on the spread cloud against its plain version."""
     import torch
 
@@ -858,10 +858,6 @@ def phase_kernels_beam(dev, bmap, scan, states):
     k_angles = bmap.range_image.shape[0]
     mix = bk.BeamMix.of(sp, scan.range_max, bmap.resolution)
     cap = bk.table_cap(mix)
-    phi = bk.beam_value_table(scan.ranges, mix, cap)
-    torch.cuda.synchronize()
-    check(torch.equal(phi, bk.beam_value_table_plain(scan.ranges, mix, cap)),
-          "beam_value_table differs from its plain version")
     results = {}
     rows_out = []
     for cell, rows in (("beam_steady", None), ("beam_tracking", 64)):
