@@ -17,8 +17,8 @@ On the card phi_b is first tabulated per beam over the uint16 range values
 the table kernel sums Phi[b, min(R, cap)]: the same values, bit for bit.
 
 Not ported (TPU-only): the per-call XLA `dynamic_slice` of the range image
-down to a (K, rows, 128) VMEM window (beam_kernel.py:218-222): the CUDA
-kernel reads R at the window origin directly.
+down to a (K, rows, 128) VMEM window (beam_kernel.py:218-222): each block
+of the CUDA kernel stages its window cells' K-vectors from the full image.
 """
 
 from __future__ import annotations
