@@ -50,6 +50,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The mixture's constants (ops.beam_kernel.BeamMix, each an f32), the yaw
+// bin width and bin_inv, in the field order of _build.BeamConsts; the
+// wrapper passes one cached host copy, which keeps the launch call short
+// (the beam cells are host-bound).
+struct BeamConsts {
+  float z_hit, z_short, z_max, z_rand_mult, range_max, denom_inv, lam, res, dtheta, bin_inv;
+};
+
 namespace {
 
 constexpr int kCols = 128;        // PWIN_C
@@ -61,23 +69,22 @@ constexpr int kPrepThreads = 256;
 
 // threads [0, B * n_v): the value table; then [.., + B * t_max): the slabs
 __global__ void beam_prep_kernel(const float* __restrict__ obs, int n_beams, int n_v, int ld,
-                                 float z_hit, float z_short, float z_max, float z_rand_mult,
-                                 float range_max, float denom_inv, float lam, float res,
-                                 float* __restrict__ table, const float* __restrict__ angles,
+                                 BeamConsts c, float* __restrict__ table,
+                                 const float* __restrict__ angles,
                                  const int32_t* __restrict__ t_min,
                                  const int32_t* __restrict__ t_order, int t_max, int k_angles,
-                                 float dtheta, float bin_inv, uint16_t* __restrict__ slabs) {
+                                 uint16_t* __restrict__ slabs) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < (int64_t)n_beams * n_v) {
     const int b = (int)(i / n_v);
     const int v = (int)(i - (int64_t)b * n_v);
     const float o = obs[b];
-    const float s_short = __fmul_rn(__fmul_rn(z_short, lam), expf(__fmul_rn(-lam, o)));
-    const float s_max = o == range_max ? z_max : 0.0f;
-    const float s_rand = o < range_max ? z_rand_mult : 0.0f;
-    const float m = fminf(__fmul_rn((float)v, res), range_max);
+    const float s_short = __fmul_rn(__fmul_rn(c.z_short, c.lam), expf(__fmul_rn(-c.lam, o)));
+    const float s_max = o == c.range_max ? c.z_max : 0.0f;
+    const float s_rand = o < c.range_max ? c.z_rand_mult : 0.0f;
+    const float m = fminf(__fmul_rn((float)v, c.res), c.range_max);
     const float z = __fsub_rn(o, m);
-    float pz = __fmul_rn(z_hit, expf(__fmul_rn(-__fmul_rn(z, z), denom_inv)));
+    float pz = __fmul_rn(c.z_hit, expf(__fmul_rn(-__fmul_rn(z, z), c.denom_inv)));
     pz = __fadd_rn(pz, z < 0.0f ? s_short : 0.0f);
     pz = __fadd_rn(pz, s_max);
     pz = __fadd_rn(pz, s_rand);
@@ -88,8 +95,8 @@ __global__ void beam_prep_kernel(const float* __restrict__ obs, int n_beams, int
   if (i < (int64_t)n_beams * t_max) {
     const int b = (int)(i / t_max);
     const int t = (int)(i - (int64_t)b * t_max);
-    const float t_raw = __fmul_rn((float)(*t_min + t_order[t]), dtheta);
-    const int k = __float2int_rn(__fmul_rn(__fadd_rn(t_raw, angles[b]), bin_inv));
+    const float t_raw = __fmul_rn((float)(*t_min + t_order[t]), c.dtheta);
+    const int k = __float2int_rn(__fmul_rn(__fadd_rn(t_raw, angles[b]), c.bin_inv));
     slabs[i] = (uint16_t)(((k % k_angles) + k_angles) % k_angles);
   }
 }
@@ -176,16 +183,14 @@ __global__ void __launch_bounds__(32 * kWarps) beam_table_kernel(
   }
 }
 
-void launch_prep(const float* obs, int n_beams, int n_v, int ld, float z_hit, float z_short,
-                 float z_max, float z_rand_mult, float range_max, float denom_inv, float lam,
-                 float res, float* table, const float* angles, const int32_t* t_min,
-                 const int32_t* t_order, int t_max, int k_angles, float dtheta, float bin_inv,
-                 uint16_t* slabs, cudaStream_t stream) {
+void launch_prep(const float* obs, int n_beams, int n_v, int ld, const BeamConsts& c,
+                 float* table, const float* angles, const int32_t* t_min,
+                 const int32_t* t_order, int t_max, int k_angles, uint16_t* slabs,
+                 cudaStream_t stream) {
   const int64_t n = (int64_t)n_beams * (n_v + t_max);
   beam_prep_kernel<<<(unsigned)((n + kPrepThreads - 1) / kPrepThreads), kPrepThreads, 0,
-                     stream>>>(obs, n_beams, n_v, ld, z_hit, z_short, z_max, z_rand_mult,
-                               range_max, denom_inv, lam, res, table, angles, t_min, t_order,
-                               t_max, k_angles, dtheta, bin_inv, slabs);
+                     stream>>>(obs, n_beams, n_v, ld, c, table, angles, t_min, t_order, t_max,
+                               k_angles, slabs);
 }
 
 template <bool kStaged>
@@ -213,18 +218,15 @@ void launch_table(const uint16_t* rimg, int k_angles, int h, int w, int n_beams,
 extern "C" int beam_table_launch(const uint16_t* rimg, int k_angles, int h, int w,
                                  const float* obs, const float* angles, int n_beams,
                                  const int32_t* t_n, const int32_t* t_min,
-                                 const int32_t* t_order, const int32_t* org, float z_hit,
-                                 float z_short, float z_max, float z_rand_mult,
-                                 float range_max, float denom_inv, float lam, float res,
-                                 float dtheta, float bin_inv, float* scratch, int cap,
+                                 const int32_t* t_order, const int32_t* org,
+                                 const BeamConsts* consts, float* scratch, int cap,
                                  float* out, int t_max, int rows, void* stream) {
   if (t_max > kMaxBins || t_max % 8 != 0 || n_beams <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int ld = (cap + 4) & ~3;
   uint16_t* slabs = reinterpret_cast<uint16_t*>(scratch + (int64_t)n_beams * ld);
-  launch_prep(obs, n_beams, cap + 1, ld, z_hit, z_short, z_max, z_rand_mult, range_max,
-              denom_inv, lam, res, scratch, angles, t_min, t_order, t_max, k_angles, dtheta,
-              bin_inv, slabs, s);
+  launch_prep(obs, n_beams, cap + 1, ld, *consts, scratch, angles, t_min, t_order, t_max,
+              k_angles, slabs, s);
   const int vec_bytes = (kWarps * k_angles * (int)sizeof(uint16_t) + 15) & ~15;
   const int64_t stage_bytes = (int64_t)2 * kStageBeams * (ld * 4 + t_max * 2);
   if (vec_bytes + stage_bytes <= kStageLimit) {

@@ -29,6 +29,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+class BeamConsts(ctypes.Structure):
+    """beam_table.cu's BeamConsts: the beam mixture's f32 constants, the yaw
+    bin width and bin_inv, passed to the launch by pointer."""
+
+    _fields_ = [(name, _F) for name in ("z_hit", "z_short", "z_max", "z_rand_mult",
+                                        "range_max", "denom_inv", "lam", "res", "dtheta",
+                                        "bin_inv")]
+
+
 # argtypes of every C entry point in csrc/
 _SIGNATURES = {
     "corr_table_launch": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -50,8 +61,8 @@ _SIGNATURES = {
                             _P, _P],
     "pc_spread_term_sums_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _I, _I, _I,
                                    _F, _F, _F, _F, _F, _I, _P, _P],
-    "beam_table_launch": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F, _F, _F,
-                          _F, _F, _F, _F, _F, _P, _I, _P, _I, _I, _P],
+    "beam_table_launch": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+                          ctypes.POINTER(BeamConsts), _P, _I, _P, _I, _I, _P],
     "beam_spread_sums_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
 }
 

@@ -193,6 +193,16 @@ def beam_value_table_plain(obs, mix: BeamMix, cap: int) -> torch.Tensor:
 MAX_ANGLES = 4096
 
 
+@functools.lru_cache(maxsize=64)
+def _launch_consts(mix: BeamMix, dth: float, k_angles: int):
+    """(cap, the kernel's BeamConsts) of a mixture, bin width and K, built
+    once: the beam cells are host-bound, and 10 float arguments fewer
+    shorten every launch call."""
+    return table_cap(mix), _build.BeamConsts(
+        mix.z_hit, mix.z_short, mix.z_max, mix.z_rand_mult, mix.range_max, mix.denom_inv,
+        mix.lam, mix.res, dth, bin_inv(k_angles))
+
+
 def beam_table(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix, dth: float,
                rows: int):
     """The beam correlation table (T_MAX, rows, PWIN_C) f32 over the range
@@ -219,13 +229,14 @@ def beam_table(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix, dth: f
     if rimg.device.type != "cuda":
         return beam_table_plain(rimg, obs, angles, t_n, t_min, t_order, org, mix, dth,
                                 rows)
+    index = rimg.get_device()
     for t in (obs, angles, t_n, t_min, t_order, org):
-        if t.device != rimg.device:
+        if t.get_device() != index:
             raise ValueError("all inputs must be on one device")
     if obs.shape[0] == 0:
         return torch.zeros((T_MAX, rows, PWIN_C), dtype=torch.float32, device=rimg.device)
     k_angles, h, w = rimg.shape
-    cap = table_cap(mix)
+    cap, consts = _launch_consts(mix, dth, k_angles)
     n_out = T_MAX * rows * PWIN_C
     # one allocation: the table, then the kernel's scratch (the value table,
     # its rows padded to a multiple of 4 floats, and the uint16 slab table)
@@ -234,9 +245,8 @@ def beam_table(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix, dth: f
     code = _build.lib().beam_table_launch(
         rimg.contiguous().data_ptr(), k_angles, h, w, obs.contiguous().data_ptr(),
         angles.contiguous().data_ptr(), obs.shape[0], t_n.data_ptr(), t_min.data_ptr(),
-        t_order.contiguous().data_ptr(), org.contiguous().data_ptr(), mix.z_hit, mix.z_short,
-        mix.z_max, mix.z_rand_mult, mix.range_max, mix.denom_inv, mix.lam, mix.res, dth,
-        bin_inv(k_angles), buf.data_ptr() + 4 * n_out, cap, buf.data_ptr(), T_MAX, rows,
+        t_order.contiguous().data_ptr(), org.contiguous().data_ptr(), consts,
+        buf.data_ptr() + 4 * n_out, cap, buf.data_ptr(), T_MAX, rows,
         _build.stream_ptr(rimg.device))
     _build.check(code, "beam_table")
     out = buf[:n_out].view(T_MAX, rows, PWIN_C)

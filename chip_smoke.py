@@ -610,7 +610,7 @@ def phase_main_path(dev, maps, scan, states):
                 step()
             torch.cuda.synchronize()
 
-        rose = counts.run(run, 6)
+        rose = counts.run(run, 7 if c.beamskip else 6)
         out = box["out"]
         check_state(out, params, f"{key} sensor_resample_step")
         check(rose[c.kernel] > 0, f"{key}: {c.kernel} was not launched")

@@ -17,6 +17,8 @@ Tolerances:
   (test_torch_raycast.py) and the mixture's exp differs in the last ulp.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -290,3 +292,20 @@ def test_value_table_cap_edges(beam_maps):
     want = tbk.beam_table_plain(rimg, *args)
     got = _table_from_values(rimg, tscan.ranges, tscan.angles, pre, org, mix, 24)
     assert torch.equal(got, want)
+
+
+def test_launch_constants_match_the_mixture(beam_maps):
+    """The struct the table kernel's launch reads holds the mixture's f32
+    constants, the bin width and bin_inv in the C struct's order (ten
+    floats, 40 bytes), and the value table's cap."""
+    mix = tbk.BeamMix.of(tplanar.PlanarScanParams(), RANGE_MAX, 0.05)
+    _, tmap, _ = beam_maps
+    dth = tbk.dtheta(tmap, RANGE_MAX)
+    cap, consts = tbk._launch_consts(mix, dth, 256)
+    assert cap == tbk.table_cap(mix) == 160
+    assert ctypes.sizeof(consts) == 40
+    want = (mix.z_hit, mix.z_short, mix.z_max, mix.z_rand_mult, mix.range_max, mix.denom_inv,
+            mix.lam, mix.res, dth, tbk.bin_inv(256))
+    got = tuple(getattr(consts, name) for name, _ in consts._fields_)
+    assert got == tuple(float(np.float32(v)) for v in want)
+    assert tbk._launch_consts(mix, dth, 256)[1] is consts
