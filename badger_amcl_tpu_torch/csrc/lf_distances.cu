@@ -1,8 +1,10 @@
 // Distance-field lookups at the (beam, particle) scan endpoints.
 //
 // Replaces the Pallas TPU kernel badger_amcl_tpu/ops/lf_kernel.py `_kernel`
-// (via `windowed_distance_gather` / `lf_distances_t`) and the XLA
-// reductions of its prepass `window_origins`:
+// (via `windowed_distance_gather` / `lf_distances_t`), the XLA
+// reductions of its prepass `window_origins` and the XLA passes over its
+// (B, M) output that beam skipping takes (badger_amcl_tpu/sensors/
+// planar.py `_lf_prob_model`):
 //
 //   th = pth[m] + a[b];  hx = px[m] + r[b] cos(th);  hy = py[m] + r[b] sin(th)
 //   ci = floor((hx - ox) / res + 0.5) + half_x   (world_to_map,
@@ -15,12 +17,14 @@
 // the per-beam window does not fit. Multiplies, adds and the division are
 // rounded separately and cos/sin are the full-precision ones (sincosf, the
 // values of cosf and sinf; no fast math), per element as in the JAX
-// kernel, matching the plain PyTorch version. Three entry points share that endpoint function:
+// kernel, matching the plain PyTorch version. Four entry points share that
+// endpoint function:
 //
 // - lf_distances_{f32,bf16}_launch: z itself, (B, M) f32, one thread per
-//   (b, m), m fastest, so the stores coalesce (the prob model's beam
-//   skipping needs every distance). Bound: the 144 MB (720 x 50k) output
-//   write, ~43 us at 3.35 TB/s;
+//   (b, m), m fastest, so the stores coalesce: the counterpart of the JAX
+//   package's `lf_distances_t`, which no main path of the port launches
+//   (beam skipping takes lf_obs_counts and lf_term_sums). Bound: the 144
+//   MB (720 x 50k) output write, ~43 us at 3.35 TB/s;
 // - lf_term_sums_{f32,bf16}_launch: s[m] = sum over valid b of term(z),
 //   (M,) f32, term one of sensors.planar's BeamTerm forms
 //   pz^3 / pz / log pz with pz = z_hit exp(-(z z) / denom) + zr, computed
@@ -35,7 +39,16 @@
 //   with no in-map endpoint. One block row per beam, each thread reduces
 //   its particles, then a warp reduction and one atomic per warp, beam and
 //   extent. The wrapper finishes the TPU kernel's window alignment and
-//   fits test on the (B,) results.
+//   fits test on the (B,) results;
+// - lf_obs_counts_{f32,bf16}_launch: beam skipping's first pass
+//   (planar_scanner.cpp:441-453), (B,) int32 counts per valid beam of the
+//   active particles whose endpoint cell is on the map and reads a value
+//   below the skip distance. The extents' layout: one block row per beam
+//   (an invalid beam's block returns before forming an endpoint, whose
+//   range may be NaN), several particles per thread, a warp sum
+//   (__reduce_add_sync) and one atomicAdd per warp and beam into the
+//   zeroed output. Bound: ~16 operations per (active particle, valid
+//   beam), as the extents'.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -186,6 +199,27 @@ __global__ void __launch_bounds__(kExtentThreads) lf_extents_kernel(
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kExtentThreads) lf_obs_counts_kernel(
+    const T* __restrict__ tex, const float* __restrict__ spose, int m,
+    const float* __restrict__ ranges, const float* __restrict__ angles,
+    const bool* __restrict__ valid, const bool* __restrict__ active, Geom g, float skip,
+    int32_t* __restrict__ counts) {
+  const int b = blockIdx.y;
+  if (!valid[b]) return;  // the whole block: its endpoints are never formed
+  const float r = ranges[b];
+  const float a = angles[b];
+  int n = 0;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < m; p += gridDim.x * blockDim.x) {
+    if (!active[p]) continue;
+    int ci, cj;
+    endpoint_cell(spose[3 * p], spose[3 * p + 1], spose[3 * p + 2], r, a, g, ci, cj);
+    if (on_map(ci, cj, g) && to_float(tex[(int64_t)cj * g.size_x + ci]) < skip) ++n;
+  }
+  n = __reduce_add_sync(0xffffffffu, n);
+  if ((threadIdx.x & 31) == 0 && n > 0) atomicAdd(counts + b, n);
+}
+
 Geom geom(float res, float ox, float oy, int half_x, int half_y, int size_x, int size_y,
           float max_dist) {
   return Geom{res, ox, oy, half_x, half_y, size_x, size_y, max_dist};
@@ -220,6 +254,21 @@ int launch_term_sums(const T* tex, const float* spose, int m, const float* range
     return (int)cudaErrorInvalidValue;
   }
 #undef LF_TERM_ARGS
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_obs_counts(const T* tex, const float* spose, int m, const float* ranges,
+                      const float* angles, const bool* valid, const bool* active, int n_beams,
+                      Geom g, float skip, int32_t* counts, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaMemsetAsync(counts, 0, sizeof(int32_t) * n_beams, s);
+  const int per_block = kExtentThreads * kExtentPerThread;
+  const dim3 grid((m + per_block - 1) / per_block, n_beams);
+  if (m > 0 && n_beams > 0) {
+    lf_obs_counts_kernel<T><<<grid, kExtentThreads, 0, s>>>(tex, spose, m, ranges, angles,
+                                                           valid, active, g, skip, counts);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -285,4 +334,26 @@ extern "C" int lf_extents_launch(const float* spose, int m, const float* ranges,
         geom(res, ox, oy, half_x, half_y, size_x, size_y, 0.0f), ext);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int lf_obs_counts_f32_launch(const float* tex, const float* spose, int m,
+                                        const float* ranges, const float* angles,
+                                        const bool* valid, const bool* active, int n_beams,
+                                        float res, float ox, float oy, int half_x, int half_y,
+                                        int size_x, int size_y, float skip, int32_t* counts,
+                                        void* stream) {
+  return launch_obs_counts<float>(tex, spose, m, ranges, angles, valid, active, n_beams,
+                                  geom(res, ox, oy, half_x, half_y, size_x, size_y, 0.0f),
+                                  skip, counts, stream);
+}
+
+extern "C" int lf_obs_counts_bf16_launch(const void* tex, const float* spose, int m,
+                                         const float* ranges, const float* angles,
+                                         const bool* valid, const bool* active, int n_beams,
+                                         float res, float ox, float oy, int half_x,
+                                         int half_y, int size_x, int size_y, float skip,
+                                         int32_t* counts, void* stream) {
+  return launch_obs_counts<__nv_bfloat16>(
+      (const __nv_bfloat16*)tex, spose, m, ranges, angles, valid, active, n_beams,
+      geom(res, ox, oy, half_x, half_y, size_x, size_y, 0.0f), skip, counts, stream);
 }

@@ -4,51 +4,120 @@
 // `_kernel3` (via `_tiered_call3` / `pc_spread_term_sums`): for every
 // particle m
 //
-//   s[m] = sum_b t(z),  t(z) = pz^3 (likelihood_field) or pz (Gompertz),
-//   pz   = z_hit * exp(-z^2 / denom) + zr,
-//   z    = tex[k_b, cj, ci] * max_ratio, 255 * max_ratio off the map,
-//          max_dist when the point's slab k_b is outside the z band,
+//   s[m] = sum_b table[k],  k = tex[k_b, cj, ci] (a uint8 ratio), 255 off
+//          the map, 256 when the point's slab k_b is outside the z band,
 //   ci   = floor(pxc + A_b ct - B_b st),  cj = floor(pyc + B_b ct + A_b st)
 //
 // with pxc = px * inv_res + (0.5 - min_i), ct/st the particle's cos/sin
 // yaw and (A_b, B_b) = (qx_b, qy_b) * inv_res — the TPU kernel's endpoint
 // formula (pc_spread_kernel.py:197-199, :445-446) and out-of-band constant
-// (:595-597), over the z-major uint8 ratio texture (nz, ny, nx).
+// (:595-597), over the z-major uint8 ratio texture (nz, ny, nx). `table`
+// holds the model's term t(z) (pz^3 for likelihood_field, pz for
+// Gompertz, pz = z_hit exp(-z^2 / denom) + zr) at z = q * max_ratio for
+// the 256 ratios q (255 is also the off-map value) and at z = max_dist
+// for entry 256, evaluated by the wrapper with the plain version's own
+// torch expression on the same device, so each looked-up term equals the
+// plain version's bit for bit.
 //
-// Design: one thread per particle walks the points, whose (A, B, slab) sit
-// in shared memory, staged in chunks. Output is in the ORIGINAL particle
-// order: the TPU kernel's point and particle sorts, window tiers, escape
-// arm and unsort exist to make its one-hot MXU gathers dense, and a direct
-// gather needs none of them (so there is no escape capacity or point-slot
-// budget to overflow). Every multiply and add is rounded separately, in
-// the plain PyTorch version's order, and expf/cosf/sinf are the
-// full-precision ones (no fast math). The terms are summed in double and
-// rounded once, so the sum does not depend on a summation order to within
-// f32 rounding.
+// Output is in the ORIGINAL particle order: the TPU kernel's point and
+// particle sorts, window tiers, escape arm and unsort exist to make its
+// one-hot MXU gathers dense, and a direct gather needs none of them (so
+// there is no escape capacity or point-slot budget to overflow). The
+// endpoint's multiplies and adds are rounded separately, in the plain
+// version's order, and cosf/sinf are the full-precision ones (no fast
+// math). The terms are summed in double and rounded once, so the sum does
+// not depend on a summation order to within f32 rounding.
 //
-// Bound on the H100: one expf and ~20 other f32 operations per (particle,
-// point) — 12.8M pairs at 50k x 256 — against 3.4 MB of texture (L2
-// resident) and an M x 4 B output: operations, not bytes. Neighbouring
-// threads hold neighbouring particles of a spread cloud, so texture reads
-// do not coalesce; they are L2 hits.
+// Bound on the H100: ~12 operations per (particle, point) — 8 for the
+// endpoint, two floors, the bounds test and the add — 12.8M pairs at 50k x
+// 256, against 3.4 MB of texture (L2 resident) and an M x 4 B output:
+// operations. The per-pair expf, division and cube of the earlier design
+// became one read of the table, held as double in shared memory so the
+// accumulate takes no conversion. Design: kLanes lanes share a particle,
+// lane l taking the points b = l (mod kLanes), so a 10,000-particle
+// tracking cloud runs on 80,000 threads; the points' (A, B, slab offset)
+// are staged in shared memory per chunk.
+//   - kInWarp: the lanes are neighbours in one warp (a warp holds 32 /
+//     kLanes particles) and their double partials are added by xor
+//     shuffles in a fixed order;
+//   - else: the lanes are groups of warps of a block (a warp holds 32
+//     consecutive particles, all at the same point at a time) and their
+//     partials are added through shared memory in lane order.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPointChunk = 1024;
+constexpr int kPointChunk = 256;
+constexpr int kTable = 257;  // 256 ratios, then outside the z band
+constexpr int kPrepThreads = 1024;
 
-__global__ void pc_spread_term_sums_kernel(
+// the point's cell offsets (A, B), its slab offset kz * ny * nx (-1
+// outside the z band) and its sort key: slab, then 8-cell bins of B and A
+__device__ __forceinline__ void point_of(const float* __restrict__ q, float inv_res, int min_k,
+                                         int nz, int slab, float& a, float& b, int& base,
+                                         int& key) {
+  a = __fmul_rn(q[0], inv_res);
+  b = __fmul_rn(q[1], inv_res);
+  const int kz = (int)floorf(__fadd_rn(__fmul_rn(q[2], inv_res), 0.5f)) - min_k;
+  const bool band = kz >= 0 && kz < nz;
+  base = band ? kz * slab : -1;
+  const int ia = min(max(((int)floorf(a) >> 3) + 128, 0), 255);
+  const int ib = min(max(((int)floorf(b) >> 3) + 128, 0), 255);
+  key = ((band ? kz : nz) << 16) | (ib << 8) | ia;
+}
+
+// one block: every point's (A, B, slab offset), written in key order (ties
+// in index order) when `sorted`, else in cloud order
+__global__ void __launch_bounds__(kPrepThreads) pc_spread_prep_kernel(
+    const float* __restrict__ points, int n, float inv_res, int min_k, int nz, int slab,
+    int sorted, int* __restrict__ keys, float* __restrict__ out_a, float* __restrict__ out_b,
+    int* __restrict__ out_base) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    float a, b;
+    int base, key;
+    point_of(points + 3 * (int64_t)k, inv_res, min_k, nz, slab, a, b, base, key);
+    keys[k] = key;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    float a, b;
+    int base, key;
+    point_of(points + 3 * (int64_t)k, inv_res, min_k, nz, slab, a, b, base, key);
+    int rank = k;
+    if (sorted) {
+      rank = 0;
+      for (int j = 0; j < n; ++j) {
+        const int kj = keys[j];
+        rank += kj < key || (kj == key && j < k);
+      }
+    }
+    out_a[rank] = a;
+    out_b[rank] = b;
+    out_base[rank] = base;
+  }
+}
+
+template <int kLanes, bool kInWarp>
+__global__ void __launch_bounds__(kThreads) pc_spread_term_sums_kernel(
     const uint8_t* __restrict__ tex, int nx, int ny, int nz,
-    const float* __restrict__ poses, int m, const float* __restrict__ points,
-    int n_points, float inv_res, float off_x, float off_y, int min_k, float max_ratio,
-    float max_dist, float z_hit, float denom, float zr, int cube, float* __restrict__ out) {
+    const float* __restrict__ poses, int m, const float* __restrict__ pa,
+    const float* __restrict__ pb, const int* __restrict__ pbase, int n_points, float inv_res,
+    float off_x, float off_y, const float* __restrict__ table, float* __restrict__ out) {
+  constexpr int kPerBlock = kThreads / kLanes;
+  __shared__ double s_table[kTable];
   __shared__ float s_a[kPointChunk];
   __shared__ float s_b[kPointChunk];
-  __shared__ int s_kz[kPointChunk];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ int s_base[kPointChunk];  // slab offset kz * ny * nx, -1 outside the band
+  __shared__ double s_part[kInWarp ? 1 : kLanes][kInWarp ? 1 : kPerBlock];
+  const int tid = threadIdx.x;
+  const int slot = kInWarp ? tid / kLanes : tid % kPerBlock;
+  const int lane = kInWarp ? tid % kLanes : tid / kPerBlock;
+  for (int k = tid; k < kTable; k += kThreads) s_table[k] = (double)table[k];
+  const int i = blockIdx.x * kPerBlock + slot;
   const bool live = i < m;
   float pxc = 0.0f, pyc = 0.0f, c = 0.0f, s = 0.0f;
   if (live) {
@@ -62,48 +131,85 @@ __global__ void pc_spread_term_sums_kernel(
   for (int base = 0; base < n_points; base += kPointChunk) {
     const int n = min(kPointChunk, n_points - base);
     __syncthreads();
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      const float* q = points + 3 * (int64_t)(base + k);
-      s_a[k] = __fmul_rn(q[0], inv_res);
-      s_b[k] = __fmul_rn(q[1], inv_res);
-      s_kz[k] = (int)floorf(__fadd_rn(__fmul_rn(q[2], inv_res), 0.5f)) - min_k;
+    for (int k = tid; k < n; k += kThreads) {
+      s_a[k] = pa[base + k];
+      s_b[k] = pb[base + k];
+      s_base[k] = pbase[base + k];
     }
     __syncthreads();
     if (!live) continue;
-    for (int k = 0; k < n; ++k) {
-      const int kz = s_kz[k];
-      float z = max_dist;
-      if (kz >= 0 && kz < nz) {
+#pragma unroll 4
+    for (int k = lane; k < n; k += kLanes) {
+      const int off = s_base[k];
+      int idx = kTable - 1;
+      if (off >= 0) {
         const float a = s_a[k];
         const float b = s_b[k];
         const int ci = (int)floorf(__fsub_rn(__fadd_rn(pxc, __fmul_rn(a, c)), __fmul_rn(b, s)));
         const int cj = (int)floorf(__fadd_rn(__fadd_rn(pyc, __fmul_rn(b, c)), __fmul_rn(a, s)));
-        float ratio = 255.0f;
-        if (ci >= 0 && ci < nx && cj >= 0 && cj < ny) {
-          ratio = (float)tex[((int64_t)kz * ny + cj) * nx + ci];
-        }
-        z = __fmul_rn(ratio, max_ratio);
+        idx = 255;
+        if (ci >= 0 && ci < nx && cj >= 0 && cj < ny) idx = __ldg(tex + off + cj * nx + ci);
       }
-      const float e = expf(__fdiv_rn(-__fmul_rn(z, z), denom));
-      const float pz = __fadd_rn(__fmul_rn(z_hit, e), zr);
-      acc += (double)(cube ? __fmul_rn(__fmul_rn(pz, pz), pz) : pz);
+      acc += s_table[idx];
     }
   }
-  if (live) out[i] = (float)acc;
+  if constexpr (kInWarp) {
+#pragma unroll
+    for (int w = kLanes / 2; w >= 1; w /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+    if (lane == 0 && live) out[i] = (float)acc;
+  } else {
+    s_part[lane][slot] = acc;
+    __syncthreads();
+    if (lane == 0 && live) {
+      double sum = s_part[0][slot];
+#pragma unroll
+      for (int j = 1; j < kLanes; ++j) sum += s_part[j][slot];
+      out[i] = (float)sum;
+    }
+  }
+}
+
+template <int kLanes, bool kInWarp>
+void launch(const uint8_t* tex, int nx, int ny, int nz, const float* poses, int m,
+            const float* pa, const float* pb, const int* pbase, int n_points, float inv_res,
+            float off_x, float off_y, const float* table, float* out, cudaStream_t stream) {
+  constexpr int kPerBlock = kThreads / kLanes;
+  const int blocks = (m + kPerBlock - 1) / kPerBlock;
+  pc_spread_term_sums_kernel<kLanes, kInWarp><<<blocks, kThreads, 0, stream>>>(
+      tex, nx, ny, nz, poses, m, pa, pb, pbase, n_points, inv_res, off_x, off_y, table, out);
 }
 
 }  // namespace
 
+// scratch: 4 * n_points int32 (keys, A, B, slab offsets)
 extern "C" int pc_spread_term_sums_launch(const uint8_t* tex, int nx, int ny, int nz,
                                           const float* poses, int m, const float* points,
                                           int n_points, float inv_res, int min_i, int min_j,
-                                          int min_k, float max_ratio, float max_dist,
-                                          float z_hit, float denom, float zr, int cube,
-                                          float* out, void* stream) {
-  const int blocks = (m + kThreads - 1) / kThreads;
+                                          int min_k, const float* table, int design,
+                                          int* scratch, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int* keys = scratch;
+  float* pa = (float*)(scratch + n_points);
+  float* pb = (float*)(scratch + 2 * n_points);
+  int* pbase = scratch + 3 * n_points;
+  if (n_points > 0) {
+    pc_spread_prep_kernel<<<1, kPrepThreads, 0, s>>>(points, n_points, inv_res, min_k, nz,
+                                                     nx * ny, design < 8, keys, pa, pb,
+                                                     pbase);
+  }
   // (0.5 - min) is exact in f32 for any map a texture can hold
-  pc_spread_term_sums_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      tex, nx, ny, nz, poses, m, points, n_points, inv_res, 0.5f - (float)min_i,
-      0.5f - (float)min_j, min_k, max_ratio, max_dist, z_hit, denom, zr, cube, out);
+  const float ox = 0.5f - (float)min_i, oy = 0.5f - (float)min_j;
+#define PC_ARGS tex, nx, ny, nz, poses, m, pa, pb, pbase, n_points, inv_res, ox, oy, table, out, s
+  switch (design % 8) {
+    case 0: launch<8, true>(PC_ARGS); break;
+    case 1: launch<4, true>(PC_ARGS); break;
+    case 2: launch<16, true>(PC_ARGS); break;
+    case 3: launch<8, false>(PC_ARGS); break;
+    case 4: launch<4, false>(PC_ARGS); break;
+    case 5: launch<2, false>(PC_ARGS); break;
+    case 6: launch<32, true>(PC_ARGS); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PC_ARGS
   return (int)cudaGetLastError();
 }

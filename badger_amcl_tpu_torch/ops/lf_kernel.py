@@ -3,13 +3,15 @@ badger_amcl_tpu.ops.lf_kernel).
 
 Kernel wrappers (CUDA tensors launch csrc/lf_distances.cu, CPU tensors run
 the plain version beside each):
-- `lf_distances`: the (B, M) distances, for the prob model's beam
-  skipping, which needs each one;
-- `lf_term_sums`: per particle the sum over valid beams of a `BeamTerm` of
-  the distance, (M,), fused: nothing (B, M) is materialized;
+- `lf_distances`: the (B, M) distances, the counterpart of the JAX
+  package's `lf_distances_t` (no main path of the port launches it);
+- `lf_term_sums`: per particle the sum over the beams of a (B,) mask of a
+  `BeamTerm` of the distance, (M,), fused: nothing (B, M) is materialized;
 - `beam_extents`: the window prepass's per-beam extents of the in-map
   endpoint cells, which `window_finish` turns into the TPU kernel's
-  window origins and its fits flag (`window_origins`).
+  window origins and its fits flag (`window_origins`);
+- `lf_obs_counts`: beam skipping's per-beam count of the active particles
+  whose in-map endpoint lies within the skip distance of the map, (B,).
 
 `lf_texture` keeps the JAX package's contract: where its windowed TPU
 kernel would run (every beam's endpoints fit a WIN_ROWS x WIN_COLS window)
@@ -162,10 +164,58 @@ def lf_distances(omap, tex, spose, ranges, angles):
 lf_distances.launches = 0
 
 
+def lf_obs_counts_plain(omap, tex, spose, ranges, angles, valid, active, skip_distance):
+    """Plain PyTorch version of the counts kernel: (B,) int32, per valid
+    beam the active particles whose endpoint cell is on the map and reads
+    a value below skip_distance (planar_scanner.cpp:441-453)."""
+    ci, cj = _endpoint_cells(omap, spose, ranges, angles)
+    d = tex.reshape(-1)[omap.flat_index(ci, cj)].to(torch.float32)
+    agrees = omap.in_bounds(ci, cj) & (d < skip_distance) & valid[:, None] & active[None, :]
+    return agrees.sum(dim=1).to(torch.int32)
+
+
+def lf_obs_counts(omap, tex, spose, ranges, angles, valid, active, skip_distance):
+    """Beam skipping's per-beam agreement counts (B,) int32 of
+    `lf_obs_counts_plain` over the values of `tex` ((H, W) f32 or bf16):
+    one launch on CUDA tensors, nothing (B, M) in memory. skip_distance is
+    compared in f32."""
+    _check_texture(omap, tex)
+    _check_poses_beams(spose, ranges, angles)
+    if valid.shape != ranges.shape or valid.dtype != torch.bool:
+        raise ValueError("valid must be a (B,) bool vector matching ranges")
+    if active.shape != spose.shape[:1] or active.dtype != torch.bool:
+        raise ValueError("active must be an (M,) bool vector matching spose")
+    for t in (tex, ranges, angles, valid, active):
+        if t.device != spose.device:
+            raise ValueError("all inputs must be on one device")
+    if spose.device.type != "cuda":
+        return lf_obs_counts_plain(omap, tex, spose, ranges, angles, valid, active,
+                                   skip_distance)
+    m, b = spose.shape[0], ranges.shape[0]
+    out = torch.empty((b,), dtype=torch.int32, device=spose.device)
+    if b == 0:
+        return out
+    tex = tex.contiguous()
+    p, r, a = _pose_beam_ptrs(spose, ranges, angles)
+    valid, active = valid.contiguous(), active.contiguous()
+    lib = _build.lib()
+    fn = lib.lf_obs_counts_bf16_launch if tex.dtype == torch.bfloat16 \
+        else lib.lf_obs_counts_f32_launch
+    code = fn(tex.data_ptr(), p.data_ptr(), m, r.data_ptr(), a.data_ptr(), valid.data_ptr(),
+              active.data_ptr(), b, *_geometry(omap), skip_distance, out.data_ptr(),
+              _build.stream_ptr(spose.device))
+    _build.check(code, "lf_obs_counts")
+    lf_obs_counts.launches += 1
+    return out
+
+
+lf_obs_counts.launches = 0
+
+
 def lf_term_sums_plain(omap, tex, spose, ranges, angles, valid, term):
-    """Plain PyTorch version of the fused kernel: (M,) f32 sums over valid
-    beams of term(distance), the combine `sensors.planar` applied to the
-    (B, M) distances."""
+    """Plain PyTorch version of the fused kernel: (M,) f32 sums over the
+    beams where `valid` holds of term(distance), the combine
+    `sensors.planar` applied to the (B, M) distances."""
     z = lf_distances_plain(omap, tex, spose, ranges, angles)
     return torch.where(valid[:, None], term(z), 0.0).sum(dim=0)
 

@@ -12,9 +12,10 @@ z band contributes term(max_distance_to_object) to every particle
 (:595-597).
 
 `pc_spread_term_sums` is the kernel wrapper: CUDA tensors launch
-csrc/pc_spread_term_sums.cu, which computes the `PCTerm`; CPU tensors run
-`pc_spread_term_sums_plain`, which takes any elementwise term. Sums come
-out in particle order.
+csrc/pc_spread_term_sums.cu, which looks each pair's `PCTerm` up in
+`term_table` (the term at the 256 ratios and outside the z band); CPU
+tensors run `pc_spread_term_sums_plain`, which takes any elementwise term.
+Sums come out in particle order.
 
 Not ported (TPU-only machinery): `point_prep` and `pc_spread_prepass`
 (the (slab, azimuth) point sort, the (class, yaw bin, block) particle sort
@@ -27,6 +28,7 @@ has no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -62,6 +64,27 @@ class PCTerm:
     def __call__(self, z: torch.Tensor) -> torch.Tensor:
         pz = self.z_hit * torch.exp(fdiv(-(z * z), self.denom)) + self.zr
         return pz * pz * pz if self.cube else pz
+
+
+@functools.lru_cache(maxsize=64)
+def term_table(term: PCTerm, max_ratio: float, max_dist: float,
+               device: torch.device) -> torch.Tensor:
+    """(257,) f32: `term` at z = q * float32(max_ratio) for the uint8
+    ratios q = 0..255 (255 is also the off-map value), then at z = max_dist
+    (a point outside the z band): the plain version's own expression on the
+    same device, so a lookup gives its term bit for bit. Cached per (term,
+    max_ratio, max_dist, device)."""
+    q = torch.arange(256, dtype=torch.float32, device=device)
+    z = torch.cat([q * float(np.float32(max_ratio)),
+                   torch.full((1,), max_dist, dtype=torch.float32, device=device)])
+    return term(z).contiguous()
+
+
+# the kernel's thread layouts (csrc/pc_spread_term_sums.cu `design`): 8, 4,
+# 16 or 32 lanes of a warp per particle, 8, 4 or 2 warp groups of a block;
+# with the points sorted by slab and position (+ 8: in cloud order)
+DESIGNS = (0, 1, 2, 6, 3, 4, 5, 9, 10)
+DESIGN = 1
 
 
 def endpoint_inputs(omap, poses, points_base):
@@ -116,12 +139,14 @@ def pc_spread_term_sums(omap, poses, points_base, term) -> torch.Tensor:
         return out
     nx, ny, nz = omap.size
     poses, points_base = poses.contiguous(), points_base.contiguous()
+    table = term_table(term, omap.max_distance_ratio, omap.max_distance_to_object,
+                       poses.device)
+    scratch = torch.empty((4 * b,), dtype=torch.int32, device=poses.device)
     code = _build.lib().pc_spread_term_sums_launch(
         omap.tex_zyx.contiguous().data_ptr(), nx, ny, nz, poses.data_ptr(), m,
         points_base.data_ptr(), b, _inv_res(omap), omap.min_cells[0],
-        omap.min_cells[1], omap.min_cells[2], omap.max_distance_ratio,
-        omap.max_distance_to_object, term.z_hit, term.denom, term.zr, int(term.cube),
-        out.data_ptr(), _build.stream_ptr(poses.device))
+        omap.min_cells[1], omap.min_cells[2], table.data_ptr(), DESIGN,
+        scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(poses.device))
     _build.check(code, "pc_spread_term_sums")
     pc_spread_term_sums.launches += 1
     return out

@@ -19,7 +19,8 @@ Backends:
 - "lf" (JAX "pallas"): the LF models read through ops.lf_kernel (bf16
   where the TPU kernel's windows fit); the beam model raycasts. On both
   arms the term sums are fused (`lf_kernel.lf_term_sums`); beam skipping
-  reads the (B, M) distances (`lf_kernel.lf_distances`);
+  counts each beam's agreeing particles (`lf_kernel.lf_obs_counts`), then
+  takes the fused sums over the beams it keeps: nothing (B, M);
 - "corr" (JAX "pallas_corr"): the JAX dispatch tree — for the LF models
   the correlation table (ops.corr_kernel) with the model's psi texture,
   spread clouds to ops.spread_kernel, everything else to "lf"; for the
@@ -147,14 +148,6 @@ def corr_combine(model: str, params: PlanarScanParams, s, n_valid, log_p: bool =
         p = apply_gompertz(params, s / n_valid.clamp(min=1))
         return torch.where(n_valid > 0, p, 1.0)
     raise ValueError(f"no corr combine for model {model!r}")
-
-
-def _endpoint_distances(omap, scan, spose, backend="exact"):
-    """Endpoint distances (B, M): "lf" reads through the TPU kernel's bf16
-    contract, "exact" the f32 texture."""
-    if backend == "lf":
-        return lf_kernel.lf_distances_t(omap, spose, scan.ranges, scan.angles)
-    return lf_kernel.lf_distances(omap, omap.distances, spose, scan.ranges, scan.angles)
 
 
 def psi_fingerprint(model: str, params: PlanarScanParams, range_max: float):
@@ -330,29 +323,25 @@ def _lf_prob_beamskip(omap, params, scan, spose, active, n_active, converged, ba
     active particles see within beam_skip_distance of the map are skipped
     for everyone once the filter has converged; if too many are skipped
     (>= B * error_threshold), every beam counts, and invalid beams, whose
-    temp pz is 0, give log 0 = -inf (planar.py:550-570)."""
-    zt = _endpoint_distances(omap, scan, spose, backend)
+    temp pz is 0, give log 0 = -inf (planar.py:550-570). Two passes over
+    the endpoints, nothing (B, M): the per-beam counts, then the log pz
+    sums over the beams kept; the skip rule runs on (B,) device vectors."""
+    tex = (lf_kernel.lf_texture(omap, spose, scan.ranges, scan.angles) if backend == "lf"
+           else omap.distances)
     valid = scan.valid()
-    term = model_term("likelihood_field_prob", params, scan.range_max)
-    pz = dataclasses.replace(term, form="pz")(zt)
-    logpz = torch.log(pz)
-    b = scan.ranges.shape[0]
-    # in-map test for the obs_count increment (:441-453)
-    th = spose[None, :, 2] + scan.angles[:, None]
-    hx = spose[None, :, 0] + scan.ranges[:, None] * torch.cos(th)
-    hy = spose[None, :, 1] + scan.ranges[:, None] * torch.sin(th)
-    in_map = omap.is_valid(omap.world_to_map(torch.stack([hx, hy], dim=-1)))
-    agrees = in_map & (zt < params.beam_skip_distance) & valid[:, None] & active[None, :]
-    obs_count = agrees.sum(dim=1).to(torch.float32)
-    obs_mask = obs_count / n_active.to(torch.float32).clamp(min=1.0) > \
+    obs_count = lf_kernel.lf_obs_counts(omap, tex, spose, scan.ranges, scan.angles, valid,
+                                        active, params.beam_skip_distance)
+    obs_mask = obs_count.to(torch.float32) / n_active.to(torch.float32).clamp(min=1.0) > \
         params.beam_skip_threshold
     skipped = (~obs_mask).sum()
-    error = skipped >= b * params.beam_skip_error_threshold
-    pz_temp = torch.where(valid[:, None], pz, 0.0)
-    use_beam = error | obs_mask[:, None]
-    log_p = torch.where(use_beam, torch.log(pz_temp), 0.0).sum(dim=0)
-    log_p_all = torch.where(valid[:, None], logpz, 0.0).sum(dim=0)
-    return torch.where(torch.as_tensor(converged, device=log_p.device), log_p, log_p_all)
+    error = skipped >= scan.ranges.shape[0] * params.beam_skip_error_threshold
+    use_beam = error | obs_mask
+    converged = torch.as_tensor(converged, device=valid.device)
+    term = model_term("likelihood_field_prob", params, scan.range_max)
+    s = lf_kernel.lf_term_sums(omap, tex, spose, scan.ranges, scan.angles,
+                               valid & (use_beam | ~converged), term)
+    # an invalid beam in use adds log 0 for every particle
+    return torch.where(converged & (use_beam & ~valid).any(), float("-inf"), s)
 
 
 def _beam_exact(omap, params, scan, spose):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port on one CUDA card, in turns: the cells and
 kernels that the spread term sums (#3), the fleet table (#5), the beam
-lattice table (#7) and the lf kernels (#4) serve.
+lattice table (#7), the lf kernels (#4) with beam skipping and the 3D
+spread sums (#10) serve.
 
     python3 chip_ab.py OUT_DIR ROOT [ROOT ...]
 
@@ -10,12 +11,18 @@ each runs in a process of its own, in the order given (for two versions A
 and B: A B B A), building its kernels under its own tree. Per run:
 chip_smoke's timing rows (step_ms, likelihood_ms, device busy, idle share)
 of the spread, gompertz_spread, prob_spread, beam_steady, beam_tracking,
-steady_lf and fleet cells, and the wrapper and device ms of
-spread_term_sums (50,000 x 720, spread cloud, pz^3), beam_table
-(beam_steady's 24-row window) and fleet_corr_table (256 robots x 10,000 x
-180), the device ms summed over the ops of chip_smoke.kernel_ms (a ROOT
-must have it); where a ROOT has the fused lf sums, theirs and the lf
-prepass's on the steady_lf cloud. Every run prints one JSON line, also appended to
+steady_lf, prob_beamskip, fleet and the 3d_tracking and 3d_spread cells
+(both cloud models), and the wrapper and device ms of spread_term_sums
+(50,000 x 720, spread cloud, pz^3), beam_table (beam_steady's 24-row
+window), fleet_corr_table (256 robots x 10,000 x 180) and
+pc_spread_term_sums (the Gompertz term on the 50,000 spread and the
+10,000 tracking 3D clouds), the device ms summed over the ops of
+chip_smoke.kernel_ms (a ROOT must have it); where a ROOT has the fused lf
+sums, theirs and the lf prepass's on the steady_lf cloud; where it has
+beam skipping's counts, theirs on that cloud; where its pc_spread kernel
+has several thread layouts (`DESIGNS`), each one's device ms on both 3D
+clouds from CUDA-graph replays (`graph_ms`) and the profiler, twice in
+turns. Every run prints one JSON line, also appended to
 OUT_DIR/ab.jsonl, with the card's name and power limit.
 """
 
@@ -60,7 +67,8 @@ def one(root):
         for r, n in (("spread", cs.N_PARTICLES), ("steady", cs.N_PARTICLES),
                      ("tracking", 5_000)))
     states = {"spread": spread, "gompertz_spread": spread, "prob_spread": spread,
-              "beam_steady": steady, "beam_tracking": tracking, "steady_lf": steady}
+              "beam_steady": steady, "beam_tracking": tracking, "steady_lf": steady,
+              "prob_beamskip": steady}
 
     spose = planar.coord_add(sp.scanner_pose, spread[1].poses)
     term = planar.model_term("likelihood_field", sp, scan.range_max)
@@ -99,6 +107,15 @@ def one(root):
                                "device_ms": sum(cs.kernel_ms(run_sums).values())}
         out["lf_prepass"] = {"ms": cs.cuda_ms(run_prepass),
                              "device_ms": sum(cs.kernel_ms(run_prepass).values())}
+        if hasattr(lk, "lf_obs_counts"):
+            active = steady[1].active_mask
+
+            def run_counts():
+                return lk.lf_obs_counts(omap, tex, lpose, scan.ranges, scan.angles, valid,
+                                        active, sp.beam_skip_distance)
+
+            out["lf_obs_counts"] = {"tex": str(tex.dtype), "ms": cs.cuda_ms(run_counts),
+                                    "device_ms": sum(cs.kernel_ms(run_counts).values())}
 
     gen = torch.Generator(device=dev).manual_seed(2)
     for key in states:
@@ -106,10 +123,10 @@ def one(root):
         params, state, pool = cs.cell_state(key, states)
         step, _ = cs.pinned_step_fn(
             lambda s: cs.step_2d(s, maps[c.model], sp, scan, pool, params, c.model, c.backend,
-                                 gen, motion=False),
+                                 gen, motion=False, beamskip=c.beamskip),
             state, params.max_samples)
         out[key] = cs.timing_row(key, cs.likelihood_fn(c.model, maps[c.model], sp, scan, state,
-                                                       c.backend), step)
+                                                       c.backend, c.beamskip), step)
     del states, spread, steady, tracking, maps, bmap, bargs
     torch.cuda.empty_cache()
 
@@ -124,6 +141,93 @@ def one(root):
     out["fleet_corr_table"] = {"rows": rows, "ms": cs.cuda_ms(run_fleet),
                                "device_ms": sum(cs.kernel_ms(run_fleet, calls=5).values())}
     out["fleet"] = cs.phase_timings_fleet(dev, omap, fl)
+    del fl, omap
+    torch.cuda.empty_cache()
+    out.update(one_3d(cs, dev))
+    return out
+
+
+def graph_ms(fn, reps=20, replays=7):
+    """Device ms per call of fn: `reps` calls captured in one CUDA graph,
+    replayed back to back between CUDA events (median of `replays`), so no
+    host dispatch sits between the launches."""
+    import statistics
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def one_3d(cs, dev):
+    """The 3d_tracking and 3d_spread timing rows and #10's times."""
+    import torch
+
+    from badger_amcl_tpu_torch import scenario
+    from badger_amcl_tpu_torch.ops import pc_spread_kernel as psk
+    from badger_amcl_tpu_torch.sensors import point_cloud as pc
+
+    out = {}
+    occ, cloud_np = scenario.scene_3d()
+    omap3 = scenario.build_octomap(occ, device=dev)
+    cloud = torch.as_tensor(cloud_np, device=dev)
+    pcp = pc.PointCloudParams()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    designs = getattr(psk, "DESIGNS", None)
+    for regime in ("tracking", "spread"):
+        n = cs.PARTICLES_3D[regime]
+        params, state, pool = scenario.build_filter_3d(n, pose_cov=cs.REGIMES[regime],
+                                                       min_particles=n, device=dev)
+        term, _, _ = pc._model_term_finalize(omap3, pcp, "likelihood_field_gompertz",
+                                             cloud.shape[0])
+
+        def run_sums():
+            return psk.pc_spread_term_sums(omap3, state.poses, cloud, term)
+
+        out[f"pc_spread_term_sums_{regime}"] = {
+            "particles": n, "ms": cs.cuda_ms(run_sums),
+            "device_ms": sum(cs.kernel_ms(run_sums).values())}
+        if designs:
+            want = psk.pc_spread_term_sums_plain(
+                omap3, *psk.endpoint_inputs(omap3, state.poses, cloud), term)
+            default, times = psk.DESIGN, {}
+            for turn in range(2):
+                for d in designs if turn == 0 else designs[::-1]:
+                    psk.DESIGN = d
+                    got = run_sums()
+                    rel = float(((got - want).abs() / want.abs()).max())
+                    times.setdefault(str(d), []).append(
+                        {"graph_ms": graph_ms(run_sums), "rel": rel,
+                         "ops": cs.kernel_ms(run_sums)})
+            psk.DESIGN = default
+            out[f"pc_spread_designs_{regime}"] = times
+        for model in cs.MODELS_3D:
+            step, _ = cs.pinned_step_fn(
+                lambda s: cs.step_3d(s, omap3, pcp, cloud, pool, params, model, gen,
+                                     motion=False),
+                state, params.max_samples)
+            key = f"3d_{regime}_{'gompertz' if model.endswith('gompertz') else 'lf'}"
+            out[key] = cs.timing_row(
+                key, lambda: pc.point_cloud_likelihood(omap3, pcp, cloud, state.poses, model,
+                                                       "corr"), step)
     return out
 
 

@@ -8,8 +8,10 @@ the port's three paths:
   plain PyTorch versions at the flagship shapes (50,000 particles x 720
   beams on a 1024^2 map at 0.05 m): the lf kernels' (B, M) distances, their
   fused term sums in the three term forms (rel 1e-5) and their window
-  prepass (fits and origins against window_origins' plain version) on the
-  bf16 steady and the f32 spread cloud; drives the likelihood-field MCL
+  prepass (fits and origins against window_origins' plain version) and
+  beam skipping's per-beam agreement counts (equal on every beam without an
+  endpoint-cell flip) on the bf16 steady and the f32 spread cloud; drives
+  the likelihood-field MCL
   step (`mcl_step_2d`, `sensor_resample_step`) in the steady, tracking and
   spread regimes plus the steady regime on the "lf" backend, and compares
   the step on the card with the CPU at 4096 x 360;
@@ -22,7 +24,9 @@ the port's three paths:
   steady and spread (50,000) cells and the Gompertz and prob (log-space)
   models in the steady and spread regimes at 50,000 x 720, the prob model
   also with beam skipping on a converged steady cloud (prob_beamskip: the
-  node's do_beamskip path and the (B, M) lf_distances), and compares the
+  node's do_beamskip path, lf_obs_counts then lf_term_sums; the (B, M)
+  lf_distances, which no main path launches, must not launch), and
+  compares the
   card with the CPU at 4096 x 360 on a 448^2 map, the beam model also in
   its exact raycast arm (timed on the card at that size only);
 - 2D int8 corr backend ("corr_q"): holds corr_table_q against its plain
@@ -38,7 +42,8 @@ the port's three paths:
   step at 16 and 256 robots);
 - 3D: builds the 20 x 20 x 1 m voxel scene at 0.05 m (401 x 401 x 21 EDT)
   and its 256-point cloud, holds the pc and pc_spread kernels against
-  their plain versions, drives the point-cloud step (motion update ->
+  their plain versions (pc_spread on the 50k spread and the 10k tracking
+  cloud), drives the point-cloud step (motion update ->
   `point_cloud_likelihood` -> `sensor_update` -> `resample`) for both
   cloud models in the steady (50k), tracking (10k) and spread (50k)
   regimes, and compares the step on the card with the CPU at 4096 x 128.
@@ -106,7 +111,7 @@ def _cells_2d():
         for r, k in (("steady", "corr_table"), ("spread", "spread_term_sums")):
             cells[f"{short}_{r}"] = Cell(f"2d_{short}", m, N_PARTICLES, REGIMES[r], "corr", k)
     cells["prob_beamskip"] = Cell("2d_prob", "likelihood_field_prob", N_PARTICLES,
-                                  REGIMES["steady"], "corr", "lf_distances", beamskip=True)
+                                  REGIMES["steady"], "corr", "lf_obs_counts", beamskip=True)
     for r in ("steady", "tracking"):
         cells[f"q_{r}"] = Cell("2d_q", "likelihood_field", N_PARTICLES, REGIMES[r], "corr_q",
                                "corr_table_q")
@@ -127,6 +132,13 @@ FLEET_ROBOTS, FLEET_PARTICLES, FLEET_BEAMS = 256, 10_000, 180
 # over the memory rate and f32 operations over the non-tensor f32 rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# kernels held against their plain versions that no main path launches:
+# kernel -> why (the kernels line carries it)
+OFF_MAIN_PATH = {
+    "lf_distances": "the (B, M) distances, the counterpart of the JAX package's "
+                    "lf_distances_t; beam skipping, their last consumer, takes "
+                    "lf_obs_counts and lf_term_sums",
+}
 
 
 def log(msg):
@@ -319,8 +331,9 @@ def phase_kernels(dev, omap, scan, states):
 def phase_kernels_lf(omap, scan, states):
     """The lf kernels on the bf16 steady cloud and the f32 spread cloud:
     the (B, M) distances, the window prepass (extents, then fits and
-    origins against window_origins' plain version) and the fused term
-    sums in their three forms, each against its plain version."""
+    origins against window_origins' plain version), beam skipping's
+    agreement counts and the fused term sums in their three forms, each
+    against its plain version."""
     import torch
 
     from badger_amcl_tpu_torch.ops import lf_kernel as lk
@@ -331,7 +344,7 @@ def phase_kernels_lf(omap, scan, states):
     n_valid = int(valid.sum())
     check(torch.equal(omap.distances_bf16, omap.distances.to(torch.bfloat16)),
           "the baked bf16 texture differs from the distance field in bf16")
-    lf, sums = [], []
+    lf, sums, counts = [], [], []
     for regime, tex in (("steady", omap.distances_bf16), ("spread", omap.distances)):
         dtype = str(tex.dtype).split(".")[-1]
         spose = planar.coord_add(sp.scanner_pose, states[regime][1].poses)
@@ -397,6 +410,40 @@ def phase_kernels_lf(omap, scan, states):
             f"plain_ms={pre_plain_ms:.4f} bound_ms={pre_b['bound_ms']:.5f} "
             f"({pre_b['bound_by']})")
 
+        # beam skipping's agreement counts: equal on every beam whose
+        # endpoint cells agree with the plain version's
+        active = states[regime][1].active_mask
+        n_active = int(active.sum())
+        oargs = (*args, valid, active, sp.beam_skip_distance)
+        obs = lk.lf_obs_counts(*oargs)
+        obs_p = lk.lf_obs_counts_plain(*oargs)
+        torch.cuda.synchronize()
+        odd = (obs != obs_p).nonzero().flatten().tolist()
+        check(set(odd) <= flip_beams, f"lf_obs_counts ({regime}): beams {odd} differ from "
+                                      f"the plain counts where lf_distances agrees")
+        frac = obs.float() / max(n_active, 1)
+        frac_p = obs_p.float() / max(n_active, 1)
+        masks = ((frac > sp.beam_skip_threshold) != (frac_p > sp.beam_skip_threshold))
+        for k in odd:
+            log(f"lf_obs_counts ({regime}): beam {k} count {int(obs[k])} vs plain "
+                f"{int(obs_p[k])} (a beam with a cell flip in lf_distances)")
+        for k in masks.nonzero().flatten().tolist():
+            log(f"lf_obs_counts ({regime}): beam {k}'s skip mask differs from the plain one")
+        obs_err = int((obs - obs_p).abs().max())
+        obs_ms = cuda_ms(lambda: lk.lf_obs_counts(*oargs))
+        obs_dev = kernel_ms(lambda: lk.lf_obs_counts(*oargs))
+        obs_plain_ms = cuda_ms(lambda: lk.lf_obs_counts_plain(*oargs), iters=5, warmup=1)
+        # as the prepass: 16 operations per (active particle, valid beam)
+        obs_b = bound(m * 13 + N_BEAMS * 9 + tex.numel() * tex.element_size() + N_BEAMS * 4,
+                      16.0 * n_active * n_valid)
+        log(f"lf_obs_counts {dtype} ({regime}): beams differing {len(odd)}, skip masks "
+            f"differing {int(masks.sum())}, max_abs_err={obs_err} ms={obs_ms:.4f} (wrapper) "
+            f"device_ms={device_text(obs_dev)} "
+            f"({'; '.join(f'{n} {t:.4f}' for n, t in obs_dev.items())}) "
+            f"plain_ms={obs_plain_ms:.4f} bound_ms={obs_b['bound_ms']:.5f} "
+            f"({obs_b['bound_by']})")
+        counts.append((obs_err, obs_ms, obs_plain_ms, obs_b, sum(obs_dev.values())))
+
         # fused term sums in the three forms: ~21 operations per (particle,
         # valid beam), the endpoint (12), the term (8), the add; beside it
         # the (B, M) form's bound
@@ -424,7 +471,10 @@ def phase_kernels_lf(omap, scan, states):
     return {"lf_distances": dict(max_abs_err=max(x[0] for x in lf), ms=lf[0][1],
                                  plain_ms=lf[0][2], **lf[0][3], library_ms=None),
             "lf_term_sums": dict(max_abs_err=max(x[2] for x in sums), ms=steady[3],
-                                 plain_ms=steady[4], **steady[5], library_ms=None)}
+                                 plain_ms=steady[4], **steady[5], library_ms=None),
+            "lf_obs_counts": dict(max_abs_err=max(x[0] for x in counts), ms=counts[0][1],
+                                  device_ms=counts[0][4], plain_ms=counts[0][2],
+                                  **counts[0][3], library_ms=None)}
 
 
 def check_state(s, params, regime):
@@ -581,7 +631,8 @@ def phase_main_path(dev, maps, scan, states):
     sp = planar.PlanarScanParams()
     counters = {"corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums,
                 "lf_distances": lk.lf_distances, "lf_term_sums": lk.lf_term_sums,
-                "lf_extents": lk.beam_extents, "beam_table": bk.beam_table,
+                "lf_extents": lk.beam_extents, "lf_obs_counts": lk.lf_obs_counts,
+                "beam_table": bk.beam_table,
                 "beam_spread_sums": bsk.beam_spread_sums, "corr_table_q": ck.corr_table_q}
     paths = {}
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -616,6 +667,11 @@ def phase_main_path(dev, maps, scan, states):
         check(rose[c.kernel] > 0, f"{key}: {c.kernel} was not launched")
         if c.backend == "lf":
             check(rose["lf_extents"] > 0, f"{key}: the lf window prepass was not launched")
+        if c.beamskip:
+            # beam skipping: the counts, then the fused sums; nothing (B, M)
+            check(rose["lf_term_sums"] > 0, f"{key}: lf_term_sums was not launched")
+            check(rose["lf_distances"] == 0,
+                  f"{key}: the (B, M) lf_distances launched {rose['lf_distances']} times")
         if key in ("steady", "steady_lf", "beam_steady", "q_steady"):
             err = float(out.stats.mean[:2].norm())
             check(err < 0.1, f"{key}: mean {out.stats.mean.tolist()} is {err:.3f} m from "
@@ -674,7 +730,7 @@ def phase_reference(dev):
     kernels = {("likelihood_field", "tracking"): ck.corr_table,
                ("likelihood_field_q", "tracking"): ck.corr_table_q,
                ("beam", "steady"): bk.beam_table, ("beam", "spread"): bsk.beam_spread_sums,
-               ("prob_beamskip", "steady"): lk.lf_distances}
+               ("prob_beamskip", "steady"): lk.lf_obs_counts}
     rows = [("likelihood_field", "tracking"), ("likelihood_field_q", "tracking")]
     rows += [(label, r) for label in ("beam", "beam_exact", *LF_MODELS)
              for r in ("steady", "spread")]
@@ -1344,17 +1400,29 @@ def phase_kernels_3d(omap, cloud, states):
             rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
             check(rel <= 1e-5, f"pc_spread_term_sums ({regime}, {model}) rel err {rel} > 1e-5")
             ms = cuda_ms(lambda: psk.pc_spread_term_sums(omap, poses, cloud, term))
+            dev = kernel_ms(lambda: psk.pc_spread_term_sums(omap, poses, cloud, term))
             plain_ms = cuda_ms(lambda: psk.pc_spread_term_sums_plain(omap, *inputs, term))
-            # 17 f32 operations per pair with the cube (15 without), exp as one
-            ops_pair = 17.0 if term.cube else 15.0
-            b = bound(tex_bytes + m * 12 + n_pts * 12 + m * 4, ops_pair * m * n_pts)
+            # the table form: 12 operations per (particle, point), the
+            # endpoint (8), two floors, the bounds test, the add; beside it
+            # the per-pair term's count, 17 with the cube (15 without)
+            b = bound(tex_bytes + m * 12 + n_pts * 12 + m * 4 + 257 * 4, 12.0 * m * n_pts)
+            b_term = bound(tex_bytes + m * 12 + n_pts * 12 + m * 4,
+                           (17.0 if term.cube else 15.0) * m * n_pts)
             log(f"pc_spread_term_sums ({regime}, {model}, {n_pts} x {m}): "
-                f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
-            rows.append((err, ms, plain_ms, b))
-    # reported: the spread cloud under the 3D default (Gompertz) model
-    results["pc_spread_term_sums"] = dict(max_abs_err=max(r[0] for r in rows), ms=rows[1][1],
-                                          plain_ms=rows[1][2], **rows[1][3], library_ms=None)
+                f"max_abs_err={err:.3e} max_rel_err={rel:.3e} ms={ms:.4f} (wrapper) "
+                f"device_ms={device_text(dev)} "
+                f"({'; '.join(f'{n} {t:.4f}' for n, t in dev.items())}) "
+                f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}; "
+                f"the per-pair term's {b_term['bound_ms']:.5f})")
+            rows.append((err, ms, plain_ms, b, sum(dev.values()), regime, model, m))
+    # reported: the spread cloud under the 3D default (Gompertz) model, and
+    # beside it every cloud and model
+    results["pc_spread_term_sums"] = dict(
+        max_abs_err=max(r[0] for r in rows), ms=rows[1][1], device_ms=rows[1][4],
+        plain_ms=rows[1][2], **rows[1][3], library_ms=None,
+        by_cloud=[{"cloud": r[5], "model": r[6], "particles": r[7], "ms": r[1],
+                   "device_ms": r[4], "plain_ms": r[2], "bound_ms": r[3]["bound_ms"]}
+                  for r in rows])
     return results
 
 
@@ -1588,6 +1656,8 @@ def main():
                          "badger_amcl_tpu/ops/lf_kernel.py:182"),
         "lf_term_sums": ("badger_amcl_tpu_torch/csrc/lf_distances.cu",
                          "badger_amcl_tpu/ops/lf_kernel.py:182"),
+        "lf_obs_counts": ("badger_amcl_tpu_torch/csrc/lf_distances.cu",
+                          "badger_amcl_tpu/ops/lf_kernel.py:182"),
         "pc_distances": ("badger_amcl_tpu_torch/csrc/pc_distances.cu",
                          "badger_amcl_tpu/ops/pc_kernel.py:168"),
         "pc_spread_term_sums": ("badger_amcl_tpu_torch/csrc/pc_spread_term_sums.cu",
@@ -1602,10 +1672,13 @@ def main():
                          "badger_amcl_tpu/ops/corr_kernel.py:489"),
     }
     for k in meta:
-        check(launches[k]["launches"] > 0, f"{k} was not launched on any main path")
+        if k not in OFF_MAIN_PATH:
+            check(launches[k]["launches"] > 0, f"{k} was not launched on any main path")
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
-         **launches[k], **kernels[k]} for k in meta]}
+         **launches[k], **kernels[k],
+         **({"main_path": False, "note": OFF_MAIN_PATH[k]} if k in OFF_MAIN_PATH else {})}
+        for k in meta]}
     log(json.dumps({"timings": timings}))
     print(json.dumps(line))
     print(smi)

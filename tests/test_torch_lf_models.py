@@ -75,22 +75,27 @@ def _poses(cloud, seed=0):
 
 @functools.partial(jax.jit, static_argnames=("model", "backend", "log_space", "beamskip"))
 def _jax_p(omap, sp, scan, poses, converged, model, backend, log_space=False,
-           beamskip=False):
+           beamskip=False, active=None):
+    """Every particle active unless `active` (a bool mask) is given."""
     n = poses.shape[0]
+    if active is None:
+        active = jax.numpy.ones((n,), bool)
     p, mf = jplanar.planar_likelihood(
-        omap, sp, scan, poses, jax.numpy.ones((n,), bool), jax.numpy.int32(n), model,
+        omap, sp, scan, poses, active, jax.numpy.sum(active).astype(jax.numpy.int32), model,
         converged=converged, do_beamskip=beamskip, backend=backend, fold_factors=True,
         prob_log_space=log_space)
     return p if mf is None else (p + jax.numpy.log(mf) if log_space else p * mf)
 
 
 def _port_p(tmap, sp, scan, poses, model, backend, converged=False, log_space=False,
-            beamskip=False):
+            beamskip=False, active=None):
     n = poses.shape[0]
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool)
     p, mf = tplanar.planar_likelihood(
-        tmap, sp, scan, poses, torch.ones(n, dtype=torch.bool),
-        torch.tensor(n, dtype=torch.int32), model, converged=torch.tensor(converged),
-        do_beamskip=beamskip, backend=backend, fold_factors=True, prob_log_space=log_space)
+        tmap, sp, scan, poses, active, active.sum().to(torch.int32), model,
+        converged=torch.tensor(converged), do_beamskip=beamskip, backend=backend,
+        fold_factors=True, prob_log_space=log_space)
     return p if mf is None else (p + torch.log(mf) if log_space else p * mf)
 
 
@@ -141,15 +146,20 @@ SKIP_TRUTH = (-8.5, -8.5, -2.356)
 def _skip_scan(kind):
     """A scan raycast from SKIP_TRUTH (most beams agree with the map), three
     beams shortened ("few_bad": those are skipped once converged) or every
-    beam shortened ("all_bad": the error fallback integrates all beams)."""
+    beam shortened ("all_bad": the error fallback integrates all beams);
+    with "_max" beam 12 reads range_max, with "_invalid" also beam 2 NaN."""
     (jmaps, *_), _ = _setup()
     jmap = jmaps["likelihood_field_prob"]
     angles = np.linspace(-2.35, 2.35, B).astype(np.float32)
     x, y, yaw = (jax.numpy.float32(v) for v in SKIP_TRUTH)
     r = np.asarray(jax_calc_range(jmap, x, y, jax.numpy.asarray(angles) + yaw, 8.0))
     r = np.minimum(r, np.float32(7.5)).astype(np.float32)
-    bad = [4, 7, 9] if kind == "few_bad" else list(range(B))
+    bad = [4, 7, 9] if kind.startswith("few_bad") else list(range(B))
     r[bad] *= np.float32(0.4)
+    if kind.endswith(("_max", "_invalid")):
+        r[12] = np.float32(8.0)
+    if kind.endswith("_invalid"):
+        r[2] = np.float32(np.nan)
     jscan = jplanar.PlanarScan(ranges=jax.numpy.asarray(r), angles=jax.numpy.asarray(angles),
                                range_max=jax.numpy.float32(8.0))
     return jscan, convert.scan_from_numpy(jscan, "cpu")
@@ -175,6 +185,94 @@ def test_prob_beam_skipping_matches_jax(kind, converged):
     p = _port_p(tmaps[model], tsp, tscan, torch.from_numpy(poses), model, "corr",
                 converged=converged, beamskip=True)
     np.testing.assert_allclose(p.numpy(), torch.exp(got).numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["all_bad_max", "half_inactive"])
+def test_prob_beam_skipping_edge_cases_match_jax(case):
+    """Converged, every beam bad and one at range_max: the error fallback
+    integrates the invalid beam's log 0, -inf for every particle in both
+    packages (compared for equality); converged with half the particles
+    inactive and n_active to match: the counts see only the active half."""
+    model = "likelihood_field_prob"
+    (jmaps, _, _, _, jsp, _), (tmaps, _, _, _, tsp, _) = _setup()
+    jscan, tscan = _skip_scan("all_bad_max" if case == "all_bad_max" else "few_bad")
+    poses = _poses("tight", seed=2) + np.float32(SKIP_TRUTH)
+    active = np.ones(M, bool)
+    if case == "half_inactive":
+        active[np.random.default_rng(5).permutation(M)[:M // 2]] = False
+    want = np.asarray(_jax_p(jmaps[model], jsp, jscan, jax.numpy.asarray(poses), True, model,
+                             J_BACKEND["corr"], log_space=True, beamskip=True,
+                             active=jax.numpy.asarray(active)))
+    got = _port_p(tmaps[model], tsp, tscan, torch.from_numpy(poses), model, "corr",
+                  converged=True, log_space=True, beamskip=True,
+                  active=torch.from_numpy(active))
+    if case == "all_bad_max":
+        assert np.isneginf(want).all()
+        assert bool(torch.isneginf(got).all())
+        p = _port_p(tmaps[model], tsp, tscan, torch.from_numpy(poses), model, "corr",
+                    converged=True, beamskip=True)
+        assert bool((p == 0.0).all())
+        return
+    _compare(got, want, exact_arm=False)
+    no_skip = _port_p(tmaps[model], tsp, tscan, torch.from_numpy(poses), model, "lf",
+                      log_space=True)
+    assert bool((got > no_skip).all())  # the three bad beams are still skipped
+
+
+def _beamskip_bm_reference(omap, params, scan, spose, active, n_active, converged,
+                           backend):
+    """Beam skipping over the (B, M) distances, as the port computed it
+    before the counts kernel: every endpoint's distance, in-map test and
+    log pz in memory."""
+    from badger_amcl_tpu_torch.ops import lf_kernel
+
+    tex = (lf_kernel.lf_texture(omap, spose, scan.ranges, scan.angles) if backend == "lf"
+           else omap.distances)
+    zt = lf_kernel.lf_distances(omap, tex, spose, scan.ranges, scan.angles)
+    valid = scan.valid()
+    term = tplanar.model_term("likelihood_field_prob", params, scan.range_max)
+    pz = tsk.BeamTerm(term.z_hit, term.denom, term.zr, form="pz")(zt)
+    logpz = torch.log(pz)
+    b = scan.ranges.shape[0]
+    th = spose[None, :, 2] + scan.angles[:, None]
+    hx = spose[None, :, 0] + scan.ranges[:, None] * torch.cos(th)
+    hy = spose[None, :, 1] + scan.ranges[:, None] * torch.sin(th)
+    in_map = omap.is_valid(omap.world_to_map(torch.stack([hx, hy], dim=-1)))
+    agrees = in_map & (zt < params.beam_skip_distance) & valid[:, None] & active[None, :]
+    obs_count = agrees.sum(dim=1).to(torch.float32)
+    obs_mask = obs_count / n_active.to(torch.float32).clamp(min=1.0) > \
+        params.beam_skip_threshold
+    skipped = (~obs_mask).sum()
+    error = skipped >= b * params.beam_skip_error_threshold
+    pz_temp = torch.where(valid[:, None], pz, 0.0)
+    use_beam = error | obs_mask[:, None]
+    log_p = torch.where(use_beam, torch.log(pz_temp), 0.0).sum(dim=0)
+    log_p_all = torch.where(valid[:, None], logpz, 0.0).sum(dim=0)
+    return torch.where(torch.as_tensor(converged), log_p, log_p_all)
+
+
+@pytest.mark.parametrize("backend", ["lf", "exact"])
+@pytest.mark.parametrize("kind", ["few_bad", "all_bad", "few_bad_invalid", "all_bad_invalid"])
+@pytest.mark.parametrize("converged", [True, False])
+def test_beam_skipping_matches_bm_reference(converged, kind, backend):
+    """The two-pass beam skipping (per-beam counts, then the fused log pz
+    sums over the beams kept) equals the (B, M) formulation bit for bit on
+    the CPU, -inf included, with a third of the particles inactive."""
+    model = "likelihood_field_prob"
+    _, (tmaps, _, _, _, tsp, _) = _setup()
+    _, tscan = _skip_scan(kind)
+    tmap = tmaps[model]
+    spose = tplanar.coord_add(tsp.scanner_pose,
+                              torch.from_numpy(_poses("tight", seed=2) + np.float32(SKIP_TRUTH)))
+    active = torch.ones(M, dtype=torch.bool)
+    active[::3] = False
+    n_active = active.sum().to(torch.int32)
+    conv = torch.tensor(converged)
+    got = tplanar._lf_prob_beamskip(tmap, tsp, tscan, spose, active, n_active, conv, backend)
+    want = _beamskip_bm_reference(tmap, tsp, tscan, spose, active, n_active, conv, backend)
+    assert torch.equal(got, want)
+    assert bool(torch.isneginf(got).all()) == (converged and kind == "all_bad_invalid")
+    assert bool(torch.isfinite(got).all()) == (not converged or kind != "all_bad_invalid")
 
 
 def test_lf_models_without_valid_beams():

@@ -19,6 +19,7 @@ Tolerances:
   ulp), statistics to rtol 1e-4 against the JAX statistics of the same set.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -176,6 +177,41 @@ def test_pc_spread_z_out_of_band_constant(maps):
     band = tps.pc_spread_term_sums(tmap, _t(poses), _t(pts[6:]), term).numpy()
     const = 6 * float(term(torch.tensor(MAXD)))
     np.testing.assert_allclose(got - band, const, rtol=1e-5)
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_term_table_equals_plain_terms(maps, model):
+    """`term_table` holds the plain version's term bit for bit at every
+    uint8 ratio, off the map (ratio 255) and outside the z band
+    (max_distance_to_object): one-point sums of the plain version over
+    particles whose endpoint is a voxel of each ratio, or off the map, or
+    whose point lies above the band."""
+    _, tmap = maps
+    term, _, _ = tpc._model_term_finalize(tmap, tpc.PointCloudParams(), model, 1)
+    nx, ny, nz = tmap.size
+    levels = np.arange(256)
+    rng = np.random.default_rng(9)
+    tex = rng.integers(0, 256, (nz, ny, nx), dtype=np.uint8)
+    cells = rng.choice(nx * ny, levels.size, replace=False)
+    tex[0].reshape(-1)[cells] = levels
+    omap = dataclasses.replace(tmap, tex_zyx=torch.from_numpy(tex))
+    # endpoint = the particle's own voxel (the point at the sensor); then 3
+    # particles off the map
+    pxc = torch.tensor(np.concatenate([cells % nx + 0.5, [-3.5, nx + 2.5, 7.5]]),
+                       dtype=torch.float32)
+    pyc = torch.tensor(np.concatenate([cells // nx + 0.5, [4.5, 9.5, -0.5]]),
+                       dtype=torch.float32)
+    one, zero = torch.ones(pxc.shape[0]), torch.zeros(1)
+    in_band, above = torch.zeros(1, dtype=torch.int32), torch.full((1,), nz + 2, dtype=torch.int32)
+    s = tps.pc_spread_term_sums_plain(omap, pxc, pyc, one, 0 * one, zero, zero, in_band, term)
+    s_above = tps.pc_spread_term_sums_plain(omap, pxc, pyc, one, 0 * one, zero, zero, above,
+                                            term)
+    table = tps.term_table(term, tmap.max_distance_ratio, tmap.max_distance_to_object,
+                           torch.device("cpu"))
+    assert table.shape == (257,) and table.dtype == torch.float32
+    assert torch.equal(s, torch.cat([table[:256], table[255:256].repeat(3)]))
+    assert torch.equal(s_above, table[256:].repeat(pxc.shape[0]))
+    assert float(table[256]) == float(term(torch.tensor(MAXD)))
 
 
 def _arm_jax(jmap, pts, poses):

@@ -15,7 +15,8 @@ Tolerances:
   the JAX model's sums over its interpret-mode distances >= 99% of
   particles to rtol 1e-5 (f32 sums in another order) and all within 2.0 (a
   one-cell flip moves one beam's pz^3, pz or log pz by at most ~0.8);
-- window prepass: integer results, equal.
+- window prepass and beam skipping's agreement counts: integer results,
+  equal.
 """
 
 import functools
@@ -313,3 +314,75 @@ def test_lf_term_sums_and_extents_check_inputs(big_map):
         tlf.beam_extents(tmap, poses.to(torch.float64), r, r)
     with pytest.raises(ValueError):
         tlf.beam_extents(tmap, poses, r, r[:2])
+
+
+def _count_case():
+    """Beam skipping's count inputs on the 448^2 map: the steady cloud, a
+    third of it moved to the map's right edge (endpoints off the map), a
+    NaN beam and a max-range beam, every third particle inactive."""
+    _, tscan = _scan(64, 6.0, 0.3, 5.9, 5.0)
+    ranges = tscan.ranges.clone()
+    ranges[3] = float("nan")
+    ranges[9] = 6.0  # range_max
+    scan = tplanar.PlanarScan(ranges=ranges, angles=tscan.angles, range_max=6.0)
+    poses = _steady_poses()
+    poses[::3] += np.float32([10.5, 0.0, 0.0])
+    active = torch.ones(poses.shape[0], dtype=torch.bool)
+    active[1::3] = False
+    return scan, torch.from_numpy(poses), active
+
+
+@pytest.mark.parametrize("texture", ["bf16", "f32"])
+def test_lf_obs_counts_plain_matches_numpy_count(big_map, texture):
+    """Per valid beam, the active particles whose endpoint cell is on the
+    map and reads below the skip distance, counted in numpy on the same
+    endpoint cells; the CPU wrapper is the plain version (no launch)."""
+    _, tmap = big_map
+    scan, poses, active = _count_case()
+    tex = tmap.distances_bf16 if texture == "bf16" else tmap.distances
+    valid = scan.valid()
+    assert not bool(valid[3]) and not bool(valid[9])
+    skip = 0.5
+    launches = tlf.lf_obs_counts.launches
+    got = tlf.lf_obs_counts(tmap, tex, poses, scan.ranges, scan.angles, valid, active, skip)
+    assert tlf.lf_obs_counts.launches == launches
+    assert got.dtype == torch.int32 and got.shape == (64,)
+    ci, cj = (c.numpy().astype(np.int64) for c in
+              tlf._endpoint_cells(tmap, poses, scan.ranges, scan.angles))
+    tex_np = tex.to(torch.float32).numpy()
+    want = np.zeros(64, np.int64)
+    off_map = 0
+    for b in np.flatnonzero(valid.numpy()):
+        for m in np.flatnonzero(active.numpy()):
+            i, j = ci[b, m], cj[b, m]
+            if not (0 <= i < tmap.size_x and 0 <= j < tmap.size_y):
+                off_map += 1
+            elif tex_np[j, i] < np.float32(skip):
+                want[b] += 1
+    assert off_map > 0  # the edge particles' endpoints leave the map
+    assert want.max() > 0 and (want[valid.numpy()] < int(active.sum())).any()
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[3] == 0 and got[9] == 0
+
+
+def test_lf_obs_counts_checks_inputs(big_map):
+    _, tmap = big_map
+    poses = torch.zeros((4, 3))
+    r = torch.ones(3)
+    valid = torch.ones(3, dtype=torch.bool)
+    active = torch.ones(4, dtype=torch.bool)
+    tex = tmap.distances
+    with pytest.raises(TypeError):
+        tlf.lf_obs_counts(tmap, tex.to(torch.float64), poses, r, r, valid, active, 0.5)
+    with pytest.raises(ValueError):
+        tlf.lf_obs_counts(tmap, tex, poses, r, r, valid.to(torch.int32), active, 0.5)
+    with pytest.raises(ValueError):
+        tlf.lf_obs_counts(tmap, tex, poses, r, r, valid[:2], active, 0.5)
+    with pytest.raises(ValueError):
+        tlf.lf_obs_counts(tmap, tex, poses, r, r, valid, active.to(torch.uint8), 0.5)
+    with pytest.raises(ValueError):
+        tlf.lf_obs_counts(tmap, tex, poses, r, r, valid, active[:3], 0.5)
+    with pytest.raises(ValueError):  # every input on one device
+        tlf.lf_obs_counts(tmap, tex, poses, r, r, valid, active.to("meta"), 0.5)
+    with pytest.raises(ValueError):
+        tlf.lf_obs_counts(tmap, tex, poses[:, :2], r, r, valid, active, 0.5)
