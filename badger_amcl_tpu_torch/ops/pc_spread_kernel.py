@@ -84,7 +84,7 @@ def term_table(term: PCTerm, max_ratio: float, max_dist: float,
 # 16 or 32 lanes of a warp per particle, 8, 4 or 2 warp groups of a block;
 # with the points sorted by slab and position (+ 8: in cloud order)
 DESIGNS = (0, 1, 2, 6, 3, 4, 5, 9, 10)
-DESIGN = 1
+DESIGN = 3
 
 
 def endpoint_inputs(omap, poses, points_base):
