@@ -19,30 +19,36 @@
 // torch expression on the same device, so each looked-up term equals the
 // plain version's bit for bit.
 //
-// Output is in the ORIGINAL particle order: the TPU kernel's point and
-// particle sorts, window tiers, escape arm and unsort exist to make its
-// one-hot MXU gathers dense, and a direct gather needs none of them (so
-// there is no escape capacity or point-slot budget to overflow). The
-// endpoint's multiplies and adds are rounded separately, in the plain
-// version's order, and cosf/sinf are the full-precision ones (no fast
-// math). The terms are summed in double and rounded once, so the sum does
-// not depend on a summation order to within f32 rounding.
+// Output is in the ORIGINAL particle order: the TPU kernel's particle
+// sort, window tiers, escape arm and unsort exist to make its one-hot MXU
+// gathers dense, and a direct gather needs none of them (so there is no
+// escape capacity or point-slot budget to overflow). The endpoint's
+// multiplies and adds are rounded separately, in the plain version's
+// order, and cosf/sinf are the full-precision ones (no fast math). The
+// terms are summed in double and rounded once, so the sum does not depend
+// on a summation order to within f32 rounding.
 //
 // Bound on the H100: ~12 operations per (particle, point) — 8 for the
 // endpoint, two floors, the bounds test and the add — 12.8M pairs at 50k x
-// 256, against 3.4 MB of texture (L2 resident) and an M x 4 B output:
-// operations. The per-pair expf, division and cube of the earlier design
-// became one read of the table, held as double in shared memory so the
-// accumulate takes no conversion. Design: kLanes lanes share a particle,
-// lane l taking the points b = l (mod kLanes), so a 10,000-particle
-// tracking cloud runs on 80,000 threads; the points' (A, B, slab offset)
-// are staged in shared memory per chunk.
-//   - kInWarp: the lanes are neighbours in one warp (a warp holds 32 /
-//     kLanes particles) and their double partials are added by xor
-//     shuffles in a fixed order;
-//   - else: the lanes are groups of warps of a block (a warp holds 32
-//     consecutive particles, all at the same point at a time) and their
-//     partials are added through shared memory in lane order.
+// 256, against 3.4 MB of texture and an M x 4 B output: operations. The
+// per-pair expf, division and cube of the earlier design became one read
+// of the table, held as double in shared memory so the accumulate takes no
+// conversion. What bounds the kernel in fact is the texture gather: on a
+// spread cloud the endpoints of one point scatter over the whole map, each
+// read a separate L2 sector. Design:
+//   - a one-block prep launch computes every point's (A, B, slab offset)
+//     and writes them sorted by slab, then by 8-cell bins of (B, A) (the
+//     TPU kernel's point sort `point_prep`, pc_spread_kernel.py:89-145,
+//     with a position key where it buckets azimuth): points visited
+//     together read one slab's neighbouring cells, which keeps the
+//     texture lines they share in L1;
+//   - kLanes neighbouring lanes of a warp share a particle, lane l taking
+//     the sorted points b = l (mod kLanes), staged in shared memory, and
+//     their double partials are added by xor shuffles in a fixed order.
+//     The launcher takes 8 lanes where 4 would leave fewer than 1024
+//     threads per SM (a 10,000-particle tracking cloud runs on 80,000
+//     threads) and 4 otherwise (fewer blocks, each particle's cos/sin and
+//     the staging shared by fewer lanes).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,11 +76,11 @@ __device__ __forceinline__ void point_of(const float* __restrict__ q, float inv_
   key = ((band ? kz : nz) << 16) | (ib << 8) | ia;
 }
 
-// one block: every point's (A, B, slab offset), written in key order (ties
-// in index order) when `sorted`, else in cloud order
+// one block: every point's (A, B, slab offset), written in key order, ties
+// in index order (a rank count over the keys)
 __global__ void __launch_bounds__(kPrepThreads) pc_spread_prep_kernel(
     const float* __restrict__ points, int n, float inv_res, int min_k, int nz, int slab,
-    int sorted, int* __restrict__ keys, float* __restrict__ out_a, float* __restrict__ out_b,
+    int* __restrict__ keys, float* __restrict__ out_a, float* __restrict__ out_b,
     int* __restrict__ out_base) {
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     float a, b;
@@ -87,13 +93,10 @@ __global__ void __launch_bounds__(kPrepThreads) pc_spread_prep_kernel(
     float a, b;
     int base, key;
     point_of(points + 3 * (int64_t)k, inv_res, min_k, nz, slab, a, b, base, key);
-    int rank = k;
-    if (sorted) {
-      rank = 0;
-      for (int j = 0; j < n; ++j) {
-        const int kj = keys[j];
-        rank += kj < key || (kj == key && j < k);
-      }
+    int rank = 0;
+    for (int j = 0; j < n; ++j) {
+      const int kj = keys[j];
+      rank += kj < key || (kj == key && j < k);
     }
     out_a[rank] = a;
     out_b[rank] = b;
@@ -101,23 +104,20 @@ __global__ void __launch_bounds__(kPrepThreads) pc_spread_prep_kernel(
   }
 }
 
-template <int kLanes, bool kInWarp>
+template <int kLanes>
 __global__ void __launch_bounds__(kThreads) pc_spread_term_sums_kernel(
-    const uint8_t* __restrict__ tex, int nx, int ny, int nz,
-    const float* __restrict__ poses, int m, const float* __restrict__ pa,
-    const float* __restrict__ pb, const int* __restrict__ pbase, int n_points, float inv_res,
-    float off_x, float off_y, const float* __restrict__ table, float* __restrict__ out) {
-  constexpr int kPerBlock = kThreads / kLanes;
+    const uint8_t* __restrict__ tex, int nx, int ny, const float* __restrict__ poses, int m,
+    const float* __restrict__ pa, const float* __restrict__ pb, const int* __restrict__ pbase,
+    int n_points, float inv_res, float off_x, float off_y, const float* __restrict__ table,
+    float* __restrict__ out) {
   __shared__ double s_table[kTable];
   __shared__ float s_a[kPointChunk];
   __shared__ float s_b[kPointChunk];
   __shared__ int s_base[kPointChunk];  // slab offset kz * ny * nx, -1 outside the band
-  __shared__ double s_part[kInWarp ? 1 : kLanes][kInWarp ? 1 : kPerBlock];
   const int tid = threadIdx.x;
-  const int slot = kInWarp ? tid / kLanes : tid % kPerBlock;
-  const int lane = kInWarp ? tid % kLanes : tid / kPerBlock;
+  const int lane = tid % kLanes;
   for (int k = tid; k < kTable; k += kThreads) s_table[k] = (double)table[k];
-  const int i = blockIdx.x * kPerBlock + slot;
+  const int i = blockIdx.x * (kThreads / kLanes) + tid / kLanes;
   const bool live = i < m;
   float pxc = 0.0f, pyc = 0.0f, c = 0.0f, s = 0.0f;
   if (live) {
@@ -153,30 +153,18 @@ __global__ void __launch_bounds__(kThreads) pc_spread_term_sums_kernel(
       acc += s_table[idx];
     }
   }
-  if constexpr (kInWarp) {
 #pragma unroll
-    for (int w = kLanes / 2; w >= 1; w /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, w);
-    if (lane == 0 && live) out[i] = (float)acc;
-  } else {
-    s_part[lane][slot] = acc;
-    __syncthreads();
-    if (lane == 0 && live) {
-      double sum = s_part[0][slot];
-#pragma unroll
-      for (int j = 1; j < kLanes; ++j) sum += s_part[j][slot];
-      out[i] = (float)sum;
-    }
-  }
+  for (int w = kLanes / 2; w >= 1; w /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0 && live) out[i] = (float)acc;
 }
 
-template <int kLanes, bool kInWarp>
-void launch(const uint8_t* tex, int nx, int ny, int nz, const float* poses, int m,
-            const float* pa, const float* pb, const int* pbase, int n_points, float inv_res,
-            float off_x, float off_y, const float* table, float* out, cudaStream_t stream) {
+template <int kLanes>
+void launch_sums(const uint8_t* tex, int nx, int ny, const float* poses, int m, const float* pa,
+                 const float* pb, const int* pbase, int n_points, float inv_res, float off_x,
+                 float off_y, const float* table, float* out, cudaStream_t stream) {
   constexpr int kPerBlock = kThreads / kLanes;
-  const int blocks = (m + kPerBlock - 1) / kPerBlock;
-  pc_spread_term_sums_kernel<kLanes, kInWarp><<<blocks, kThreads, 0, stream>>>(
-      tex, nx, ny, nz, poses, m, pa, pb, pbase, n_points, inv_res, off_x, off_y, table, out);
+  pc_spread_term_sums_kernel<kLanes><<<(m + kPerBlock - 1) / kPerBlock, kThreads, 0, stream>>>(
+      tex, nx, ny, poses, m, pa, pb, pbase, n_points, inv_res, off_x, off_y, table, out);
 }
 
 }  // namespace
@@ -185,8 +173,8 @@ void launch(const uint8_t* tex, int nx, int ny, int nz, const float* poses, int 
 extern "C" int pc_spread_term_sums_launch(const uint8_t* tex, int nx, int ny, int nz,
                                           const float* poses, int m, const float* points,
                                           int n_points, float inv_res, int min_i, int min_j,
-                                          int min_k, const float* table, int design,
-                                          int* scratch, float* out, void* stream) {
+                                          int min_k, const float* table, int* scratch,
+                                          float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int* keys = scratch;
   float* pa = (float*)(scratch + n_points);
@@ -194,22 +182,19 @@ extern "C" int pc_spread_term_sums_launch(const uint8_t* tex, int nx, int ny, in
   int* pbase = scratch + 3 * n_points;
   if (n_points > 0) {
     pc_spread_prep_kernel<<<1, kPrepThreads, 0, s>>>(points, n_points, inv_res, min_k, nz,
-                                                     nx * ny, design < 8, keys, pa, pb,
-                                                     pbase);
+                                                     nx * ny, keys, pa, pb, pbase);
   }
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   // (0.5 - min) is exact in f32 for any map a texture can hold
   const float ox = 0.5f - (float)min_i, oy = 0.5f - (float)min_j;
-#define PC_ARGS tex, nx, ny, nz, poses, m, pa, pb, pbase, n_points, inv_res, ox, oy, table, out, s
-  switch (design % 8) {
-    case 0: launch<8, true>(PC_ARGS); break;
-    case 1: launch<4, true>(PC_ARGS); break;
-    case 2: launch<16, true>(PC_ARGS); break;
-    case 3: launch<8, false>(PC_ARGS); break;
-    case 4: launch<4, false>(PC_ARGS); break;
-    case 5: launch<2, false>(PC_ARGS); break;
-    case 6: launch<32, true>(PC_ARGS); break;
-    default: return (int)cudaErrorInvalidValue;
+  if ((int64_t)m * 4 < (int64_t)sms * 1024) {
+    launch_sums<8>(tex, nx, ny, poses, m, pa, pb, pbase, n_points, inv_res, ox, oy, table,
+                   out, s);
+  } else {
+    launch_sums<4>(tex, nx, ny, poses, m, pa, pb, pbase, n_points, inv_res, ox, oy, table,
+                   out, s);
   }
-#undef PC_ARGS
   return (int)cudaGetLastError();
 }

@@ -64,7 +64,7 @@ _SIGNATURES = {
     "pc_distances_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _I, _I, _I, _F, _F,
                             _P, _P],
     "pc_spread_term_sums_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _I, _I, _I,
-                                   _P, _I, _P, _P, _P],
+                                   _P, _P, _P, _P],
     "beam_table_launch": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,
                           ctypes.POINTER(BeamConsts), _P, _I, _P, _I, _I, _P],
     "beam_spread_sums_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],

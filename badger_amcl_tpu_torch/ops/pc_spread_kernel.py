@@ -12,14 +12,16 @@ z band contributes term(max_distance_to_object) to every particle
 (:595-597).
 
 `pc_spread_term_sums` is the kernel wrapper: CUDA tensors launch
-csrc/pc_spread_term_sums.cu, which looks each pair's `PCTerm` up in
-`term_table` (the term at the 256 ratios and outside the z band); CPU
+csrc/pc_spread_term_sums.cu (a prep launch that sorts the cloud's points
+by slab and position, then the sums, which look each pair's `PCTerm` up
+in `term_table`: the term at the 256 ratios and outside the z band); CPU
 tensors run `pc_spread_term_sums_plain`, which takes any elementwise term.
 Sums come out in particle order.
 
-Not ported (TPU-only machinery): `point_prep` and `pc_spread_prepass`
-(the (slab, azimuth) point sort, the (class, yaw bin, block) particle sort
-and the tier flags), the window tiers, `_escape_term_sums3` and `unsort`.
+Not ported (TPU-only machinery): `pc_spread_prepass` (the (class, yaw
+bin, block) particle sort and the tier flags) and `point_prep`'s padding
+of slab runs (the CUDA prep sorts the points in a key of its own), the
+window tiers, `_escape_term_sums3` and `unsort`.
 A direct gather covers every (particle, point) pair, so the JAX dispatch's
 fallback when `pre["fits"]` is false (escape capacity, point-slot budget)
 has no counterpart here.
@@ -80,13 +82,6 @@ def term_table(term: PCTerm, max_ratio: float, max_dist: float,
     return term(z).contiguous()
 
 
-# the kernel's thread layouts (csrc/pc_spread_term_sums.cu `design`): 8, 4,
-# 16 or 32 lanes of a warp per particle, 8, 4 or 2 warp groups of a block;
-# with the points sorted by slab and position (+ 8: in cloud order)
-DESIGNS = (0, 1, 2, 6, 3, 4, 5, 9, 10)
-DESIGN = 3
-
-
 def endpoint_inputs(omap, poses, points_base):
     """Per-particle cell-space position and cos/sin yaw, per-point A, B and
     z-slab (pc_spread_kernel.py:98-145, :445-448)."""
@@ -145,8 +140,8 @@ def pc_spread_term_sums(omap, poses, points_base, term) -> torch.Tensor:
     code = _build.lib().pc_spread_term_sums_launch(
         omap.tex_zyx.contiguous().data_ptr(), nx, ny, nz, poses.data_ptr(), m,
         points_base.data_ptr(), b, _inv_res(omap), omap.min_cells[0],
-        omap.min_cells[1], omap.min_cells[2], table.data_ptr(), DESIGN,
-        scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(poses.device))
+        omap.min_cells[1], omap.min_cells[2], table.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), _build.stream_ptr(poses.device))
     _build.check(code, "pc_spread_term_sums")
     pc_spread_term_sums.launches += 1
     return out

@@ -19,11 +19,9 @@ pc_spread_term_sums (the Gompertz term on the 50,000 spread and the
 10,000 tracking 3D clouds), the device ms summed over the ops of
 chip_smoke.kernel_ms (a ROOT must have it); where a ROOT has the fused lf
 sums, theirs and the lf prepass's on the steady_lf cloud; where it has
-beam skipping's counts, theirs on that cloud; where its pc_spread kernel
-has several thread layouts (`DESIGNS`), each one's device ms on both 3D
-clouds from CUDA-graph replays (`graph_ms`) and the profiler, twice in
-turns. Every run prints one JSON line, also appended to
-OUT_DIR/ab.jsonl, with the card's name and power limit.
+beam skipping's counts, theirs on that cloud. Every run prints one JSON
+line, also appended to OUT_DIR/ab.jsonl, with the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -147,36 +145,6 @@ def one(root):
     return out
 
 
-def graph_ms(fn, reps=20, replays=7):
-    """Device ms per call of fn: `reps` calls captured in one CUDA graph,
-    replayed back to back between CUDA events (median of `replays`), so no
-    host dispatch sits between the launches."""
-    import statistics
-
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    times = []
-    for _ in range(replays):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return statistics.median(times)
-
-
 def one_3d(cs, dev):
     """The 3d_tracking and 3d_spread timing rows and #10's times."""
     import torch
@@ -191,7 +159,6 @@ def one_3d(cs, dev):
     cloud = torch.as_tensor(cloud_np, device=dev)
     pcp = pc.PointCloudParams()
     gen = torch.Generator(device=dev).manual_seed(4)
-    designs = getattr(psk, "DESIGNS", None)
     for regime in ("tracking", "spread"):
         n = cs.PARTICLES_3D[regime]
         params, state, pool = scenario.build_filter_3d(n, pose_cov=cs.REGIMES[regime],
@@ -205,20 +172,6 @@ def one_3d(cs, dev):
         out[f"pc_spread_term_sums_{regime}"] = {
             "particles": n, "ms": cs.cuda_ms(run_sums),
             "device_ms": sum(cs.kernel_ms(run_sums).values())}
-        if designs:
-            want = psk.pc_spread_term_sums_plain(
-                omap3, *psk.endpoint_inputs(omap3, state.poses, cloud), term)
-            default, times = psk.DESIGN, {}
-            for turn in range(2):
-                for d in designs if turn == 0 else designs[::-1]:
-                    psk.DESIGN = d
-                    got = run_sums()
-                    rel = float(((got - want).abs() / want.abs()).max())
-                    times.setdefault(str(d), []).append(
-                        {"graph_ms": graph_ms(run_sums), "rel": rel,
-                         "ops": cs.kernel_ms(run_sums)})
-            psk.DESIGN = default
-            out[f"pc_spread_designs_{regime}"] = times
         for model in cs.MODELS_3D:
             step, _ = cs.pinned_step_fn(
                 lambda s: cs.step_3d(s, omap3, pcp, cloud, pool, params, model, gen,

@@ -11,10 +11,10 @@ the port's three paths:
   prepass (fits and origins against window_origins' plain version) and
   beam skipping's per-beam agreement counts (equal on every beam without an
   endpoint-cell flip) on the bf16 steady and the f32 spread cloud; drives
-  the likelihood-field MCL
-  step (`mcl_step_2d`, `sensor_resample_step`) in the steady, tracking and
-  spread regimes plus the steady regime on the "lf" backend, and compares
-  the step on the card with the CPU at 4096 x 360;
+  the likelihood-field MCL step (`mcl_step_2d`, `sensor_resample_step`)
+  in the steady, tracking and spread regimes plus the steady regime on the
+  "lf" backend, and compares the step on the card with the CPU at 4096 x
+  360;
 - 2D beam, Gompertz and prob models: bakes the K = 256 range image of the
   1024^2 map on the card (and a 256^2 map on the card and the CPU, which
   must agree bit for bit), holds the beam_table kernel (bit-equal, at its
@@ -26,9 +26,9 @@ the port's three paths:
   also with beam skipping on a converged steady cloud (prob_beamskip: the
   node's do_beamskip path, lf_obs_counts then lf_term_sums; the (B, M)
   lf_distances, which no main path launches, must not launch), and
-  compares the
-  card with the CPU at 4096 x 360 on a 448^2 map, the beam model also in
-  its exact raycast arm (timed on the card at that size only);
+  compares the card with the CPU at 4096 x 360 on a 448^2 map, the beam
+  model also in its exact raycast arm (timed on the card at that size
+  only);
 - 2D int8 corr backend ("corr_q"): holds corr_table_q against its plain
   version at 50,000 x 720 (int32, bit-equal), drives the likelihood-field
   step on "corr_q" in the steady and tracking regimes and compares the
