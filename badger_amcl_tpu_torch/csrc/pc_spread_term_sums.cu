@@ -62,10 +62,11 @@ constexpr int kTable = 257;  // 256 ratios, then outside the z band
 constexpr int kPrepThreads = 1024;
 
 // the point's cell offsets (A, B), its slab offset kz * ny * nx (-1
-// outside the z band) and its sort key: slab, then 8-cell bins of B and A
+// outside the z band; 64-bit, as a map may hold 2^31 cells or more) and
+// its sort key: slab, then 8-cell bins of B and A
 __device__ __forceinline__ void point_of(const float* __restrict__ q, float inv_res, int min_k,
-                                         int nz, int slab, float& a, float& b, int& base,
-                                         int& key) {
+                                         int nz, int64_t slab, float& a, float& b,
+                                         int64_t& base, int& key) {
   a = __fmul_rn(q[0], inv_res);
   b = __fmul_rn(q[1], inv_res);
   const int kz = (int)floorf(__fadd_rn(__fmul_rn(q[2], inv_res), 0.5f)) - min_k;
@@ -79,19 +80,21 @@ __device__ __forceinline__ void point_of(const float* __restrict__ q, float inv_
 // one block: every point's (A, B, slab offset), written in key order, ties
 // in index order (a rank count over the keys)
 __global__ void __launch_bounds__(kPrepThreads) pc_spread_prep_kernel(
-    const float* __restrict__ points, int n, float inv_res, int min_k, int nz, int slab,
+    const float* __restrict__ points, int n, float inv_res, int min_k, int nz, int64_t slab,
     int* __restrict__ keys, float* __restrict__ out_a, float* __restrict__ out_b,
-    int* __restrict__ out_base) {
+    int64_t* __restrict__ out_base) {
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     float a, b;
-    int base, key;
+    int64_t base;
+    int key;
     point_of(points + 3 * (int64_t)k, inv_res, min_k, nz, slab, a, b, base, key);
     keys[k] = key;
   }
   __syncthreads();
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     float a, b;
-    int base, key;
+    int64_t base;
+    int key;
     point_of(points + 3 * (int64_t)k, inv_res, min_k, nz, slab, a, b, base, key);
     int rank = 0;
     for (int j = 0; j < n; ++j) {
@@ -107,13 +110,13 @@ __global__ void __launch_bounds__(kPrepThreads) pc_spread_prep_kernel(
 template <int kLanes>
 __global__ void __launch_bounds__(kThreads) pc_spread_term_sums_kernel(
     const uint8_t* __restrict__ tex, int nx, int ny, const float* __restrict__ poses, int m,
-    const float* __restrict__ pa, const float* __restrict__ pb, const int* __restrict__ pbase,
-    int n_points, float inv_res, float off_x, float off_y, const float* __restrict__ table,
-    float* __restrict__ out) {
+    const float* __restrict__ pa, const float* __restrict__ pb,
+    const int64_t* __restrict__ pbase, int n_points, float inv_res, float off_x, float off_y,
+    const float* __restrict__ table, float* __restrict__ out) {
   __shared__ double s_table[kTable];
   __shared__ float s_a[kPointChunk];
   __shared__ float s_b[kPointChunk];
-  __shared__ int s_base[kPointChunk];  // slab offset kz * ny * nx, -1 outside the band
+  __shared__ int64_t s_base[kPointChunk];  // slab offset kz * ny * nx, -1 outside the band
   const int tid = threadIdx.x;
   const int lane = tid % kLanes;
   for (int k = tid; k < kTable; k += kThreads) s_table[k] = (double)table[k];
@@ -140,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) pc_spread_term_sums_kernel(
     if (!live) continue;
 #pragma unroll 4
     for (int k = lane; k < n; k += kLanes) {
-      const int off = s_base[k];
+      const int64_t off = s_base[k];
       int idx = kTable - 1;
       if (off >= 0) {
         const float a = s_a[k];
@@ -148,7 +151,9 @@ __global__ void __launch_bounds__(kThreads) pc_spread_term_sums_kernel(
         const int ci = (int)floorf(__fsub_rn(__fadd_rn(pxc, __fmul_rn(a, c)), __fmul_rn(b, s)));
         const int cj = (int)floorf(__fadd_rn(__fadd_rn(pyc, __fmul_rn(b, c)), __fmul_rn(a, s)));
         idx = 255;
-        if (ci >= 0 && ci < nx && cj >= 0 && cj < ny) idx = __ldg(tex + off + cj * nx + ci);
+        if (ci >= 0 && ci < nx && cj >= 0 && cj < ny) {
+          idx = __ldg(tex + off + (int64_t)cj * nx + ci);
+        }
       }
       acc += s_table[idx];
     }
@@ -160,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) pc_spread_term_sums_kernel(
 
 template <int kLanes>
 void launch_sums(const uint8_t* tex, int nx, int ny, const float* poses, int m, const float* pa,
-                 const float* pb, const int* pbase, int n_points, float inv_res, float off_x,
+                 const float* pb, const int64_t* pbase, int n_points, float inv_res, float off_x,
                  float off_y, const float* table, float* out, cudaStream_t stream) {
   constexpr int kPerBlock = kThreads / kLanes;
   pc_spread_term_sums_kernel<kLanes><<<(m + kPerBlock - 1) / kPerBlock, kThreads, 0, stream>>>(
@@ -169,20 +174,20 @@ void launch_sums(const uint8_t* tex, int nx, int ny, const float* poses, int m, 
 
 }  // namespace
 
-// scratch: 4 * n_points int32 (keys, A, B, slab offsets)
+// scratch: 5 * n_points int32 (the int64 slab offsets first, then keys, A, B)
 extern "C" int pc_spread_term_sums_launch(const uint8_t* tex, int nx, int ny, int nz,
                                           const float* poses, int m, const float* points,
                                           int n_points, float inv_res, int min_i, int min_j,
                                           int min_k, const float* table, int* scratch,
                                           float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int* keys = scratch;
-  float* pa = (float*)(scratch + n_points);
-  float* pb = (float*)(scratch + 2 * n_points);
-  int* pbase = scratch + 3 * n_points;
+  int64_t* pbase = (int64_t*)scratch;
+  int* keys = scratch + 2 * (int64_t)n_points;
+  float* pa = (float*)(scratch + 3 * (int64_t)n_points);
+  float* pb = (float*)(scratch + 4 * (int64_t)n_points);
   if (n_points > 0) {
     pc_spread_prep_kernel<<<1, kPrepThreads, 0, s>>>(points, n_points, inv_res, min_k, nz,
-                                                     nx * ny, keys, pa, pb, pbase);
+                                                     (int64_t)nx * ny, keys, pa, pb, pbase);
   }
   int device = 0, sms = 0;
   cudaGetDevice(&device);

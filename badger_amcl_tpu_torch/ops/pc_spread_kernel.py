@@ -136,7 +136,8 @@ def pc_spread_term_sums(omap, poses, points_base, term) -> torch.Tensor:
     poses, points_base = poses.contiguous(), points_base.contiguous()
     table = term_table(term, omap.max_distance_ratio, omap.max_distance_to_object,
                        poses.device)
-    scratch = torch.empty((4 * b,), dtype=torch.int32, device=poses.device)
+    # the int64 slab offsets, then the sort keys and the sorted (A, B)
+    scratch = torch.empty((5 * b,), dtype=torch.int32, device=poses.device)
     code = _build.lib().pc_spread_term_sums_launch(
         omap.tex_zyx.contiguous().data_ptr(), nx, ny, nz, poses.data_ptr(), m,
         points_base.data_ptr(), b, _inv_res(omap), omap.min_cells[0],

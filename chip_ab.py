@@ -33,6 +33,13 @@ import sys
 import time
 
 
+def device_ms(ops):
+    """The summed ms of a chip_smoke.kernel_ms dict, or None when the
+    profiler recorded no launch (kept here: an older ROOT's chip_smoke
+    has no such helper)."""
+    return sum(ops.values()) if ops else None
+
+
 def one(root):
     """Time one checkout; returns its result dict."""
     sys.path.insert(0, root)
@@ -76,7 +83,7 @@ def one(root):
         return sk.spread_term_sums(omap, spose, scan.ranges, scan.angles, valid, term)
 
     out["spread_term_sums"] = {"ms": cs.cuda_ms(run_spread),
-                               "device_ms": sum(cs.kernel_ms(run_spread).values())}
+                               "device_ms": device_ms(cs.kernel_ms(run_spread))}
 
     bmap = maps["beam"]
     bpose = planar.coord_add(sp.scanner_pose, steady[1].poses)
@@ -90,7 +97,7 @@ def one(root):
         return bk.beam_table(*bargs)
 
     out["beam_table"] = {"rows": rows, "ms": cs.cuda_ms(run_beam),
-                         "device_ms": sum(cs.kernel_ms(run_beam).values())}
+                         "device_ms": device_ms(cs.kernel_ms(run_beam))}
     if hasattr(lk, "lf_term_sums"):
         lpose = planar.coord_add(sp.scanner_pose, steady[1].poses)
         tex = lk.lf_texture(omap, lpose, scan.ranges, scan.angles)
@@ -102,9 +109,9 @@ def one(root):
             return lk.window_origins(omap, lpose, scan.ranges, scan.angles)
 
         out["lf_term_sums"] = {"tex": str(tex.dtype), "ms": cs.cuda_ms(run_sums),
-                               "device_ms": sum(cs.kernel_ms(run_sums).values())}
+                               "device_ms": device_ms(cs.kernel_ms(run_sums))}
         out["lf_prepass"] = {"ms": cs.cuda_ms(run_prepass),
-                             "device_ms": sum(cs.kernel_ms(run_prepass).values())}
+                             "device_ms": device_ms(cs.kernel_ms(run_prepass))}
         if hasattr(lk, "lf_obs_counts"):
             active = steady[1].active_mask
 
@@ -113,7 +120,7 @@ def one(root):
                                         active, sp.beam_skip_distance)
 
             out["lf_obs_counts"] = {"tex": str(tex.dtype), "ms": cs.cuda_ms(run_counts),
-                                    "device_ms": sum(cs.kernel_ms(run_counts).values())}
+                                    "device_ms": device_ms(cs.kernel_ms(run_counts))}
 
     gen = torch.Generator(device=dev).manual_seed(2)
     for key in states:
@@ -137,7 +144,7 @@ def one(root):
         return ck.fleet_corr_table(*args)
 
     out["fleet_corr_table"] = {"rows": rows, "ms": cs.cuda_ms(run_fleet),
-                               "device_ms": sum(cs.kernel_ms(run_fleet, calls=5).values())}
+                               "device_ms": device_ms(cs.kernel_ms(run_fleet, calls=5))}
     out["fleet"] = cs.phase_timings_fleet(dev, omap, fl)
     del fl, omap
     torch.cuda.empty_cache()
@@ -171,7 +178,7 @@ def one_3d(cs, dev):
 
         out[f"pc_spread_term_sums_{regime}"] = {
             "particles": n, "ms": cs.cuda_ms(run_sums),
-            "device_ms": sum(cs.kernel_ms(run_sums).values())}
+            "device_ms": device_ms(cs.kernel_ms(run_sums))}
         for model in cs.MODELS_3D:
             step, _ = cs.pinned_step_fn(
                 lambda s: cs.step_3d(s, omap3, pcp, cloud, pool, params, model, gen,

@@ -132,13 +132,12 @@ FLEET_ROBOTS, FLEET_PARTICLES, FLEET_BEAMS = 256, 10_000, 180
 # over the memory rate and f32 operations over the non-tensor f32 rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# kernels held against their plain versions that no main path launches:
-# kernel -> why (the kernels line carries it)
-OFF_MAIN_PATH = {
-    "lf_distances": "the (B, M) distances, the counterpart of the JAX package's "
-                    "lf_distances_t; beam skipping, their last consumer, takes "
-                    "lf_obs_counts and lf_term_sums",
-}
+# the one kernel held against its plain version that no main path
+# launches: the (B, M) distances, kept as the counterpart of the JAX
+# package's lf_distances_t (the kernels line carries the note)
+OFF_PATH_NOTE = ("the (B, M) distances, the counterpart of the JAX package's "
+                 "lf_distances_t; beam skipping, their last consumer, takes "
+                 "lf_obs_counts and lf_term_sums")
 
 
 def log(msg):
@@ -442,7 +441,7 @@ def phase_kernels_lf(omap, scan, states):
             f"({'; '.join(f'{n} {t:.4f}' for n, t in obs_dev.items())}) "
             f"plain_ms={obs_plain_ms:.4f} bound_ms={obs_b['bound_ms']:.5f} "
             f"({obs_b['bound_by']})")
-        counts.append((obs_err, obs_ms, obs_plain_ms, obs_b, sum(obs_dev.values())))
+        counts.append((obs_err, obs_ms, obs_plain_ms, obs_b, device_ms(obs_dev)))
 
         # fused term sums in the three forms: ~21 operations per (particle,
         # valid beam), the endpoint (12), the term (8), the add; beside it
@@ -803,10 +802,16 @@ def kernel_ms(fn, calls=10):
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
 
 
+def device_ms(ops):
+    """The summed ms of a kernel_ms dict, or None when the profiler
+    recorded no launch (the kernels line then carries no number)."""
+    return sum(ops.values()) if ops else None
+
+
 def device_text(ops):
-    """The summed ms of a kernel_ms dict, or "not measured" when the
-    profiler recorded no launch."""
-    return f"{sum(ops.values()):.4f}" if ops else "not measured (no launch recorded)"
+    """device_ms as text for the log: "not measured" when the profiler
+    recorded no launch."""
+    return f"{device_ms(ops):.4f}" if ops else "not measured (no launch recorded)"
 
 
 def device_busy(fn, steps=5, top=6):
@@ -1414,7 +1419,7 @@ def phase_kernels_3d(omap, cloud, states):
                 f"({'; '.join(f'{n} {t:.4f}' for n, t in dev.items())}) "
                 f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}; "
                 f"the per-pair term's {b_term['bound_ms']:.5f})")
-            rows.append((err, ms, plain_ms, b, sum(dev.values()), regime, model, m))
+            rows.append((err, ms, plain_ms, b, device_ms(dev), regime, model, m))
     # reported: the spread cloud under the 3D default (Gompertz) model, and
     # beside it every cloud and model
     results["pc_spread_term_sums"] = dict(
@@ -1672,12 +1677,12 @@ def main():
                          "badger_amcl_tpu/ops/corr_kernel.py:489"),
     }
     for k in meta:
-        if k not in OFF_MAIN_PATH:
+        if k != "lf_distances":
             check(launches[k]["launches"] > 0, f"{k} was not launched on any main path")
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          **launches[k], **kernels[k],
-         **({"main_path": False, "note": OFF_MAIN_PATH[k]} if k in OFF_MAIN_PATH else {})}
+         **({"main_path": False, "note": OFF_PATH_NOTE} if k == "lf_distances" else {})}
         for k in meta]}
     log(json.dumps({"timings": timings}))
     print(json.dumps(line))
