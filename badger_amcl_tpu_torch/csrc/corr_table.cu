@@ -70,57 +70,241 @@ namespace {
 constexpr int kCols = 128;       // PWIN_C
 constexpr int kTapChunk = 1024;  // taps staged in shared memory per pass
 
-__device__ __forceinline__ float tap_add(float acc, uint32_t w, float v) {
-  return __fadd_rn(acc, __fmul_rn((float)w, v));
-}
-
-__device__ __forceinline__ int32_t tap_add(int32_t acc, uint32_t w, int8_t v) {
-  return acc + (int32_t)w * (int32_t)v;
-}
-
 __device__ __forceinline__ void decode(int32_t packed, uint32_t& w, int& oj, int& oi) {
   w = (uint32_t)packed >> 20;
   oj = ((int32_t)((uint32_t)packed << 12)) >> 22;
   oi = ((int32_t)((uint32_t)packed << 22)) >> 22;
 }
 
-// nu index of (robot r, bin t) = r * nu_robot_stride + t * nu_bin_stride
-template <typename Tex, typename Acc>
-__global__ void corr_table_kernel(const Tex* __restrict__ tex, int hp, int wp,
-                                  const int32_t* __restrict__ off,
-                                  const int32_t* __restrict__ nu, int nu_robot_stride,
-                                  int nu_bin_stride, const int32_t* __restrict__ t_n,
-                                  const int32_t* __restrict__ org, Acc* __restrict__ out,
-                                  int t_max, int n_beams, int rows) {
-  __shared__ int32_t s_off[kTapChunk];
-  const int t = blockIdx.x;
-  const int dj = blockIdx.y;
-  const int r = blockIdx.z;
-  const int di = threadIdx.x;
-  Acc acc = 0;
-  if (t < t_n[r]) {
-    const int n_taps = nu[r * nu_robot_stride + t * nu_bin_stride];
-    const int row = org[2 * r] + dj;
-    const int col = org[2 * r + 1] + di;
-    const int32_t* taps = off + ((int64_t)r * t_max + t) * n_beams;
-    for (int base = 0; base < n_taps; base += kTapChunk) {
-      const int n = min(kTapChunk, n_taps - base);
-      __syncthreads();
-      for (int k = threadIdx.x; k < n; k += blockDim.x) s_off[k] = taps[base + k];
-      __syncthreads();
-      for (int k = 0; k < n; ++k) {
-        uint32_t w;
-        int oj, oi;
-        decode(s_off[k], w, oj, oi);
-        // offsets are bounded by the prepass's range envelope; the clamp
-        // only guards memory on inputs outside it
-        const int rr = min(max(row + oj, 0), hp - 1);
-        const int c = min(max(col + oi, 0), wp - 1);
-        acc = tap_add(acc, w, tex[(int64_t)rr * wp + c]);
+// --- single-robot tables (#1, #6) -------------------------------------------
+
+// Block (x, t): bin t, window rows [g R, g R + R) and columns
+// [h C, h C + C) for x = g (PWIN_C / C) + h. Its threads: 32 lanes x
+// C / (32 CB) column warps x (R / RB) row threads x S tap splits; a thread
+// owns RB rows and the CB columns lane + 32 (cw + c C / (32 CB)) of the
+// block's strip, so a warp reads 32 neighbouring texels per load. S > 1
+// splits the bin's taps into S contiguous ranges whose int32 partial sums
+// meet in shared memory (exact in any order); the f32 table keeps S = 1,
+// every cell adding its taps in tap order.
+template <int R, int RB, int C, int CB, int S>
+struct Layout {
+  static constexpr int kColWarps = C / (32 * CB);
+  static constexpr int kRowThreads = R / RB;
+  static constexpr int kThreads = 32 * kColWarps * kRowThreads * S;
+  static_assert(kCols % C == 0 && C % (32 * CB) == 0, "C divides PWIN_C, 32 CB divides C");
+  static_assert(R % RB == 0 && kThreads <= 1024, "R / RB row threads, <= 1024 threads");
+};
+
+// a staged tap: its texel offset oj * wp + oi from the thread's base, and
+// its weight (f32 bits for the f32 table, int32 for the int8 one)
+__device__ __forceinline__ int32_t weight_bits(float, uint32_t w) {
+  return __float_as_int((float)w);
+}
+__device__ __forceinline__ int32_t weight_bits(int32_t, uint32_t w) { return (int32_t)w; }
+
+__device__ __forceinline__ float tap_add(float acc, int32_t wb, float v) {
+  return __fadd_rn(acc, __fmul_rn(__int_as_float(wb), v));
+}
+__device__ __forceinline__ int32_t tap_add(int32_t acc, int32_t w, int8_t v) {
+  return acc + w * (int32_t)v;
+}
+
+// Stage taps [0, n) of the chunk: s_tap[k] = (texel offset, weight), s_pk[k]
+// the packed tap. Returns whether some read of the block's R x C cells at
+// (row0, col0) leaves the texture (then the clamped loop runs).
+template <typename Acc, int R, int C>
+__device__ bool stage_taps(const int32_t* __restrict__ taps, int n, int hp, int wp, int scale,
+                           int row0, int col0, int tid, int nthreads, int2* s_tap, int32_t* s_pk,
+                           int* s_ext) {
+  __syncthreads();  // the previous chunk and its extent are consumed
+  if (tid < 4) s_ext[tid] = (tid % 2 == 0) ? INT_MAX : INT_MIN;
+  __syncthreads();
+  int ext[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};
+  for (int k = tid; k < n; k += nthreads) {
+    const int32_t packed = __ldg(taps + k);
+    uint32_t w;
+    int oj, oi;
+    decode(packed, w, oj, oi);
+    ext[0] = min(ext[0], oj);
+    ext[1] = max(ext[1], oj);
+    ext[2] = min(ext[2], oi);
+    ext[3] = max(ext[3], oi);
+    s_tap[k] = make_int2((oj * wp + oi) * scale, weight_bits(Acc(), w));
+    s_pk[k] = packed;
+  }
+  ext[0] = __reduce_min_sync(0xffffffffu, ext[0]);
+  ext[1] = __reduce_max_sync(0xffffffffu, ext[1]);
+  ext[2] = __reduce_min_sync(0xffffffffu, ext[2]);
+  ext[3] = __reduce_max_sync(0xffffffffu, ext[3]);
+  if ((tid & 31) == 0) {
+    atomicMin(&s_ext[0], ext[0]);
+    atomicMax(&s_ext[1], ext[1]);
+    atomicMin(&s_ext[2], ext[2]);
+    atomicMax(&s_ext[3], ext[3]);
+  }
+  __syncthreads();
+  // the staged offsets fit in 32 bits (|oj| <= 512) only below this width:
+  // a wider texture takes the clamped loop, whose indices are 64-bit
+  return !(row0 + s_ext[0] >= 0 && row0 + R - 1 + s_ext[1] <= hp - 1 && col0 + s_ext[2] >= 0 &&
+           col0 + C - 1 + s_ext[3] <= wp - 1 && wp <= INT_MAX / (1024 * scale));
+}
+
+// texel at a staged offset from a row pointer: with BY the offset is in
+// bytes (one 64-bit add), else in texels
+template <bool BY, typename Tex>
+__device__ __forceinline__ Tex texel(const Tex* p, int off) {
+  if constexpr (BY) return __ldg(reinterpret_cast<const Tex*>(reinterpret_cast<const char*>(p) + off));
+  else return __ldg(p + off);
+}
+
+template <int RB, int CB, int CS, int U, bool BY, typename Tex, typename Acc>
+__device__ __forceinline__ void taps_fast(const Tex* const (&rowp)[RB], const int2* s_tap,
+                                          int k, int k1, Acc (&acc)[RB][CB]) {
+  for (; k + U <= k1; k += U) {
+    int2 tp[U];
+    Tex v[U][RB][CB];
+#pragma unroll
+    for (int u = 0; u < U; ++u) tp[u] = s_tap[k + u];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int c = 0; c < CB; ++c) v[u][r][c] = texel<BY>(rowp[r] + CS * c, tp[u].x);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int c = 0; c < CB; ++c) acc[r][c] = tap_add(acc[r][c], tp[u].y, v[u][r][c]);
+  }
+  for (; k < k1; ++k) {
+    const int2 tp = s_tap[k];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        acc[r][c] = tap_add(acc[r][c], tp.y, texel<BY>(rowp[r] + CS * c, tp.x));
+  }
+}
+
+// outside the envelope: every texel clamped into the texture, as the plain
+// version clamps it
+template <int RB, int CB, int CS, typename Tex, typename Acc>
+__device__ __forceinline__ void taps_clamped(const Tex* __restrict__ tex, int hp, int wp,
+                                             int row, int col, const int2* s_tap,
+                                             const int32_t* s_pk, int k, int k1,
+                                             Acc (&acc)[RB][CB]) {
+  for (; k < k1; ++k) {
+    uint32_t w;
+    int oj, oi;
+    decode(s_pk[k], w, oj, oi);
+    const int32_t wb = s_tap[k].y;
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int rr = min(max(row + r + oj, 0), hp - 1);
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        const int cc = min(max(col + CS * c + oi, 0), wp - 1);
+        acc[r][c] = tap_add(acc[r][c], wb, __ldg(tex + (int64_t)rr * wp + cc));
       }
     }
   }
-  out[(((int64_t)r * t_max + t) * rows + dj) * kCols + di] = acc;
+}
+
+template <typename Tex, typename Acc, int R, int RB, int C, int CB, int S, int U, int TC, bool BY>
+__global__ void __launch_bounds__(Layout<R, RB, C, CB, S>::kThreads) corr_table_kernel(
+    const Tex* __restrict__ tex, int hp, int wp, const int32_t* __restrict__ off,
+    const int32_t* __restrict__ nu, const int32_t* __restrict__ t_n,
+    const int32_t* __restrict__ org, Acc* __restrict__ out, int n_beams, int rows) {
+  using L = Layout<R, RB, C, CB, S>;
+  constexpr int CW = L::kColWarps;
+  constexpr int CS = 32 * CW;  // column stride of a thread's CB columns
+  __shared__ int2 s_tap[TC];
+  __shared__ int32_t s_pk[TC];
+  __shared__ int s_ext[4];
+  __shared__ Acc s_part[S > 1 ? (S - 1) * R * C : 1];
+  const int t = blockIdx.y;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  Acc* out_t = out + (int64_t)t * rows * kCols;
+  if (t >= __ldg(t_n)) {
+    // a dead bin: its first block zeroes it with 16-byte stores
+    if (blockIdx.x == 0) {
+      int4* z = reinterpret_cast<int4*>(out_t);
+      for (int i = tid; i < rows * kCols / 4; i += L::kThreads) z[i] = make_int4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const int g = blockIdx.x / (kCols / C);
+  const int h = blockIdx.x % (kCols / C);
+  const int cw = threadIdx.y % CW;
+  const int ry = (threadIdx.y / CW) % L::kRowThreads;
+  const int s = threadIdx.y / (CW * L::kRowThreads);
+  const int n_taps = min(__ldg(nu + t), n_beams);
+  const int row0 = __ldg(org) + g * R;      // the block's first texture row
+  const int col0 = __ldg(org + 1) + h * C;  // and column
+  const int dj = ry * RB;                   // the thread's first row in the block
+  const int dc = threadIdx.x + 32 * cw;     // and its first column
+  const int32_t* taps = off + (int64_t)t * n_beams;
+  const Tex* rowp[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) rowp[r] = tex + (int64_t)(row0 + dj + r) * wp + col0 + dc;
+  Acc acc[RB][CB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int c = 0; c < CB; ++c) acc[r][c] = 0;
+  for (int base = 0; base < n_taps; base += TC) {
+    const int n = min(TC, n_taps - base);
+    const bool clamped = stage_taps<Acc, R, C>(taps + base, n, hp, wp, BY ? (int)sizeof(Tex) : 1,
+                                               row0, col0, tid, L::kThreads, s_tap, s_pk, s_ext);
+    const int k0 = s * n / S;
+    const int k1 = (s + 1) * n / S;
+    if (clamped) {
+      taps_clamped<RB, CB, CS>(tex, hp, wp, row0 + dj, col0 + dc, s_tap, s_pk, k0, k1, acc);
+    } else {
+      taps_fast<RB, CB, CS, U, BY>(rowp, s_tap, k0, k1, acc);
+    }
+  }
+  if constexpr (S > 1) {
+    // split s > 0 hands its partial sums to split 0, which adds them in
+    // split order
+    if (s > 0) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+          s_part[((s - 1) * R + dj + r) * C + dc + CS * c] = acc[r][c];
+    }
+    __syncthreads();
+    if (s > 0) return;
+#pragma unroll
+    for (int q = 0; q < S - 1; ++q)
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int c = 0; c < CB; ++c) acc[r][c] += s_part[(q * R + dj + r) * C + dc + CS * c];
+  }
+  Acc* o = out_t + (int64_t)(g * R + dj) * kCols + h * C + dc;
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int c = 0; c < CB; ++c) o[r * kCols + CS * c] = acc[r][c];
+}
+
+// grid (rows / R x PWIN_C / C, t_max): a bin's blocks are adjacent and the
+// live bins (t < t_n) come first in launch order
+template <typename Tex, typename Acc, int R, int RB, int C, int CB, int S, int U, int TC, bool BY>
+int launch_table(const Tex* tex, int hp, int wp, const int32_t* off, const int32_t* nu,
+                 const int32_t* t_n, const int32_t* org, Acc* out, int t_max, int n_beams,
+                 int rows, cudaStream_t stream) {
+  using L = Layout<R, RB, C, CB, S>;
+  if (rows % R != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid(rows / R * (kCols / C), t_max, 1);
+  dim3 block(32, L::kThreads / 32, 1);
+  corr_table_kernel<Tex, Acc, R, RB, C, CB, S, U, TC, BY><<<grid, block, 0, stream>>>(
+      tex, hp, wp, off, nu, t_n, org, out, n_beams, rows);
+  return (int)cudaGetLastError();
 }
 
 // --- fleet tables ------------------------------------------------------------
@@ -260,14 +444,27 @@ __global__ void __launch_bounds__(kMaxFleetThreads) fleet_corr_table_kernel(
 
 }  // namespace
 
+// layouts timed in turns: (R, RB, C, CB, S, U, tap chunk, byte offsets)
 extern "C" int corr_table_launch(const float* tex, int hp, int wp, const int32_t* off,
                                  const int32_t* nu, const int32_t* t_n,
                                  const int32_t* org, float* out, int t_max,
-                                 int n_beams, int rows, void* stream) {
-  dim3 grid(t_max, rows, 1);
-  corr_table_kernel<float, float><<<grid, kCols, 0, (cudaStream_t)stream>>>(
-      tex, hp, wp, off, nu, t_max, 1, t_n, org, out, t_max, n_beams, rows);
-  return (int)cudaGetLastError();
+                                 int n_beams, int rows, int layout, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define CT_ARGS tex, hp, wp, off, nu, t_n, org, out, t_max, n_beams, rows, st
+  switch (layout) {
+    case 0: return launch_table<float, float, 1, 1, 128, 1, 1, 8, kTapChunk, false>(CT_ARGS);
+    case 1: return launch_table<float, float, 8, 1, 128, 1, 1, 8, kTapChunk, false>(CT_ARGS);
+    case 2: return launch_table<float, float, 4, 1, 32, 1, 1, 16, kTapChunk, false>(CT_ARGS);
+    case 3: return launch_table<float, float, 2, 1, 32, 1, 1, 16, kTapChunk, true>(CT_ARGS);
+    case 4: return launch_table<float, float, 8, 1, 32, 1, 1, 8, kTapChunk, true>(CT_ARGS);
+    case 5: return launch_table<float, float, 2, 1, 64, 1, 1, 16, kTapChunk, true>(CT_ARGS);
+    case 6: return launch_table<float, float, 4, 1, 32, 1, 1, 32, kTapChunk, true>(CT_ARGS);
+    case 7: return launch_table<float, float, 8, 2, 32, 1, 1, 8, kTapChunk, false>(CT_ARGS);
+    case 8: return launch_table<float, float, 4, 1, 128, 4, 1, 8, kTapChunk, false>(CT_ARGS);
+    case 9: return launch_table<float, float, 1, 1, 128, 1, 1, 32, kTapChunk, true>(CT_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CT_ARGS
 }
 
 // grid (t_max, n_robots), 32 x rows / kRowsPer threads
@@ -289,9 +486,21 @@ extern "C" int fleet_corr_table_launch(const float* tex, int hp, int wp,
 extern "C" int corr_table_q_launch(const int8_t* tex, int hp, int wp, const int32_t* off,
                                    const int32_t* nu, const int32_t* t_n,
                                    const int32_t* org, int32_t* out, int t_max,
-                                   int n_beams, int rows, void* stream) {
-  dim3 grid(t_max, rows, 1);
-  corr_table_kernel<int8_t, int32_t><<<grid, kCols, 0, (cudaStream_t)stream>>>(
-      tex, hp, wp, off, nu, t_max, 1, t_n, org, out, t_max, n_beams, rows);
-  return (int)cudaGetLastError();
+                                   int n_beams, int rows, int layout, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define CT_ARGS tex, hp, wp, off, nu, t_n, org, out, t_max, n_beams, rows, st
+  switch (layout) {
+    case 0: return launch_table<int8_t, int32_t, 1, 1, 128, 1, 1, 8, kTapChunk, false>(CT_ARGS);
+    case 1: return launch_table<int8_t, int32_t, 1, 1, 128, 1, 2, 8, kTapChunk, false>(CT_ARGS);
+    case 2: return launch_table<int8_t, int32_t, 1, 1, 128, 1, 4, 8, kTapChunk, false>(CT_ARGS);
+    case 3: return launch_table<int8_t, int32_t, 4, 1, 128, 4, 4, 8, kTapChunk, false>(CT_ARGS);
+    case 4: return launch_table<int8_t, int32_t, 1, 1, 128, 4, 8, 8, kTapChunk, false>(CT_ARGS);
+    case 5: return launch_table<int8_t, int32_t, 4, 1, 64, 2, 4, 8, kTapChunk, false>(CT_ARGS);
+    case 6: return launch_table<int8_t, int32_t, 4, 1, 128, 4, 8, 8, kTapChunk, false>(CT_ARGS);
+    case 7: return launch_table<int8_t, int32_t, 8, 1, 32, 1, 4, 8, kTapChunk, false>(CT_ARGS);
+    case 8: return launch_table<int8_t, int32_t, 8, 1, 128, 1, 1, 8, kTapChunk, false>(CT_ARGS);
+    case 9: return launch_table<int8_t, int32_t, 2, 1, 128, 4, 8, 8, kTapChunk, false>(CT_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CT_ARGS
 }

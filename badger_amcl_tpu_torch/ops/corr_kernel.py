@@ -312,7 +312,7 @@ def _table_in_order(tex, off, nu, t_n, org, n_beams: int, rows: int):
 
 
 def _check_taps(tex, tex_dtype, off, tap_counts, t_n, org, n_beams, rows, row_choices):
-    """Argument checks shared by the table wrappers (robot axis first)."""
+    """Argument checks of the fleet table wrapper (robot axis first)."""
     n_r = org.shape[0]
     if tex.dim() != 2 or tex.dtype != tex_dtype:
         raise ValueError(f"the texture must be a 2-D {tex_dtype} tensor")
@@ -338,6 +338,40 @@ def _launch(fn_name, tex, out, *ints_and_ptrs):
     return out
 
 
+def _check_single(tex, tex_dtype, off, nu, t_n, org, n_beams, rows, row_choices):
+    """Argument checks of the single-robot table wrappers, on the tensors as
+    given (no views are made: the checks cost the host little per call)."""
+    if tex.dim() != 2 or tex.dtype != tex_dtype:
+        raise ValueError(f"the texture must be a 2-D {tex_dtype} tensor")
+    if off.shape != (T_MAX * n_beams,) or off.dtype != torch.int32:
+        raise ValueError("off must be (T_MAX * n_beams,) int32")
+    if (nu.shape != (T_MAX,) or nu.dtype != torch.int32 or org.shape != (2,)
+            or org.dtype != torch.int32 or t_n.numel() != 1):
+        raise ValueError("nu must be (T_MAX,) int32, org (2,) int32 and t_n one value")
+    if rows not in row_choices:
+        raise ValueError(f"rows must be one of {row_choices}, got {rows}")
+    if tex.device.type == "cuda":
+        for t in (off, nu, t_n, org):
+            if t.device != tex.device:
+                raise ValueError("all inputs must be on one device")
+        for t in (tex, off, nu, org):
+            if not t.is_contiguous():
+                raise ValueError("the texture, taps, tap counts and origin must be contiguous")
+
+
+# the (R, RB, CB, S, U) layout of each table kernel (csrc/corr_table.cu)
+_LAYOUT = {"corr_table_launch": 3, "corr_table_q_launch": 4}
+
+
+def _single_table(fn_name, tex, off, nu, t_n, org, n_beams, rows, out_dtype, layout=None):
+    """Launch a single-robot table kernel into a new (T_MAX, rows, PWIN_C)
+    table."""
+    out = torch.empty((T_MAX, rows, PWIN_C), dtype=out_dtype, device=tex.device)
+    return _launch(fn_name, tex, out, tex.data_ptr(), *tex.shape, off.data_ptr(),
+                   nu.data_ptr(), t_n.data_ptr(), org.data_ptr(), out.data_ptr(), T_MAX,
+                   n_beams, rows, _LAYOUT[fn_name] if layout is None else layout)
+
+
 def corr_table_plain(tex_pad, off, nu, t_n, org, n_beams: int, rows: int):
     """Plain PyTorch version of `corr_table`."""
     return _table_plain(tex_pad, off[None], nu[None], t_n.reshape(1), org[None],
@@ -349,16 +383,14 @@ def corr_table(tex_pad, off, nu, t_n, org, n_beams: int, rows: int):
     (T_MAX * n_beams,) int32, per-bin tap counts `nu` (T_MAX,) int32, the
     occupied-bin count `t_n` (0-dim int32) and window origin `org` (2,)
     int32 = (j0 + PAD_R, i0 + PAD_C) in the padded texture."""
-    t_n = t_n.to(torch.int32).reshape(1)
-    _check_taps(tex_pad, torch.float32, off[None], nu[None], t_n, org[None], n_beams, rows,
-                (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R))
+    if t_n.dtype != torch.int32:
+        t_n = t_n.to(torch.int32)
+    _check_single(tex_pad, torch.float32, off, nu, t_n, org, n_beams, rows,
+                  (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R))
     if tex_pad.device.type != "cuda":
         return corr_table_plain(tex_pad, off, nu, t_n, org, n_beams, rows)
-    tex_pad, off, nu, org = (t.contiguous() for t in (tex_pad, off, nu, org))
-    out = torch.empty((T_MAX, rows, PWIN_C), dtype=torch.float32, device=tex_pad.device)
-    _launch("corr_table_launch", tex_pad, out, tex_pad.data_ptr(), *tex_pad.shape,
-            off.data_ptr(), nu.data_ptr(), t_n.data_ptr(), org.data_ptr(), out.data_ptr(),
-            T_MAX, n_beams, rows)
+    out = _single_table("corr_table_launch", tex_pad, off, nu, t_n, org, n_beams, rows,
+                        torch.float32)
     corr_table.launches += 1
     return out
 
@@ -411,16 +443,14 @@ def corr_table_q(tex_q, off, nu, t_n, org, n_beams: int, rows: int):
     """`corr_table` over the int8 quantized texture (`build_tex_pad_q`):
     (T_MAX, rows, PWIN_C) int32 exact sums of w * q, rows 32 or 64 (the
     JAX q kernel has no 24-row variant), org = (j0 + PAD_RQ, i0 + PAD_C)."""
-    t_n = t_n.to(torch.int32).reshape(1)
-    _check_taps(tex_q, torch.int8, off[None], nu[None], t_n, org[None], n_beams, rows,
-                (PWIN_R_NARROW, PWIN_R))
+    if t_n.dtype != torch.int32:
+        t_n = t_n.to(torch.int32)
+    _check_single(tex_q, torch.int8, off, nu, t_n, org, n_beams, rows,
+                  (PWIN_R_NARROW, PWIN_R))
     if tex_q.device.type != "cuda":
         return corr_table_q_plain(tex_q, off, nu, t_n, org, n_beams, rows)
-    tex_q, off, nu, org = (t.contiguous() for t in (tex_q, off, nu, org))
-    out = torch.empty((T_MAX, rows, PWIN_C), dtype=torch.int32, device=tex_q.device)
-    _launch("corr_table_q_launch", tex_q, out, tex_q.data_ptr(), *tex_q.shape,
-            off.data_ptr(), nu.data_ptr(), t_n.data_ptr(), org.data_ptr(), out.data_ptr(),
-            T_MAX, n_beams, rows)
+    out = _single_table("corr_table_q_launch", tex_q, off, nu, t_n, org, n_beams, rows,
+                        torch.int32)
     corr_table_q.launches += 1
     return out
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port on one CUDA card, in turns: the cells and
-kernels that the spread term sums (#3), the fleet table (#5), the beam
-lattice table (#7), the lf kernels (#4) with beam skipping and the 3D
-spread sums (#10) serve.
+kernels that the single-robot corr tables (#1, #6), the spread term sums
+(#3), the fleet table (#5), the beam lattice table (#7), the lf kernels
+(#4) with beam skipping and the 3D spread sums (#10) serve.
 
     python3 chip_ab.py OUT_DIR ROOT [ROOT ...]
 
@@ -10,9 +10,13 @@ Each ROOT is a checkout holding chip_smoke.py and badger_amcl_tpu_torch/;
 each runs in a process of its own, in the order given (for two versions A
 and B: A B B A), building its kernels under its own tree. Per run:
 chip_smoke's timing rows (step_ms, likelihood_ms, device busy, idle share)
-of the spread, gompertz_spread, prob_spread, beam_steady, beam_tracking,
-steady_lf, prob_beamskip, fleet and the 3d_tracking and 3d_spread cells
-(both cloud models), and the wrapper and device ms of spread_term_sums
+of the steady, tracking, q_steady, q_tracking, gompertz_steady,
+prob_steady, spread, gompertz_spread, prob_spread, beam_steady,
+beam_tracking, steady_lf, prob_beamskip, fleet and the 3d_tracking and
+3d_spread cells (both cloud models); the wrapper ms, device ms and host us
+per call of corr_table and corr_table_q (`corr_tables`; where the ROOT's
+corr_kernel has a layout table, every layout's device ms); the wrapper and
+device ms of spread_term_sums
 (50,000 x 720, spread cloud, pz^3), beam_table (beam_steady's 24-row
 window), fleet_corr_table (256 robots x 10,000 x 180) and
 pc_spread_term_sums (the Gompertz term on the 50,000 spread and the
@@ -38,6 +42,67 @@ def device_ms(ops):
     profiler recorded no launch (kept here: an older ROOT's chip_smoke
     has no such helper)."""
     return sum(ops.values()) if ops else None
+
+
+def host_us(fn, calls=1000):
+    """Host microseconds per call of fn over `calls` calls with no
+    synchronisation between them, after a warm-up (kept here: an older
+    ROOT's chip_smoke has no such helper)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def corr_tables(cs, omap, scan, clouds):
+    """Wrapper ms, device ms and host us per call of corr_table (the steady
+    cloud's 24-row and the tracking cloud's 32-row window) and corr_table_q
+    (both clouds' 32-row windows), at 50,000 x 720; where the ROOT's
+    corr_kernel has a layout table, every layout's device ms (each checked
+    equal to the wrapper's table first)."""
+    import torch
+
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.sensors import planar
+
+    sp = planar.PlanarScanParams()
+    out = {}
+    for key, regime, rows, q in (("corr_table_steady24", "steady", 24, False),
+                                 ("corr_table_tracking32", "tracking", 32, False),
+                                 ("corr_table_q_steady32", "steady", 32, True),
+                                 ("corr_table_q_tracking32", "tracking", 32, True)):
+        spose = planar.coord_add(sp.scanner_pose, clouds[regime][1].poses)
+        pre = ck.corr_prepass(omap, spose, scan.ranges, scan.angles, scan.valid(), dedup=True)
+        j0 = pre["j0_tight"] if rows == 24 else pre["j0_narrow"]
+        tex = omap.corr_psi_pad_q if q else omap.corr_psi_pad
+        org = ck.table_origin(pre, j0, ck.PAD_RQ if q else ck.PAD_R)
+        args = (tex, pre["off"], pre["nu"], pre["t_n"], org, cs.N_BEAMS, rows)
+        fn = ck.corr_table_q if q else ck.corr_table
+
+        def run():
+            return fn(*args)
+
+        row = {"t_n": int(pre["t_n"]), "ms": cs.cuda_ms(run),
+               "device_ms": device_ms(cs.kernel_ms(run)), "host_us": host_us(run)}
+        if hasattr(ck, "_LAYOUT"):
+            name = "corr_table_q_launch" if q else "corr_table_launch"
+            want = run()
+            row["layouts"] = {}
+            for i in range(10):
+                def lay(i=i):
+                    return ck._single_table(name, *args, want.dtype, layout=i)
+
+                if not torch.equal(lay(), want):
+                    raise RuntimeError(f"{key}: layout {i} differs from the wrapper's table")
+                row["layouts"][i] = device_ms(cs.kernel_ms(lay))
+        out[key] = row
+    return out
 
 
 def one(root):
@@ -67,13 +132,16 @@ def one(root):
     scan = scenario.build_scan(cs.N_BEAMS, device=dev)
     maps = {"likelihood_field": omap, "beam": omap.with_range_image(cs.RANGE_IMAGE_BINS),
             **{m: planar.bake_corr_texture(omap, sp, 8.0, m) for m in cs.LF_MODELS}}
-    spread, steady, tracking = (
+    spread, steady, tracking, tracking50 = (
         scenario.build_filter(n, pose_cov=cs.REGIMES[r], min_particles=n, device=dev)
         for r, n in (("spread", cs.N_PARTICLES), ("steady", cs.N_PARTICLES),
-                     ("tracking", 5_000)))
+                     ("tracking", 5_000), ("tracking", cs.N_PARTICLES)))
     states = {"spread": spread, "gompertz_spread": spread, "prob_spread": spread,
               "beam_steady": steady, "beam_tracking": tracking, "steady_lf": steady,
-              "prob_beamskip": steady}
+              "prob_beamskip": steady, "steady": steady, "tracking": tracking50,
+              "q_steady": steady, "q_tracking": tracking50, "gompertz_steady": steady,
+              "prob_steady": steady}
+    out.update(corr_tables(cs, omap, scan, {"steady": steady, "tracking": tracking50}))
 
     spose = planar.coord_add(sp.scanner_pose, spread[1].poses)
     term = planar.model_term("likelihood_field", sp, scan.range_max)
@@ -132,7 +200,7 @@ def one(root):
             state, params.max_samples)
         out[key] = cs.timing_row(key, cs.likelihood_fn(c.model, maps[c.model], sp, scan, state,
                                                        c.backend, c.beamskip), step)
-    del states, spread, steady, tracking, maps, bmap, bargs
+    del states, spread, steady, tracking, tracking50, maps, bmap, bargs
     torch.cuda.empty_cache()
 
     fl = scenario.build_fleet(cs.FLEET_ROBOTS, cs.FLEET_PARTICLES, cs.FLEET_BEAMS, device=dev)

@@ -6,7 +6,9 @@ the port's three paths:
 
 - 2D likelihood field: holds the corr, spread and lf kernels against their
   plain PyTorch versions at the flagship shapes (50,000 particles x 720
-  beams on a 1024^2 map at 0.05 m): the lf kernels' (B, M) distances, their
+  beams on a 1024^2 map at 0.05 m): the corr table also bit-equal to the
+  tap-order sum at 24, 32 and 64 rows, at a window in the texture's corner
+  and with every yaw bin live; the lf kernels' (B, M) distances, their
   fused term sums in the three term forms (rel 1e-5) and their window
   prepass (fits and origins against window_origins' plain version) and
   beam skipping's per-beam agreement counts (equal on every beam without an
@@ -30,7 +32,8 @@ the port's three paths:
   model also in its exact raycast arm (timed on the card at that size
   only);
 - 2D int8 corr backend ("corr_q"): holds corr_table_q against its plain
-  version at 50,000 x 720 (int32, bit-equal), drives the likelihood-field
+  version at 50,000 x 720 (int32, bit-equal, also at the texture's corner
+  and with every yaw bin live), drives the likelihood-field
   step on "corr_q" in the steady and tracking regimes and compares the
   card with the CPU at 4096 x 360;
 - fleet: holds fleet_corr_table against its plain version on 16 robots
@@ -52,7 +55,9 @@ The launch counters are set to 0 just before each main-path run and read
 just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
 fleet, 3d) keeps
 its own count; every cell must go through its kernel and leave a sane
-filter state. Kernels, likelihoods and steps are timed with CUDA events.
+filter state. Kernels, likelihoods and steps are timed with CUDA events,
+kernels also by their profiled device time, the corr tables' wrappers
+also by their host time per call.
 
     python3 chip_smoke.py
 
@@ -132,6 +137,10 @@ FLEET_ROBOTS, FLEET_PARTICLES, FLEET_BEAMS = 256, 10_000, 180
 # over the memory rate and f32 operations over the non-tensor f32 rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the gather floors of the corr tables: L1 at ~30 TB/s over the 132 SMs,
+# and the SM boost clock
+L1_BYTES_PER_S = 30e12
+SM_CLOCK_HZ = 1.98e9
 # the one kernel held against its plain version that no main path
 # launches: the (B, M) distances, kept as the counterpart of the JAX
 # package's lf_distances_t (the kernels line carries the note)
@@ -237,6 +246,71 @@ def corr_conv2d(ck, tex_pad, off, nu, t_n, org, n_beams, rows):
     return (lambda: F.conv2d(inp, weight)), inp.numel() * 4, int(live.sum())
 
 
+def table_in_order(ck, tex, off, nu, t_n, org, n_beams, rows):
+    """_table_in_order for one robot's table arguments."""
+    return ck._table_in_order(tex, off[None], nu[None], t_n.reshape(1), org[None], n_beams,
+                              rows)[0]
+
+
+def all_bins_live(ck, tex, off, nu, t_n, org, n_beams, rows):
+    """The table arguments with every one of the T_MAX bins live: bin t
+    takes the taps and tap count of live bin t mod t_n."""
+    import torch
+
+    src = torch.arange(ck.T_MAX, device=off.device) % t_n
+    off_all = off.reshape(ck.T_MAX, n_beams)[src].reshape(-1)
+    return (tex, off_all, nu[src], torch.full_like(t_n, ck.T_MAX), org, n_beams, rows)
+
+
+def clamped_windows(ck, tex, off, nu, t_n, org, n_beams, rows):
+    """The table arguments with the window at the texture's two far corners,
+    (0, 0) and (hp - rows, wp - PWIN_C), over a random texture of the same
+    shape and type (the padded texture is constant there): the taps leave
+    the texture, so the kernel's clamped loop runs. [(label, args)]."""
+    import torch
+
+    g = torch.Generator(device=tex.device).manual_seed(5)
+    if tex.dtype == torch.int8:
+        rand = torch.randint(-127, 128, tex.shape, generator=g, device=tex.device,
+                             dtype=torch.int8)
+    else:
+        rand = torch.rand(tex.shape, generator=g, device=tex.device)
+    hp, wp = tex.shape
+    return [(f"window at the texture's corner {tuple(o)}",
+             (rand, off, nu, t_n, torch.tensor(o, dtype=torch.int32, device=org.device),
+              n_beams, rows))
+            for o in ((0, 0), (hp - rows, wp - ck.PWIN_C))]
+
+
+def gather_floor_ms(pairs, texel_bytes):
+    """The floor of a gather that reads one texel per (tap, cell) `pairs`
+    times from L1: 4-byte texels at ~30 TB/s over the card's SMs; 1-byte
+    texels by load instructions, one L1 wavefront per warp load (32
+    texels) on each SM at the 1.98 GHz boost clock."""
+    import torch
+
+    if texel_bytes == 4:
+        return pairs * 4.0 / L1_BYTES_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pairs / 32.0 / sms / SM_CLOCK_HZ * 1e3
+
+
+def host_us(fn, calls=1000):
+    """Host microseconds per call of fn: time.perf_counter over `calls`
+    calls with no synchronisation between them, after a warm-up (the
+    wrapper's dispatch; the card runs behind it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_kernels(dev, omap, scan, states):
     """Each 2D kernel against its plain version at the flagship shapes."""
     import torch
@@ -251,7 +325,8 @@ def phase_kernels(dev, omap, scan, states):
     results = {}
 
     # corr_table at the 24/32/64-row windows (steady -> tight, tracking ->
-    # narrow, tracking cloud in the standard window)
+    # narrow, tracking cloud in the standard window): within 1e-5 of the
+    # plain version and bit-equal to the tap-order sum
     corr = []
     for regime, rows in (("steady", 24), ("tracking", 32), ("tracking", 64)):
         spose = planar.coord_add(sp.scanner_pose, states[regime][1].poses)
@@ -262,11 +337,16 @@ def phase_kernels(dev, omap, scan, states):
         args = (omap.corr_psi_pad, pre["off"], pre["nu"], pre["t_n"], org, N_BEAMS, rows)
         got = ck.corr_table(*args)
         want = ck.corr_table_plain(*args)
+        in_order = table_in_order(ck, *args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         check(err <= 1e-5 * scale, f"corr_table[{rows}] err {err} > 1e-5 x {scale}")
+        check(torch.equal(got, in_order), f"corr_table[{rows}] differs from _table_in_order in "
+                                          f"{int((got != in_order).sum())} cells")
         ms = cuda_ms(lambda: ck.corr_table(*args))
+        ops = kernel_ms(lambda: ck.corr_table(*args))
+        us = host_us(lambda: ck.corr_table(*args))
         plain_ms = cuda_ms(lambda: ck.corr_table_plain(*args))
         conv, win_bytes, taps = corr_conv2d(ck, *args)
         t_n = int(pre["t_n"])
@@ -276,14 +356,32 @@ def phase_kernels(dev, omap, scan, states):
         # nothing), the taps and the window read once
         b = bound(t_n * rows * ck.PWIN_C * 4 + taps * 4 + win_bytes,
                   2.0 * taps * rows * ck.PWIN_C)
+        floor = gather_floor_ms(taps * rows * ck.PWIN_C, 4)
         log(f"corr_table rows={rows} ({regime}): t_n={t_n} taps={taps} "
-            f"max_abs_err={err:.3e} (table max {scale:.4g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']}) conv2d_ms={lib_ms:.4f} "
+            f"max_abs_err={err:.3e} (table max {scale:.4g}), bit-equal to _table_in_order, "
+            f"ms={ms:.4f} (wrapper) device_ms={device_text(ops)} host_us={us:.2f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}) "
+            f"gather_floor_ms={floor:.5f} conv2d_ms={lib_ms:.4f} "
             f"(conv2d max_abs_err {lib_err:.3e})")
-        corr.append((rows, err, ms, plain_ms, lib_ms, b))
+        corr.append((rows, err, ms, plain_ms, lib_ms, b, device_ms(ops), us, floor))
+    # the kernel's clamped arm (the tracking window at the texture's
+    # corners, its taps leaving the texture) and every bin live
+    for label, cargs in (*clamped_windows(ck, *args),
+                         (f"all {ck.T_MAX} bins live", all_bins_live(ck, *args))):
+        got = ck.corr_table(*cargs)
+        want = ck.corr_table_plain(*cargs)
+        in_order = table_in_order(ck, *cargs)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= 1e-5 * scale, f"corr_table ({label}) err {err} > 1e-5 x {scale}")
+        check(torch.equal(got, in_order), f"corr_table ({label}) differs from _table_in_order")
+        log(f"corr_table rows={args[-1]} (tracking, {label}): max_abs_err={err:.3e}, "
+            f"bit-equal to _table_in_order")
     rows32 = [c for c in corr if c[0] == 32][0]
     results["corr_table"] = dict(max_abs_err=max(c[1] for c in corr), ms=rows32[2],
-                                 plain_ms=rows32[3], **rows32[5], library_ms=rows32[4])
+                                 device_ms=rows32[6], host_us=rows32[7], plain_ms=rows32[3],
+                                 **rows32[5], gather_floor_ms=rows32[8], library_ms=rows32[4])
 
     # spread_term_sums in the spread regime, in its three term forms (the
     # row reports the likelihood-field form); the CUDA prepass against the
@@ -988,6 +1086,7 @@ def phase_kernels_beam(dev, bmap, scan, states):
     rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
     check(rel <= 1e-5, f"beam_spread_sums rel err {rel} > 1e-5")
     ms = cuda_ms(lambda: bsk.beam_spread_sums(*args))
+    ops = kernel_ms(lambda: bsk.beam_spread_sums(*args))
     plain_ms = cuda_ms(lambda: bsk.beam_spread_sums_plain(*args), iters=5, warmup=1)
     m, n_g = spose.shape[0], int(pre["n_g"])
     cells = int(pre["flat"].unique().numel())
@@ -996,10 +1095,11 @@ def phase_kernels_beam(dev, bmap, scan, states):
     b = bound(cells * k_angles * 2 + m * 16 + phi.numel() * 4, 3.0 * m * n_g)
     log(f"beam_spread_sums (beam_spread, {m} particles): n_g={n_g} cells={cells} "
         f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
-        f"bit_equal={float((got == want).float().mean()):.6f} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
-    results["beam_spread_sums"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
-                                       library_ms=None)
+        f"bit_equal={float((got == want).float().mean()):.6f} ms={ms:.4f} (wrapper) "
+        f"device_ms={device_text(ops)} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
+    results["beam_spread_sums"] = dict(max_abs_err=err, ms=ms, device_ms=device_ms(ops),
+                                       plain_ms=plain_ms, **b, library_ms=None)
     return results
 
 
@@ -1009,7 +1109,8 @@ def phase_kernels_beam(dev, bmap, scan, states):
 def phase_kernels_q(omap, scan, states):
     """corr_table_q on the tracking cloud in its narrow 32-row window (the
     window "corr_q" takes) and the standard 64-row one, against its plain
-    version: int32, bit-equal."""
+    version: int32, bit-equal; also with the window at the texture's corner
+    (the kernel's clamped loop) and with every bin live."""
     import torch
 
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
@@ -1034,6 +1135,8 @@ def phase_kernels_q(omap, scan, states):
               f"corr_table_q[{rows}] differs from plain in "
               f"{int((got != want).sum())} cells")
         ms = cuda_ms(lambda: ck.corr_table_q(*args))
+        ops = kernel_ms(lambda: ck.corr_table_q(*args))
+        us = host_us(lambda: ck.corr_table_q(*args))
         plain_ms = cuda_ms(lambda: ck.corr_table_q_plain(*args))
         conv, win_bytes, taps = corr_conv2d(ck, deq, *args[1:])
         t_n = int(pre["t_n"])
@@ -1044,11 +1147,23 @@ def phase_kernels_q(omap, scan, states):
         # integer ops per (tap, cell): multiply by the tap's weight, add
         b = bound(t_n * rows * ck.PWIN_C * 4 + taps * 4 + win_bytes // 4,
                   2.0 * taps * rows * ck.PWIN_C)
+        floor = gather_floor_ms(taps * rows * ck.PWIN_C, 1)
         log(f"corr_table_q rows={rows} (tracking): t_n={t_n} taps={taps} bit_equal=True "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} "
-            f"({b['bound_by']}) conv2d_ms={lib_ms:.4f} (conv2d over the dequantized "
-            f"texture, max rel err {lib_err:.3e})")
-        out.append(dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b, library_ms=lib_ms))
+            f"ms={ms:.4f} (wrapper) device_ms={device_text(ops)} host_us={us:.2f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}) "
+            f"gather_floor_ms={floor:.5f} (load instructions) conv2d_ms={lib_ms:.4f} "
+            f"(conv2d over the dequantized texture, max rel err {lib_err:.3e})")
+        out.append(dict(max_abs_err=0.0, ms=ms, device_ms=device_ms(ops), host_us=us,
+                        plain_ms=plain_ms, **b, gather_floor_ms=floor, library_ms=lib_ms))
+    # the clamped arm (the window at the texture's corners) and every bin live
+    for label, cargs in (*clamped_windows(ck, *args),
+                         (f"all {ck.T_MAX} bins live", all_bins_live(ck, *args))):
+        got = ck.corr_table_q(*cargs)
+        want = ck.corr_table_q_plain(*cargs)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"corr_table_q ({label}) differs from plain in "
+                                      f"{int((got != want).sum())} cells")
+        log(f"corr_table_q rows={args[-1]} (tracking, {label}): bit_equal=True")
     return {"corr_table_q": out[0]}
 
 
@@ -1177,15 +1292,15 @@ def phase_kernels_fleet(dev, omap, fl):
     b = bound(live_bytes + taps * 4 + min(win_bytes, tex_bytes),
               1.0 * taps * rows * ck.PWIN_C)
     t_n = pre["t_n"].to(torch.float32)
-    # the floor of any gather: one 4-byte texel per (tap, cell) from shared
-    # memory or L1 (~30 TB/s over 132 SMs)
+    # the floor of any gather: one 4-byte texel per (tap, cell) from L1
     gather_bytes = 4.0 * taps * rows * ck.PWIN_C
     log(f"fleet_corr_table ({got.shape[0]} robots x {params.max_samples} x {FLEET_BEAMS}, "
         f"rows={rows}): t_n mean {float(t_n.mean()):.2f} max {int(t_n.max())}, taps={taps} "
         f"max_abs_err={err:.3e} (table max {scale:.4g}) ms={ms:.4f} device_ms={device_ms} "
         f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}) gather bytes "
         f"{gather_bytes:.4g} "
-        f"({gather_bytes / 30e12 * 1e3:.4f} ms at 30 TB/s) grouped_conv2d_ms={lib_ms:.4f} "
+        f"({gather_floor_ms(taps * rows * ck.PWIN_C, 4):.4f} ms at 30 TB/s) "
+        f"grouped_conv2d_ms={lib_ms:.4f} "
         f"(conv2d max_abs_err {lib_err:.3e})")
     return {"fleet_corr_table": dict(
         max_abs_err=max(err, err16), ms=ms, plain_ms=plain_ms, **b, library_ms=lib_ms)}
@@ -1379,17 +1494,19 @@ def phase_kernels_3d(omap, cloud, states):
         check(eq >= 0.9999 and err <= tol,
               f"pc_distances ({regime}): {eq:.6f} bit-equal, max err {err} (tol {tol})")
         ms = cuda_ms(lambda: pk.pc_distances(omap, cloud, poses))
+        ops = kernel_ms(lambda: pk.pc_distances(omap, cloud, poses))
         plain_ms = cuda_ms(lambda: pk.pc_distances_plain(omap, cloud, poses))
         m = poses.shape[0]
         # 13 f32 operations per (point, particle), cos and sin per particle
         b = bound(got.numel() * 4 + tex_bytes + m * 12 + n_pts * 12,
                   13.0 * got.numel() + 2.0 * m)
         log(f"pc_distances ({regime}, {n_pts} x {m}): bit_equal={eq:.6f} "
-            f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
-        rows.append((err, ms, plain_ms, b))
+            f"max_abs_err={err:.3e} ms={ms:.4f} (wrapper) device_ms={device_text(ops)} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
+        rows.append((err, ms, plain_ms, b, device_ms(ops)))
     results["pc_distances"] = dict(max_abs_err=max(r[0] for r in rows), ms=rows[0][1],
-                                   plain_ms=rows[0][2], **rows[0][3], library_ms=None)
+                                   device_ms=rows[0][4], plain_ms=rows[0][2], **rows[0][3],
+                                   library_ms=None)
 
     rows = []
     for regime in ("spread", "tracking"):

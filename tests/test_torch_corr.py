@@ -166,6 +166,82 @@ def test_table_in_order_vs_pallas_interpret(pallas_tables):
             assert (got == want[:n]).mean() >= 0.98
 
 
+def _edge_case(maps, pallas_tables, case):
+    """JAX's 400-beam dedup prepass for one edge case of the table kernels:
+    "corner", a cloud at the map's (0, 0) corner (window origin j0 = i0 = 0,
+    the taps reaching into the padding); "t_n_1", one live bin; "nu_zero",
+    a live bin without taps. Returns (jpre, the port's table inputs)."""
+    jmap, _, tmap, _, _ = maps
+    b, _, (tex_pad, off, nu, t_n) = pallas_tables
+    if case == "corner":
+        half = 448 * 0.05 / 2.0
+        jpre, _ = _prepasses(jmap, tmap, _poses(300, 6, 0.1, 0.02, (-half + 0.2, -half + 0.2)),
+                             b, True)
+        assert int(jpre["i0"]) == 0 and int(jpre["j0_tight"]) == 0
+        off = torch.from_numpy(np.array(jpre["off"]))
+    else:
+        jpre, _ = _prepasses(jmap, tmap, _poses(300, 2, 0.1, 0.02), b, True)
+        jpre = dict(jpre)
+        assert int(jpre["t_n"]) > 2
+        if case == "t_n_1":
+            jpre["t_n"] = jnp.int32(1)
+        else:
+            jpre["nu"] = jpre["nu"].at[1].set(0)
+    return jpre, (tex_pad, off, torch.from_numpy(np.array(jpre["nu"])),
+                  torch.tensor(int(jpre["t_n"]), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("case", ["corner", "t_n_1", "nu_zero"])
+def test_table_edge_cases_vs_pallas_interpret(maps, pallas_tables, case):
+    """The edge cases the CUDA table kernel must get right, held on the CPU
+    between the port's table (its plain version and the tap-order sum) and
+    the TPU kernel in interpret mode at the 24-row window: bins past t_n
+    and a bin without taps are exactly zero; live cells within the file's
+    tolerances, the fused tap-order emulation bit for bit."""
+    jmap = maps[0]
+    b = pallas_tables[0]
+    jpre, (tex_pad, off, nu, t_n) = _edge_case(maps, pallas_tables, case)
+    rows, j0 = 24, jpre["j0_tight"]
+    org = torch.tensor([int(j0) + tck.PAD_R, int(jpre["i0"]) + tck.PAD_C], dtype=torch.int32)
+    want = np.asarray(jck._corr_table(jmap.corr_psi_pad, jpre, b, rows, j0, True,
+                                      jmap.corr_psi_pre))
+    got = tck.corr_table(tex_pad, off, nu, t_n, org, b, rows).numpy()
+    in_order = tck._table_in_order(tex_pad, off[None], nu[None], t_n.reshape(1), org[None], b,
+                                   rows)[0].numpy()
+    n = int(t_n)
+    assert not got[n:].any() and not want[n:].any() and not in_order[n:].any()
+    if case == "nu_zero":
+        assert not got[1].any() and not want[1].any() and not in_order[1].any()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    np.testing.assert_array_equal(_fused_in_order(tex_pad, off, nu, t_n, org, b, rows),
+                                  want[:n])
+    np.testing.assert_allclose(in_order, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("q", [False, True])
+def test_single_table_input_checks(q):
+    """corr_table / corr_table_q take a 0-dim t_n of any integer type and
+    raise on a texture, tap, tap-count or origin of the wrong type or
+    shape, on more than one t_n and on a window height they lack."""
+    fn = tck.corr_table_q if q else tck.corr_table
+    tex = torch.zeros((600, 800), dtype=torch.int8 if q else torch.float32)
+    off = torch.zeros(tck.T_MAX * 8, dtype=torch.int32)
+    nu = torch.ones(tck.T_MAX, dtype=torch.int32)
+    org = torch.tensor([200, 300], dtype=torch.int32)
+    good = (tex, off, nu, torch.tensor(2, dtype=torch.int32), org, 8, 32)
+    assert fn(*good).shape == (tck.T_MAX, 32, tck.PWIN_C)
+    assert fn(*good[:3], torch.tensor(2), *good[4:]).shape == (tck.T_MAX, 32, tck.PWIN_C)
+    bad = [(tex.double(), *good[1:]), (tex[None], *good[1:]),
+           (tex, off[:-1], *good[2:]), (tex, off.long(), *good[2:]),
+           (*good[:2], nu[:-1], *good[3:]), (*good[:2], nu.long(), *good[3:]),
+           (*good[:3], torch.tensor([2, 2], dtype=torch.int32), *good[4:]),
+           (*good[:4], org[:1], *good[5:]), (*good[:4], org.long(), *good[5:]),
+           (*good[:6], 48), (*good[:6], 24 if q else 16)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            fn(*args)
+
+
 @pytest.mark.parametrize("case", ["on_map", "edge"])
 def test_folded_likelihood_matches(maps, case):
     """planar_likelihood on the corr backend with folded factors: the fused

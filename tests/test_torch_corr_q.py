@@ -130,6 +130,48 @@ def test_q_table_plain_matches_pallas_interpret(xy_sig, narrow):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("case", ["corner", "t_n_1", "nu_zero"])
+def test_q_table_edge_cases_vs_pallas_interpret(case):
+    """The edge cases the int8 table kernel must get right, held on the CPU
+    between corr_table_q's plain version and _corr_call_q in interpret mode
+    at the narrow 32-row window: a cloud at the map's (0, 0) corner (window
+    origin j0 = i0 = 0), one live bin, a live bin without taps. int32,
+    exact; bins past t_n and the bin without taps are zero."""
+    jmap, _, _, _ = _maps("likelihood_field")
+    jscan, _ = _scan()
+    half = 448 * 0.05 / 2.0
+    poses = _poses(300, 5, 0.15)
+    if case == "corner":
+        poses[:, :2] += np.float32(-half + 0.2)
+    valid = (jscan.ranges < jscan.range_max) & ~jnp.isnan(jscan.ranges)
+    pre = dict(jck.corr_prepass(jmap, jnp.asarray(poses), jscan.ranges, jscan.angles, valid))
+    assert bool(pre["narrow"]) and int(pre["t_n"]) > 2
+    if case == "corner":
+        assert int(pre["i0"]) == 0 and int(pre["j0_narrow"]) == 0
+    elif case == "t_n_1":
+        pre["t_n"] = jnp.int32(1)
+    else:
+        pre["nu"] = pre["nu"].at[1].set(0)
+    rows, j0 = 32, pre["j0_narrow"]
+    tex_q = jmap.corr_psi_pad_q
+    sj, si = jck.slice_origin_q(tex_q, j0, pre["i0"])
+    meta = jnp.concatenate([jnp.stack([pre["t_n"], j0 + jck.PAD_RQ - sj,
+                                       pre["i0"] + jck.PAD_C - si, pre["nv"]]).astype(jnp.int32),
+                            pre["nu"]])
+    want = np.asarray(jck._corr_call_q(jck.quad_slices(tex_q, sj, si), meta, pre["off"],
+                                       n_beams=64, rows=rows, interpret=True))
+    org = torch.tensor([int(j0) + tck.PAD_RQ, int(pre["i0"]) + tck.PAD_C], dtype=torch.int32)
+    got = tck.corr_table_q(torch.from_numpy(np.array(tex_q)),
+                           torch.from_numpy(np.array(pre["off"])),
+                           torch.from_numpy(np.array(pre["nu"])),
+                           torch.tensor(int(pre["t_n"]), dtype=torch.int32), org, 64, rows)
+    np.testing.assert_array_equal(got.numpy(), want)
+    n = int(pre["t_n"])
+    assert not want[n:].any() and want[:n].any()
+    if case == "nu_zero":
+        assert not want[1].any() and want[0].any()
+
+
 @pytest.mark.parametrize("model,fold", [("likelihood_field", True),
                                         ("likelihood_field_gompertz", False)])
 def test_q_likelihood_matches(monkeypatch, model, fold):
