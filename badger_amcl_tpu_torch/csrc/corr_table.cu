@@ -30,10 +30,30 @@
 // t_n, the tap counts and the origins are read on the device, so launching
 // needs no host sync.
 //
-// Single-robot tables (#1, #6): one block per (t, dj), one thread per di
-// (128 = PWIN_C); the block stages its bin's taps in shared memory and each
-// thread walks them. Bound on the H100: texture reads, taps x rows x 512 B
-// of L2 traffic per table (~75 MB at 50k x 720, tracking).
+// Single-robot tables (#1, #6): at 50k x 720 a table has 10-21 live bins
+// of ~250 deduplicated taps over 24-32 rows, 7.7M-20.7M (tap, cell) pairs
+// in only 31k-86k live cells, so few warps per SM. Their floor is one
+// texel per (tap, cell) from L1 (~0.003 ms); what holds them back on an
+// H100 looks like latency: a cell's taps walk the scan's ring stencil, each
+// new texture row is a trip to L2, and the few warps cannot hide it. The
+// design:
+// - one block per (bin, R rows x C columns); the block stages the bin's
+//   taps in shared memory once, as (byte offset of the texel from a cell's
+//   own, weight) pairs, and reduces their extent: inside the prepass's
+//   envelope no read is clamped and each tap costs a thread one broadcast
+//   shared load, one 64-bit add, the load and its multiply-add; a clamped
+//   loop keeps any other input memory-safe with the plain version's values;
+// - U taps' loads are issued before their adds, which stay in tap order;
+// - #1 (f32) takes 2 x 32 cells per block, one per thread (many small
+//   blocks over the 132 SMs, each block's rows sharing texture lines in
+//   L1); #6 (int8, exact int32 sums) one row of 128 cells, four per thread,
+//   its taps split over 8 warps whose partial sums meet in shared memory;
+// - dead bins (t >= t_n) are zeroed with 16-byte stores by one block each.
+// Timed in turns on an H100 80GB HBM3 (700 W) against nine other layouts
+// (R = 1-8 rows, 32-128 columns, 1 or 4 columns per thread, 8-32 taps
+// ahead, 1-8 tap splits; chip_ab.py), these won at the steady 24-row and
+// tracking 32-row shapes. Neither an L1 prefetch of the block's lines, a
+// larger L1 share nor smaller tap chunks measured faster.
 //
 // Fleet tables (#5): 256 robots x ~18 live bins x 180 taps x 32 x 128 cells
 // = 3.4e9 adds. Its bound by operations (0.05 ms at 67 TFLOP/s) is out of
@@ -78,25 +98,23 @@ __device__ __forceinline__ void decode(int32_t packed, uint32_t& w, int& oj, int
 
 // --- single-robot tables (#1, #6) -------------------------------------------
 
-// Block (x, t): bin t, window rows [g R, g R + R) and columns
-// [h C, h C + C) for x = g (PWIN_C / C) + h. Its threads: 32 lanes x
-// C / (32 CB) column warps x (R / RB) row threads x S tap splits; a thread
-// owns RB rows and the CB columns lane + 32 (cw + c C / (32 CB)) of the
-// block's strip, so a warp reads 32 neighbouring texels per load. S > 1
-// splits the bin's taps into S contiguous ranges whose int32 partial sums
-// meet in shared memory (exact in any order); the f32 table keeps S = 1,
-// every cell adding its taps in tap order.
-template <int R, int RB, int C, int CB, int S>
+// Block (x, t): bin t, window rows [g R, g R + R) and columns [h C, h C + C)
+// for x = g (PWIN_C / C) + h. Its threads: 32 lanes x C / (32 CB) column
+// warps x R row warps x S tap splits; a thread owns one row and the CB
+// columns lane + 32 (cw + c C / (32 CB)) of the block's strip, so a warp
+// reads 32 neighbouring texels per load. S > 1 splits the bin's taps into S
+// contiguous ranges whose int32 partial sums meet in shared memory (exact
+// in any order); the f32 table keeps S = 1, every cell adding its taps in
+// tap order.
+template <int R, int C, int CB, int S>
 struct Layout {
   static constexpr int kColWarps = C / (32 * CB);
-  static constexpr int kRowThreads = R / RB;
-  static constexpr int kThreads = 32 * kColWarps * kRowThreads * S;
+  static constexpr int kThreads = 32 * kColWarps * R * S;
   static_assert(kCols % C == 0 && C % (32 * CB) == 0, "C divides PWIN_C, 32 CB divides C");
-  static_assert(R % RB == 0 && kThreads <= 1024, "R / RB row threads, <= 1024 threads");
+  static_assert(kThreads <= 1024, "at most 1024 threads");
 };
 
-// a staged tap: its texel offset oj * wp + oi from the thread's base, and
-// its weight (f32 bits for the f32 table, int32 for the int8 one)
+// a staged tap's weight: f32 bits for the f32 table, int32 for the int8 one
 __device__ __forceinline__ int32_t weight_bits(float, uint32_t w) {
   return __float_as_int((float)w);
 }
@@ -109,12 +127,20 @@ __device__ __forceinline__ int32_t tap_add(int32_t acc, int32_t w, int8_t v) {
   return acc + w * (int32_t)v;
 }
 
-// Stage taps [0, n) of the chunk: s_tap[k] = (texel offset, weight), s_pk[k]
-// the packed tap. Returns whether some read of the block's R x C cells at
-// (row0, col0) leaves the texture (then the clamped loop runs).
-template <typename Acc, int R, int C>
-__device__ bool stage_taps(const int32_t* __restrict__ taps, int n, int hp, int wp, int scale,
-                           int row0, int col0, int tid, int nthreads, int2* s_tap, int32_t* s_pk,
+// the texel `off` bytes past p
+template <typename Tex>
+__device__ __forceinline__ Tex texel(const Tex* p, int off) {
+  return __ldg(reinterpret_cast<const Tex*>(reinterpret_cast<const char*>(p) + off));
+}
+
+// Stage taps [0, n) of the chunk: s_tap[k] = (byte offset (oj wp + oi) x
+// sizeof(Tex) of its texel from a cell's own, weight), s_pk[k] the packed
+// tap. Returns whether some read of the block's R x C cells at (row0, col0)
+// leaves the texture, or a staged offset would not fit in 32 bits: then the
+// clamped loop runs.
+template <typename Tex, typename Acc, int R, int C>
+__device__ bool stage_taps(const int32_t* __restrict__ taps, int n, int hp, int wp, int row0,
+                           int col0, int tid, int nthreads, int2* s_tap, int32_t* s_pk,
                            int* s_ext) {
   __syncthreads();  // the previous chunk and its extent are consumed
   if (tid < 4) s_ext[tid] = (tid % 2 == 0) ? INT_MAX : INT_MIN;
@@ -129,7 +155,8 @@ __device__ bool stage_taps(const int32_t* __restrict__ taps, int n, int hp, int 
     ext[1] = max(ext[1], oj);
     ext[2] = min(ext[2], oi);
     ext[3] = max(ext[3], oi);
-    s_tap[k] = make_int2((oj * wp + oi) * scale, weight_bits(Acc(), w));
+    s_tap[k] = make_int2((int32_t)(((int64_t)oj * wp + oi) * (int64_t)sizeof(Tex)),
+                         weight_bits(Acc(), w));
     s_pk[k] = packed;
   }
   ext[0] = __reduce_min_sync(0xffffffffu, ext[0]);
@@ -143,85 +170,70 @@ __device__ bool stage_taps(const int32_t* __restrict__ taps, int n, int hp, int 
     atomicMax(&s_ext[3], ext[3]);
   }
   __syncthreads();
-  // the staged offsets fit in 32 bits (|oj| <= 512) only below this width:
-  // a wider texture takes the clamped loop, whose indices are 64-bit
-  return !(row0 + s_ext[0] >= 0 && row0 + R - 1 + s_ext[1] <= hp - 1 && col0 + s_ext[2] >= 0 &&
-           col0 + C - 1 + s_ext[3] <= wp - 1 && wp <= INT_MAX / (1024 * scale));
+  // |oj| <= 512: the offsets fit in 32 bits up to this texture width; a
+  // wider texture takes the clamped loop, whose indices are 64-bit
+  const bool narrow = wp <= INT_MAX / (1024 * (int)sizeof(Tex));
+  return !(narrow && row0 + s_ext[0] >= 0 && row0 + R - 1 + s_ext[1] <= hp - 1 &&
+           col0 + s_ext[2] >= 0 && col0 + C - 1 + s_ext[3] <= wp - 1);
 }
 
-// texel at a staged offset from a row pointer: with BY the offset is in
-// bytes (one 64-bit add), else in texels
-template <bool BY, typename Tex>
-__device__ __forceinline__ Tex texel(const Tex* p, int off) {
-  if constexpr (BY) return __ldg(reinterpret_cast<const Tex*>(reinterpret_cast<const char*>(p) + off));
-  else return __ldg(p + off);
-}
-
-template <int RB, int CB, int CS, int U, bool BY, typename Tex, typename Acc>
-__device__ __forceinline__ void taps_fast(const Tex* const (&rowp)[RB], const int2* s_tap,
-                                          int k, int k1, Acc (&acc)[RB][CB]) {
+// inside the envelope: U taps' texels are loaded before their adds, which
+// run in tap order; every read is a fixed offset from the thread's cells
+template <int CB, int CS, int U, typename Tex, typename Acc>
+__device__ __forceinline__ void taps_fast(const Tex* p, const int2* s_tap, int k, int k1,
+                                          Acc (&acc)[CB]) {
   for (; k + U <= k1; k += U) {
     int2 tp[U];
-    Tex v[U][RB][CB];
+    Tex v[U][CB];
 #pragma unroll
     for (int u = 0; u < U; ++u) tp[u] = s_tap[k + u];
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int c = 0; c < CB; ++c) v[u][r][c] = texel<BY>(rowp[r] + CS * c, tp[u].x);
+      for (int c = 0; c < CB; ++c) v[u][c] = texel(p + CS * c, tp[u].x);
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int c = 0; c < CB; ++c) acc[r][c] = tap_add(acc[r][c], tp[u].y, v[u][r][c]);
+      for (int c = 0; c < CB; ++c) acc[c] = tap_add(acc[c], tp[u].y, v[u][c]);
   }
   for (; k < k1; ++k) {
     const int2 tp = s_tap[k];
 #pragma unroll
-    for (int r = 0; r < RB; ++r)
-#pragma unroll
-      for (int c = 0; c < CB; ++c)
-        acc[r][c] = tap_add(acc[r][c], tp.y, texel<BY>(rowp[r] + CS * c, tp.x));
+    for (int c = 0; c < CB; ++c) acc[c] = tap_add(acc[c], tp.y, texel(p + CS * c, tp.x));
   }
 }
 
 // outside the envelope: every texel clamped into the texture, as the plain
 // version clamps it
-template <int RB, int CB, int CS, typename Tex, typename Acc>
+template <int CB, int CS, typename Tex, typename Acc>
 __device__ __forceinline__ void taps_clamped(const Tex* __restrict__ tex, int hp, int wp,
                                              int row, int col, const int2* s_tap,
                                              const int32_t* s_pk, int k, int k1,
-                                             Acc (&acc)[RB][CB]) {
+                                             Acc (&acc)[CB]) {
   for (; k < k1; ++k) {
     uint32_t w;
     int oj, oi;
     decode(s_pk[k], w, oj, oi);
     const int32_t wb = s_tap[k].y;
+    const int rr = min(max(row + oj, 0), hp - 1);
 #pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int rr = min(max(row + r + oj, 0), hp - 1);
-#pragma unroll
-      for (int c = 0; c < CB; ++c) {
-        const int cc = min(max(col + CS * c + oi, 0), wp - 1);
-        acc[r][c] = tap_add(acc[r][c], wb, __ldg(tex + (int64_t)rr * wp + cc));
-      }
+    for (int c = 0; c < CB; ++c) {
+      const int cc = min(max(col + CS * c + oi, 0), wp - 1);
+      acc[c] = tap_add(acc[c], wb, __ldg(tex + (int64_t)rr * wp + cc));
     }
   }
 }
 
-template <typename Tex, typename Acc, int R, int RB, int C, int CB, int S, int U, int TC, bool BY>
-__global__ void __launch_bounds__(Layout<R, RB, C, CB, S>::kThreads) corr_table_kernel(
+template <typename Tex, typename Acc, int R, int C, int CB, int S, int U>
+__global__ void __launch_bounds__(Layout<R, C, CB, S>::kThreads) corr_table_kernel(
     const Tex* __restrict__ tex, int hp, int wp, const int32_t* __restrict__ off,
     const int32_t* __restrict__ nu, const int32_t* __restrict__ t_n,
     const int32_t* __restrict__ org, Acc* __restrict__ out, int n_beams, int rows) {
-  using L = Layout<R, RB, C, CB, S>;
+  using L = Layout<R, C, CB, S>;
   constexpr int CW = L::kColWarps;
   constexpr int CS = 32 * CW;  // column stride of a thread's CB columns
-  __shared__ int2 s_tap[TC];
-  __shared__ int32_t s_pk[TC];
+  __shared__ int2 s_tap[kTapChunk];
+  __shared__ int32_t s_pk[kTapChunk];
   __shared__ int s_ext[4];
   __shared__ Acc s_part[S > 1 ? (S - 1) * R * C : 1];
   const int t = blockIdx.y;
@@ -238,32 +250,27 @@ __global__ void __launch_bounds__(Layout<R, RB, C, CB, S>::kThreads) corr_table_
   const int g = blockIdx.x / (kCols / C);
   const int h = blockIdx.x % (kCols / C);
   const int cw = threadIdx.y % CW;
-  const int ry = (threadIdx.y / CW) % L::kRowThreads;
-  const int s = threadIdx.y / (CW * L::kRowThreads);
+  const int dj = (threadIdx.y / CW) % R;  // the thread's row in the block
+  const int s = threadIdx.y / (CW * R);
   const int n_taps = min(__ldg(nu + t), n_beams);
   const int row0 = __ldg(org) + g * R;      // the block's first texture row
   const int col0 = __ldg(org + 1) + h * C;  // and column
-  const int dj = ry * RB;                   // the thread's first row in the block
-  const int dc = threadIdx.x + 32 * cw;     // and its first column
+  const int dc = threadIdx.x + 32 * cw;     // the thread's first column in the block
   const int32_t* taps = off + (int64_t)t * n_beams;
-  const Tex* rowp[RB];
+  const Tex* p = tex + (int64_t)(row0 + dj) * wp + col0 + dc;
+  Acc acc[CB];
 #pragma unroll
-  for (int r = 0; r < RB; ++r) rowp[r] = tex + (int64_t)(row0 + dj + r) * wp + col0 + dc;
-  Acc acc[RB][CB];
-#pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int c = 0; c < CB; ++c) acc[r][c] = 0;
-  for (int base = 0; base < n_taps; base += TC) {
-    const int n = min(TC, n_taps - base);
-    const bool clamped = stage_taps<Acc, R, C>(taps + base, n, hp, wp, BY ? (int)sizeof(Tex) : 1,
-                                               row0, col0, tid, L::kThreads, s_tap, s_pk, s_ext);
+  for (int c = 0; c < CB; ++c) acc[c] = 0;
+  for (int base = 0; base < n_taps; base += kTapChunk) {
+    const int n = min(kTapChunk, n_taps - base);
+    const bool clamped = stage_taps<Tex, Acc, R, C>(taps + base, n, hp, wp, row0, col0, tid,
+                                                    L::kThreads, s_tap, s_pk, s_ext);
     const int k0 = s * n / S;
     const int k1 = (s + 1) * n / S;
     if (clamped) {
-      taps_clamped<RB, CB, CS>(tex, hp, wp, row0 + dj, col0 + dc, s_tap, s_pk, k0, k1, acc);
+      taps_clamped<CB, CS>(tex, hp, wp, row0 + dj, col0 + dc, s_tap, s_pk, k0, k1, acc);
     } else {
-      taps_fast<RB, CB, CS, U, BY>(rowp, s_tap, k0, k1, acc);
+      taps_fast<CB, CS, U>(p, s_tap, k0, k1, acc);
     }
   }
   if constexpr (S > 1) {
@@ -271,38 +278,31 @@ __global__ void __launch_bounds__(Layout<R, RB, C, CB, S>::kThreads) corr_table_
     // split order
     if (s > 0) {
 #pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int c = 0; c < CB; ++c)
-          s_part[((s - 1) * R + dj + r) * C + dc + CS * c] = acc[r][c];
+      for (int c = 0; c < CB; ++c) s_part[((s - 1) * R + dj) * C + dc + CS * c] = acc[c];
     }
     __syncthreads();
     if (s > 0) return;
 #pragma unroll
     for (int q = 0; q < S - 1; ++q)
 #pragma unroll
-      for (int r = 0; r < RB; ++r)
-#pragma unroll
-        for (int c = 0; c < CB; ++c) acc[r][c] += s_part[(q * R + dj + r) * C + dc + CS * c];
+      for (int c = 0; c < CB; ++c) acc[c] += s_part[(q * R + dj) * C + dc + CS * c];
   }
   Acc* o = out_t + (int64_t)(g * R + dj) * kCols + h * C + dc;
 #pragma unroll
-  for (int r = 0; r < RB; ++r)
-#pragma unroll
-    for (int c = 0; c < CB; ++c) o[r * kCols + CS * c] = acc[r][c];
+  for (int c = 0; c < CB; ++c) o[CS * c] = acc[c];
 }
 
 // grid (rows / R x PWIN_C / C, t_max): a bin's blocks are adjacent and the
 // live bins (t < t_n) come first in launch order
-template <typename Tex, typename Acc, int R, int RB, int C, int CB, int S, int U, int TC, bool BY>
+template <typename Tex, typename Acc, int R, int C, int CB, int S, int U>
 int launch_table(const Tex* tex, int hp, int wp, const int32_t* off, const int32_t* nu,
                  const int32_t* t_n, const int32_t* org, Acc* out, int t_max, int n_beams,
-                 int rows, cudaStream_t stream) {
-  using L = Layout<R, RB, C, CB, S>;
+                 int rows, void* stream) {
+  using L = Layout<R, C, CB, S>;
   if (rows % R != 0) return (int)cudaErrorInvalidValue;
   dim3 grid(rows / R * (kCols / C), t_max, 1);
   dim3 block(32, L::kThreads / 32, 1);
-  corr_table_kernel<Tex, Acc, R, RB, C, CB, S, U, TC, BY><<<grid, block, 0, stream>>>(
+  corr_table_kernel<Tex, Acc, R, C, CB, S, U><<<grid, block, 0, (cudaStream_t)stream>>>(
       tex, hp, wp, off, nu, t_n, org, out, n_beams, rows);
   return (int)cudaGetLastError();
 }
@@ -444,27 +444,14 @@ __global__ void __launch_bounds__(kMaxFleetThreads) fleet_corr_table_kernel(
 
 }  // namespace
 
-// layouts timed in turns: (R, RB, C, CB, S, U, tap chunk, byte offsets)
+// #1: 2 rows x 32 columns per block (64 threads), one cell per thread, 16
+// taps' loads ahead of their adds
 extern "C" int corr_table_launch(const float* tex, int hp, int wp, const int32_t* off,
                                  const int32_t* nu, const int32_t* t_n,
                                  const int32_t* org, float* out, int t_max,
-                                 int n_beams, int rows, int layout, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-#define CT_ARGS tex, hp, wp, off, nu, t_n, org, out, t_max, n_beams, rows, st
-  switch (layout) {
-    case 0: return launch_table<float, float, 1, 1, 128, 1, 1, 8, kTapChunk, false>(CT_ARGS);
-    case 1: return launch_table<float, float, 8, 1, 128, 1, 1, 8, kTapChunk, false>(CT_ARGS);
-    case 2: return launch_table<float, float, 4, 1, 32, 1, 1, 16, kTapChunk, false>(CT_ARGS);
-    case 3: return launch_table<float, float, 2, 1, 32, 1, 1, 16, kTapChunk, true>(CT_ARGS);
-    case 4: return launch_table<float, float, 8, 1, 32, 1, 1, 8, kTapChunk, true>(CT_ARGS);
-    case 5: return launch_table<float, float, 2, 1, 64, 1, 1, 16, kTapChunk, true>(CT_ARGS);
-    case 6: return launch_table<float, float, 4, 1, 32, 1, 1, 32, kTapChunk, true>(CT_ARGS);
-    case 7: return launch_table<float, float, 8, 2, 32, 1, 1, 8, kTapChunk, false>(CT_ARGS);
-    case 8: return launch_table<float, float, 4, 1, 128, 4, 1, 8, kTapChunk, false>(CT_ARGS);
-    case 9: return launch_table<float, float, 1, 1, 128, 1, 1, 32, kTapChunk, true>(CT_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef CT_ARGS
+                                 int n_beams, int rows, void* stream) {
+  return launch_table<float, float, 2, 32, 1, 1, 16>(tex, hp, wp, off, nu, t_n, org, out,
+                                                     t_max, n_beams, rows, stream);
 }
 
 // grid (t_max, n_robots), 32 x rows / kRowsPer threads
@@ -483,24 +470,12 @@ extern "C" int fleet_corr_table_launch(const float* tex, int hp, int wp,
   return (int)cudaGetLastError();
 }
 
+// #6: one row x 128 columns per block, four columns per thread, the bin's
+// taps split over 8 warps (256 threads)
 extern "C" int corr_table_q_launch(const int8_t* tex, int hp, int wp, const int32_t* off,
                                    const int32_t* nu, const int32_t* t_n,
                                    const int32_t* org, int32_t* out, int t_max,
-                                   int n_beams, int rows, int layout, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-#define CT_ARGS tex, hp, wp, off, nu, t_n, org, out, t_max, n_beams, rows, st
-  switch (layout) {
-    case 0: return launch_table<int8_t, int32_t, 1, 1, 128, 1, 1, 8, kTapChunk, false>(CT_ARGS);
-    case 1: return launch_table<int8_t, int32_t, 1, 1, 128, 1, 2, 8, kTapChunk, false>(CT_ARGS);
-    case 2: return launch_table<int8_t, int32_t, 1, 1, 128, 1, 4, 8, kTapChunk, false>(CT_ARGS);
-    case 3: return launch_table<int8_t, int32_t, 4, 1, 128, 4, 4, 8, kTapChunk, false>(CT_ARGS);
-    case 4: return launch_table<int8_t, int32_t, 1, 1, 128, 4, 8, 8, kTapChunk, false>(CT_ARGS);
-    case 5: return launch_table<int8_t, int32_t, 4, 1, 64, 2, 4, 8, kTapChunk, false>(CT_ARGS);
-    case 6: return launch_table<int8_t, int32_t, 4, 1, 128, 4, 8, 8, kTapChunk, false>(CT_ARGS);
-    case 7: return launch_table<int8_t, int32_t, 8, 1, 32, 1, 4, 8, kTapChunk, false>(CT_ARGS);
-    case 8: return launch_table<int8_t, int32_t, 8, 1, 128, 1, 1, 8, kTapChunk, false>(CT_ARGS);
-    case 9: return launch_table<int8_t, int32_t, 2, 1, 128, 4, 8, 8, kTapChunk, false>(CT_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef CT_ARGS
+                                   int n_beams, int rows, void* stream) {
+  return launch_table<int8_t, int32_t, 1, 128, 4, 8, 8>(tex, hp, wp, off, nu, t_n, org, out,
+                                                        t_max, n_beams, rows, stream);
 }

@@ -340,7 +340,10 @@ def _launch(fn_name, tex, out, *ints_and_ptrs):
 
 def _check_single(tex, tex_dtype, off, nu, t_n, org, n_beams, rows, row_choices):
     """Argument checks of the single-robot table wrappers, on the tensors as
-    given (no views are made: the checks cost the host little per call)."""
+    given (no views are made: the checks cost the host little per call).
+    Returns t_n as int32."""
+    if t_n.dtype != torch.int32:
+        t_n = t_n.to(torch.int32)
     if tex.dim() != 2 or tex.dtype != tex_dtype:
         raise ValueError(f"the texture must be a 2-D {tex_dtype} tensor")
     if off.shape != (T_MAX * n_beams,) or off.dtype != torch.int32:
@@ -357,19 +360,16 @@ def _check_single(tex, tex_dtype, off, nu, t_n, org, n_beams, rows, row_choices)
         for t in (tex, off, nu, org):
             if not t.is_contiguous():
                 raise ValueError("the texture, taps, tap counts and origin must be contiguous")
+    return t_n
 
 
-# the (R, RB, CB, S, U) layout of each table kernel (csrc/corr_table.cu)
-_LAYOUT = {"corr_table_launch": 3, "corr_table_q_launch": 4}
-
-
-def _single_table(fn_name, tex, off, nu, t_n, org, n_beams, rows, out_dtype, layout=None):
+def _single_table(fn_name, tex, off, nu, t_n, org, n_beams, rows, out_dtype):
     """Launch a single-robot table kernel into a new (T_MAX, rows, PWIN_C)
     table."""
     out = torch.empty((T_MAX, rows, PWIN_C), dtype=out_dtype, device=tex.device)
     return _launch(fn_name, tex, out, tex.data_ptr(), *tex.shape, off.data_ptr(),
                    nu.data_ptr(), t_n.data_ptr(), org.data_ptr(), out.data_ptr(), T_MAX,
-                   n_beams, rows, _LAYOUT[fn_name] if layout is None else layout)
+                   n_beams, rows)
 
 
 def corr_table_plain(tex_pad, off, nu, t_n, org, n_beams: int, rows: int):
@@ -383,10 +383,8 @@ def corr_table(tex_pad, off, nu, t_n, org, n_beams: int, rows: int):
     (T_MAX * n_beams,) int32, per-bin tap counts `nu` (T_MAX,) int32, the
     occupied-bin count `t_n` (0-dim int32) and window origin `org` (2,)
     int32 = (j0 + PAD_R, i0 + PAD_C) in the padded texture."""
-    if t_n.dtype != torch.int32:
-        t_n = t_n.to(torch.int32)
-    _check_single(tex_pad, torch.float32, off, nu, t_n, org, n_beams, rows,
-                  (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R))
+    t_n = _check_single(tex_pad, torch.float32, off, nu, t_n, org, n_beams, rows,
+                        (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R))
     if tex_pad.device.type != "cuda":
         return corr_table_plain(tex_pad, off, nu, t_n, org, n_beams, rows)
     out = _single_table("corr_table_launch", tex_pad, off, nu, t_n, org, n_beams, rows,
@@ -443,10 +441,8 @@ def corr_table_q(tex_q, off, nu, t_n, org, n_beams: int, rows: int):
     """`corr_table` over the int8 quantized texture (`build_tex_pad_q`):
     (T_MAX, rows, PWIN_C) int32 exact sums of w * q, rows 32 or 64 (the
     JAX q kernel has no 24-row variant), org = (j0 + PAD_RQ, i0 + PAD_C)."""
-    if t_n.dtype != torch.int32:
-        t_n = t_n.to(torch.int32)
-    _check_single(tex_q, torch.int8, off, nu, t_n, org, n_beams, rows,
-                  (PWIN_R_NARROW, PWIN_R))
+    t_n = _check_single(tex_q, torch.int8, off, nu, t_n, org, n_beams, rows,
+                        (PWIN_R_NARROW, PWIN_R))
     if tex_q.device.type != "cuda":
         return corr_table_q_plain(tex_q, off, nu, t_n, org, n_beams, rows)
     out = _single_table("corr_table_q_launch", tex_q, off, nu, t_n, org, n_beams, rows,

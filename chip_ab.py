@@ -14,8 +14,7 @@ of the steady, tracking, q_steady, q_tracking, gompertz_steady,
 prob_steady, spread, gompertz_spread, prob_spread, beam_steady,
 beam_tracking, steady_lf, prob_beamskip, fleet and the 3d_tracking and
 3d_spread cells (both cloud models); the wrapper ms, device ms and host us
-per call of corr_table and corr_table_q (`corr_tables`; where the ROOT's
-corr_kernel has a layout table, every layout's device ms); the wrapper and
+per call of corr_table and corr_table_q (`corr_tables`); the wrapper and
 device ms of spread_term_sums
 (50,000 x 720, spread cloud, pz^3), beam_table (beam_steady's 24-row
 window), fleet_corr_table (256 robots x 10,000 x 180) and
@@ -63,11 +62,7 @@ def host_us(fn, calls=1000):
 def corr_tables(cs, omap, scan, clouds):
     """Wrapper ms, device ms and host us per call of corr_table (the steady
     cloud's 24-row and the tracking cloud's 32-row window) and corr_table_q
-    (both clouds' 32-row windows), at 50,000 x 720; where the ROOT's
-    corr_kernel has a layout table, every layout's device ms (each checked
-    equal to the wrapper's table first)."""
-    import torch
-
+    (both clouds' 32-row windows), at 50,000 x 720."""
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
     from badger_amcl_tpu_torch.sensors import planar
 
@@ -88,20 +83,8 @@ def corr_tables(cs, omap, scan, clouds):
         def run():
             return fn(*args)
 
-        row = {"t_n": int(pre["t_n"]), "ms": cs.cuda_ms(run),
-               "device_ms": device_ms(cs.kernel_ms(run)), "host_us": host_us(run)}
-        if hasattr(ck, "_LAYOUT"):
-            name = "corr_table_q_launch" if q else "corr_table_launch"
-            want = run()
-            row["layouts"] = {}
-            for i in range(10):
-                def lay(i=i):
-                    return ck._single_table(name, *args, want.dtype, layout=i)
-
-                if not torch.equal(lay(), want):
-                    raise RuntimeError(f"{key}: layout {i} differs from the wrapper's table")
-                row["layouts"][i] = device_ms(cs.kernel_ms(lay))
-        out[key] = row
+        out[key] = {"t_n": int(pre["t_n"]), "ms": cs.cuda_ms(run),
+                    "device_ms": device_ms(cs.kernel_ms(run)), "host_us": host_us(run)}
     return out
 
 
