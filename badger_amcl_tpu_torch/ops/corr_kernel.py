@@ -312,19 +312,25 @@ def _table_in_order(tex, off, nu, t_n, org, n_beams: int, rows: int):
 
 
 def _check_taps(tex, tex_dtype, off, tap_counts, t_n, org, n_beams, rows, row_choices):
-    """Argument checks of the fleet table wrapper (robot axis first)."""
-    n_r = org.shape[0]
+    """Argument checks shared by the table wrappers, on the tensors as given
+    (no views: the single-robot wrappers run on every step, and each view
+    costs the host microseconds). One window: off (T_MAX * n_beams,),
+    per-bin tap counts (T_MAX,), one t_n, org (2,). R windows, robot axis
+    first: off (R, T_MAX * n_beams), one tap count per window (R,), t_n
+    (R,), org (R, 2)."""
+    lead = org.shape[:-1]
     if tex.dim() != 2 or tex.dtype != tex_dtype:
         raise ValueError(f"the texture must be a 2-D {tex_dtype} tensor")
-    if off.shape != (n_r, T_MAX * n_beams) or off.dtype != torch.int32:
+    if off.shape != (*lead, T_MAX * n_beams) or off.dtype != torch.int32:
         raise ValueError("off must be (T_MAX * n_beams,) int32 per window")
-    if (tap_counts.dtype != torch.int32 or tap_counts.shape[0] != n_r
-            or org.shape != (n_r, 2) or org.dtype != torch.int32 or t_n.shape != (n_r,)):
+    if (tap_counts.shape != (lead or (T_MAX,)) or tap_counts.dtype != torch.int32
+            or org.shape[-1:] != (2,) or org.dtype != torch.int32
+            or t_n.shape not in (lead, lead or (1,))):
         raise ValueError("tap counts and t_n must be int32 and org (2,) int32 per window")
     if rows not in row_choices:
         raise ValueError(f"rows must be one of {row_choices}, got {rows}")
-    if not 0 < n_r <= 65535:
-        raise ValueError(f"1 to 65535 windows per launch, got {n_r}")
+    if lead and not 0 < lead[0] <= 65535:
+        raise ValueError(f"1 to 65535 windows per launch, got {lead[0]}")
     if tex.device.type == "cuda":
         for t in (off, tap_counts, t_n, org):
             if t.device != tex.device:
@@ -338,34 +344,10 @@ def _launch(fn_name, tex, out, *ints_and_ptrs):
     return out
 
 
-def _check_single(tex, tex_dtype, off, nu, t_n, org, n_beams, rows, row_choices):
-    """Argument checks of the single-robot table wrappers, on the tensors as
-    given (no views are made: the checks cost the host little per call).
-    Returns t_n as int32."""
-    if t_n.dtype != torch.int32:
-        t_n = t_n.to(torch.int32)
-    if tex.dim() != 2 or tex.dtype != tex_dtype:
-        raise ValueError(f"the texture must be a 2-D {tex_dtype} tensor")
-    if off.shape != (T_MAX * n_beams,) or off.dtype != torch.int32:
-        raise ValueError("off must be (T_MAX * n_beams,) int32")
-    if (nu.shape != (T_MAX,) or nu.dtype != torch.int32 or org.shape != (2,)
-            or org.dtype != torch.int32 or t_n.numel() != 1):
-        raise ValueError("nu must be (T_MAX,) int32, org (2,) int32 and t_n one value")
-    if rows not in row_choices:
-        raise ValueError(f"rows must be one of {row_choices}, got {rows}")
-    if tex.device.type == "cuda":
-        for t in (off, nu, t_n, org):
-            if t.device != tex.device:
-                raise ValueError("all inputs must be on one device")
-        for t in (tex, off, nu, org):
-            if not t.is_contiguous():
-                raise ValueError("the texture, taps, tap counts and origin must be contiguous")
-    return t_n
-
-
 def _single_table(fn_name, tex, off, nu, t_n, org, n_beams, rows, out_dtype):
     """Launch a single-robot table kernel into a new (T_MAX, rows, PWIN_C)
     table."""
+    tex, off, nu, org = (t.contiguous() for t in (tex, off, nu, org))
     out = torch.empty((T_MAX, rows, PWIN_C), dtype=out_dtype, device=tex.device)
     return _launch(fn_name, tex, out, tex.data_ptr(), *tex.shape, off.data_ptr(),
                    nu.data_ptr(), t_n.data_ptr(), org.data_ptr(), out.data_ptr(), T_MAX,
@@ -383,8 +365,9 @@ def corr_table(tex_pad, off, nu, t_n, org, n_beams: int, rows: int):
     (T_MAX * n_beams,) int32, per-bin tap counts `nu` (T_MAX,) int32, the
     occupied-bin count `t_n` (0-dim int32) and window origin `org` (2,)
     int32 = (j0 + PAD_R, i0 + PAD_C) in the padded texture."""
-    t_n = _check_single(tex_pad, torch.float32, off, nu, t_n, org, n_beams, rows,
-                        (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R))
+    t_n = t_n.to(torch.int32)
+    _check_taps(tex_pad, torch.float32, off, nu, t_n, org, n_beams, rows,
+                (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R))
     if tex_pad.device.type != "cuda":
         return corr_table_plain(tex_pad, off, nu, t_n, org, n_beams, rows)
     out = _single_table("corr_table_launch", tex_pad, off, nu, t_n, org, n_beams, rows,
@@ -414,7 +397,7 @@ def fleet_corr_table(tex_pad, off, nv, t_n, org, n_beams: int, rows: int):
     reads no weight. Every table cell then equals `_table_in_order` bit
     for bit."""
     t_n = t_n.to(torch.int32)
-    _check_taps(tex_pad, torch.float32, off, nv[:, None], t_n, org, n_beams, rows,
+    _check_taps(tex_pad, torch.float32, off, nv, t_n, org, n_beams, rows,
                 (PWIN_R_TIGHT, PWIN_R_NARROW, PWIN_R))
     if tex_pad.device.type != "cuda":
         return fleet_corr_table_plain(tex_pad, off, nv, t_n, org, n_beams, rows)
@@ -441,8 +424,9 @@ def corr_table_q(tex_q, off, nu, t_n, org, n_beams: int, rows: int):
     """`corr_table` over the int8 quantized texture (`build_tex_pad_q`):
     (T_MAX, rows, PWIN_C) int32 exact sums of w * q, rows 32 or 64 (the
     JAX q kernel has no 24-row variant), org = (j0 + PAD_RQ, i0 + PAD_C)."""
-    t_n = _check_single(tex_q, torch.int8, off, nu, t_n, org, n_beams, rows,
-                        (PWIN_R_NARROW, PWIN_R))
+    t_n = t_n.to(torch.int32)
+    _check_taps(tex_q, torch.int8, off, nu, t_n, org, n_beams, rows,
+                (PWIN_R_NARROW, PWIN_R))
     if tex_q.device.type != "cuda":
         return corr_table_q_plain(tex_q, off, nu, t_n, org, n_beams, rows)
     out = _single_table("corr_table_q_launch", tex_q, off, nu, t_n, org, n_beams, rows,

@@ -363,7 +363,7 @@ def phase_kernels(dev, omap, scan, states):
             f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}) "
             f"gather_floor_ms={floor:.5f} conv2d_ms={lib_ms:.4f} "
             f"(conv2d max_abs_err {lib_err:.3e})")
-        corr.append((rows, err, ms, plain_ms, lib_ms, b, device_ms(ops), us, floor))
+        corr.append((rows, err, ms, plain_ms, lib_ms, b, device_ms(ops), us))
     # the kernel's clamped arm (the tracking window at the texture's
     # corners, its taps leaving the texture) and every bin live
     for label, cargs in (*clamped_windows(ck, *args),
@@ -381,7 +381,7 @@ def phase_kernels(dev, omap, scan, states):
     rows32 = [c for c in corr if c[0] == 32][0]
     results["corr_table"] = dict(max_abs_err=max(c[1] for c in corr), ms=rows32[2],
                                  device_ms=rows32[6], host_us=rows32[7], plain_ms=rows32[3],
-                                 **rows32[5], gather_floor_ms=rows32[8], library_ms=rows32[4])
+                                 **rows32[5], library_ms=rows32[4])
 
     # spread_term_sums in the spread regime, in its three term forms (the
     # row reports the likelihood-field form); the CUDA prepass against the
@@ -1154,7 +1154,7 @@ def phase_kernels_q(omap, scan, states):
             f"gather_floor_ms={floor:.5f} (load instructions) conv2d_ms={lib_ms:.4f} "
             f"(conv2d over the dequantized texture, max rel err {lib_err:.3e})")
         out.append(dict(max_abs_err=0.0, ms=ms, device_ms=device_ms(ops), host_us=us,
-                        plain_ms=plain_ms, **b, gather_floor_ms=floor, library_ms=lib_ms))
+                        plain_ms=plain_ms, **b, library_ms=lib_ms))
     # the clamped arm (the window at the texture's corners) and every bin live
     for label, cargs in (*clamped_windows(ck, *args),
                          (f"all {ck.T_MAX} bins live", all_bins_live(ck, *args))):
