@@ -63,6 +63,8 @@ _SIGNATURES = {
                                   _I, _F, _P, _P],
     "pc_distances_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _I, _I, _I, _F, _F,
                             _P, _P],
+    "pc_extents_launch": [_P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P],
+    "pc_term_sums_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _I, _I, _I, _P, _P, _P],
     "pc_spread_term_sums_launch": [_P, _I, _I, _I, _P, _I, _P, _I, _F, _I, _I, _I,
                                    _P, _P, _P, _P],
     "beam_table_launch": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,

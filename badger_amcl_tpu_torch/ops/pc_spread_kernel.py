@@ -14,7 +14,8 @@ z band contributes term(max_distance_to_object) to every particle
 `pc_spread_term_sums` is the kernel wrapper: CUDA tensors launch
 csrc/pc_spread_term_sums.cu (a prep launch that sorts the cloud's points
 by slab and position, then the sums, which look each pair's `PCTerm` up
-in `term_table`: the term at the 256 ratios and outside the z band); CPU
+in `pc_kernel.term_table`: the term at the 256 ratios and outside the z
+band, which the windowed arm's fused sums share); CPU
 tensors run `pc_spread_term_sums_plain`, which takes any elementwise term.
 Sums come out in particle order.
 
@@ -29,15 +30,13 @@ has no counterpart here.
 
 from __future__ import annotations
 
-import dataclasses
-import functools
-
 import numpy as np
 import torch
 
 from badger_amcl_tpu_torch.ops import _build
-from badger_amcl_tpu_torch.ops.pc_kernel import _inv_res, point_slabs
-from badger_amcl_tpu_torch.utils.numerics import fdiv
+from badger_amcl_tpu_torch.ops.pc_kernel import (
+    PCTerm, _check_inputs, _inv_res, point_slabs, term_table,
+)
 
 ROWS1 = 224
 LOAD_C1 = 256 + 128
@@ -50,36 +49,6 @@ def tex_fits(omap) -> bool:
     kept as the dispatch predicate so the port takes the same arm."""
     nx, ny, nz = omap.size
     return nx * ny * nz <= MAX_TEX_BYTES and ny >= ROWS1 and nx >= LOAD_C1
-
-
-@dataclasses.dataclass(frozen=True)
-class PCTerm:
-    """Point-cloud model term of a distance z: pz = z_hit exp(-z^2 / denom)
-    + zr, cubed for likelihood_field, as is for the Gompertz model
-    (point_cloud.py:90-100)."""
-
-    z_hit: float
-    denom: float
-    zr: float
-    cube: bool
-
-    def __call__(self, z: torch.Tensor) -> torch.Tensor:
-        pz = self.z_hit * torch.exp(fdiv(-(z * z), self.denom)) + self.zr
-        return pz * pz * pz if self.cube else pz
-
-
-@functools.lru_cache(maxsize=64)
-def term_table(term: PCTerm, max_ratio: float, max_dist: float,
-               device: torch.device) -> torch.Tensor:
-    """(257,) f32: `term` at z = q * float32(max_ratio) for the uint8
-    ratios q = 0..255 (255 is also the off-map value), then at z = max_dist
-    (a point outside the z band): the plain version's own expression on the
-    same device, so a lookup gives its term bit for bit. Cached per (term,
-    max_ratio, max_dist, device)."""
-    q = torch.arange(256, dtype=torch.float32, device=device)
-    z = torch.cat([q * float(np.float32(max_ratio)),
-                   torch.full((1,), max_dist, dtype=torch.float32, device=device)])
-    return term(z).contiguous()
 
 
 def endpoint_inputs(omap, poses, points_base):
@@ -113,21 +82,12 @@ def pc_spread_term_sums(omap, poses, points_base, term) -> torch.Tensor:
     """Per-particle sums of term(distance) over every cloud point (every
     point counts, point_cloud_scanner.cpp:132-167), (M,) f32 in particle
     order."""
-    if omap.tex_zyx is None:
-        raise ValueError("the map has no distance field (with_distance_field)")
-    if poses.dim() != 2 or poses.shape[1] != 3 or poses.dtype != torch.float32:
-        raise ValueError("poses must be (M, 3) float32")
-    if points_base.dim() != 2 or points_base.shape[1] != 3 \
-            or points_base.dtype != torch.float32:
-        raise ValueError("points_base must be (B, 3) float32")
+    _check_inputs(omap, points_base, poses)
     if poses.device.type != "cuda":
         return pc_spread_term_sums_plain(omap, *endpoint_inputs(omap, poses, points_base),
                                          term)
     if not isinstance(term, PCTerm):
         raise TypeError("the CUDA point-cloud spread kernel computes a PCTerm only")
-    for t in (points_base, omap.tex_zyx):
-        if t.device != poses.device:
-            raise ValueError("all inputs must be on one device")
     m, b = poses.shape[0], points_base.shape[0]
     out = torch.empty((m,), dtype=torch.float32, device=poses.device)
     if m == 0:

@@ -14,10 +14,11 @@ Backends:
 - "exact" (JAX "xla"): every point read through `OctoMap3D.distance_at`
   at world_to_map of the transformed cloud;
 - "corr" and "lf" (JAX "pallas" and "pallas_corr", which the JAX package
-  treats alike): the kernel cascade — ops.pc_kernel where its windows fit
-  (converged and tracking clouds), else ops.pc_spread_kernel where its
-  texture gate holds (spread clouds), else the exact gather. The windowed
-  predicate is read in one host sync; the spread gate is static.
+  treats alike): the kernel cascade — ops.pc_kernel's fused term sums
+  where its windows fit (converged and tracking clouds), else
+  ops.pc_spread_kernel where its texture gate holds (spread clouds), else
+  the exact gather. The windowed predicate (the CUDA window prepass, then
+  (B,) vectors) is read in one host sync; the spread gate is static.
 
 Parameters are Python floats (fixed per configuration).
 """
@@ -29,7 +30,7 @@ import dataclasses
 import torch
 
 from badger_amcl_tpu_torch.ops import pc_kernel, pc_spread_kernel
-from badger_amcl_tpu_torch.ops.pc_spread_kernel import PCTerm
+from badger_amcl_tpu_torch.ops.pc_kernel import PCTerm
 from badger_amcl_tpu_torch.sensors.planar import apply_gompertz
 from badger_amcl_tpu_torch.utils.numerics import fdiv, host_bool
 
@@ -112,7 +113,7 @@ def point_cloud_likelihood(omap, params: PointCloudParams, points_base: torch.Te
         p = combine(_exact_distances(omap, points_base, poses))
     elif pc_kernel.tex_fits(omap) and host_bool(
             pc_kernel.window_origins(omap, points_base, poses)[3]):
-        p = combine(pc_kernel.pc_distances(omap, points_base, poses))
+        p = finalize(pc_kernel.pc_term_sums(omap, points_base, poses, term))
     elif pc_spread_kernel.tex_fits(omap):
         p = finalize(pc_spread_kernel.pc_spread_term_sums(omap, poses, points_base, term))
     else:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port on one CUDA card, in turns: the cells and
 kernels that the single-robot corr tables (#1, #6), the spread term sums
-(#3), the fleet table (#5), the beam lattice table (#7), the lf kernels
-(#4) with beam skipping and the 3D spread sums (#10) serve.
+(#3), the fleet table (#5), the beam lattice table (#7), the beam spread
+sums (#8), the lf kernels (#4) with beam skipping and the 3D windowed (#9)
+and spread (#10) kernels serve.
 
     python3 chip_ab.py OUT_DIR ROOT [ROOT ...]
 
@@ -12,19 +13,21 @@ and B: A B B A), building its kernels under its own tree. Per run:
 chip_smoke's timing rows (step_ms, likelihood_ms, device busy, idle share)
 of the steady, tracking, q_steady, q_tracking, gompertz_steady,
 prob_steady, spread, gompertz_spread, prob_spread, beam_steady,
-beam_tracking, steady_lf, prob_beamskip, fleet and the 3d_tracking and
-3d_spread cells (both cloud models); the wrapper ms, device ms and host us
-per call of corr_table and corr_table_q (`corr_tables`); the wrapper and
-device ms of spread_term_sums
-(50,000 x 720, spread cloud, pz^3), beam_table (beam_steady's 24-row
-window), fleet_corr_table (256 robots x 10,000 x 180) and
-pc_spread_term_sums (the Gompertz term on the 50,000 spread and the
-10,000 tracking 3D clouds), the device ms summed over the ops of
-chip_smoke.kernel_ms (a ROOT must have it); where a ROOT has the fused lf
-sums, theirs and the lf prepass's on the steady_lf cloud; where it has
-beam skipping's counts, theirs on that cloud. Every run prints one JSON
-line, also appended to OUT_DIR/ab.jsonl, with the card's name and power
-limit.
+beam_tracking, beam_spread, steady_lf, prob_beamskip, fleet and the
+3d_steady, 3d_tracking and 3d_spread cells (both cloud models); the
+wrapper ms, device ms and host us per call of corr_table and corr_table_q
+(`corr_tables`); the wrapper and device ms of spread_term_sums (50,000 x
+720, spread cloud, pz^3), beam_table (beam_steady's 24-row window),
+beam_spread_sums (beam_spread's 50,000 particles), fleet_corr_table (256
+robots x 10,000 x 180) and pc_spread_term_sums (the Gompertz term on the
+50,000 spread and the 10,000 tracking 3D clouds), the device ms summed
+over the ops of chip_smoke.kernel_ms (a ROOT must have it); where a ROOT
+has the fused lf sums, theirs and the lf prepass's on the steady_lf
+cloud; where it has beam skipping's counts, theirs on that cloud; where
+it has the windowed arm's fused sums and prepass, theirs on the 50,000
+steady 3D cloud (Gompertz) and the prepass's on all three 3D clouds.
+Every run prints one JSON line, also appended to OUT_DIR/ab.jsonl, with
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -98,6 +101,7 @@ def one(root):
     from badger_amcl_tpu_torch.fleet import fleet_window
     from badger_amcl_tpu_torch.ops import _build
     from badger_amcl_tpu_torch.ops import beam_kernel as bk
+    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
     from badger_amcl_tpu_torch.ops import lf_kernel as lk
     from badger_amcl_tpu_torch.ops import spread_kernel as sk
@@ -120,7 +124,8 @@ def one(root):
         for r, n in (("spread", cs.N_PARTICLES), ("steady", cs.N_PARTICLES),
                      ("tracking", 5_000), ("tracking", cs.N_PARTICLES)))
     states = {"spread": spread, "gompertz_spread": spread, "prob_spread": spread,
-              "beam_steady": steady, "beam_tracking": tracking, "steady_lf": steady,
+              "beam_steady": steady, "beam_tracking": tracking, "beam_spread": spread,
+              "steady_lf": steady,
               "prob_beamskip": steady, "steady": steady, "tracking": tracking50,
               "q_steady": steady, "q_tracking": tracking50, "gompertz_steady": steady,
               "prob_steady": steady}
@@ -149,6 +154,15 @@ def one(root):
 
     out["beam_table"] = {"rows": rows, "ms": cs.cuda_ms(run_beam),
                          "device_ms": device_ms(cs.kernel_ms(run_beam))}
+    spre = bsk.beam_spread_prepass(bmap, spose, scan.angles)
+    sargs = (bmap.range_rows, spre["flat"], spre["sig"], spre["gocc"], spre["n_g"],
+             bsk.phi_tables(bmap, sp, scan, spre["kap"]), bsk.value_cap(bmap, scan.range_max))
+
+    def run_beam_spread():
+        return bsk.beam_spread_sums(*sargs)
+
+    out["beam_spread_sums"] = {"ms": cs.cuda_ms(run_beam_spread),
+                               "device_ms": device_ms(cs.kernel_ms(run_beam_spread))}
     if hasattr(lk, "lf_term_sums"):
         lpose = planar.coord_add(sp.scanner_pose, steady[1].poses)
         tex = lk.lf_texture(omap, lpose, scan.ranges, scan.angles)
@@ -183,7 +197,7 @@ def one(root):
             state, params.max_samples)
         out[key] = cs.timing_row(key, cs.likelihood_fn(c.model, maps[c.model], sp, scan, state,
                                                        c.backend, c.beamskip), step)
-    del states, spread, steady, tracking, tracking50, maps, bmap, bargs
+    del states, spread, steady, tracking, tracking50, maps, bmap, bargs, sargs
     torch.cuda.empty_cache()
 
     fl = scenario.build_fleet(cs.FLEET_ROBOTS, cs.FLEET_PARTICLES, cs.FLEET_BEAMS, device=dev)
@@ -204,10 +218,13 @@ def one(root):
 
 
 def one_3d(cs, dev):
-    """The 3d_tracking and 3d_spread timing rows and #10's times."""
+    """The 3d_steady, 3d_tracking and 3d_spread timing rows, #10's times
+    and, where the ROOT has them, the windowed arm's fused sums' and
+    prepass's."""
     import torch
 
     from badger_amcl_tpu_torch import scenario
+    from badger_amcl_tpu_torch.ops import pc_kernel as pk
     from badger_amcl_tpu_torch.ops import pc_spread_kernel as psk
     from badger_amcl_tpu_torch.sensors import point_cloud as pc
 
@@ -217,7 +234,7 @@ def one_3d(cs, dev):
     cloud = torch.as_tensor(cloud_np, device=dev)
     pcp = pc.PointCloudParams()
     gen = torch.Generator(device=dev).manual_seed(4)
-    for regime in ("tracking", "spread"):
+    for regime in ("steady", "tracking", "spread"):
         n = cs.PARTICLES_3D[regime]
         params, state, pool = scenario.build_filter_3d(n, pose_cov=cs.REGIMES[regime],
                                                        min_particles=n, device=dev)
@@ -227,9 +244,25 @@ def one_3d(cs, dev):
         def run_sums():
             return psk.pc_spread_term_sums(omap3, state.poses, cloud, term)
 
-        out[f"pc_spread_term_sums_{regime}"] = {
-            "particles": n, "ms": cs.cuda_ms(run_sums),
-            "device_ms": device_ms(cs.kernel_ms(run_sums))}
+        def run_windowed():
+            return pk.pc_term_sums(omap3, cloud, state.poses, term)
+
+        def run_prepass():
+            return pk.window_origins(omap3, cloud, state.poses)
+
+        if regime != "steady":
+            out[f"pc_spread_term_sums_{regime}"] = {
+                "particles": n, "ms": cs.cuda_ms(run_sums),
+                "device_ms": device_ms(cs.kernel_ms(run_sums))}
+        if hasattr(pk, "pc_term_sums"):
+            if regime == "steady":
+                out["pc_term_sums_steady"] = {
+                    "particles": n, "ms": cs.cuda_ms(run_windowed),
+                    "device_ms": device_ms(cs.kernel_ms(run_windowed))}
+            out[f"pc_extents_{regime}"] = {
+                "particles": n, "ms": cs.cuda_ms(run_prepass),
+                "device_ms": device_ms(cs.kernel_ms(
+                    lambda: pk.pc_extents(omap3, cloud, state.poses)))}
         for model in cs.MODELS_3D:
             step, _ = cs.pinned_step_fn(
                 lambda s: cs.step_3d(s, omap3, pcp, cloud, pool, params, model, gen,

@@ -21,8 +21,9 @@ the port's three paths:
   1024^2 map on the card (and a 256^2 map on the card and the CPU, which
   must agree bit for bit), holds the beam_table kernel (bit-equal, at its
   24- and 64-row windows and with a 65,536-entry value table),
-  beam_spread_sums and the spread kernel's three term forms against their
-  plain versions, drives the beam model in its tracking (5,000),
+  beam_spread_sums (also at K = 252, its unaligned row path) and the
+  spread kernel's three term forms against their plain versions, drives
+  the beam model in its tracking (5,000),
   steady and spread (50,000) cells and the Gompertz and prob (log-space)
   models in the steady and spread regimes at 50,000 x 720, the prob model
   also with beam skipping on a converged steady cloud (prob_beamskip: the
@@ -44,12 +45,16 @@ the port's three paths:
   4 x 2048 x 60 and times the fleet step (robot-steps/s, host syncs per
   step at 16 and 256 robots);
 - 3D: builds the 20 x 20 x 1 m voxel scene at 0.05 m (401 x 401 x 21 EDT)
-  and its 256-point cloud, holds the pc and pc_spread kernels against
-  their plain versions (pc_spread on the 50k spread and the 10k tracking
-  cloud), drives the point-cloud step (motion update ->
+  and its 256-point cloud, holds the windowed arm's kernels against their
+  plain versions (the window prepass on the 50k steady, 10k tracking and
+  50k spread clouds, its extents equal; the fused term sums, rel 1e-5,
+  and the (B, M) distances, which no main path launches, on the steady
+  and tracking clouds) and the pc_spread kernel (on the spread and the
+  tracking cloud), drives the point-cloud step (motion update ->
   `point_cloud_likelihood` -> `sensor_update` -> `resample`) for both
   cloud models in the steady (50k), tracking (10k) and spread (50k)
-  regimes, and compares the step on the card with the CPU at 4096 x 128.
+  regimes (every regime runs the prepass, steady the fused sums), and
+  compares the step on the card with the CPU at 4096 x 128.
 
 The launch counters are set to 0 just before each main-path run and read
 just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
@@ -141,12 +146,17 @@ F32_OPS_PER_S = 67e12
 # and the SM boost clock
 L1_BYTES_PER_S = 30e12
 SM_CLOCK_HZ = 1.98e9
-# the one kernel held against its plain version that no main path
-# launches: the (B, M) distances, kept as the counterpart of the JAX
-# package's lf_distances_t (the kernels line carries the note)
-OFF_PATH_NOTE = ("the (B, M) distances, the counterpart of the JAX package's "
-                 "lf_distances_t; beam skipping, their last consumer, takes "
-                 "lf_obs_counts and lf_term_sums")
+# the kernels held against their plain versions that no main path
+# launches, each with the note the kernels line carries: the (B, M)
+# distances, kept as the counterparts of the JAX package's functions
+OFF_MAIN_PATH = {
+    "lf_distances": "the (B, M) distances, the counterpart of the JAX package's "
+                    "lf_distances_t; beam skipping, their last consumer, takes "
+                    "lf_obs_counts and lf_term_sums",
+    "pc_distances": "the (B, M) distances, the counterpart of the JAX package's "
+                    "windowed_distances / pc_distances_t; the windowed arm takes "
+                    "pc_extents and pc_term_sums",
+}
 
 
 def log(msg):
@@ -441,7 +451,7 @@ def phase_kernels_lf(omap, scan, states):
     n_valid = int(valid.sum())
     check(torch.equal(omap.distances_bf16, omap.distances.to(torch.bfloat16)),
           "the baked bf16 texture differs from the distance field in bf16")
-    lf, sums, counts = [], [], []
+    lf, sums, counts, pre = [], [], [], []
     for regime, tex in (("steady", omap.distances_bf16), ("spread", omap.distances)):
         dtype = str(tex.dtype).split(".")[-1]
         spose = planar.coord_add(sp.scanner_pose, states[regime][1].poses)
@@ -501,6 +511,8 @@ def phase_kernels_lf(omap, scan, states):
             iters=5, warmup=1)
         # 16 operations per (particle, beam): the endpoint (12) and 4 min/max
         pre_b = bound(m * 12 + N_BEAMS * 8 + 16 * N_BEAMS, 16.0 * m * N_BEAMS)
+        pre.append((int((ext.long() - ext_plain.long()).abs().max()), pre_ms, pre_plain_ms,
+                    pre_b, device_ms(pre_dev)))
         log(f"lf prepass ({regime}): fits={bool(fits)} beams differing from window_origins "
             f"{len(odd)} ms={pre_ms:.4f} (extents + finish) device_ms={device_text(pre_dev)} "
             f"({'; '.join(f'{n} {t:.4f}' for n, t in pre_dev.items())}) "
@@ -569,6 +581,9 @@ def phase_kernels_lf(omap, scan, states):
                                  plain_ms=lf[0][2], **lf[0][3], library_ms=None),
             "lf_term_sums": dict(max_abs_err=max(x[2] for x in sums), ms=steady[3],
                                  plain_ms=steady[4], **steady[5], library_ms=None),
+            "lf_extents": dict(max_abs_err=max(x[0] for x in pre), ms=pre[0][1],
+                               device_ms=pre[0][4], plain_ms=pre[0][2], **pre[0][3],
+                               library_ms=None),
             "lf_obs_counts": dict(max_abs_err=max(x[0] for x in counts), ms=counts[0][1],
                                   device_ms=counts[0][4], plain_ms=counts[0][2],
                                   **counts[0][3], library_ms=None)}
@@ -1085,6 +1100,22 @@ def phase_kernels_beam(dev, bmap, scan, states):
     err = float((got - want).abs().max())
     rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
     check(rel <= 1e-5, f"beam_spread_sums rel err {rel} > 1e-5")
+    bit_equal = bool(torch.equal(got, want))
+    # the kernel's row path for K not a multiple of 8 (no 16-byte loads):
+    # 252 of the 256 slabs, every other offset occupied
+    k_odd = 252
+    gocc_odd = torch.zeros((k_odd,), dtype=torch.int32, device=dev)
+    gocc_odd[:k_odd // 2] = torch.arange(0, k_odd, 2, dtype=torch.int32, device=dev)
+    rows_odd = bmap.range_rows.view(torch.int16)[:, :k_odd].contiguous().view(torch.uint16)
+    args_odd = (rows_odd, pre["flat"], pre["sig"] % k_odd,
+                gocc_odd, torch.tensor(k_odd // 2, dtype=torch.int32, device=dev),
+                phi[:k_odd].contiguous(), args[-1])
+    got_odd = bsk.beam_spread_sums(*args_odd)
+    want_odd = bsk.beam_spread_sums_plain(*args_odd)
+    torch.cuda.synchronize()
+    rel_odd = float(((got_odd - want_odd).abs() / want_odd.abs().clamp(min=1e-30)).max())
+    check(rel_odd <= 1e-5, f"beam_spread_sums at K = {k_odd}: rel err {rel_odd} > 1e-5")
+    del got_odd, want_odd, args_odd, rows_odd
     ms = cuda_ms(lambda: bsk.beam_spread_sums(*args))
     ops = kernel_ms(lambda: bsk.beam_spread_sums(*args))
     plain_ms = cuda_ms(lambda: bsk.beam_spread_sums_plain(*args), iters=5, warmup=1)
@@ -1095,7 +1126,8 @@ def phase_kernels_beam(dev, bmap, scan, states):
     b = bound(cells * k_angles * 2 + m * 16 + phi.numel() * 4, 3.0 * m * n_g)
     log(f"beam_spread_sums (beam_spread, {m} particles): n_g={n_g} cells={cells} "
         f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
-        f"bit_equal={float((got == want).float().mean()):.6f} ms={ms:.4f} (wrapper) "
+        f"bit_equal={float((got == want).float().mean()):.6f} (all: {bit_equal}; "
+        f"K = {k_odd}: max_rel_err={rel_odd:.3e}) ms={ms:.4f} (wrapper) "
         f"device_ms={device_text(ops)} plain_ms={plain_ms:.4f} "
         f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
     results["beam_spread_sums"] = dict(max_abs_err=err, ms=ms, device_ms=device_ms(ops),
@@ -1467,8 +1499,11 @@ def step_3d(state, omap, pcp, cloud, pool, params, model, gen, motion=True, nois
 
 
 def phase_kernels_3d(omap, cloud, states):
-    """Both 3D kernels against their plain versions at the main path's
-    shapes."""
+    """The 3D kernels against their plain versions at the main path's
+    shapes: the window prepass on the steady, tracking and spread clouds
+    (extents equal, so origins and fits too), the windowed arm's fused
+    sums and the (B, M) distances on the steady and tracking clouds, the
+    spread sums on the spread and tracking clouds."""
     import torch
 
     from badger_amcl_tpu_torch.ops import pc_kernel as pk
@@ -1480,6 +1515,77 @@ def phase_kernels_3d(omap, cloud, states):
     tex_bytes = nx * ny * nz
     n_pts = cloud.shape[0]
     pcp = pc.PointCloudParams()
+    kz = pk.point_slabs(omap, cloud)
+
+    rows = []
+    for regime in ("steady", "tracking", "spread"):
+        poses = states[regime][1].poses
+        m = poses.shape[0]
+        ext = pk.pc_extents(omap, cloud, poses)
+        ext_plain = pk.pc_extents_plain(omap, cloud, poses)
+        torch.cuda.synchronize()
+        err = int((ext.long() - ext_plain.long()).abs().max())
+        check(torch.equal(ext, ext_plain),
+              f"pc_extents ({regime}): {int((ext != ext_plain).sum())} extents differ from "
+              f"the plain version (max {err})")
+        r0, c0, _, fits = pk.window_finish(omap, ext, kz)
+        r0_p, c0_p, _, fits_p = pk.window_finish(omap, ext_plain, kz)
+        check(bool(fits) == bool(fits_p) == (regime == "steady")
+              and torch.equal(r0, r0_p) and torch.equal(c0, c0_p),
+              f"pc prepass ({regime}): fits {bool(fits)} / plain {bool(fits_p)}, origins "
+              f"equal {torch.equal(r0, r0_p) and torch.equal(c0, c0_p)}")
+        ms = cuda_ms(lambda: pk.window_origins(omap, cloud, poses))
+        dev = kernel_ms(lambda: pk.pc_extents(omap, cloud, poses))
+        plain_ms = cuda_ms(lambda: pk.window_finish(
+            omap, pk.pc_extents_plain(omap, cloud, poses), kz))
+        # 16 operations per (particle, point): the cell (12), 4 min/max;
+        # cos and sin per particle
+        b = bound(m * 12 + n_pts * 12 + 4 * n_pts * 4, 16.0 * m * n_pts + 2.0 * m)
+        log(f"pc prepass ({regime}, {n_pts} x {m}): extents equal, fits={bool(fits)} "
+            f"ms={ms:.4f} (extents + finish) device_ms={device_text(dev)} "
+            f"({'; '.join(f'{n} {t:.4f}' for n, t in dev.items())}) plain_ms={plain_ms:.4f} "
+            f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
+        rows.append((err, ms, plain_ms, b, device_ms(dev)))
+    results["pc_extents"] = dict(max_abs_err=max(r[0] for r in rows), ms=rows[0][1],
+                                 device_ms=rows[0][4], plain_ms=rows[0][2], **rows[0][3],
+                                 library_ms=None)
+
+    rows = []
+    for regime in ("steady", "tracking"):
+        poses = states[regime][1].poses
+        m = poses.shape[0]
+        # the voxels the cloud reads: each read once for the bound
+        ci, cj = pk._cells(omap, cloud, poses)
+        inmap = pk._on_map(omap, ci, cj) & ((kz >= 0) & (kz < nz))[:, None]
+        voxels = int(omap.flat_index(ci, cj, kz[:, None].expand_as(ci))[inmap].unique().numel())
+        del ci, cj, inmap
+        for model in MODELS_3D:
+            term, _, _ = pc._model_term_finalize(omap, pcp, model, n_pts)
+            got = pk.pc_term_sums(omap, cloud, poses, term)
+            want = pk.pc_term_sums_plain(omap, cloud, poses, term)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+            check(rel <= 1e-5, f"pc_term_sums ({regime}, {model}) rel err {rel} > 1e-5")
+            ms = cuda_ms(lambda: pk.pc_term_sums(omap, cloud, poses, term))
+            dev = kernel_ms(lambda: pk.pc_term_sums(omap, cloud, poses, term))
+            plain_ms = cuda_ms(lambda: pk.pc_term_sums_plain(omap, cloud, poses, term))
+            # 16 operations per (particle, point): the cell (12), the
+            # bounds test, the table read's index, the add; nothing (B, M)
+            b = bound(voxels + m * 12 + n_pts * 12 + m * 4 + 257 * 4, 16.0 * m * n_pts)
+            log(f"pc_term_sums ({regime}, {model}, {n_pts} x {m}): max_abs_err={err:.3e} "
+                f"max_rel_err={rel:.3e} ms={ms:.4f} (wrapper) device_ms={device_text(dev)} "
+                f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}; "
+                f"{voxels} voxels read)")
+            rows.append((err, ms, plain_ms, b, device_ms(dev), regime, model, m))
+    # reported: the steady cloud under the 3D default (Gompertz) model, and
+    # beside it every cloud and model
+    results["pc_term_sums"] = dict(
+        max_abs_err=max(r[0] for r in rows), ms=rows[1][1], device_ms=rows[1][4],
+        plain_ms=rows[1][2], **rows[1][3], library_ms=None,
+        by_cloud=[{"cloud": r[5], "model": r[6], "particles": r[7], "ms": r[1],
+                   "device_ms": r[4], "plain_ms": r[2], "bound_ms": r[3]["bound_ms"]}
+                  for r in rows])
 
     rows = []
     for regime in ("steady", "tracking"):
@@ -1504,6 +1610,7 @@ def phase_kernels_3d(omap, cloud, states):
             f"max_abs_err={err:.3e} ms={ms:.4f} (wrapper) device_ms={device_text(ops)} "
             f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})")
         rows.append((err, ms, plain_ms, b, device_ms(ops)))
+        del got, want, diff
     results["pc_distances"] = dict(max_abs_err=max(r[0] for r in rows), ms=rows[0][1],
                                    device_ms=rows[0][4], plain_ms=rows[0][2], **rows[0][3],
                                    library_ms=None)
@@ -1559,11 +1666,13 @@ def phase_main_path_3d(dev, omap, cloud, states):
     from badger_amcl_tpu_torch.sensors.point_cloud import PointCloudParams
 
     # the tracking cloud (cov 0.02) spans more than the windowed kernel's
-    # 64-row window, so the JAX dispatch and the port send it to pc_spread
-    expect = {"steady": "pc_distances", "tracking": "pc_spread_term_sums",
+    # 64-row window, so the JAX dispatch and the port send it to pc_spread;
+    # every regime runs the window prepass (the dispatch predicate)
+    expect = {"steady": "pc_term_sums", "tracking": "pc_spread_term_sums",
               "spread": "pc_spread_term_sums"}
     pcp = PointCloudParams()
-    counts = Launches({"pc_distances": pk.pc_distances,
+    counts = Launches({"pc_term_sums": pk.pc_term_sums, "pc_extents": pk.pc_extents,
+                       "pc_distances": pk.pc_distances,
                        "pc_spread_term_sums": psk.pc_spread_term_sums})
     gen = torch.Generator(device=dev).manual_seed(3)
     for regime in PARTICLES_3D:
@@ -1588,6 +1697,11 @@ def phase_main_path_3d(dev, omap, cloud, states):
             check_state(out, params, f"3d {regime}/{model} pinned step")
             name = expect[regime]
             check(rose[name] > 0, f"3d {regime}/{model}: {name} was not launched")
+            check(rose["pc_extents"] > 0, f"3d {regime}/{model}: the window prepass was not "
+                                          "launched")
+            # the windowed arm: the fused sums; nothing (B, M)
+            check(rose["pc_distances"] == 0, f"3d {regime}/{model}: the (B, M) pc_distances "
+                                             f"launched {rose['pc_distances']} times")
             mean = out.stats.mean.tolist()
             if regime == "steady":
                 err = math.hypot(mean[0] - TRUE_POSE_3D[0], mean[1] - TRUE_POSE_3D[1])
@@ -1614,7 +1728,7 @@ def phase_reference_3d(dev, omap):
     omap_c = to_device(omap, "cpu")
     cloud_c = torch.as_tensor(scenario.scene_3d(128)[1])
     pcp = PointCloudParams()
-    for regime, kernel in (("steady", pk.pc_distances),
+    for regime, kernel in (("steady", pk.pc_term_sums),
                            ("spread", psk.pc_spread_term_sums)):
         params, state_c, pool_c = scenario.build_filter_3d(
             4096, 7, REGIMES[regime], 1024, device="cpu")
@@ -1780,6 +1894,12 @@ def main():
                          "badger_amcl_tpu/ops/lf_kernel.py:182"),
         "lf_obs_counts": ("badger_amcl_tpu_torch/csrc/lf_distances.cu",
                           "badger_amcl_tpu/ops/lf_kernel.py:182"),
+        "lf_extents": ("badger_amcl_tpu_torch/csrc/lf_distances.cu",
+                       "badger_amcl_tpu/ops/lf_kernel.py:182"),
+        "pc_term_sums": ("badger_amcl_tpu_torch/csrc/pc_distances.cu",
+                         "badger_amcl_tpu/ops/pc_kernel.py:168"),
+        "pc_extents": ("badger_amcl_tpu_torch/csrc/pc_distances.cu",
+                       "badger_amcl_tpu/ops/pc_kernel.py:168"),
         "pc_distances": ("badger_amcl_tpu_torch/csrc/pc_distances.cu",
                          "badger_amcl_tpu/ops/pc_kernel.py:168"),
         "pc_spread_term_sums": ("badger_amcl_tpu_torch/csrc/pc_spread_term_sums.cu",
@@ -1794,12 +1914,12 @@ def main():
                          "badger_amcl_tpu/ops/corr_kernel.py:489"),
     }
     for k in meta:
-        if k != "lf_distances":
+        if k not in OFF_MAIN_PATH:
             check(launches[k]["launches"] > 0, f"{k} was not launched on any main path")
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          **launches[k], **kernels[k],
-         **({"main_path": False, "note": OFF_PATH_NOTE} if k == "lf_distances" else {})}
+         **({"main_path": False, "note": OFF_MAIN_PATH[k]} if k in OFF_MAIN_PATH else {})}
         for k in meta]}
     log(json.dumps({"timings": timings}))
     print(json.dumps(line))

@@ -132,6 +132,34 @@ def test_beam_spread_plain_matches_pallas(beam_maps):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
 
 
+@pytest.mark.parametrize("k", [256, 60])
+def test_beam_spread_rotated_rows_equal_plain(beam_maps, k):
+    """The CUDA kernel's formulation: each particle's row capped at `cap`
+    into bytes and rotated by its slab, then Phi[g, row[g]] added in
+    ascending g in f32, is the plain version bit for bit, also for K not a
+    multiple of 8 (60 of the 256 slabs: the kernel's unaligned row path)."""
+    _, tmap, _ = beam_maps
+    _, tscan = _scan()
+    pre = tbsk.beam_spread_prepass(tmap, torch.from_numpy(_poses("spread")), tscan.angles)
+    phi = tbsk.phi_tables(tmap, tplanar.PlanarScanParams(), tscan, pre["kap"])
+    cap = tbsk.value_cap(tmap, RANGE_MAX)
+    rows = tmap.range_rows[:, :k].contiguous()
+    sig = pre["sig"] % k
+    n_g = torch.tensor(min(int(pre["n_g"]), k // 2), dtype=torch.int32)
+    gocc = torch.zeros((k,), dtype=torch.int32)
+    gocc[:int(n_g)] = torch.unique(pre["gocc"][:int(pre["n_g"])] % k)[:int(n_g)]
+    args = (rows, pre["flat"], sig, gocc, n_g, phi[:k].contiguous(), cap)
+    want = tbsk.beam_spread_sums_plain(*args)
+    assert torch.equal(tbsk.beam_spread_sums(*args), want)  # CPU: the plain version
+    full = rows[pre["flat"]].to(torch.int64)  # (M, K)
+    rot = torch.gather(full, 1, (torch.arange(k)[None, :] + sig.long()[:, None]) % k)
+    rot = rot.clamp(max=cap).to(torch.uint8)
+    acc = torch.zeros((full.shape[0],), dtype=torch.float32)
+    for g in gocc[:int(n_g)].tolist():
+        acc = acc + phi[g, rot[:, g].long()]
+    assert torch.equal(acc, want)
+
+
 @pytest.mark.parametrize("cloud,arm", [("tight", "table"), ("spread", "spread")])
 def test_planar_beam_corr_matches_jax(beam_maps, cloud, arm):
     jmap, tmap, _ = beam_maps

@@ -1,7 +1,8 @@
 """PyTorch port: the 3D point-cloud path — the voxel distance lookup, the
-spread-cloud term sums, both cloud models on every arm of the dispatch, and
-one whole 3D step — held against the JAX package on the same inputs, its
-Pallas kernels in interpret mode.
+windowed arm's fused term sums and window prepass, the spread-cloud term
+sums, both cloud models on every arm of the dispatch, and one whole 3D
+step — held against the JAX package on the same inputs, its Pallas
+kernels in interpret mode.
 
 The JAX step draws from `state.key`; its draws are replayed (odom.py:144,
 filter.py:502 and :351-353) and passed to the port.
@@ -11,6 +12,7 @@ Tolerances:
   last-ulp cos/sin difference between XLA and PyTorch, within res * sqrt(2)
   (the distance field is 1-Lipschitz) plus one quantization step
   (max_distance_ratio);
+- window prepass: integer extents, origins and fits flag, equal;
 - term sums and likelihoods: >= 99% of particles to rtol 1e-5 (the same
   cells and terms, summed in another order) and all to 5% (a floor flip
   moves one of the cloud's terms);
@@ -138,6 +140,121 @@ def test_pc_distances_off_map_and_out_of_band(maps):
     exact = tmap.distance_at(tmap.world_to_map(cloud)).T.numpy()
     on = got[2:] != off
     np.testing.assert_allclose(got[2:][on], exact[2:][on], atol=RES * np.sqrt(2.0))
+
+
+def _tracking_poses(n=512, seed=23):
+    rng = np.random.default_rng(seed)
+    noise = np.concatenate([0.6 * rng.standard_normal((n, 2)),
+                            0.1 * rng.standard_normal((n, 1))], axis=1)
+    return (np.array([10.0, 10.0, 0.7]) + noise).astype(np.float32)
+
+
+@pytest.mark.parametrize("cloud", ["tight", "tracking", "spread", "off_map"])
+def test_window_prepass_matches_jax_window_origins(maps, cloud):
+    """The extents' plain version plus `window_finish` give the JAX
+    package's window origins, slabs and fits flag: on a converged cloud
+    (fits), a wider tracking cloud and a spread one (neither fits), and
+    with every point off the map (no extents: fits)."""
+    jmap, tmap = maps
+    pts = _cloud()
+    poses = {"tight": _tight_poses, "tracking": _tracking_poses,
+             "spread": _spread_poses}.get(cloud, _tight_poses)()
+    if cloud == "off_map":
+        poses = poses + np.float32([40.0, 0.0, 0.0])
+    jr0, jc0, jkz, jfits = jpk.window_origins(jmap, jnp.asarray(pts), jnp.asarray(poses))
+    tp, tq = _t(poses), _t(pts)
+    launches = tpk.pc_extents.launches
+    ext = tpk.pc_extents(tmap, tq, tp)
+    assert tpk.pc_extents.launches == launches  # CPU: the plain version
+    assert ext.shape == (4, 32) and ext.dtype == torch.int32
+    assert torch.equal(ext, tpk.pc_extents_plain(tmap, tq, tp))
+    no_cell = ext[0] == tpk.BIG
+    assert bool(no_cell.all()) == (cloud == "off_map")
+    assert bool((ext[1][no_cell] == -tpk.BIG).all() and (ext[2][no_cell] == tpk.BIG).all())
+    for r0, c0, kz, fits in (tpk.window_finish(tmap, ext, tpk.point_slabs(tmap, tq)),
+                             tpk.window_origins(tmap, tq, tp)):
+        for a, b in ((r0, jr0), (c0, jc0), (kz, jkz)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert fits.dim() == 0 and bool(fits) == bool(jfits)
+    assert bool(jfits) == (cloud in ("tight", "off_map"))
+
+
+def test_window_finish_z_band(maps):
+    """A point outside the z band fails the window test in both packages,
+    whatever its cells."""
+    jmap, tmap = maps
+    pts, poses = _cloud(), _tight_poses()
+    pts[5, 2] = 5.0
+    _, _, _, jfits = jpk.window_origins(jmap, jnp.asarray(pts), jnp.asarray(poses))
+    _, _, kz, fits = tpk.window_origins(tmap, _t(pts), _t(poses))
+    assert not bool(jfits) and not bool(fits) and int(kz[5]) >= tmap.size[2]
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_pc_term_sums_matches_windowed_kernel(maps, model):
+    """The fused sums (CPU tensors: the plain version) against the JAX
+    combine over the windowed interpret kernel's (B, M) distances: the
+    per-particle sums, and the likelihood through each package's
+    finalize."""
+    jmap, tmap = maps
+    pts, poses = _cloud(), _tight_poses()
+    jr0, jc0, jkz, jfits = jpk.window_origins(jmap, jnp.asarray(pts), jnp.asarray(poses))
+    assert bool(jfits)
+    jz = jpk.windowed_distances(jmap, jnp.asarray(pts), jnp.asarray(poses), jr0, jc0, jkz,
+                                interpret=True)
+    jterm, _, jcombine = jpc._model_term_finalize(jmap, jpc.PointCloudParams(), model, 32)
+    tterm, tfinalize, _ = tpc._model_term_finalize(tmap, tpc.PointCloudParams(), model, 32)
+    launches = tpk.pc_term_sums.launches
+    got = tpk.pc_term_sums(tmap, _t(pts), _t(poses), tterm)
+    assert tpk.pc_term_sums.launches == launches  # CPU: the plain version
+    assert got.shape == (512,) and got.dtype == torch.float32
+    _assert_sums_close(got, jnp.sum(jterm(jz), axis=0))
+    _assert_sums_close(tfinalize(got), jcombine(jz))
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_pc_term_sums_table_form_equals_plain(maps, model):
+    """The kernel's formulation on the CPU: per (point, particle) the
+    term table's entry at the voxel's ratio (255 off the map, 256 outside
+    the z band), summed in double, is the plain version's sum to within
+    f32 rounding, on particles partly off the map and points partly above
+    the band."""
+    _, tmap = maps
+    pts = _cloud()
+    pts[:3, 2] = 5.0
+    poses = _tight_poses()
+    poses[:40, 0] += 9.0  # 19 m: some endpoints off the 20 m map
+    tq, tp = _t(pts), _t(poses)
+    term, _, _ = tpc._model_term_finalize(tmap, tpc.PointCloudParams(), model, 32)
+    ci, cj = tpk._cells(tmap, tq, tp)
+    kz = tpk.point_slabs(tmap, tq)[:, None].expand_as(ci)
+    ratio = tmap.tex_zyx.reshape(-1)[tmap.flat_index(ci, cj, kz)].long()
+    idx = torch.where(tpk._on_map(tmap, ci, cj), ratio, 255)
+    idx = torch.where((kz >= 0) & (kz < tmap.size[2]), idx, 256)
+    assert bool((idx == 255).any()) and bool((idx == 256).any())
+    table = tpk.term_table(term, tmap.max_distance_ratio, tmap.max_distance_to_object,
+                           torch.device("cpu"))
+    want = tpk.pc_term_sums_plain(tmap, tq, tp, term)
+    got = table.double()[idx].sum(dim=0).float()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
+    assert torch.equal(tpk.pc_term_sums(tmap, tq, tp, term), want)
+
+
+def test_windowed_wrappers_check_inputs(maps):
+    _, tmap = maps
+    pts, poses = _t(_cloud(4)), _t(_tight_poses(8))
+    term = tps.PCTerm(1.0, 1.0, 0.0, True)
+    for fn in (tpk.pc_extents, tpk.window_origins, tpk.pc_distances):
+        with pytest.raises(ValueError):
+            fn(tmap, pts, poses[:, :2])
+        with pytest.raises(ValueError):
+            fn(tmap, pts.double(), poses)
+        with pytest.raises(ValueError):
+            fn(dataclasses.replace(tmap, tex_zyx=None), pts, poses)
+    with pytest.raises(ValueError):
+        tpk.pc_term_sums(tmap, pts, poses.double(), term)
+    assert tpk.pc_term_sums(tmap, pts[:0], poses, term).shape == (8,)
+    assert tpk.pc_extents(tmap, pts[:0], poses).shape == (4, 0)
 
 
 @pytest.mark.parametrize("model", MODELS)
