@@ -1,7 +1,8 @@
 """badger_amcl_tpu_torch — the PyTorch/CUDA port of badger_amcl_tpu.
 
 The 2D MCL step (odometry -> any of the four planar laser models ->
-KLD multinomial resample with cluster statistics -> convergence), the 3D
+KLD multinomial or systematic resample with cluster statistics ->
+convergence) and the 2D node around it, the 3D
 point-cloud path (voxel EDT, both cloud models) and the fleet step (R
 robots batched on one card) as eager PyTorch on plain tensors, with
 hand-written CUDA kernels for Hopper (``csrc/``) where the JAX package
@@ -14,6 +15,8 @@ imports JAX or ``badger_amcl_tpu``.
 - ``sensors``  — odometry, planar likelihood-field and point-cloud models
 - ``ops``      — kernel wrappers, their plain PyTorch versions, the builder
 - ``mcl``      — the fused step entry points
+- ``node``     — the 2D localization node (messages in -> pose/TF out)
+- ``config``   — the node's typed configuration
 - ``fleet``    — many robots' filters stepped as one batch
 - ``scenario`` — seeded 2D flagship and 3D scene builders
 - ``convert``  — JAX-package objects (as numpy) -> port objects

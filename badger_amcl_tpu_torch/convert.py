@@ -137,3 +137,29 @@ def pc_params_from_numpy(params) -> PointCloudParams:
     return PointCloudParams(**{
         f.name: float(np.asarray(getattr(params, f.name)))
         for f in dataclasses.fields(PointCloudParams)})
+
+
+def config_from_jax(config):
+    """AMCLConfig (JAX package) -> the port's AMCLConfig, field by field
+    (enums by their value)."""
+    from badger_amcl_tpu_torch.config import AMCLConfig
+
+    kw = {}
+    for f in dataclasses.fields(AMCLConfig):
+        v = getattr(config, f.name)
+        kw[f.name] = getattr(v, "value", v)
+    return AMCLConfig(**kw)
+
+
+def message_from_jax(msg):
+    """A JAX-package node message (LaserScan, Odometry, OccupancyGrid,
+    PoseWithCovarianceStamped, ...) -> the port's message of the same name,
+    its arrays copied."""
+    from badger_amcl_tpu_torch.node import messages
+
+    cls = getattr(messages, type(msg).__name__)
+    return cls(**{f.name: (np.array(getattr(msg, f.name), copy=True)
+                           if isinstance(getattr(msg, f.name), np.ndarray)
+                           else getattr(msg, f.name))
+                  for f in dataclasses.fields(cls)})
+

@@ -10,7 +10,9 @@ passed in. A step (`fleet_step`):
     motion update (R, M)  ->  `fleet_likelihood`: one prepass over all
     robots, ONE `fleet_corr_table` launch for all R tables, one batched
     per-particle read  ->  batched sensor update  ->  `fleet_resample`
-    (composite-key KLD stop and cluster ranks over R * M).
+    (composite-key KLD stop and cluster ranks over R * M), or for
+    systematic resampling the batched comb `fleet_resample_systematic`
+    (the JAX package vmaps `resample` there).
 
 On the "corr" backend a step has no Python loop over robots outside its
 fallback arms, and its host syncs do not grow with R: the envelope flags
@@ -86,17 +88,21 @@ class FleetScan:
 @dataclasses.dataclass
 class FleetNoise:
     """Variates of one fleet step: odom (R, 3, M) standard normals, inject
-    and pick (R, M) uniforms in [0, 1)."""
+    and pick (R, M) uniforms in [0, 1) (multinomial), start (R,) uniform
+    comb starts (systematic; `draw` takes them from pick[:, 0], which the
+    comb does not otherwise read)."""
 
     odom: torch.Tensor
     inject: torch.Tensor
     pick: torch.Tensor
+    start: Optional[torch.Tensor] = None
 
     @staticmethod
     def draw(gen: torch.Generator, r: int, m: int, device) -> "FleetNoise":
-        return FleetNoise(odom=torch.randn((r, 3, m), generator=gen, device=device),
-                          inject=torch.rand((r, m), generator=gen, device=device),
-                          pick=torch.rand((r, m), generator=gen, device=device))
+        odom = torch.randn((r, 3, m), generator=gen, device=device)
+        inject = torch.rand((r, m), generator=gen, device=device)
+        pick = torch.rand((r, m), generator=gen, device=device)
+        return FleetNoise(odom=odom, inject=inject, pick=pick, start=pick[:, 0])
 
 
 def fleet_init(params: PFParams, means, covs, alpha_slow: float = 0.001,
@@ -201,9 +207,8 @@ def fleet_step(states: MCLState, omap, scan_params, scans: FleetScan, pools: tor
                generator: Optional[torch.Generator] = None) -> MCLState:
     """One full MCL step for every robot (fleet.py:44-106): odometry
     (R, 3), pools (R, M, 3); `noise` or a `generator` supplies the
-    variates. Multinomial resampling only, as the port's `resample`."""
-    if resample_model != ResampleModel.MULTINOMIAL:
-        raise NotImplementedError("the port's fleet resamples multinomially")
+    variates. Multinomial resampling takes `fleet_resample`, systematic
+    the batched comb `fleet_resample_systematic` (JAX vmaps `resample`)."""
     if backend not in FLEET_BACKENDS:
         raise ValueError(f"backend must be one of {FLEET_BACKENDS}, got {backend!r}")
     if noise is None:
@@ -215,4 +220,6 @@ def fleet_step(states: MCLState, omap, scan_params, scans: FleetScan, pools: tor
                                        noise.odom, absolute_motions)
     p, mf = fleet_likelihood(omap, scan_params, scans, states, laser_model, backend)
     states = pf_filter.sensor_update(states, p, mf)
+    if resample_model == ResampleModel.SYSTEMATIC:
+        return pf_filter.fleet_resample_systematic(states, params, pools, noise.start)
     return pf_filter.fleet_resample(states, params, pools, noise.inject, noise.pick)

@@ -40,6 +40,16 @@ class CellState(enum.IntEnum):
     OCCUPIED = 1
 
 
+def grid_from_probabilities(data: np.ndarray) -> np.ndarray:
+    """ROS OccupancyGrid data (0..100 / -1) -> CellState int8: 0 -> FREE,
+    100 -> OCCUPIED, anything else -> UNKNOWN (node_2d.cpp:286-291)."""
+    data = np.asarray(data)
+    out = np.zeros(data.shape, dtype=np.int8)  # UNKNOWN
+    out[data == 0] = int(CellState.FREE)
+    out[data == 100] = int(CellState.OCCUPIED)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class OccupancyMap2D:
     """Immutable 2D map bundle; tensor fields live on one device.
@@ -86,9 +96,32 @@ class OccupancyMap2D:
             cells=torch.as_tensor(cells, device=device),
         )
 
+    @staticmethod
+    def from_occupancy_grid_msg(width: int, height: int, resolution: float,
+                                origin_position_x: float, origin_position_y: float,
+                                data: np.ndarray, map_scale_up_factor: int = 1,
+                                device="cuda") -> "OccupancyMap2D":
+        """Build from a ROS-style OccupancyGrid message with the reference's
+        supersampling (node_2d.cpp:265-295): resolution / scale, size *
+        scale, the centre origin msg.origin + (size // 2) * resolution, each
+        supersampled cell its parent's state."""
+        s = int(map_scale_up_factor)
+        res = float(resolution) / s
+        w, h = int(width) * s, int(height) * s
+        base = grid_from_probabilities(np.asarray(data).reshape(int(height), int(width)))
+        cells = np.repeat(np.repeat(base, s, axis=0), s, axis=1)
+        return OccupancyMap2D.from_cells(cells, res, float(origin_position_x) + (w // 2) * res,
+                                         float(origin_position_y) + (h // 2) * res, device)
+
     @property
     def device(self) -> torch.device:
         return self.cells.device
+
+    @property
+    def distances_lut_created(self) -> bool:
+        """Whether the distance field exists: the node drops scans until it
+        does (map.h:53, node_2d.cpp:406)."""
+        return self.distances is not None
 
     def with_distance_field(self, max_distance_to_object: float) -> "OccupancyMap2D":
         """Build the capped distance LUT (reference updateDistancesLUT,
@@ -134,6 +167,16 @@ class OccupancyMap2D:
         ci, cj = self.cells_of(xy[..., 0], xy[..., 1])
         return torch.stack([ci, cj], dim=-1)
 
+    def map_to_world(self, ij: torch.Tensor) -> torch.Tensor:
+        """(..., 2) integer cell indices -> (..., 2) f32 world meters of the
+        cell centres (occupancy_map.cpp:75-88)."""
+        half = torch.tensor([self.size_x // 2, self.size_y // 2], dtype=ij.dtype,
+                            device=ij.device)
+        origin = torch.tensor([self.origin_x, self.origin_y], dtype=torch.float32,
+                              device=ij.device)
+        res = torch.full((), self.resolution, dtype=torch.float32, device=ij.device)
+        return origin + (ij - half).to(torch.float32) * res
+
     def in_bounds(self, ci: torch.Tensor, cj: torch.Tensor) -> torch.Tensor:
         return (ci >= 0) & (ci < self.size_x) & (cj >= 0) & (cj < self.size_y)
 
@@ -147,6 +190,11 @@ class OccupancyMap2D:
         j = cj.clamp(0, self.size_y - 1).long()
         return j * self.size_x + i
 
+    def cell_state_at(self, ij: torch.Tensor) -> torch.Tensor:
+        """CellState at (..., 2) cells, clipped into the map: pair with
+        `is_valid` (occupancy_2d.py:226-230)."""
+        return self.cells.reshape(-1)[self.flat_index(ij[..., 0], ij[..., 1])]
+
     def distance_at(self, ij: torch.Tensor) -> torch.Tensor:
         """Distance at (..., 2) cells; out of bounds -> max distance
         (reference getDistanceToObject, occupancy_map.cpp:64-73)."""
@@ -154,3 +202,15 @@ class OccupancyMap2D:
         d = self.distances.reshape(-1)[self.flat_index(ci, cj)]
         return torch.where(self.in_bounds(ci, cj), d,
                            torch.full_like(d, self.max_distance_to_object))
+
+    # --- derived host-side products ----------------------------------------
+
+    def free_space_indices(self, non_free_space_radius: float = 0.0) -> np.ndarray:
+        """(F, 2) int32 (i, j) of the FREE cells farther than the radius from
+        any obstacle (updateFreeSpaceIndices, node_2d.cpp:318-338), in the
+        JAX package's order (row-major over [j, i])."""
+        free = self.cells.cpu().numpy() == int(CellState.FREE)
+        if self.distances is not None:
+            free &= self.distances.cpu().numpy() > non_free_space_radius
+        j, i = np.nonzero(free)
+        return np.stack([i, j], axis=1).astype(np.int32)

@@ -30,20 +30,22 @@ from badger_amcl_tpu_torch.sensors.planar import planar_likelihood
 @dataclasses.dataclass
 class StepNoise:
     """Variates of one step: odom (3, M) standard normals (None without a
-    motion update), inject and pick (M,) uniforms in [0, 1)."""
+    motion update), inject and pick (M,) uniforms in [0, 1) (multinomial),
+    start the 0-dim uniform start of the systematic comb. `draw` takes the
+    start from pick[0], which the comb does not otherwise read: a step
+    draws the same variates under either model."""
 
     odom: Optional[torch.Tensor]
     inject: torch.Tensor
     pick: torch.Tensor
+    start: Optional[torch.Tensor] = None
 
     @staticmethod
     def draw(gen: torch.Generator, m: int, device, odom: bool = True) -> "StepNoise":
         normals = torch.randn((3, m), generator=gen, device=device) if odom else None
-        return StepNoise(
-            odom=normals,
-            inject=torch.rand((m,), generator=gen, device=device),
-            pick=torch.rand((m,), generator=gen, device=device),
-        )
+        inject = torch.rand((m,), generator=gen, device=device)
+        pick = torch.rand((m,), generator=gen, device=device)
+        return StepNoise(odom=normals, inject=inject, pick=pick, start=pick[0])
 
 
 def _noise(noise, generator, state, odom):
@@ -91,7 +93,7 @@ def mcl_step_2d(state: MCLState, omap, scan_params, scan, random_pose_pool,
                              backend)
     if do_resample:
         state = pf_filter.resample(state, params, random_pose_pool, noise.inject,
-                                   noise.pick, resample_model)
+                                   noise.pick, resample_model, u_start=noise.start)
     return state
 
 
@@ -108,7 +110,7 @@ def sensor_resample_step(state: MCLState, omap, scan_params, scan, random_pose_p
     noise = _noise(noise, generator, state, odom=False)
     state = sensor_update_2d(state, omap, scan_params, scan, laser_model, False, backend)
     return pf_filter.resample(state, params, random_pose_pool, noise.inject,
-                              noise.pick, resample_model)
+                              noise.pick, resample_model, u_start=noise.start)
 
 
 def likelihood_only(state: MCLState, omap, scan_params, scan,

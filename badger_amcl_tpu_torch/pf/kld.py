@@ -4,9 +4,11 @@ bound (counterpart of badger_amcl_tpu.pf.kld, sorted formulation).
 Bins are floor(pose / [0.5 m, 0.5 m, 10 deg]) (pf_kdtree.cpp:33-56) placed
 on a dense grid relative to the cloud's minimum bin; yaw bins do not wrap
 (pf_kdtree.cpp treats the yaw key as a plain integer). Occupied-bin counts
-and first-occurrence flags come from stable sorts; the JAX package's grid
-scatter-min (`first_occurrence_flags`, kept there for vmapped fleets) is not
-ported. Keys stay int32 as in the JAX package: the single-robot grid holds
+and first-occurrence flags come from stable sorts (`leaf_count_sorted`,
+`first_occurrence_flags_sorted`) or, as the JAX package's capped
+(`stats_max_clusters`) resample takes them, from the dense grid
+(`leaf_count`, the scatter-min `first_occurrence_flags`); both give the
+same integers. Keys stay int32 as in the JAX package: the single-robot grid holds
 at most hist_x*hist_y*hist_a < 2**30 cells. A fleet's composite keys
 robot * n_cells + bin are int64: in int32 with the JAX package's 2**30
 sentinel they collide past R * n_cells >= 2**30 (ADVICE.md).
@@ -55,6 +57,26 @@ def occupancy_grid(flat: torch.Tensor, active: torch.Tensor, shape) -> torch.Ten
     return occ
 
 
+def leaf_count(poses: torch.Tensor, active: torch.Tensor, shape) -> torch.Tensor:
+    """Occupied-bin count == kd-tree leaf count (pf_kdtree.cpp:92-95), from
+    the occupancy grid (kld.py:77-80)."""
+    _, flat = grid_cells(bin_keys(poses), active, shape)
+    return occupancy_grid(flat, active, shape).sum().to(torch.int32)
+
+
+def first_occurrence_flags(flat: torch.Tensor, active: torch.Tensor, shape):
+    """Whether each entry's bin is unseen at any earlier active index: a
+    scatter-min of the draw index over the grid, then one gather back
+    (kld.py:83-100). Inactive entries scatter into a spare last cell."""
+    gx, gy, ga = shape
+    n_cells = gx * gy * ga
+    idx = torch.arange(flat.shape[0], dtype=torch.int32, device=flat.device)
+    dst = torch.where(active, flat, n_cells).long()
+    grid = torch.full((n_cells + 1,), BIG, dtype=torch.int32, device=flat.device)
+    grid.scatter_reduce_(0, dst, idx, reduce="amin")
+    return (grid[flat.long()] == idx) & active
+
+
 def sort_by_bin(flat: torch.Tensor, active: torch.Tensor):
     """Stable sort of particle indices by bin key, inactive last. Returns
     (keys_sorted, draw_idx_sorted, active_sorted, segstart); segstart marks
@@ -80,6 +102,12 @@ def first_occurrence_flags_sorted(flat: torch.Tensor, active: torch.Tensor):
     return to_draw_order(idx_s, segstart)
 
 
+def leaf_count_sorted(poses: torch.Tensor, active: torch.Tensor, shape) -> torch.Tensor:
+    """`leaf_count` from one stable sort (kld.py:134-138)."""
+    _, flat = grid_cells(bin_keys(poses), active, shape)
+    return sort_by_bin(flat, active)[3].sum().to(torch.int32)
+
+
 FLEET_SENTINEL = 2 ** 62  # int64 composite-key sentinel: sorts after every key
 
 
@@ -97,6 +125,18 @@ def composite_sort(flat: torch.Tensor, active: torch.Tensor, n_cells: int):
     segstart = (ks < FLEET_SENTINEL) & torch.cat(
         [torch.ones(1, dtype=torch.bool, device=ks.device), ks[1:] != ks[:-1]])
     return ks, idx_s, segstart
+
+
+def leaf_count_fleet(flat: torch.Tensor, active: torch.Tensor, shape) -> torch.Tensor:
+    """Per robot, the occupied-bin count of flat, active (R, M): the
+    segment starts of one composite-key sort, counted by robot. Returns
+    (R,) int32."""
+    gx, gy, ga = shape
+    n_cells = gx * gy * ga
+    r = flat.shape[0]
+    ks, _, segstart = composite_sort(flat, active, n_cells)
+    counts = torch.zeros((r,), dtype=torch.int32, device=flat.device)
+    return counts.scatter_add_(0, (ks // n_cells).clamp(max=r - 1), segstart.to(torch.int32))
 
 
 def first_occurrence_flags_fleet(flat: torch.Tensor, active: torch.Tensor, shape):

@@ -54,6 +54,36 @@ def map_cells(map_cells: int, seed: int) -> np.ndarray:
     return cells
 
 
+def grid_msg(map_size: int, seed: int = 0):
+    """The scenario's map as an OccupancyGrid message (0 free, 100
+    occupied), its origin placed so that the node's centre-origin
+    conversion (`OccupancyMap2D.from_occupancy_grid_msg`) rebuilds
+    `build_map`'s cells and origin (0, 0)."""
+    from badger_amcl_tpu_torch.node.messages import OccupancyGrid
+
+    cells = map_cells(map_size, seed)
+    data = np.where(cells == int(CellState.OCCUPIED), 100, 0).astype(np.int8)
+    origin = -(map_size // 2) * RESOLUTION
+    return OccupancyGrid(width=map_size, height=map_size, resolution=RESOLUTION,
+                         origin_x=origin, origin_y=origin, data=data.ravel())
+
+
+def laser_scan(omap: OccupancyMap2D, pose, angles: np.ndarray, stamp: float,
+               range_max: float = RANGE_MAX, frame_id: str = "laser"):
+    """A LaserScan message raycast (sensors.raycast.calc_range) on omap's
+    device from a scanner at pose (x, y, yaw) over evenly spaced angles."""
+    from badger_amcl_tpu_torch.node.messages import LaserScan
+    from badger_amcl_tpu_torch.sensors.raycast import calc_range
+
+    dev = omap.device
+    a = torch.as_tensor(np.asarray(angles, np.float32), device=dev)
+    x, y, yaw = (torch.full((), float(v), dtype=torch.float32, device=dev) for v in pose)
+    ranges = calc_range(omap, x, y, yaw + a, range_max).cpu().numpy()
+    return LaserScan(stamp=stamp, frame_id=frame_id, angle_min=float(angles[0]),
+                     angle_increment=float(angles[1] - angles[0]), range_min=0.05,
+                     range_max=range_max, ranges=ranges)
+
+
 def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
     """jnp.linspace(start, stop, num) in float32, same arithmetic:
     start * (1 - s) + stop * s with s = iota / (num - 1), endpoint exact."""

@@ -11,10 +11,13 @@ device takes true IEEE division everywhere.
 `lax.cond`; in eager PyTorch each such branch reads the predicate back to
 the host. Every read goes through here so a run can count them
 (`SYNCS.count`); several predicates known at once are read in one sync.
+`host_arrays` reads whole tensors (the node's published pose, covariance
+and particle cloud) the same way.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -39,6 +42,21 @@ def host_values(*ts: torch.Tensor) -> list:
     if len(ts) == 1:
         return [ts[0].item()]
     return torch.stack([t.to(torch.float64) for t in ts]).tolist()
+
+
+def host_arrays(*ts: torch.Tensor) -> list:
+    """Copy tensors of any shape and dtype to numpy arrays in one host
+    sync (their bytes concatenated on the device, one transfer)."""
+    SYNCS.count += 1
+    flat = [t.detach().reshape(-1).contiguous() for t in ts]
+    raw = torch.cat([f.view(torch.uint8) for f in flat]).cpu().numpy().tobytes()
+    out, off = [], 0
+    for t, f in zip(ts, flat):
+        nbytes = f.numel() * f.element_size()
+        dtype = torch.empty((0,), dtype=t.dtype).numpy().dtype
+        out.append(np.frombuffer(raw[off:off + nbytes], dtype).reshape(tuple(t.shape)))
+        off += nbytes
+    return out
 
 
 def host_bool(t: torch.Tensor) -> bool:

@@ -54,11 +54,24 @@ the port's three paths:
   `point_cloud_likelihood` -> `sensor_update` -> `resample`) for both
   cloud models in the steady (50k), tracking (10k) and spread (50k)
   regimes (every regime runs the prepass, steady the fused sums), and
-  compares the step on the card with the CPU at 4096 x 128.
+  compares the step on the card with the CPU at 4096 x 128;
+- the 2D node: `make_node` on the card at 50,000 particles x 720 beams,
+  fed the flagship map as an OccupancyGrid message, a TransformBuffer
+  (odom->base, static base->laser) and 30 scans raycast along a scripted
+  path (0.25 m and 0.02 rad per scan): the published amcl_pose must end
+  within 0.15 m and 0.1 rad of the truth, and #1 must launch; per scan it
+  logs the scan_received wall ms (CUDA synchronised, after 3 warm-ups),
+  host syncs, device busy and ops (torch.profiler), idle share and
+  launches. Then global localization and a few scans (the arm taken), a
+  saved pose loaded back where PyYAML is installed, the card node against
+  a CPU node (both on corr, 4096 x 360, zero-noise odometry, no
+  resample: weights to 1e-4, clouds and pose to 1e-4 m), and a few scans
+  each of the beam, prob (log space, beam skipping), corr_q and
+  systematic nodes.
 
 The launch counters are set to 0 just before each main-path run and read
 just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
-fleet, 3d) keeps
+fleet, 3d, node_2d) keeps
 its own count; every cell must go through its kernel and leave a sane
 filter state. Kernels, likelihoods and steps are timed with CUDA events,
 kernels also by their profiled device time, the corr tables' wrappers
@@ -1785,6 +1798,360 @@ def phase_timings_3d(dev, omap, cloud, states):
     return out
 
 
+# --- 2D node ---------------------------------------------------------------
+
+NODE_SCANS = 30
+NODE_WARMUP = 3
+NODE_BUSY_SCANS = 6
+NODE_GL_SCANS = 4
+NODE_MODEL_SCANS = 4
+# the scripted true path: per scan 0.25 m along the heading (above the
+# default 0.2 m update gate, so every scan updates) and a 0.02 rad turn
+NODE_START = (0.0, 0.0, 0.5)
+NODE_STEP = (0.25, 0.02)
+NODE_REF = (4096, 360, 6)  # card vs CPU: particles, beams, scans
+NODE_MODELS = {
+    "beam": dict(laser_model_type="beam"),
+    "prob_log_beamskip": dict(laser_model_type="likelihood_field_prob",
+                              laser_likelihood_log_space=True, do_beamskip=True),
+    "pallas_corr_q": dict(compute_backend="pallas_corr_q"),
+    "systematic": dict(resample_model_type="systematic"),
+}
+
+
+def node_config(**kw):
+    """The port's AMCLConfig at the flagship width: min = max = 50,000
+    particles, 720 beams, the scenario's likelihood distance; otherwise the
+    defaults."""
+    from badger_amcl_tpu_torch import scenario
+    from badger_amcl_tpu_torch.config import AMCLConfig
+
+    base = dict(min_particles=N_PARTICLES, max_particles=N_PARTICLES, laser_max_beams=N_BEAMS,
+                laser_likelihood_max_dist=scenario.MAX_DIST)
+    return AMCLConfig(**{**base, **kw})
+
+
+class NodeRun:
+    """A Node2D built through `make_node` on `dev`, fed the flagship map as
+    an OccupancyGrid message and a TransformBuffer with a static
+    base->laser, and the (Odometry, LaserScan) stream of a scripted true
+    path, its scans raycast on `world` (`scenario.laser_scan`) before they
+    are fed."""
+
+    def __init__(self, dev, cfg, world, n_scans, n_beams=N_BEAMS, init_cov=None, seed=0):
+        import numpy as np
+
+        from badger_amcl_tpu_torch import scenario
+        from badger_amcl_tpu_torch.node import Transform, TransformBuffer, make_node
+
+        self.world, self.n_beams = world, n_beams
+        self.tf = TransformBuffer()
+        self.tf.set_static("base_link", "laser", Transform.identity())
+        self.node = make_node(cfg, tf_buffer=self.tf, seed=seed, device=dev)
+        self.node.init_pose = np.array(NODE_START)
+        if init_cov is not None:
+            self.node.init_cov = np.asarray(init_cov, float)
+        t0 = time.perf_counter()
+        self.node.map_msg_received(scenario.grid_msg(MAP_CELLS))
+        self.map_s = time.perf_counter() - t0
+        self.out = {k: [] for k in ("amcl_pose", "particlecloud", "tf")}
+        for k, v in self.out.items():
+            self.node.subscribe_output(k, v.append)
+        self.tf.set_transform("odom", "base_link", 0.0, Transform.from_pose2d(NODE_START))
+        self.scans, self.truth, self.k = [], [np.array(NODE_START)], 0
+        self.extend(n_scans)
+
+    def extend(self, n):
+        """Script n more scans: 0.25 m along the heading, a 0.02 rad turn."""
+        import math
+
+        import numpy as np
+
+        from badger_amcl_tpu_torch import scenario
+        from badger_amcl_tpu_torch.node.messages import Odometry
+
+        angles = np.linspace(-2.35, 2.35, self.n_beams).astype(np.float32)
+        for _ in range(n):
+            pose = self.truth[-1]
+            pose = pose + np.array([NODE_STEP[0] * math.cos(pose[2]),
+                                    NODE_STEP[0] * math.sin(pose[2]), NODE_STEP[1]])
+            t = 0.1 * len(self.truth)
+            self.truth.append(pose)
+            self.scans.append((Odometry(t, pose.copy()),
+                               scenario.laser_scan(self.world, pose, angles, t)))
+
+    def feed(self):
+        """The next scan's TF, odometry and scan, then spin_once."""
+        from badger_amcl_tpu_torch.node import Transform
+
+        odom, scan = self.scans[self.k]
+        self.k += 1
+        self.tf.set_transform("odom", "base_link", odom.stamp, Transform.from_pose2d(odom.pose))
+        self.node.integrate_odom(odom)
+        self.node.scan_received(scan)
+        self.node.spin_once(odom.stamp)
+
+    def pose_error(self):
+        """(m, rad) of the last published amcl_pose from the true pose at its
+        stamp."""
+        import math
+
+        p = self.out["amcl_pose"][-1]
+        true = self.truth[int(round(p.stamp / 0.1))]
+        return (math.hypot(p.pose[0] - true[0], p.pose[1] - true[1]),
+                abs(math.remainder(p.pose[2] - true[2], 2 * math.pi)))
+
+
+def check_node(run, label):
+    """Finite normalized weights and poses, and a finite published pose."""
+    import numpy as np
+    import torch
+
+    s = run.node.state
+    check(bool(torch.isfinite(s.weights).all() & torch.isfinite(s.poses).all()),
+          f"{label}: non-finite weights or poses")
+    check(abs(float(s.weights.sum()) - 1.0) < 1e-4,
+          f"{label}: weights sum {float(s.weights.sum())}")
+    check(bool(run.out["amcl_pose"]) and bool(np.isfinite(run.out["amcl_pose"][-1].pose).all()),
+          f"{label}: no finite amcl_pose published")
+
+
+def phase_node(dev, smi):
+    """The 2D node through its entry points (`make_node`, `map_msg_received`,
+    `integrate_odom`, `scan_received`, `spin_once`, `global_localization`,
+    `shutdown`) at 50,000 particles x 720 beams on the flagship map:
+    tracking along a scripted path (per-scan wall ms, host syncs, device
+    busy, launches per scan), global localization, pose persistence, the
+    card node against a CPU node at 4096 x 360, the other models. Returns
+    (the node path's launch counts, timings)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from badger_amcl_tpu_torch import scenario
+    from badger_amcl_tpu_torch.maps.occupancy_2d import OccupancyMap2D
+    from badger_amcl_tpu_torch.ops import beam_kernel as bk
+    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import lf_kernel as lk
+    from badger_amcl_tpu_torch.ops import spread_kernel as sk
+    from badger_amcl_tpu_torch.utils.numerics import SYNCS
+
+    counts = Launches({"corr_table": ck.corr_table, "corr_table_q": ck.corr_table_q,
+                       "spread_term_sums": sk.spread_term_sums,
+                       "lf_term_sums": lk.lf_term_sums, "lf_extents": lk.beam_extents,
+                       "lf_obs_counts": lk.lf_obs_counts, "lf_distances": lk.lf_distances,
+                       "beam_table": bk.beam_table,
+                       "beam_spread_sums": bsk.beam_spread_sums})
+    world = OccupancyMap2D.from_cells(scenario.map_cells(MAP_CELLS, 0), scenario.RESOLUTION,
+                                      device=dev)
+    t0 = time.perf_counter()
+    run = NodeRun(dev, node_config(), world, NODE_SCANS)
+    torch.cuda.synchronize()
+    node = run.node
+    ref = scenario.build_map(MAP_CELLS, device=dev)
+    check(torch.equal(node.map.cells, ref.cells) and torch.equal(node.map.distances,
+                                                                 ref.distances)
+          and (node.map.origin_x, node.map.origin_y) == (ref.origin_x, ref.origin_y),
+          "node: the map message does not rebuild scenario.build_map's cells, distances "
+          "and origin")
+    truth = torch.tensor(np.array(run.truth)[:, :2], dtype=torch.float32, device=dev)
+    check(bool((world.cell_state_at(world.world_to_map(truth)) == -1).all()),
+          "node: the scripted path leaves free space")
+    log(f"node: map message -> {MAP_CELLS}^2 cells and distances equal to "
+        f"scenario.build_map, origin ({node.map.origin_x}, {node.map.origin_y}); receipt "
+        f"{run.map_s:.3f} s, {int(node.free_space_indices.shape[0])} free cells, backend "
+        f"{node.backend}; {NODE_SCANS} scans raycast, set-up {time.perf_counter() - t0:.2f} s")
+
+    walls, kinds, syncs, box = [], [], [], {}
+
+    def tracking():
+        for k in range(NODE_SCANS - NODE_BUSY_SCANS):
+            torch.cuda.synchronize()
+            s0, r0 = SYNCS.count, node.resample_count
+            a = time.perf_counter()
+            run.feed()
+            torch.cuda.synchronize()
+            if k >= NODE_WARMUP:
+                walls.append(1e3 * (time.perf_counter() - a))
+                syncs.append(SYNCS.count - s0)
+                kinds.append(node.resample_count > r0
+                             and node.resample_count % node.config.resample_interval == 0)
+        box["busy"] = device_busy(run.feed, steps=NODE_BUSY_SCANS)
+
+    rose = counts.run(tracking, NODE_SCANS)
+    check_node(run, "node tracking")
+    # every scan updates but the one after the first: odometry init restarts
+    # the integrator (node.cpp:1099-1112), so that scan sees no motion
+    check(node.resample_count == NODE_SCANS - 1,
+          f"node tracking: {node.resample_count} of {NODE_SCANS} scans updated")
+    check(rose["corr_table"] > 0, "node tracking: corr_table (#1) was not launched")
+    err_xy, err_yaw = run.pose_error()
+    check(err_xy < 0.15 and err_yaw < 0.1,
+          f"node tracking: amcl_pose {err_xy:.4f} m / {err_yaw:.4f} rad from the truth")
+    busy_ms, ops, top = box["busy"]
+    res_walls = [w for w, r in zip(walls, kinds) if r]
+    upd_walls = [w for w, r in zip(walls, kinds) if not r]
+    per_scan = {k: v / NODE_SCANS for k, v in rose.items() if v}
+    wall_mean = statistics.mean(walls)
+    timing = dict(
+        scan_ms_median=statistics.median(walls), scan_ms_mean=wall_mean,
+        scan_ms_median_resampling=statistics.median(res_walls),
+        scan_ms_median_update_only=statistics.median(upd_walls),
+        host_syncs_per_scan=statistics.mean(syncs), host_syncs_min_max=[min(syncs), max(syncs)],
+        device_busy_ms_per_scan=busy_ms, device_ops_per_scan=ops,
+        device_idle_share=1.0 - busy_ms / wall_mean, top_device_ops=top,
+        launches_per_scan=per_scan, pose_error=[err_xy, err_yaw], map_receipt_s=run.map_s,
+        device=smi)
+    log(f"node tracking ({N_PARTICLES} x {N_BEAMS} on {MAP_CELLS}^2, {node.backend}; {smi}): "
+        f"scan_received wall ms median {timing['scan_ms_median']:.4f}, mean {wall_mean:.4f} "
+        f"(resampling scans {timing['scan_ms_median_resampling']:.4f}, update-only "
+        f"{timing['scan_ms_median_update_only']:.4f}) over {len(walls)} updating scans after "
+        f"{NODE_WARMUP} warm-ups, CUDA synchronised")
+    log(f"node tracking ({smi}): host syncs per scan {timing['host_syncs_per_scan']:.2f} "
+        f"({min(syncs)}..{max(syncs)}); device busy ms per scan {busy_ms:.4f}, device ops per "
+        f"scan {ops:.0f} (torch.profiler over {NODE_BUSY_SCANS} scans); idle share "
+        f"{timing['device_idle_share']:.3f} (of the mean wall ms)")
+    log(f"node tracking ({smi}): launches per scan {per_scan}; top device ops (ms/scan): "
+        + "; ".join(f"{n} {t:.4f}" for n, t in top))
+    log(f"node tracking: amcl_pose {err_xy:.4f} m / {err_yaw:.4f} rad from the truth; "
+        f"{len(run.out['amcl_pose'])} poses, {len(run.out['tf'])} map->odom TFs published; "
+        f"n_active {int(node.state.n_active)}; host phases "
+        + ", ".join(f"{k} {v['mean_ms']:.3f} ms x {v['count']}"
+                    for k, v in node.timers.report().items()))
+
+    # pose persistence through the node, where PyYAML is installed
+    try:
+        import yaml  # noqa: F401
+        timing["yaml"] = True
+    except ImportError:
+        timing["yaml"] = False
+    if timing["yaml"]:
+        from badger_amcl_tpu_torch.node import make_node
+
+        with tempfile.TemporaryDirectory() as d:
+            node.config = node.config.replace(
+                save_pose=True, saved_pose_filepath=os.path.join(d, "saved_pose.yaml"))
+            node.shutdown(run.scans[run.k - 1][0].stamp)
+            again = make_node(node.config, device=dev)
+            check(node.latest_pose is not None
+                  and np.allclose(again.init_pose, node.latest_pose.pose, atol=1e-6),
+                  "node: the saved pose did not load back")
+        node.config = node.config.replace(save_pose=False)
+        log(f"node: import yaml succeeded; pose {np.round(node.latest_pose.pose, 4).tolist()} "
+            "saved at shutdown and loaded back by a new node")
+    else:
+        log("node: import yaml failed (no PyYAML on this machine): pose persistence not "
+            "run, the nodes run with save_pose=False")
+
+    # global localization: max_particles over the free cells, then a few scans
+    node.global_localization()
+    check(node.global_localization_active and int(node.state.n_active) == N_PARTICLES,
+          "node: global localization did not scatter max_particles")
+    run.extend(NODE_GL_SCANS)
+    arms = []
+    for _ in range(NODE_GL_SCANS):
+        arms.append({k: v for k, v in counts.run(run.feed, 1).items() if v})
+    check_node(run, "node global localization")
+    timing["global_localization_launches"] = arms
+    log(f"node global localization: launches per scan {arms}; n_active "
+        f"{int(node.state.n_active)}, clusters {int(node.state.stats.cluster_count)}")
+
+    timing["reference"] = phase_node_reference(dev, world)
+    timing["models"] = phase_node_models(dev, world, counts, smi)
+    return counts.read(), timing
+
+
+def phase_node_reference(dev, world):
+    """A card node against a CPU node (device="cpu"), both on "corr"
+    (pallas_corr; the CPU runs the plain versions), the same converted
+    state and message stream at 4096 x 360 on the flagship map: zero-noise
+    odometry and no resample, so the pipeline is deterministic. Weights to
+    1e-4 (>= 99% of particles, as the 2D likelihoods), the published
+    particle clouds and amcl_pose to 1e-4 m. A CPU node on "exact" is fed
+    the same stream (logged: the lattice's distance from the exact
+    endpoints)."""
+    import numpy as np
+    import torch
+
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+
+    n, b, n_scans = NODE_REF
+    still = dict(min_particles=n, max_particles=n, laser_max_beams=b, resample_interval=1000,
+                 odom_alpha1=0.0, odom_alpha2=0.0, odom_alpha3=0.0, odom_alpha4=0.0,
+                 odom_alpha5=0.0)
+    cfg = node_config(compute_backend="pallas_corr", **still)
+    runs = {label: NodeRun(d, cfg.replace(compute_backend=be), world, n_scans, b,
+                           init_cov=REGIMES["tracking"])
+            for label, d, be in (("card", dev, "pallas_corr"), ("cpu", "cpu", "pallas_corr"),
+                                 ("exact", "cpu", "xla"))}
+    for label in ("card", "exact"):
+        runs[label].node.state = to_device(runs["cpu"].node.state, runs[label].node.device)
+    before = ck.corr_table.launches
+    worst, exact_rel = 1.0, 0.0
+    for k in range(n_scans):
+        for r in runs.values():
+            r.feed()
+        w_c = runs["cpu"].node.state.weights
+        w_g = runs["card"].node.state.weights.cpu()
+        close = float(((w_g - w_c).abs() <= 1e-4 * w_c.abs()).float().mean())
+        worst = min(worst, close)
+        check(close >= 0.99, f"node reference scan {k}: only {close:.4f} of weights agree "
+                             "to 1e-4")
+        w_e = runs["exact"].node.state.weights
+        exact_rel = max(exact_rel, float(((w_e - w_c).abs() / w_c.abs().clamp(min=1e-30))
+                                         .max()))
+    check(ck.corr_table.launches > before, "node reference: the card node launched no "
+                                           "corr_table")
+    outs = {label: r.out for label, r in runs.items()}
+    cloud = max(float(np.abs(a.poses - c.poses).max())
+                for a, c in zip(outs["card"]["particlecloud"], outs["cpu"]["particlecloud"]))
+    check(len(outs["card"]["particlecloud"]) == len(outs["cpu"]["particlecloud"]) > 0
+          and cloud <= 1e-4, f"node reference: particle clouds differ by {cloud:.3g} m")
+    pose = max(float(np.abs(a.pose - c.pose).max())
+               for a, c in zip(outs["card"]["amcl_pose"], outs["cpu"]["amcl_pose"]))
+    check(len(outs["card"]["amcl_pose"]) == len(outs["cpu"]["amcl_pose"]) > 0 and pose <= 1e-4,
+          f"node reference: amcl_pose differs by {pose:.3g}")
+    log(f"node reference ({n} x {b} on {MAP_CELLS}^2, card vs CPU on corr, {n_scans} scans, "
+        f"zero-noise odometry, no resample): weights within 1e-4: >= {worst:.4f} per scan; "
+        f"particle clouds max diff {cloud:.3e} m, amcl_pose max diff {pose:.3e}; corr_table "
+        f"launched {ck.corr_table.launches - before} times on the card; CPU exact vs CPU corr "
+        f"weights max rel diff {exact_rel:.3e} (logged only)")
+    return dict(weights_within_1e4=worst, cloud_max_diff=cloud, pose_max_diff=pose,
+                exact_vs_corr_max_rel=exact_rel)
+
+
+def phase_node_models(dev, world, counts, smi):
+    """A few scans of the flagship node with each other model and option,
+    from the tracking regime's initial covariance (the cloud inside the
+    lattice envelope): the beam model (the range image baked on map
+    receipt), the prob model in log space with beam skipping, the int8
+    corr backend, systematic resampling; each must keep finite weights and
+    publish a pose."""
+    out = {}
+    for label, kw in NODE_MODELS.items():
+        run = NodeRun(dev, node_config(**kw), world, NODE_MODEL_SCANS,
+                      init_cov=REGIMES["tracking"])
+        if label == "beam":
+            check(run.node.map.range_image is not None,
+                  "node beam: the range image was not baked on map receipt")
+        t0 = time.perf_counter()
+        rose = counts.run(lambda: [run.feed() for _ in range(NODE_MODEL_SCANS)],
+                          NODE_MODEL_SCANS)
+        sec = time.perf_counter() - t0
+        check_node(run, f"node {label}")
+        check(rose["lf_distances"] == 0, f"node {label}: the (B, M) lf_distances launched")
+        err = run.pose_error()
+        out[label] = dict(launches={k: v for k, v in rose.items() if v}, pose_error=list(err),
+                          seconds=sec, map_receipt_s=run.map_s)
+        log(f"node {label} ({N_PARTICLES} x {N_BEAMS}, {run.node.backend}; {smi}): "
+            f"{NODE_MODEL_SCANS} scans in {sec:.3f} s (map receipt {run.map_s:.3f} s), "
+            f"launches {out[label]['launches']}, {len(run.out['amcl_pose'])} poses, the last "
+            f"{err[0]:.4f} m / {err[1]:.4f} rad from the truth")
+    return out
+
+
 def main():
     import torch
 
@@ -1879,9 +2246,14 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     kernels.update(phase_kernels_3d(omap3, cloud, states3))
     paths["3d"] = phase_main_path_3d(dev, omap3, cloud, states3)
-    launches = launch_counts(paths)
     phase_reference_3d(dev, omap3)
     timings.update(phase_timings_3d(dev, omap3, cloud, states3))
+    del omap3, cloud, states3
+    torch.cuda.empty_cache()
+
+    # the 2D node
+    paths["node_2d"], timings["node_2d"] = phase_node(dev, smi)
+    launches = launch_counts(paths)
 
     meta = {
         "corr_table": ("badger_amcl_tpu_torch/csrc/corr_table.cu",

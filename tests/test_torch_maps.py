@@ -103,8 +103,9 @@ def test_init_with_poses_stats_match(both_setups):
 
 def test_port_imports_no_jax():
     """Importing every port module and running a CPU step (2D, 3D, beam, a
-    corr_q likelihood and a fleet step) must work with JAX and the JAX
-    package made unimportable."""
+    corr_q likelihood, a fleet step and a few Node2D scans with systematic
+    resampling) must work with JAX and the JAX package made
+    unimportable."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -151,6 +152,33 @@ def test_port_imports_no_jax():
                               torch.zeros(2, 256, 3), torch.zeros(2, 3), odom, odom,
                               [0.05] * 5, fparams, backend="corr", generator=gen)
         assert fs.poses.shape == (2, 256, 3) and torch.isfinite(fs.weights).all()
+        import numpy as np
+        from badger_amcl_tpu_torch import config
+        from badger_amcl_tpu_torch.node import (checkpoint, make_node, messages,
+                                                persistence, scan_prep, transforms)
+        from badger_amcl_tpu_torch.utils import profiling
+        tfb = transforms.TransformBuffer()
+        tfb.set_static("base_link", "laser", transforms.Transform.identity())
+        cfg = config.AMCLConfig(min_particles=256, max_particles=256, laser_max_beams=64,
+                                update_min_d=0.01, resample_interval=1,
+                                resample_model_type="systematic",
+                                saved_pose_filepath="/nonexistent/saved_pose.yaml")
+        node = make_node(cfg, tf_buffer=tfb, device="cpu")
+        node.init_pose = np.array([0.5, -0.5, 0.2])
+        node.init_cov = np.array([0.01, 0.01, 0.005])
+        node.map_msg_received(scenario.grid_msg(448))
+        poses = []
+        node.subscribe_output("amcl_pose", poses.append)
+        pose = node.init_pose.copy()
+        angles = np.linspace(-2.35, 2.35, 64).astype(np.float32)
+        for k in range(1, 4):
+            pose = pose + np.array([0.05, 0.0, 0.0])
+            tfb.set_transform("odom", "base_link", 0.1 * k,
+                              transforms.Transform.from_pose2d(pose))
+            node.integrate_odom(messages.Odometry(0.1 * k, pose.copy()))
+            node.scan_received(scenario.laser_scan(omap, pose, angles, 0.1 * k))
+        assert len(poses) >= 2 and np.isfinite(poses[-1].pose).all()
+        assert torch.isfinite(node.state.weights).all()
         assert not any(m == "jax" or m.startswith(("jax.", "badger_amcl_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
