@@ -78,6 +78,14 @@ class OctoMap3D:
             device=torch.device(device),
         )
 
+    @staticmethod
+    def from_binary_octree(tree, max_distance_to_object: float,
+                           device="cuda") -> "OctoMap3D":
+        """Build from a `maps.octree_io.BinaryOcTree`: its occupied voxel
+        centers, metric bounds from their extents (octomap_3d.py:86-91)."""
+        return OctoMap3D.from_occupied_points(tree.occupied_centers(), tree.resolution,
+                                              max_distance_to_object, device=device)
+
     def set_map_bounds(self, map_min: Sequence[float],
                        map_max: Sequence[float]) -> "OctoMap3D":
         """Intersect the cropped bounds with 2D-map (x, y) bounds padded by

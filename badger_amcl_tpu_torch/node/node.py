@@ -652,14 +652,19 @@ class Node:
         package (version 1) snapshot records no weight domain: pass
         `log_domain`. Returns False and keeps the current state on a
         missing or corrupt file, a capacity mismatch, or a weight domain
-        other than this node's pipeline."""
+        other than this node's pipeline. A generator saved on another
+        device type (a CUDA snapshot on a CPU node) cannot be resumed: the
+        rest restores, the stream goes on fresh, and a warning says so."""
         from badger_amcl_tpu_torch.node import checkpoint
 
         loaded = checkpoint.load_state(path, self.params, self.device, log_domain)
         if loaded is None or loaded.log_domain != self._log_space:
             return False
         self.state = loaded.state
-        if loaded.generator_state is not None:
-            checkpoint.restore_generator(self.generator, loaded.generator_state)
+        if loaded.generator_state is not None and not checkpoint.restore_generator(
+                self.generator, loaded.generator_state):
+            log.warning("The snapshot's generator state was saved on %s and this node's "
+                        "generator is on %s: the particles are restored, the random "
+                        "stream is not", loaded.generator_state[0], self.generator.device.type)
         self.odom_init = False
         return True

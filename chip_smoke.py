@@ -67,11 +67,26 @@ the port's three paths:
   a CPU node (both on corr, 4096 x 360, zero-noise odometry, no
   resample: weights to 1e-4, clouds and pose to 1e-4 m), and a few scans
   each of the beam, prob (log space, beam skipping), corr_q and
-  systematic nodes.
+  systematic nodes;
+- the 3D node: examples/amcl_3d.yaml loaded by the port's
+  `cli.load_config`, `make_node` on the card at 50,000 particles x 256
+  points, fed the 3D scene as an OctomapMsg whose binary .bt payload the
+  port's `write_bt` wrote (the map's set-up timed stage by stage: write,
+  read, host EDT, upload) and 30 clouds of fresh voxel centres around a
+  scripted path: the pose within 0.3 m and 0.25 rad, #9's prepass and
+  fused sums must launch; per scan the same figures as the 2D node. Then
+  global localization (#10 must launch), the card node against a CPU node
+  (both on corr, 4096 x 128, zero-noise odometry, no resample: weights to
+  1e-4, clouds and pose to 1e-4 m) and the production config unchanged
+  (1,000-10,000 particles x 128 points: the particle count after each
+  resample);
+- the command line: `cli.main` with examples/amcl_2d.yaml, `--sim`, 30
+  steps on the card in a temporary directory: rc 0, the node's state on
+  CUDA, the pose saved on exit, its wall seconds and kernel launches.
 
 The launch counters are set to 0 just before each main-path run and read
 just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
-fleet, 3d, node_2d) keeps
+fleet, 3d, node_2d, node_3d, cli) keeps
 its own count; every cell must go through its kernel and leave a sane
 filter state. Kernels, likelihoods and steps are timed with CUDA events,
 kernels also by their profiled device time, the corr tables' wrappers
@@ -1834,51 +1849,71 @@ def node_config(**kw):
 class NodeRun:
     """A Node2D built through `make_node` on `dev`, fed the flagship map as
     an OccupancyGrid message and a TransformBuffer with a static
-    base->laser, and the (Odometry, LaserScan) stream of a scripted true
-    path, its scans raycast on `world` (`scenario.laser_scan`) before they
-    are fed."""
+    base->laser, and the (Odometry, scan) stream of a scripted true path
+    (per scan `step` = (metres along the heading, radians of turn)), its
+    scans raycast on `world` (`scenario.laser_scan`) before they are fed."""
+
+    start, step = NODE_START, NODE_STEP
 
     def __init__(self, dev, cfg, world, n_scans, n_beams=N_BEAMS, init_cov=None, seed=0):
-        import numpy as np
-
         from badger_amcl_tpu_torch import scenario
-        from badger_amcl_tpu_torch.node import Transform, TransformBuffer, make_node
 
         self.world, self.n_beams = world, n_beams
+        self._make(dev, cfg, "laser", init_cov, seed,
+                   lambda node: node.map_msg_received(scenario.grid_msg(MAP_CELLS)))
+        self.extend(n_scans)
+
+    def _make(self, dev, cfg, scanner_frame, init_cov, seed, receive_map):
+        """The node, its TF tree at the start pose and its outputs; the map
+        message received (`map_s` its wall seconds)."""
+        import numpy as np
+        import torch
+
+        from badger_amcl_tpu_torch.node import Transform, TransformBuffer, make_node
+
+        self.base = cfg.base_frame_id
         self.tf = TransformBuffer()
-        self.tf.set_static("base_link", "laser", Transform.identity())
+        self.tf.set_static(self.base, scanner_frame, Transform.identity())
         self.node = make_node(cfg, tf_buffer=self.tf, seed=seed, device=dev)
-        self.node.init_pose = np.array(NODE_START)
+        self.node.init_pose = np.array(self.start)
         if init_cov is not None:
             self.node.init_cov = np.asarray(init_cov, float)
         t0 = time.perf_counter()
-        self.node.map_msg_received(scenario.grid_msg(MAP_CELLS))
+        receive_map(self.node)
+        if self.node.device.type == "cuda":
+            torch.cuda.synchronize()
         self.map_s = time.perf_counter() - t0
         self.out = {k: [] for k in ("amcl_pose", "particlecloud", "tf")}
         for k, v in self.out.items():
             self.node.subscribe_output(k, v.append)
-        self.tf.set_transform("odom", "base_link", 0.0, Transform.from_pose2d(NODE_START))
-        self.scans, self.truth, self.k = [], [np.array(NODE_START)], 0
-        self.extend(n_scans)
+        self.tf.set_transform("odom", self.base, 0.0, Transform.from_pose2d(self.start))
+        self.scans, self.truth, self.k = [], [np.array(self.start)], 0
+
+    def make_scan(self, pose, t):
+        """The scan at the true pose: `n_beams` ranges raycast on `world`."""
+        import numpy as np
+
+        from badger_amcl_tpu_torch import scenario
+
+        angles = np.linspace(-2.35, 2.35, self.n_beams).astype(np.float32)
+        return scenario.laser_scan(self.world, pose, angles, t)
 
     def extend(self, n):
-        """Script n more scans: 0.25 m along the heading, a 0.02 rad turn."""
+        """Script n more scans along the heading, with odometry equal to the
+        true path."""
         import math
 
         import numpy as np
 
-        from badger_amcl_tpu_torch import scenario
         from badger_amcl_tpu_torch.node.messages import Odometry
 
-        angles = np.linspace(-2.35, 2.35, self.n_beams).astype(np.float32)
         for _ in range(n):
             pose = self.truth[-1]
-            pose = pose + np.array([NODE_STEP[0] * math.cos(pose[2]),
-                                    NODE_STEP[0] * math.sin(pose[2]), NODE_STEP[1]])
+            pose = pose + np.array([self.step[0] * math.cos(pose[2]),
+                                    self.step[0] * math.sin(pose[2]), self.step[1]])
             t = 0.1 * len(self.truth)
             self.truth.append(pose)
-            self.scans.append((Odometry(t, pose.copy()),
-                               scenario.laser_scan(self.world, pose, angles, t)))
+            self.scans.append((Odometry(t, pose.copy()), self.make_scan(pose, t)))
 
     def feed(self):
         """The next scan's TF, odometry and scan, then spin_once."""
@@ -1886,7 +1921,7 @@ class NodeRun:
 
         odom, scan = self.scans[self.k]
         self.k += 1
-        self.tf.set_transform("odom", "base_link", odom.stamp, Transform.from_pose2d(odom.pose))
+        self.tf.set_transform("odom", self.base, odom.stamp, Transform.from_pose2d(odom.pose))
         self.node.integrate_odom(odom)
         self.node.scan_received(scan)
         self.node.spin_once(odom.stamp)
@@ -1916,6 +1951,62 @@ def check_node(run, label):
           f"{label}: no finite amcl_pose published")
 
 
+def node_scans(run, n, counts=None):
+    """Feed n scans, each CUDA synchronised: [(wall ms, host syncs, whether
+    it resampled, its launches)] (launches counted when `counts` is
+    given)."""
+    import torch
+
+    from badger_amcl_tpu_torch.utils.numerics import SYNCS
+
+    node, out = run.node, []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        s0, r0 = SYNCS.count, node.resample_count
+        a = time.perf_counter()
+        if counts is None:
+            run.feed()
+            rose = {}
+        else:
+            rose = counts.run(run.feed, 1)
+        torch.cuda.synchronize()
+        out.append((1e3 * (time.perf_counter() - a), SYNCS.count - s0,
+                    node.resample_count > r0
+                    and node.resample_count % node.config.resample_interval == 0,
+                    {k: v for k, v in rose.items() if v}))
+    return out
+
+
+def scan_figures(rows, busy, label, smi):
+    """The per-scan figures of `node_scans` rows and a device_busy reading,
+    logged beside the card's nvidia-smi line."""
+    walls = [r[0] for r in rows]
+    syncs = [r[1] for r in rows]
+    busy_ms, ops, top = busy
+    wall_mean = statistics.mean(walls)
+    out = dict(scan_ms_median=statistics.median(walls), scan_ms_mean=wall_mean,
+               host_syncs_per_scan=statistics.mean(syncs),
+               host_syncs_min_max=[min(syncs), max(syncs)],
+               device_busy_ms_per_scan=busy_ms, device_ops_per_scan=ops,
+               device_idle_share=1.0 - busy_ms / wall_mean, top_device_ops=top, device=smi)
+    res = [r[0] for r in rows if r[2]]
+    upd = [r[0] for r in rows if not r[2]]
+    if res and upd:
+        out.update(scan_ms_median_resampling=statistics.median(res),
+                   scan_ms_median_update_only=statistics.median(upd))
+    log(f"{label} ({smi}): scan_received wall ms median {out['scan_ms_median']:.4f}, mean "
+        f"{wall_mean:.4f}" + (f" (resampling scans {out['scan_ms_median_resampling']:.4f}, "
+                              f"update-only {out['scan_ms_median_update_only']:.4f})"
+                              if res and upd else "")
+        + f" over {len(walls)} scans, CUDA synchronised; host syncs per scan "
+        f"{out['host_syncs_per_scan']:.2f} ({min(syncs)}..{max(syncs)}); device busy ms per "
+        f"scan {busy_ms:.4f}, device ops per scan {ops:.0f} (torch.profiler); idle share "
+        f"{out['device_idle_share']:.3f} (of the mean wall ms)")
+    log(f"{label} ({smi}): top device ops (ms/scan): "
+        + "; ".join(f"{n} {t:.4f}" for n, t in top))
+    return out
+
+
 def phase_node(dev, smi):
     """The 2D node through its entry points (`make_node`, `map_msg_received`,
     `integrate_odom`, `scan_received`, `spin_once`, `global_localization`,
@@ -1936,7 +2027,6 @@ def phase_node(dev, smi):
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
     from badger_amcl_tpu_torch.ops import lf_kernel as lk
     from badger_amcl_tpu_torch.ops import spread_kernel as sk
-    from badger_amcl_tpu_torch.utils.numerics import SYNCS
 
     counts = Launches({"corr_table": ck.corr_table, "corr_table_q": ck.corr_table_q,
                        "spread_term_sums": sk.spread_term_sums,
@@ -1964,20 +2054,11 @@ def phase_node(dev, smi):
         f"{run.map_s:.3f} s, {int(node.free_space_indices.shape[0])} free cells, backend "
         f"{node.backend}; {NODE_SCANS} scans raycast, set-up {time.perf_counter() - t0:.2f} s")
 
-    walls, kinds, syncs, box = [], [], [], {}
+    box = {}
 
     def tracking():
-        for k in range(NODE_SCANS - NODE_BUSY_SCANS):
-            torch.cuda.synchronize()
-            s0, r0 = SYNCS.count, node.resample_count
-            a = time.perf_counter()
-            run.feed()
-            torch.cuda.synchronize()
-            if k >= NODE_WARMUP:
-                walls.append(1e3 * (time.perf_counter() - a))
-                syncs.append(SYNCS.count - s0)
-                kinds.append(node.resample_count > r0
-                             and node.resample_count % node.config.resample_interval == 0)
+        node_scans(run, NODE_WARMUP)
+        box["rows"] = node_scans(run, NODE_SCANS - NODE_WARMUP - NODE_BUSY_SCANS)
         box["busy"] = device_busy(run.feed, steps=NODE_BUSY_SCANS)
 
     rose = counts.run(tracking, NODE_SCANS)
@@ -1990,36 +2071,16 @@ def phase_node(dev, smi):
     err_xy, err_yaw = run.pose_error()
     check(err_xy < 0.15 and err_yaw < 0.1,
           f"node tracking: amcl_pose {err_xy:.4f} m / {err_yaw:.4f} rad from the truth")
-    busy_ms, ops, top = box["busy"]
-    res_walls = [w for w, r in zip(walls, kinds) if r]
-    upd_walls = [w for w, r in zip(walls, kinds) if not r]
+    timing = scan_figures(box["rows"], box["busy"], f"node tracking ({N_PARTICLES} x "
+                          f"{N_BEAMS} on {MAP_CELLS}^2, {node.backend})", smi)
     per_scan = {k: v / NODE_SCANS for k, v in rose.items() if v}
-    wall_mean = statistics.mean(walls)
-    timing = dict(
-        scan_ms_median=statistics.median(walls), scan_ms_mean=wall_mean,
-        scan_ms_median_resampling=statistics.median(res_walls),
-        scan_ms_median_update_only=statistics.median(upd_walls),
-        host_syncs_per_scan=statistics.mean(syncs), host_syncs_min_max=[min(syncs), max(syncs)],
-        device_busy_ms_per_scan=busy_ms, device_ops_per_scan=ops,
-        device_idle_share=1.0 - busy_ms / wall_mean, top_device_ops=top,
-        launches_per_scan=per_scan, pose_error=[err_xy, err_yaw], map_receipt_s=run.map_s,
-        device=smi)
-    log(f"node tracking ({N_PARTICLES} x {N_BEAMS} on {MAP_CELLS}^2, {node.backend}; {smi}): "
-        f"scan_received wall ms median {timing['scan_ms_median']:.4f}, mean {wall_mean:.4f} "
-        f"(resampling scans {timing['scan_ms_median_resampling']:.4f}, update-only "
-        f"{timing['scan_ms_median_update_only']:.4f}) over {len(walls)} updating scans after "
-        f"{NODE_WARMUP} warm-ups, CUDA synchronised")
-    log(f"node tracking ({smi}): host syncs per scan {timing['host_syncs_per_scan']:.2f} "
-        f"({min(syncs)}..{max(syncs)}); device busy ms per scan {busy_ms:.4f}, device ops per "
-        f"scan {ops:.0f} (torch.profiler over {NODE_BUSY_SCANS} scans); idle share "
-        f"{timing['device_idle_share']:.3f} (of the mean wall ms)")
-    log(f"node tracking ({smi}): launches per scan {per_scan}; top device ops (ms/scan): "
-        + "; ".join(f"{n} {t:.4f}" for n, t in top))
-    log(f"node tracking: amcl_pose {err_xy:.4f} m / {err_yaw:.4f} rad from the truth; "
-        f"{len(run.out['amcl_pose'])} poses, {len(run.out['tf'])} map->odom TFs published; "
-        f"n_active {int(node.state.n_active)}; host phases "
-        + ", ".join(f"{k} {v['mean_ms']:.3f} ms x {v['count']}"
-                    for k, v in node.timers.report().items()))
+    timing.update(launches_per_scan=per_scan, pose_error=[err_xy, err_yaw],
+                  map_receipt_s=run.map_s)
+    log(f"node tracking: launches per scan {per_scan}; amcl_pose {err_xy:.4f} m / "
+        f"{err_yaw:.4f} rad from the truth; {len(run.out['amcl_pose'])} poses, "
+        f"{len(run.out['tf'])} map->odom TFs published; n_active {int(node.state.n_active)}; "
+        "host phases " + ", ".join(f"{k} {v['mean_ms']:.3f} ms x {v['count']}"
+                                   for k, v in node.timers.report().items()))
 
     # pose persistence through the node, where PyYAML is installed
     try:
@@ -2063,6 +2124,37 @@ def phase_node(dev, smi):
     return counts.read(), timing
 
 
+def card_vs_cpu(runs, n_scans, label, on_scan=None):
+    """Feed every run (a "card" and a "cpu" one among them) `n_scans`
+    scans; after each, >= 99% of the card node's weights within 1e-4 of
+    the CPU node's (`on_scan()` then runs); at the end the published
+    particle clouds and amcl_poses within 1e-4 m. Returns (the worst
+    scan's share, the clouds' and the poses' max differences)."""
+    import numpy as np
+
+    worst = 1.0
+    for k in range(n_scans):
+        for r in runs.values():
+            r.feed()
+        w_c = runs["cpu"].node.state.weights
+        w_g = runs["card"].node.state.weights.cpu()
+        close = float(((w_g - w_c).abs() <= 1e-4 * w_c.abs()).float().mean())
+        worst = min(worst, close)
+        check(close >= 0.99, f"{label} scan {k}: only {close:.4f} of weights agree to 1e-4")
+        if on_scan is not None:
+            on_scan()
+    outs = {key: r.out for key, r in runs.items()}
+    cloud = max(float(np.abs(a.poses - c.poses).max())
+                for a, c in zip(outs["card"]["particlecloud"], outs["cpu"]["particlecloud"]))
+    check(len(outs["card"]["particlecloud"]) == len(outs["cpu"]["particlecloud"]) > 0
+          and cloud <= 1e-4, f"{label}: particle clouds differ by {cloud:.3g} m")
+    pose = max(float(np.abs(a.pose - c.pose).max())
+               for a, c in zip(outs["card"]["amcl_pose"], outs["cpu"]["amcl_pose"]))
+    check(len(outs["card"]["amcl_pose"]) == len(outs["cpu"]["amcl_pose"]) > 0 and pose <= 1e-4,
+          f"{label}: amcl_pose differs by {pose:.3g}")
+    return worst, cloud, pose
+
+
 def phase_node_reference(dev, world):
     """A card node against a CPU node (device="cpu"), both on "corr"
     (pallas_corr; the CPU runs the plain versions), the same converted
@@ -2072,9 +2164,6 @@ def phase_node_reference(dev, world):
     particle clouds and amcl_pose to 1e-4 m. A CPU node on "exact" is fed
     the same stream (logged: the lattice's distance from the exact
     endpoints)."""
-    import numpy as np
-    import torch
-
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
 
     n, b, n_scans = NODE_REF
@@ -2089,37 +2178,23 @@ def phase_node_reference(dev, world):
     for label in ("card", "exact"):
         runs[label].node.state = to_device(runs["cpu"].node.state, runs[label].node.device)
     before = ck.corr_table.launches
-    worst, exact_rel = 1.0, 0.0
-    for k in range(n_scans):
-        for r in runs.values():
-            r.feed()
-        w_c = runs["cpu"].node.state.weights
-        w_g = runs["card"].node.state.weights.cpu()
-        close = float(((w_g - w_c).abs() <= 1e-4 * w_c.abs()).float().mean())
-        worst = min(worst, close)
-        check(close >= 0.99, f"node reference scan {k}: only {close:.4f} of weights agree "
-                             "to 1e-4")
-        w_e = runs["exact"].node.state.weights
-        exact_rel = max(exact_rel, float(((w_e - w_c).abs() / w_c.abs().clamp(min=1e-30))
-                                         .max()))
+    exact = {"rel": 0.0}
+
+    def exact_rel():
+        w_c, w_e = runs["cpu"].node.state.weights, runs["exact"].node.state.weights
+        exact["rel"] = max(exact["rel"], float(((w_e - w_c).abs()
+                                                / w_c.abs().clamp(min=1e-30)).max()))
+
+    worst, cloud, pose = card_vs_cpu(runs, n_scans, "node reference", exact_rel)
     check(ck.corr_table.launches > before, "node reference: the card node launched no "
                                            "corr_table")
-    outs = {label: r.out for label, r in runs.items()}
-    cloud = max(float(np.abs(a.poses - c.poses).max())
-                for a, c in zip(outs["card"]["particlecloud"], outs["cpu"]["particlecloud"]))
-    check(len(outs["card"]["particlecloud"]) == len(outs["cpu"]["particlecloud"]) > 0
-          and cloud <= 1e-4, f"node reference: particle clouds differ by {cloud:.3g} m")
-    pose = max(float(np.abs(a.pose - c.pose).max())
-               for a, c in zip(outs["card"]["amcl_pose"], outs["cpu"]["amcl_pose"]))
-    check(len(outs["card"]["amcl_pose"]) == len(outs["cpu"]["amcl_pose"]) > 0 and pose <= 1e-4,
-          f"node reference: amcl_pose differs by {pose:.3g}")
     log(f"node reference ({n} x {b} on {MAP_CELLS}^2, card vs CPU on corr, {n_scans} scans, "
         f"zero-noise odometry, no resample): weights within 1e-4: >= {worst:.4f} per scan; "
         f"particle clouds max diff {cloud:.3e} m, amcl_pose max diff {pose:.3e}; corr_table "
         f"launched {ck.corr_table.launches - before} times on the card; CPU exact vs CPU corr "
-        f"weights max rel diff {exact_rel:.3e} (logged only)")
+        f"weights max rel diff {exact['rel']:.3e} (logged only)")
     return dict(weights_within_1e4=worst, cloud_max_diff=cloud, pose_max_diff=pose,
-                exact_vs_corr_max_rel=exact_rel)
+                exact_vs_corr_max_rel=exact["rel"])
 
 
 def phase_node_models(dev, world, counts, smi):
@@ -2150,6 +2225,313 @@ def phase_node_models(dev, world, counts, smi):
             f"launches {out[label]['launches']}, {len(run.out['amcl_pose'])} poses, the last "
             f"{err[0]:.4f} m / {err[1]:.4f} rad from the truth")
     return out
+
+
+# --- 3D node and the entry layer ---------------------------------------------
+
+NODE3D_PARTICLES = 50_000
+NODE3D_POINTS = 256
+NODE3D_SCANS = 30
+NODE3D_GL_SCANS = 4
+NODE3D_PROD_SCANS = 6
+NODE3D_REF = (4096, 128, 6)  # card vs CPU: particles, points, scans
+# the scripted true path: 0.3 m per scan (above amcl_3d.yaml's 0.25 m
+# gate, so every scan updates) and a 0.01 rad turn, in the part of the
+# scene whose clouds the windowed arm's windows can reach (their origins
+# are clamped 96 rows and 256 columns inside the texture and aligned down,
+# so points within ~1.6 m of the north or east wall never fit)
+NODE3D_START = (4.0, 5.0, 0.05)
+NODE3D_STEP = (0.3, 0.01)
+CLI_STEPS = 30
+
+
+def node3d_config(tmp, **kw):
+    """examples/amcl_3d.yaml through the port's `cli.load_config`, with kw
+    replaced; the saved pose lives in `tmp` (none is loaded, none saved)."""
+    from badger_amcl_tpu_torch import cli
+
+    cfg = cli.load_config(os.path.join(ROOT, "examples", "amcl_3d.yaml"))
+    return cfg.replace(save_pose=False,
+                       saved_pose_filepath=os.path.join(tmp, "saved_pose.yaml"), **kw)
+
+
+class Node3DRun(NodeRun):
+    """A Node3D built through `make_node` on `dev`, fed the 3D scene as an
+    OctomapMsg whose binary_data the port's write_bt wrote (the production
+    branch: ROS octomap messages are binary), a TransformBuffer with
+    odom->base and a static base->lidar, and the (Odometry, PointCloud2)
+    stream of a scripted true path, each cloud `n_points` fresh voxel
+    centres of the scene 0.5-6 m around the true pose, in the lidar frame
+    (the scene's own cloud rule, `scenario.scene_3d`)."""
+
+    start, step = NODE3D_START, NODE3D_STEP
+
+    def __init__(self, dev, cfg, payload, occ, n_scans, n_points, init_cov=None, seed=0):
+        from badger_amcl_tpu_torch import scenario
+        from badger_amcl_tpu_torch.node.messages import OctomapMsg
+
+        import numpy as np
+
+        self.occ, self.n_points = np.asarray(occ, np.float64), n_points
+        self.rng = np.random.default_rng(seed + 17)
+        msg = OctomapMsg(resolution=scenario.RESOLUTION_3D, binary_data=payload)
+        self._make(dev, cfg, "lidar", init_cov, seed, lambda node: node.octomap_msg_received(msg))
+        self.extend(n_scans)
+
+    def make_scan(self, pose, t):
+        import numpy as np
+
+        from badger_amcl_tpu_torch.node import Transform
+        from badger_amcl_tpu_torch.node.messages import PointCloud2
+
+        d = np.hypot(self.occ[:, 0] - pose[0], self.occ[:, 1] - pose[1])
+        near = self.occ[(d > 0.5) & (d < 6.0)]
+        sel = near[self.rng.choice(len(near), self.n_points, replace=False)]
+        return PointCloud2(stamp=t, frame_id="lidar",
+                           points=Transform.from_pose2d(pose).inverse().apply(sel))
+
+
+def phase_node_3d(dev, smi):
+    """The 3D node through its entry points (`make_node`,
+    `octomap_msg_received`, `integrate_odom`, `scan_received`,
+    `spin_once`, `global_localization`) with examples/amcl_3d.yaml loaded
+    by the port's `cli.load_config`: the map set-up stage by stage;
+    tracking at 50,000 particles x 256 points (per-scan wall ms, host
+    syncs, device busy, launches per scan; the pose within 0.3 m and 0.25
+    rad); global localization; the card node against a CPU node at 4096 x
+    128; the production config unchanged. Returns (the node_3d path's
+    launch counts, timings)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from badger_amcl_tpu_torch import scenario
+    from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
+    from badger_amcl_tpu_torch.maps.octree_io import read_bt, write_bt
+    from badger_amcl_tpu_torch.ops import pc_kernel as pk
+    from badger_amcl_tpu_torch.ops import pc_spread_kernel as psk
+
+    counts = Launches({"pc_term_sums": pk.pc_term_sums, "pc_extents": pk.pc_extents,
+                       "pc_distances": pk.pc_distances,
+                       "pc_spread_term_sums": psk.pc_spread_term_sums})
+    occ, _ = scenario.scene_3d()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the map set-up, stage by stage (the node's receipt runs all three)
+        t0 = time.perf_counter()
+        write_bt(os.path.join(tmp, "scene.bt"), scenario.RESOLUTION_3D, occ)
+        write_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "scene.bt"), "rb") as f:
+            payload = f.read()
+        cfg = node3d_config(tmp, min_particles=NODE3D_PARTICLES,
+                            max_particles=NODE3D_PARTICLES, laser_max_beams=NODE3D_POINTS)
+        t0 = time.perf_counter()
+        tree = read_bt(payload)
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        staged = OctoMap3D.from_binary_octree(tree, cfg.resolved_cloud_likelihood_max_dist,
+                                              device="cpu").with_distance_field()
+        edt_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tex = staged.tex_zyx.to(dev)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        world = tree.occupied_centers()  # the clouds sample the map's own voxels
+        # from the steady covariance, the cloud's per-point windows fit (#9's
+        # fused sums) while the Gompertz model lets it widen over the scans
+        run = Node3DRun(dev, cfg, payload, world, NODE3D_SCANS, NODE3D_POINTS,
+                        init_cov=REGIMES["steady"])
+        node = run.node
+        check(torch.equal(node.map.tex_zyx, tex) and node.map.min_cells == staged.min_cells,
+              "node_3d: the octomap message does not rebuild the staged bake")
+        check(node.backend == "corr", f"node_3d: backend {node.backend}, not corr")
+        setup = dict(scene_voxels=len(occ), octree_keys=len(tree.occupied_keys),
+                     payload_bytes=len(payload), texture=list(node.map.size),
+                     write_bt_s=write_s, read_bt_s=read_s, edt_s=edt_s, upload_s=upload_s,
+                     node_receipt_s=run.map_s)
+        log(f"node_3d set-up: scene {len(occ)} voxel centres -> {len(tree.occupied_keys)} "
+            f"octree keys, .bt {len(payload)} bytes written in {write_s:.4f} s; read_bt "
+            f"{read_s:.4f} s, host EDT {edt_s:.4f} s ({node.map.size} voxels), upload "
+            f"{upload_s:.4f} s; the node's receipt {run.map_s:.4f} s (read, EDT, upload)")
+
+        box = {}
+        warm = node_scans(run, NODE_WARMUP, counts)
+        rows = node_scans(run, NODE3D_SCANS - NODE_WARMUP - NODE_BUSY_SCANS, counts)
+        rose = collections.Counter(counts.run(
+            lambda: box.setdefault("busy", device_busy(run.feed, steps=NODE_BUSY_SCANS)),
+            NODE_BUSY_SCANS))
+        for r in warm + rows:
+            rose.update(r[3])
+        err_xy, err_yaw = run.pose_error()
+        errors = [round(math.hypot(p.pose[0] - run.truth[int(round(p.stamp / 0.1))][0],
+                                   p.pose[1] - run.truth[int(round(p.stamp / 0.1))][1]), 4)
+                  for p in run.out["amcl_pose"]]
+        timing = dict(setup=setup, tracking=scan_figures(
+            rows, box["busy"], f"node_3d tracking ({NODE3D_PARTICLES} x "
+            f"{NODE3D_POINTS}, {node.backend})", smi))
+        per_scan = {k: v / NODE3D_SCANS for k, v in rose.items() if v}
+        timing["tracking"].update(launches_per_scan=per_scan, pose_error=[err_xy, err_yaw],
+                                  launches_by_scan=[r[3] for r in warm + rows],
+                                  pose_errors_m=errors)
+        log(f"node_3d tracking: launches per scan {per_scan}; by scan "
+            f"{timing['tracking']['launches_by_scan']}; amcl_pose {err_xy:.4f} m / "
+            f"{err_yaw:.4f} rad from the truth (each published pose, m: {errors}); "
+            f"{len(run.out['amcl_pose'])} poses; n_active "
+            f"{int(node.state.n_active)}; host phases "
+            + ", ".join(f"{k} {v['mean_ms']:.3f} ms x {v['count']}"
+                        for k, v in node.timers.report().items()))
+        check_node(run, "node_3d tracking")
+        check(node.resample_count == NODE3D_SCANS - 1,
+              f"node_3d tracking: {node.resample_count} of {NODE3D_SCANS} scans updated")
+        for k in ("pc_extents", "pc_term_sums"):
+            check(rose[k] > 0, f"node_3d tracking: {k} (#9) was not launched")
+        check(rose["pc_distances"] == 0, "node_3d tracking: the (B, M) pc_distances launched")
+        check(err_xy < 0.3 and err_yaw < 0.25,
+              f"node_3d tracking: amcl_pose {err_xy:.4f} m / {err_yaw:.4f} rad from the truth")
+
+        t0 = time.perf_counter()
+        node.global_localization()
+        torch.cuda.synchronize()
+        gl_s = time.perf_counter() - t0
+        check(node.global_localization_active and int(node.state.n_active) == NODE3D_PARTICLES,
+              "node_3d: global localization did not scatter max_particles")
+        run.extend(NODE3D_GL_SCANS + NODE_BUSY_SCANS)
+        rows = node_scans(run, NODE3D_GL_SCANS, counts)
+        busy = device_busy(run.feed, steps=NODE_BUSY_SCANS)
+        check_node(run, "node_3d global localization")
+        arms = [r[3] for r in rows]
+        check(any(a.get("pc_spread_term_sums") for a in arms),
+              "node_3d global localization: pc_spread_term_sums (#10) was not launched")
+        timing["global_localization"] = scan_figures(
+            rows, busy, "node_3d global localization", smi)
+        timing["global_localization"].update(launches=arms, call_s=gl_s)
+        log(f"node_3d global localization: the call {gl_s:.4f} s; launches per scan {arms}; "
+            f"n_active {int(node.state.n_active)}, clusters "
+            f"{int(node.state.stats.cluster_count)}")
+        del run, node
+        timing["reference"] = phase_node_3d_reference(dev, payload, world, tmp)
+        timing["production"] = phase_node_3d_production(dev, payload, world, tmp, counts, smi)
+    return counts.read(), timing
+
+
+def phase_node_3d_reference(dev, payload, occ, tmp):
+    """A card Node3D against a CPU Node3D (device="cpu"), both on "corr"
+    (pallas_corr; the CPU runs the plain versions), the same converted
+    state and message stream at 4096 particles x 128 points: zero-noise
+    odometry and no resample. Weights to 1e-4 (>= 99% of particles),
+    the published particle clouds and amcl_pose to 1e-4 m."""
+    from badger_amcl_tpu_torch.ops import pc_kernel as pk
+
+    n, b, n_scans = NODE3D_REF
+    cfg = node3d_config(tmp, min_particles=n, max_particles=n, laser_max_beams=b,
+                        resample_interval=1000, odom_alpha1=0.0, odom_alpha2=0.0,
+                        odom_alpha3=0.0, odom_alpha4=0.0, odom_alpha5=0.0,
+                        compute_backend="pallas_corr")
+    runs = {label: Node3DRun(d, cfg, payload, occ, n_scans, b, init_cov=REGIMES["tracking"])
+            for label, d in (("card", dev), ("cpu", "cpu"))}
+    runs["card"].node.state = to_device(runs["cpu"].node.state, dev)
+    before = pk.pc_extents.launches
+    worst, cloud, pose = card_vs_cpu(runs, n_scans, "node_3d reference")
+    check(pk.pc_extents.launches > before, "node_3d reference: the card node launched no "
+                                           "pc_extents")
+    log(f"node_3d reference ({n} x {b}, card vs CPU on corr, {n_scans} scans, zero-noise "
+        f"odometry, no resample): weights within 1e-4: >= {worst:.4f} per scan; particle "
+        f"clouds max diff {cloud:.3e} m, amcl_pose max diff {pose:.3e}; pc_extents launched "
+        f"{pk.pc_extents.launches - before} times on the card")
+    return dict(weights_within_1e4=worst, cloud_max_diff=cloud, pose_max_diff=pose)
+
+
+def phase_node_3d_production(dev, payload, occ, tmp, counts, smi):
+    """examples/amcl_3d.yaml unchanged (KLD between 1,000 and 10,000
+    particles, 128 points, systematic resampling every 2nd update, the
+    uniform pool's score rejection) for a few scans from the tracking
+    covariance: finite weights, a published pose, the particle count after
+    each resample."""
+    cfg = node3d_config(tmp)
+    run = Node3DRun(dev, cfg, payload, occ, NODE3D_PROD_SCANS, cfg.resolved_cloud_max_beams,
+                    init_cov=REGIMES["tracking"], seed=1)
+    node, n_active = run.node, []
+    t0 = time.perf_counter()
+    rows = []
+    for _ in range(NODE3D_PROD_SCANS):
+        rows += node_scans(run, 1, counts)
+        if rows[-1][2]:
+            n_active.append(int(node.state.n_active))
+    sec = time.perf_counter() - t0
+    check_node(run, "node_3d production")
+    check(n_active and all(cfg.min_particles <= n <= cfg.max_particles for n in n_active),
+          f"node_3d production: particle counts {n_active} after the resamples")
+    err = run.pose_error()
+    out = dict(particles_after_resample=n_active, scan_ms=[r[0] for r in rows],
+               host_syncs=[r[1] for r in rows], launches=[r[3] for r in rows],
+               pose_error=list(err), seconds=sec, map_receipt_s=run.map_s, device=smi)
+    log(f"node_3d production (examples/amcl_3d.yaml: {cfg.min_particles}-{cfg.max_particles} "
+        f"particles, {cfg.resolved_cloud_max_beams} points, {node.backend}; {smi}): "
+        f"{NODE3D_PROD_SCANS} scans in {sec:.3f} s (map receipt {run.map_s:.3f} s), particles "
+        f"after each resample {n_active}, scan ms {[round(r[0], 2) for r in rows]}, host syncs "
+        f"{out['host_syncs']}, launches {out['launches']}; the last pose {err[0]:.4f} m / "
+        f"{err[1]:.4f} rad from the truth")
+    return out
+
+
+def phase_cli(dev, smi):
+    """The entry point as a user starts it: the port's `cli.main` with
+    examples/amcl_2d.yaml and the built-in simulator for 30 steps, on the
+    card (the default device), in a temporary working directory: rc 0,
+    the node's state on CUDA, the pose saved on exit. Its kernel launches
+    are counted (the room is a 240^2 grid; the config supersamples it 2x
+    to 480^2 at 0.025 m). Returns (the cli path's launch counts, timing)."""
+    import tempfile
+
+    import badger_amcl_tpu_torch.node as node_pkg
+    from badger_amcl_tpu_torch import cli
+    from badger_amcl_tpu_torch.ops import beam_kernel as bk
+    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import lf_kernel as lk
+    from badger_amcl_tpu_torch.ops import spread_kernel as sk
+
+    counts = Launches({"corr_table": ck.corr_table, "corr_table_q": ck.corr_table_q,
+                       "spread_term_sums": sk.spread_term_sums,
+                       "lf_term_sums": lk.lf_term_sums, "lf_extents": lk.beam_extents,
+                       "lf_obs_counts": lk.lf_obs_counts, "lf_distances": lk.lf_distances,
+                       "beam_table": bk.beam_table,
+                       "beam_spread_sums": bsk.beam_spread_sums})
+    box, make_node = {}, node_pkg.make_node
+
+    def capture(*a, **kw):
+        box["node"] = make_node(*a, **kw)
+        return box["node"]
+
+    argv = ["--config", os.path.join(ROOT, "examples", "amcl_2d.yaml"), "--sim", "--steps",
+            str(CLI_STEPS), "--seed", "0"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        node_pkg.make_node = capture
+        try:
+            t0 = time.perf_counter()
+            rose = counts.run(lambda: box.setdefault("rc", cli.main(argv)), CLI_STEPS)
+            wall = time.perf_counter() - t0
+        finally:
+            node_pkg.make_node = make_node
+            os.chdir(cwd)
+        saved = os.path.exists(os.path.join(tmp, "badger_amcl_saved_pose.yaml"))
+    node = box["node"]
+    check(box["rc"] == 0, f"cli: main returned {box['rc']}")
+    check(node.state.poses.device.type == "cuda", f"cli: the node's state is on "
+                                                  f"{node.state.poses.device}")
+    check(saved, "cli: no pose was saved on exit")
+    launched = {k: v for k, v in rose.items() if v}
+    pose = node.last_published_pose.pose.tolist() if node.last_published_pose else None
+    log(f"cli ({smi}): python -m badger_amcl_tpu_torch {' '.join(argv[:2])} "
+        f"{' '.join(argv[2:])}: rc 0 in {wall:.3f} s wall; node {type(node).__name__} on "
+        f"{node.device}, backend {node.backend}, map {node.map.size_x}^2 at "
+        f"{node.map.resolution} m, {node.resample_count} updates; kernel launches "
+        f"{launched or 0}; the last amcl_pose {pose}; the pose saved on exit")
+    return counts.read(), dict(seconds=wall, launches=launched, updates=node.resample_count,
+                               map_cells=[node.map.size_x, node.map.size_y],
+                               backend=node.backend, device=smi)
 
 
 def main():
@@ -2251,8 +2633,10 @@ def main():
     del omap3, cloud, states3
     torch.cuda.empty_cache()
 
-    # the 2D node
+    # the 2D node, the 3D node, the command line
     paths["node_2d"], timings["node_2d"] = phase_node(dev, smi)
+    paths["node_3d"], timings["node_3d"] = phase_node_3d(dev, smi)
+    paths["cli"], timings["cli"] = phase_cli(dev, smi)
     launches = launch_counts(paths)
 
     meta = {

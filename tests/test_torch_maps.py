@@ -103,9 +103,10 @@ def test_init_with_poses_stats_match(both_setups):
 
 def test_port_imports_no_jax():
     """Importing every port module and running a CPU step (2D, 3D, beam, a
-    corr_q likelihood, a fleet step and a few Node2D scans with systematic
-    resampling) must work with JAX and the JAX package made
-    unimportable."""
+    corr_q likelihood, a fleet step, a few Node2D scans with systematic
+    resampling, a few Node3D scans on a .bt octomap from the simulator and
+    a three-step `cli.main --sim`) must work with JAX and the JAX package
+    made unimportable."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -179,6 +180,30 @@ def test_port_imports_no_jax():
             node.scan_received(scenario.laser_scan(omap, pose, angles, 0.1 * k))
         assert len(poses) >= 2 and np.isfinite(poses[-1].pose).all()
         assert torch.isfinite(node.state.weights).all()
+        from badger_amcl_tpu_torch import __main__, cli, sim  # noqa: F401
+        from badger_amcl_tpu_torch.maps import octree_io
+        from badger_amcl_tpu_torch.node import node_3d, ros_bridge
+        import tempfile
+        occ = np.random.default_rng(1).uniform(0.0, 4.0, (600, 3))
+        with tempfile.TemporaryDirectory() as d:
+            octree_io.write_bt(d + "/m.bt", 0.1, occ)
+            payload = open(d + "/m.bt", "rb").read()
+        s3 = sim.Sim3D(occ, 0.1, start_pose=(2.0, 2.0, 0.3), n_points=64)
+        cfg3 = config.AMCLConfig.for_3d(min_particles=256, max_particles=256,
+                                        laser_max_beams=32, update_min_d=0.01,
+                                        saved_pose_filepath="/nonexistent/saved_pose.yaml")
+        node3 = make_node(cfg3, tf_buffer=s3.tf, device="cpu")
+        assert isinstance(node3, node_3d.Node3D)
+        node3.init_pose = s3.true_pose.copy()
+        node3.octomap_msg_received(messages.OctomapMsg(resolution=0.1, binary_data=payload))
+        poses3 = []
+        node3.subscribe_output("amcl_pose", poses3.append)
+        for _ in range(3):
+            node3.integrate_odom(s3.step(0.2, 0.1))
+            node3.scan_received(s3.make_cloud())
+        assert len(poses3) >= 2 and torch.isfinite(node3.state.weights).all()
+        assert cli.main(["--sim", "--steps", "3", "--device", "cpu", "--seed", "0"]) == 0
+        assert callable(ros_bridge.run_ros_bridge)
         assert not any(m == "jax" or m.startswith(("jax.", "badger_amcl_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")

@@ -42,6 +42,7 @@ from badger_amcl_tpu_torch import convert
 from badger_amcl_tpu_torch.node import make_node, scan_prep
 from badger_amcl_tpu_torch.node.node import pool_index, uniform_poses
 from badger_amcl_tpu_torch.node.transforms import Transform, TransformBuffer
+from badger_amcl_tpu_torch.ops import corr_kernel
 
 torch.set_num_threads(1)
 
@@ -67,11 +68,12 @@ def stream():
     return grid, steps
 
 
-def _nodes(grid, overrides):
-    """(jax node, jax tf, port node, port tf) built from one config, with
-    _mk's initial pose and covariance, after the same map message."""
+def _nodes(grid, overrides, port=None, init_cov=(0.25, 0.25, 0.05)):
+    """(jax node, jax tf, port node, port tf) built from one config (the
+    port's with `port` replaced), with _mk's initial pose and covariance
+    unless `init_cov` is given, after the same map message."""
     jcfg = JaxConfig.for_2d(**{**BASE, **overrides})
-    cfg = convert.config_from_jax(jcfg)
+    cfg = convert.config_from_jax(jcfg).replace(**(port or {}))
     out = []
     for make, tfb, tr, msg, kw in (
             (jax_make_node, JaxTransformBuffer(), JaxTransform, grid, {}),
@@ -80,7 +82,7 @@ def _nodes(grid, overrides):
         tfb.set_static("base_link", "laser", tr.identity())
         node = make(jcfg if make is jax_make_node else cfg, tf_buffer=tfb, **kw)
         node.init_pose = np.asarray(START, float)
-        node.init_cov = np.array([0.25, 0.25, 0.05])
+        node.init_cov = np.asarray(init_cov)
         node.map_msg_received(msg)
         out += [node, tfb]
     return out
@@ -283,8 +285,9 @@ def test_checkpoint_round_trip_and_jax_snapshot(stream, tmp_path):
 
 def test_compute_backend_names_and_entry_points():
     """The JAX package's backend names map onto the port's, the
-    interpret-mode names raise; make_node refuses map_type 3; without a
-    CUDA device a node asked for CUDA raises."""
+    interpret-mode names raise; make_node builds a Node3D for map_type 3
+    (on "corr_q" its clouds take the exact gather); without a CUDA device a
+    node asked for CUDA raises."""
     assert tconfig.resolve_backend("auto", "cpu") == "exact"
     assert tconfig.resolve_backend("auto", "cuda") == "corr"
     for jax_name, port in (("pallas_corr", "corr"), ("pallas_corr_q", "corr_q"),
@@ -298,13 +301,92 @@ def test_compute_backend_names_and_entry_points():
     assert make_node(cfg, device="cpu").backend == "corr_q"
     with pytest.raises(ValueError):
         make_node(cfg.replace(compute_backend="pallas_interpret"), device="cpu")
-    with pytest.raises(NotImplementedError, match="3D node"):
-        make_node(tconfig.AMCLConfig.for_3d(), device="cpu")
+    node3 = make_node(tconfig.AMCLConfig.for_3d(compute_backend="pallas_corr_q"),
+                      device="cpu")
+    assert type(node3).__name__ == "Node3D" and node3.backend == "exact"
+    assert make_node(tconfig.AMCLConfig.for_3d(), device="cpu").backend == "exact"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_node(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_node(tconfig.AMCLConfig.for_3d())
     jcfg = JaxConfig.for_2d(resample_model_type="systematic", odom_model_type="omni",
                             laser_max_beams=90)
     cfg = convert.config_from_jax(jcfg)
     assert cfg.resample_model_type is tconfig.ResampleModelType.SYSTEMATIC
     assert cfg.odom_model_type is tconfig.OdomModelType.OMNI and cfg.laser_max_beams == 90
+
+
+def test_foreign_generator_state_warns(stream, tmp_path, caplog):
+    """A snapshot whose generator was saved on another device type (a CUDA
+    node's, faked here) restores the particles and logs a warning naming
+    both device types; the node's own stream goes on."""
+    grid, steps = stream
+    _, _, tn, ttf = _nodes(grid, {})
+    for step in steps[:3]:
+        _feed(tn, ttf, Transform, step, True)
+    path = str(tmp_path / "state.npz")
+    assert tn.save_full_state(path)
+    with np.load(path) as z:
+        data = dict(z)
+    data["generator_device"] = np.array("cuda")
+    np.savez(path, **data)
+    _, _, tn2, _ = _nodes(grid, {})
+    own = tn2.generator.get_state()
+    with caplog.at_level("WARNING", logger="badger_amcl_tpu_torch"):
+        assert tn2.restore_full_state(path)
+    assert torch.equal(tn2.state.poses, tn.state.poses)
+    assert torch.equal(tn2.generator.get_state(), own)
+    warned = [r.getMessage() for r in caplog.records if r.levelname == "WARNING"]
+    assert len(warned) == 1 and "cuda" in warned[0] and "cpu" in warned[0]
+
+
+@pytest.mark.parametrize("backend", ["corr", "corr_q"])
+def test_corr_backends_match_pallas_interpret(stream, monkeypatch, backend):
+    """The JAX node on "pallas_<backend>_interpret" (its corr kernels in
+    the Pallas interpreter) against the port's node on "<backend>" (the
+    plain versions) over the deterministic pipeline (zero-noise odometry,
+    no resample, the converted state) at 1000 particles x 40 beams. The
+    grid is supersampled 3x (480^2 at 0.025 m, inside the lattice's map
+    gate), the cloud starts tight (inside its window) and the range is
+    clamped to 4 m (160 cells, inside the lattice's padding).
+
+    corr: weights within rtol 1e-5 (the JAX tap loop's fused multiply-add
+    moves a table cell by one ulp; 6.8e-7 measured). corr_q: a documented
+    divergence. The JAX node never uses its baked psi texture (its jit
+    traces the fingerprint away), so its pallas_corr_q runs the f32 table;
+    the port's node bakes it and runs the int8 table. The weights then
+    differ by the int8 quantization: by more than 1e-4 and at most 1e-2
+    (4.2e-3 measured)."""
+    grid, steps = stream
+    calls = {"corr_values": 0, "corr_values_q": 0}
+    for name in calls:
+        real = getattr(corr_kernel, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(corr_kernel, name, spy)
+    overrides = dict(odom_alpha1=0.0, odom_alpha2=0.0, odom_alpha3=0.0, odom_alpha4=0.0,
+                     odom_alpha5=0.0, resample_interval=1000, map_scale_up_factor=3,
+                     laser_max_range=4.0, compute_backend=f"pallas_{backend}_interpret")
+    jn, jtf, tn, ttf = _nodes(grid, overrides, port=dict(compute_backend=backend),
+                              init_cov=(0.01, 0.01, 0.002))
+    assert tn.backend == backend and tn.map.size_x == 480
+    tn.state = convert.state_from_numpy(jn.state, device="cpu")
+    rel = 0.0
+    for step in steps[:10]:
+        _feed(jn, jtf, JaxTransform, step, False)
+        _feed(tn, ttf, Transform, step, True)
+        assert tn.resample_count == jn.resample_count
+        w_t, w_j = tn.state.weights.numpy(), np.asarray(jn.state.weights)
+        rel = max(rel, float(np.max(np.abs(w_t - w_j) / w_j)))
+    updates = tn.resample_count
+    assert updates >= 3
+    if backend == "corr":
+        assert calls == {"corr_values": updates, "corr_values_q": 0}
+        assert rel <= 1e-5, rel
+    else:
+        assert calls == {"corr_values": 0, "corr_values_q": updates}
+        assert 1e-4 < rel <= 1e-2, rel
