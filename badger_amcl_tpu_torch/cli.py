@@ -31,6 +31,11 @@ import numpy as np
 
 log = logging.getLogger("badger_amcl_tpu_torch")
 
+# the built-in simulator's script: the start pose and the (v, w) twist of
+# every 0.1 s step
+SIM_START = (-3.0, -3.0, 0.3)
+SIM_TWIST = (0.3, 0.15)
+
 
 def load_config(path: Optional[str]):
     from badger_amcl_tpu_torch.config import AMCLConfig
@@ -73,14 +78,14 @@ def run_sim(node, cfg, steps: int, shutdown: _Shutdown) -> int:
     from badger_amcl_tpu_torch.sim import Sim2D, make_room_grid
 
     grid = make_room_grid()
-    sim = Sim2D(grid, start_pose=(-3.0, -3.0, 0.3), base_frame=cfg.base_frame_id)
+    sim = Sim2D(grid, start_pose=SIM_START, base_frame=cfg.base_frame_id)
     node.tf = sim.tf
-    node.init_pose = np.array([-3.0, -3.0, 0.3])
+    node.init_pose = np.array(SIM_START)
     node.map_msg_received(grid)
     for step in range(steps):
         if shutdown.requested:
             break
-        odom = sim.step(0.3, 0.15)
+        odom = sim.step(*SIM_TWIST)
         node.integrate_odom(odom)
         node.scan_received(sim.make_scan())
         node.spin_once(sim.t)
@@ -167,7 +172,9 @@ def run_replay(node, cfg, path: str, shutdown: _Shutdown) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def run(argv=None):
+    """Parse argv, build the node and run its data source: (exit code, the
+    node)."""
     ap = argparse.ArgumentParser(prog="badger_amcl_tpu_torch")
     ap.add_argument("--config", default=None, help="YAML config file")
     ap.add_argument("--sim", action="store_true", help="run the built-in simulator")
@@ -193,14 +200,18 @@ def main(argv=None) -> int:
     shutdown = _Shutdown()
     try:
         if args.replay:
-            return run_replay(node, cfg, args.replay, shutdown)
+            return run_replay(node, cfg, args.replay, shutdown), node
         if args.ros:
             from badger_amcl_tpu_torch.node.ros_bridge import run_ros_bridge
 
-            return run_ros_bridge(node, cfg, shutdown)
-        return run_sim(node, cfg, args.steps, shutdown)
+            return run_ros_bridge(node, cfg, shutdown), node
+        return run_sim(node, cfg, args.steps, shutdown), node
     finally:
         shutdown.close()
+
+
+def main(argv=None) -> int:
+    return run(argv)[0]
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@ the JAX package's.
 """
 
 import json
+import math
 import pathlib
 import signal
 
@@ -133,6 +134,25 @@ def test_cli_sim_on_cpu_saves_pose(tmp_path, monkeypatch):
     assert rc == 0 and signal.getsignal(signal.SIGTERM) is handler
     saved = (tmp_path / "badger_amcl_saved_pose.yaml").read_text()
     assert "on_exit: true" in saved
+
+
+def test_cli_run_returns_the_tracking_node(tmp_path, monkeypatch):
+    """`cli.run` returns (rc, node): a Node2D on the CPU whose last
+    published pose is within 0.3 m and 0.25 rad of the simulator's true
+    path (`SIM_START`, `SIM_TWIST`) at its stamp."""
+    from badger_amcl_tpu_torch.node import Node2D
+
+    monkeypatch.chdir(tmp_path)
+    rc, node = cli.run(["--config", str(ROOT / EXAMPLES[0]), "--sim", "--steps", "20",
+                        "--seed", "0", "--device", "cpu"])
+    assert rc == 0 and isinstance(node, Node2D) and node.state.poses.device.type == "cpu"
+    s = sim.Sim2D(sim.make_room_grid(), start_pose=cli.SIM_START)
+    truth = [(s.step(*cli.SIM_TWIST).stamp, s.true_pose.copy()) for _ in range(20)]
+    p = node.last_published_pose
+    t, true = min(truth, key=lambda tp: abs(tp[0] - p.stamp))
+    assert t == p.stamp
+    assert np.hypot(*(p.pose[:2] - true[:2])) < 0.3
+    assert abs(math.remainder(p.pose[2] - true[2], 2 * math.pi)) < 0.25
 
 
 def test_cli_device_cuda_without_a_card_raises():
