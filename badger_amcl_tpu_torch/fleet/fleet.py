@@ -30,23 +30,43 @@ p from zero taps (p = 1 for the likelihood-field model, as every
 single-robot path gives); the JAX fleet kernel adds tap slot 0 (p = 1 +
 psi at the robot's own cell).
 
-Not ported here: the mesh-sharded step (`make_sharded_fleet_step`) and
-`fleet_health(mesh=...)` (torch.distributed, a later slice);
-`make_fleet_step` (a `jax.jit` wrapper) has no eager counterpart.
+Several cards (fleet.py:255-329, over torch.distributed in place of a
+`Mesh`): `make_sharded_fleet_step` splits the robots over a process
+group's ranks in contiguous blocks of R / world, in rank order, as
+`P("fleet")` splits them; the map and the model parameters are
+replicated. Each rank steps its own robots with `fleet_step`, with no
+collective on the step's path (robots are independent);
+`fleet_health(states, group)` is the one collective, a single
+`all_reduce`. `shard_robots` and `gather_robots` place a whole fleet's
+tensors on the ranks and read them back whole (the counterparts of a
+`NamedSharding` placement and a sharded array read whole).
+`init_fleet_group` starts the process group: NCCL for a CUDA fleet, gloo
+for a CPU one. `make_fleet_step` is a plain factory (JAX jits it).
+
+The per-rank noise: `FleetNoise.draw` draws one stream for the robots it
+is given, so a rank that draws its own (R / world, ...) noise, or steps
+from its own generator, gets other variates than the one-process run
+over all R robots. That is correct, but a run that must equal the
+one-process step slices one global draw per rank (`shard_robots`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from badger_amcl_tpu_torch.ops import corr_kernel
 from badger_amcl_tpu_torch.pf import filter as pf_filter
 from badger_amcl_tpu_torch.pf import gaussian
 from badger_amcl_tpu_torch.pf.filter import ResampleModel
-from badger_amcl_tpu_torch.pf.types import MCLState, PFParams, select_states, stack_states
+from badger_amcl_tpu_torch.pf.types import (
+    MCLState, PFParams, map_tensors, select_states, stack_states,
+)
 from badger_amcl_tpu_torch.sensors import odom as odom_models
 from badger_amcl_tpu_torch.sensors.planar import (
     CORR_MODELS, PlanarScan, coord_add, corr_combine, map_factors, planar_likelihood,
@@ -138,14 +158,27 @@ def fleet_reinit_masked(states: MCLState, mask: torch.Tensor, pose_pools: torch.
     return select_states(mask.to(torch.bool), fresh, states)
 
 
-def fleet_health(states: MCLState) -> dict:
+def fleet_health(states: MCLState, group=None) -> dict:
     """Fleet means of convergence, active particles and the top cluster
-    weight, as 0-dim tensors (fleet.py:299-309, without a mesh)."""
-    return {
-        "converged_frac": states.converged.to(torch.float32).mean(),
-        "mean_active": states.n_active.to(torch.float32).mean(),
-        "mean_top_weight": states.stats.cluster_weights.max(-1).values.mean(),
-    }
+    weight, as 0-dim tensors (fleet.py:299-329). Without a group, over the
+    robots of `states`. With a process group (the JAX mesh), over every
+    rank's robots: each rank forms (sum converged, sum n_active, sum of
+    top cluster weights, robot count) and does one `all_reduce`, on the
+    CPU for gloo (four floats) and on the states' device otherwise."""
+    top = states.stats.cluster_weights.max(-1).values
+    if group is None:
+        return {
+            "converged_frac": states.converged.to(torch.float32).mean(),
+            "mean_active": states.n_active.to(torch.float32).mean(),
+            "mean_top_weight": top.mean(),
+        }
+    n = torch.full((), states.poses.shape[0], dtype=torch.float32, device=top.device)
+    sums = torch.stack([states.converged.to(torch.float32).sum(),
+                        states.n_active.to(torch.float32).sum(), top.sum(), n])
+    sums = sums.to(_comm_device(group, top.device))
+    dist.all_reduce(sums, group=group)
+    return {"converged_frac": sums[0] / sums[3], "mean_active": sums[1] / sums[3],
+            "mean_top_weight": sums[2] / sums[3]}
 
 
 def _robot_by_robot(omap, params, scans, states, model, backend):
@@ -223,3 +256,141 @@ def fleet_step(states: MCLState, omap, scan_params, scans: FleetScan, pools: tor
     if resample_model == ResampleModel.SYSTEMATIC:
         return pf_filter.fleet_resample_systematic(states, params, pools, noise.start)
     return pf_filter.fleet_resample(states, params, pools, noise.inject, noise.pick)
+
+
+def make_fleet_step(params: PFParams, odom_model=odom_models.OdomModel.DIFF,
+                    laser_model: str = "likelihood_field",
+                    resample_model=ResampleModel.MULTINOMIAL, backend: str = "corr"):
+    """`fleet_step` with its model choices bound (fleet.py:252-263, where
+    JAX also jits it): step(states, omap, scan_params, scans, pools,
+    odom_poses, odom_deltas, absolute_motions, alphas, noise=...,
+    generator=...)."""
+    return functools.partial(fleet_step, params=params, odom_model=odom_model,
+                             laser_model=laser_model, resample_model=resample_model,
+                             backend=backend)
+
+
+def init_fleet_group(init_method: str, world_size: int, rank: int, device="cuda",
+                     backend: Optional[str] = None):
+    """`torch.distributed.init_process_group` for a sharded fleet, with its
+    address (`tcp://host:port` or `file://path`), world size and rank:
+    NCCL for a CUDA fleet, gloo for a CPU one, unless the caller names the
+    backend (gloo for ranks that share one card, which NCCL refuses).
+    Returns the default group."""
+    if backend is None:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size,
+                            rank=rank)
+    return dist.group.WORLD
+
+
+def rank_device(group=None) -> torch.device:
+    """This rank's card: cuda:{LOCAL_RANK} where the launcher sets it
+    (torchrun), else cuda:{rank % device_count}. Raises without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device for this rank: pass device='cpu' for a CPU fleet")
+    local = os.environ.get("LOCAL_RANK")
+    index = int(local) if local is not None else dist.get_rank(group) % torch.cuda.device_count()
+    return torch.device("cuda", index)
+
+
+def _comm_device(group, device) -> torch.device:
+    """Where a collective's tensors live: the CPU for gloo, else `device`."""
+    return torch.device("cpu") if dist.get_backend(group) == "gloo" else torch.device(device)
+
+
+def _robot_count(x) -> int:
+    """Leading (robot) size of a tensor, or of a dataclass's first tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.shape[0]
+    return next(getattr(x, f.name).shape[0] for f in dataclasses.fields(x)
+                if isinstance(getattr(x, f.name), torch.Tensor))
+
+
+def _robot_rows(x, lo: int, hi: int):
+    """Rows lo:hi along the robot axis of a tensor, a tuple (FleetScan's
+    range_max) or a dataclass of them."""
+    if isinstance(x, (torch.Tensor, tuple)):
+        return x[lo:hi]
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _robot_rows(getattr(x, f.name), lo, hi)
+                          for f in dataclasses.fields(x)})
+    return x
+
+
+def shard_robots(x, group=None):
+    """This rank's contiguous block of R / world robots (in rank order, as
+    `P("fleet")`) of a whole-fleet tensor, MCLState, FleetScan or
+    FleetNoise; raises unless the world size divides R."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    r = _robot_count(x)
+    if r % world:
+        raise ValueError(f"{r} robots do not split over {world} ranks")
+    return _robot_rows(x, rank * (r // world), (rank + 1) * (r // world))
+
+
+def gather_robots(states: MCLState, group=None) -> MCLState:
+    """The whole fleet's state on every rank, the ranks' blocks in rank
+    order (`all_gather` of every tensor; through the CPU for gloo), on the
+    states' device."""
+    world = dist.get_world_size(group)
+    dev = states.poses.device
+    comm = _comm_device(group, dev)
+
+    def gather(t):
+        x = t.to(comm)
+        x = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts).to(dtype=t.dtype, device=dev)
+
+    return map_tensors(gather, states)
+
+
+def make_sharded_fleet_step(group, params: PFParams, odom_model=odom_models.OdomModel.DIFF,
+                            laser_model: str = "likelihood_field",
+                            resample_model=ResampleModel.MULTINOMIAL, backend: str = "corr",
+                            *, n_robots: int, device=None):
+    """The multi-card fleet step (fleet.py:266-296): robots split over the
+    process group's ranks (None: the default group) in contiguous blocks
+    of R / world, map and parameters replicated. Returns step(states,
+    omap, scan_params, scans, pools, odom_poses, odom_deltas,
+    absolute_motions, alphas, noise=None, generator=None), which takes
+    this rank's robots (`shard_robots`) and their `FleetNoise` or a
+    per-rank torch.Generator, and runs `fleet_step` on them: no
+    collective. See the module docstring for the per-rank noise stream.
+
+    n_robots: the whole fleet's robot count (JAX reads it from the global
+    array), checked against each step's robots. device: this rank's
+    device (default `rank_device`). Raises where JAX cannot run: a backend
+    outside FLEET_BACKENDS, a robot count the world size does not divide,
+    a rank's tensors off its device."""
+    if backend not in FLEET_BACKENDS:
+        raise ValueError(f"backend must be one of {FLEET_BACKENDS}, got {backend!r}")
+    world = dist.get_world_size(group)
+    if n_robots % world:
+        raise ValueError(f"{n_robots} robots do not split over {world} ranks")
+    dev = torch.device(device) if device is not None else rank_device(group)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    local = make_fleet_step(params, odom_model, laser_model, resample_model, backend)
+
+    def step(states, omap, scan_params, scans, pools, odom_poses, odom_deltas,
+             absolute_motions, alphas, noise: Optional[FleetNoise] = None,
+             generator: Optional[torch.Generator] = None) -> MCLState:
+        r = states.poses.shape[0]
+        if r != n_robots // world:
+            raise ValueError(f"rank {dist.get_rank(group)} holds {r} robots, not "
+                             f"{n_robots} / {world}")
+        given = [states.poses, scans.ranges, pools, odom_poses, odom_deltas, absolute_motions,
+                 omap.distances]
+        if noise is not None:
+            given += [noise.odom, noise.inject, noise.pick]
+        for t in given:
+            if isinstance(t, torch.Tensor) and t.device != dev:
+                raise ValueError(f"rank {dist.get_rank(group)}: a tensor on {t.device}, "
+                                 f"not on the rank's device {dev}")
+        return local(states, omap, scan_params, scans, pools, odom_poses, odom_deltas,
+                     absolute_motions, alphas, noise=noise, generator=generator)
+
+    return step

@@ -24,7 +24,9 @@ from badger_amcl_tpu_torch.pf import filter as pf_filter
 from badger_amcl_tpu_torch.pf.filter import ResampleModel
 from badger_amcl_tpu_torch.pf.types import MCLState, PFParams
 from badger_amcl_tpu_torch.sensors import odom as odom_models
-from badger_amcl_tpu_torch.sensors.planar import planar_likelihood
+from badger_amcl_tpu_torch.sensors.planar import (
+    CELL_MODELS, planar_likelihood, planar_likelihood_cells,
+)
 
 
 @dataclasses.dataclass
@@ -104,13 +106,38 @@ def sensor_resample_step(state: MCLState, omap, scan_params, scan, random_pose_p
                          noise: Optional[StepNoise] = None,
                          generator: Optional[torch.Generator] = None) -> MCLState:
     """Sensor update + KLD resample without the motion model (the unit the
-    JAX bench times), under the reference-exact "pick" contract."""
-    if resample_contract != "pick":
-        raise NotImplementedError("the port implements the pick contract only")
+    JAX bench times, mcl.py:72-113).
+
+    resample_contract "pick": the reference-exact per-particle picks.
+    "cell": the cell-space multinomial contract
+    (`pf.filter.sensor_resample_cells` over `planar_likelihood_cells`,
+    kernel #1/#2 without the per-particle take): distributed as the pick
+    contract, not pick-equal. It needs multinomial resampling, a model in
+    CELL_MODELS and the "corr" backend (raises otherwise), and runs the
+    pick contract's step on the same variates wherever the cloud leaves
+    the cell envelope."""
+    if resample_contract not in ("pick", "cell"):
+        raise ValueError(f"resample_contract must be 'pick' or 'cell', got "
+                         f"{resample_contract!r}")
+    if resample_contract == "cell":
+        if resample_model != ResampleModel.MULTINOMIAL:
+            raise ValueError("the cell contract needs multinomial resampling")
+        if laser_model not in CELL_MODELS or backend != "corr":
+            raise ValueError(f"the cell contract needs a model of {CELL_MODELS} on the corr "
+                             f"backend, got {laser_model!r} on {backend!r}")
     noise = _noise(noise, generator, state, odom=False)
-    state = sensor_update_2d(state, omap, scan_params, scan, laser_model, False, backend)
-    return pf_filter.resample(state, params, random_pose_pool, noise.inject,
-                              noise.pick, resample_model, u_start=noise.start)
+
+    def pick():
+        s = sensor_update_2d(state, omap, scan_params, scan, laser_model, False, backend)
+        return pf_filter.resample(s, params, random_pose_pool, noise.inject, noise.pick,
+                                  resample_model, u_start=noise.start)
+
+    if resample_contract == "pick":
+        return pick()
+    tbl, key_m, ok = planar_likelihood_cells(omap, scan_params, scan, state.poses,
+                                             laser_model, backend)
+    return pf_filter.sensor_resample_cells(state, params, random_pose_pool, tbl, key_m, ok,
+                                           pick, noise.inject, noise.pick)
 
 
 def likelihood_only(state: MCLState, omap, scan_params, scan,

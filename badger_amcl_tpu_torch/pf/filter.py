@@ -1,5 +1,4 @@
-"""The particle filter core (counterpart of badger_amcl_tpu.pf.filter under
-the pick contract; the cell contract is not ported).
+"""The particle filter core (counterpart of badger_amcl_tpu.pf.filter).
 
 - `init_with_gaussian`   <- initWithGaussian (particle_filter.cpp:106-133)
 - `init_with_poses`      <- initWithPoseFn (particle_filter.cpp:136-162)
@@ -18,6 +17,10 @@ the pick contract; the cell contract is not ported).
 - `fleet_resample`       <- the JAX package's batched multinomial resample
                             of a fleet (filter.py:570-658): composite-key
                             KLD stop and cluster ranks over R * M
+- `sensor_resample_cells` <- the JAX package's cell-space resampling
+                            contract (filter.py:660-866): sensor update and
+                            multinomial resample fused over occupied
+                            lattice cells
 
 `sensor_update` and `update_converged` take a fleet state (leading robot
 axis) as well as a single robot's.
@@ -28,18 +31,22 @@ uniforms (M,) each, as the JAX package draws them from its key
 uniform (filter.py:476); mcl.StepNoise draws them from a torch.Generator
 when the caller does not pass them. The pick is `torch.searchsorted` on the
 cumulative weights (the JAX package's chunked one-hot search exists only
-because TPU searchsorted lowers to a scalar loop).
+because TPU searchsorted lowers to a scalar loop); the cell contract's
+pick is `torch.searchsorted` too, and its pose fetch plain indexing (the
+JAX package's one-hot MXU fetches `_pick_cells` and
+`mxu_gather.gather_rows` exist because a TPU gather is slow).
 """
 
 from __future__ import annotations
 
+import collections
 import enum
 
 import torch
 
 from badger_amcl_tpu_torch.pf import cluster, gaussian, kld
 from badger_amcl_tpu_torch.pf.types import MCLState, PFParams
-from badger_amcl_tpu_torch.utils.numerics import host_bool
+from badger_amcl_tpu_torch.utils.numerics import host_bool, host_values
 
 
 class ResampleModel(enum.IntEnum):
@@ -466,6 +473,121 @@ def fleet_resample_systematic(states: MCLState, params: PFParams, pools: torch.T
     new_poses, new_count = systematic_comb(states.poses, states.weights, k_old, params,
                                            w_diff, pools, u_start)
     return _fleet_finish(states, params, new_poses, new_count, w_diff)
+
+
+# ---------------------------------------------------------------------------
+# Cell-space resampling contract (filter.py:660-866)
+#
+# On the corr fast path the likelihood and the folded recalcWeight factor
+# are constant over each lattice cell, so with uniform prior weights the
+# particles of a cell are exchangeable: a cell drawn by mass, then a member
+# uniformly within it, is distributed as a per-particle multinomial pick,
+# P(cell) * P(member | cell) = (cnt_c p_c / T) (1 / cnt_c) = w_i. The pick
+# sequence differs from the pick contract's; the distribution does not
+# (particle_filter.cpp:356-420,475-502).
+
+# capacity of the unique-cell compaction; a cloud over more cells takes the
+# pick contract's step (filter.py:685)
+CELL_U_MAX = 8192
+# the arm each sensor_resample_cells call took (diagnostic, as SYNCS)
+CELL_ARMS = collections.Counter()
+
+
+def sensor_resample_cells(state: MCLState, params: PFParams, random_pose_pool: torch.Tensor,
+                          tbl, key_m, cells_ok: bool, classic_fn, u_inject: torch.Tensor,
+                          u_pick: torch.Tensor) -> MCLState:
+    """Sensor update + multinomial KLD resample under the cell-space
+    contract (filter.py:728-866, particle_filter.cpp:223-267 + :356-471).
+    tbl, key_m, cells_ok come from sensors.planar.planar_likelihood_cells;
+    classic_fn () -> MCLState is the pick contract's step on the same
+    variates, taken when cells_ok is False, the cloud holds more than
+    CELL_U_MAX cells, the active prior weights are not all equal (the
+    exchangeability precondition) or no particle is active; the last three
+    are read in one host sync. u_inject, u_pick: (M,) uniforms in [0, 1),
+    the draws JAX takes from split(split(state.key)[1]) (filter.py:830-833),
+    as `resample` takes them."""
+    if not cells_ok:
+        CELL_ARMS["classic"] += 1
+        return classic_fn()
+    m = params.max_samples
+    dev = state.poses.device
+    active = state.active_mask
+    # the active particles stably sorted by cell key, one segment a cell
+    ks, order, _, segstart = kld.sort_by_bin(key_m, active)
+    u_count = segstart.sum().to(torch.int32)
+    wa_max = torch.where(active, state.weights, 0.0).max()
+    wa_min = torch.where(active, state.weights, float("inf")).min()
+    u_ok, uniform, any_active = host_values(u_count <= CELL_U_MAX, wa_max == wa_min,
+                                            state.n_active > 0)
+    if not (u_ok and uniform and any_active):
+        CELL_ARMS["classic"] += 1
+        return classic_fn()
+    CELL_ARMS["cell"] += 1
+
+    # the cells compacted to the front: each segment's key and first
+    # sorted position, padded to u (the JAX package's 128-aligned size)
+    u = min(CELL_U_MAX, -(-m // 128) * 128)
+    ks_c, start_c = cluster._compact_front(
+        segstart, ks, torch.arange(m, dtype=torch.int32, device=dev))
+    if u > m:
+        ks_c = torch.nn.functional.pad(ks_c, (0, u - m), value=kld.BIG)
+        start_c = torch.nn.functional.pad(start_c, (0, u - m))
+    uk, start_u = ks_c[:u], start_c[:u]
+    idx_u = torch.arange(u, dtype=torch.int32, device=dev)
+    valid_u = idx_u < u_count
+    nxt = torch.where(idx_u == u_count - 1, state.n_active,
+                      torch.cat([start_u[1:], torch.zeros(1, dtype=torch.int32, device=dev)]))
+    cnt_f = torch.where(valid_u, nxt - start_u, 0).to(torch.float32)
+    p_u = torch.where(valid_u, tbl[uk.clamp(0, tbl.shape[0] - 1).long()], 0.0)
+
+    # updateSensor's averages (prior weights 1/n): t1 = sum_c cnt_c p_c / n
+    nf = state.n_active.to(torch.float32).clamp(min=1.0)
+    t1 = (cnt_f * p_u).sum() / nf
+    ok_t = t1 > 0.0
+    w_avg = t1 / nf
+    w_slow = torch.where(ok_t, torch.where(
+        state.w_slow == 0.0, w_avg, state.w_slow + state.alpha_slow * (w_avg - state.w_slow)),
+        state.w_slow)
+    w_fast = torch.where(ok_t, torch.where(
+        state.w_fast == 0.0, w_avg, state.w_fast + state.alpha_fast * (w_avg - state.w_fast)),
+        state.w_fast)
+
+    # cell masses; a zero total resets to uniform over the active set
+    # (particle_filter.cpp:258-266)
+    mass_u = torch.where(ok_t, cnt_f * p_u, cnt_f)
+    mass_n = mass_u / mass_u.sum()
+    cum_u = torch.cumsum(mass_n, 0)
+    # updateResample: w_diff from the updated averages
+    w_diff = torch.where(w_slow > 0.0, torch.clamp(
+        1.0 - w_fast / torch.where(w_slow > 0, w_slow, 1.0), min=0.0), 0.0)
+    use_random = u_inject < w_diff
+
+    # the cell of each draw (the count of cum values <= r, clipped to the
+    # last padded cell), then its member: the residual (r - cumprev) /
+    # mass is U[0, 1) given the cell, so it picks the member uniformly
+    c = torch.searchsorted(cum_u, u_pick.contiguous(), right=True).clamp(max=u - 1)
+    cumprev = torch.cat([torch.zeros(1, dtype=torch.float32, device=dev), cum_u[:-1]])
+    pos_m = mass_n > 0
+    invm = torch.where(pos_m, cnt_f / torch.where(pos_m, mass_n, 1.0), 0.0)
+    c_cnt = cnt_f[c]
+    off = torch.floor((u_pick - cumprev[c]) * invm[c])
+    off = torch.minimum(off.clamp(min=0.0), (c_cnt - 1.0).clamp(min=0.0))
+    member = (start_u[c].to(torch.float32) + off).to(torch.int64).clamp(0, m - 1)
+    new_poses = torch.where(use_random[:, None], random_pose_pool,
+                            state.poses[order[member]])
+
+    new_count, rank_p, cluster_count = _kld_stop_and_ranks(new_poses, params)
+    act2 = torch.arange(m, device=dev) < new_count
+    reset = w_diff > 0.0
+    new_state = state.replace(
+        poses=new_poses.to(torch.float32),
+        weights=torch.where(act2, 1.0 / new_count.to(torch.float32), 0.0).to(torch.float32),
+        n_active=new_count.to(torch.int32),
+        w_slow=torch.where(reset, 0.0, w_slow), w_fast=torch.where(reset, 0.0, w_fast))
+    stats = cluster.compute_cluster_stats(new_state.poses, new_state.weights,
+                                          new_state.active_mask, params,
+                                          precomputed_ranks=(rank_p, cluster_count))
+    return update_converged(new_state.replace(stats=stats), params, mean_xy=stats.mean[:2])
 
 
 def max_weight_cluster(stats):

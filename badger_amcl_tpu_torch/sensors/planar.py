@@ -223,6 +223,36 @@ def map_factors(omap: OccupancyMap2D, params: PlanarScanParams, poses: torch.Ten
     return torch.where(omap.in_bounds(ci, cj), f, params.off_map_factor)
 
 
+def _corr_flags(omap, scan, spose, fold_poses=None):
+    """The corr arm's prepass (dedup from 360 beams, the JAX package's
+    measured gate) and its predicates, read in one host sync: (pre, valid,
+    fits, tight, narrow, all_valid); all_valid (every fold pose on the
+    map) is None without fold_poses."""
+    valid = scan.valid()
+    pre = corr_kernel.corr_prepass(omap, spose, scan.ranges, scan.angles, valid,
+                                   dedup=int(scan.ranges.shape[0]) >= 360)
+    preds = [pre["fits"], pre["tight"], pre["narrow"]]
+    if fold_poses is not None:
+        ci_f, cj_f = omap.cells_of(fold_poses[:, 0], fold_poses[:, 1])
+        preds.append(omap.in_bounds(ci_f, cj_f).all())
+    fits, tight, narrow, *all_valid = (bool(f) for f in host_values(*preds))
+    return pre, valid, fits, tight, narrow, all_valid[0] if all_valid else None
+
+
+def _baked(omap, params, scan, model) -> bool:
+    """Whether the map's baked psi texture serves this scan and model."""
+    return (omap.corr_psi_pad is not None
+            and omap.corr_psi_key == psi_fingerprint(model, params, scan.range_max))
+
+
+def _tex_pad(omap, params, scan, model):
+    """The psi texture of this scan: the baked one where it serves, else
+    built now."""
+    if _baked(omap, params, scan, model):
+        return omap.corr_psi_pad
+    return corr_kernel.build_tex_pad(omap, *_psi_texture(omap, params, scan.range_max, model))
+
+
 def _corr_dispatch(omap, scan, spose, params, model, combine, fallback_fn,
                    fold_poses=None, quantized=False):
     """Stencil-correlation arm: falls back to `fallback_fn()` when the cloud,
@@ -233,35 +263,24 @@ def _corr_dispatch(omap, scan, spose, params, model, combine, fallback_fn,
     baked for this scan (the f32 table otherwise)."""
     if not corr_kernel.map_fits(omap):
         return fallback_fn()
-    valid = scan.valid()
-    n_beams = int(scan.ranges.shape[0])
-    # dedup pays from >= 360 beams (the JAX package's measured gate)
-    pre = corr_kernel.corr_prepass(omap, spose, scan.ranges, scan.angles, valid,
-                                   dedup=n_beams >= 360)
-    preds = [pre["fits"], pre["tight"], pre["narrow"]]
-    if fold_poses is not None:
-        ci_f, cj_f = omap.cells_of(fold_poses[:, 0], fold_poses[:, 1])
-        preds.append(omap.in_bounds(ci_f, cj_f).all())
-    flags = host_values(*preds)
-    if not flags[0]:
+    pre, valid, fits, tight, narrow, all_valid = _corr_flags(omap, scan, spose, fold_poses)
+    if not fits:
         return fallback_fn()
+    n_beams = int(scan.ranges.shape[0])
     n_valid = valid.sum()
     fold = None
     if fold_poses is not None:
         fold = corr_kernel.Fold(
             combine=lambda s: combine(s, n_valid),
-            factor_tex=_factor_texture(omap, params), all_valid=bool(flags[3]),
+            factor_tex=_factor_texture(omap, params), all_valid=all_valid,
             fallback_mf=lambda: map_factors(omap, params, fold_poses))
-    baked = (omap.corr_psi_pad is not None
-             and omap.corr_psi_key == psi_fingerprint(model, params, scan.range_max))
-    if quantized and baked and omap.corr_psi_pad_q is not None:
+    if quantized and _baked(omap, params, scan, model) and omap.corr_psi_pad_q is not None:
         s = corr_kernel.corr_values_q(omap.corr_psi_pad_q, omap.corr_psi_q, pre, n_beams,
-                                      bool(flags[2]), fold)
+                                      narrow, fold)
         return s if fold is not None else combine(s, n_valid)
-    tex_pad = (omap.corr_psi_pad if baked else corr_kernel.build_tex_pad(
-        omap, *_psi_texture(omap, params, scan.range_max, model)))
-    rows, j0 = corr_kernel.window_variant(pre, bool(flags[1]), bool(flags[2]))
-    s = corr_kernel.corr_values(tex_pad, pre, n_beams, rows, j0, fold)
+    rows, j0 = corr_kernel.window_variant(pre, tight, narrow)
+    s = corr_kernel.corr_values(_tex_pad(omap, params, scan, model), pre, n_beams, rows, j0,
+                                fold)
     return s if fold is not None else combine(s, n_valid)
 
 
@@ -424,3 +443,40 @@ def planar_likelihood(omap, params, scan, poses, active, n_active,
     if fold:
         return p, None
     return p, map_factors(omap, params, poses)
+
+
+# the models whose table-side combine the cell-space resampling contract
+# supports: the factor-folding models, beam skipping aside (planar.py:813)
+CELL_MODELS = ("likelihood_field", "likelihood_field_gompertz", "likelihood_field_prob")
+
+
+def planar_likelihood_cells(omap, params, scan, poses, model: str, backend: str = "corr"):
+    """The cell-space twin of `planar_likelihood` for the cell resampling
+    contract (planar.py:817-852, pf.filter.sensor_resample_cells): (tbl
+    (T_FLAT_CELLS,) f32, key (M,) int64, ok) with ok a host bool: the
+    folded p * recalcWeight factor of every lattice cell and each
+    particle's cell in it (`corr_kernel.corr_cells`, kernel #1/#2), with
+    no per-particle take. The combines are JAX's: 1 + s, Gompertz of the
+    mean term (1 without a valid beam) and exp(s) for prob (the exp form,
+    not the log-space pipeline). ok is False, with no table (None, None),
+    when the map misses the corr gate, the cloud leaves the lattice
+    envelope or a particle is off the map (planar.py:260-265,290-315): the
+    caller then runs the pick-level step."""
+    if backend != "corr":
+        raise ValueError(f"the cell contract needs the corr backend, got {backend!r}")
+    if model not in CELL_MODELS:
+        raise ValueError(f"the cell contract does not support model {model!r}")
+    if not corr_kernel.map_fits(omap):
+        return None, None, False
+    spose = coord_add(params.scanner_pose, poses)
+    pre, valid, fits, tight, narrow, all_valid = _corr_flags(omap, scan, spose, poses)
+    if not (fits and all_valid):
+        return None, None, False
+    n_valid = valid.sum()
+    fold = corr_kernel.Fold(combine=lambda s: corr_combine(model, params, s, n_valid),
+                            factor_tex=_factor_texture(omap, params), all_valid=True,
+                            fallback_mf=None)
+    rows, j0 = corr_kernel.window_variant(pre, tight, narrow)
+    tbl, key = corr_kernel.corr_cells(_tex_pad(omap, params, scan, model), pre,
+                                      int(scan.ranges.shape[0]), rows, j0, fold)
+    return tbl, key, True

@@ -1,18 +1,25 @@
-"""Per-phase host timing (a copy of badger_amcl_tpu.utils.profiling's
-`PhaseTimer`).
+"""Per-phase host timing and device traces (counterpart of
+badger_amcl_tpu.utils.profiling).
 
-`PhaseTimer`: named wall-clock accumulators around host-side phases (scan
-prep, sensor update, resample). On a CUDA device a phase times what the
-host spends in it, dispatch and host syncs included, not the device's work
-behind it; `report()` gives per-phase mean/max/total.
+- `PhaseTimer` (a copy of the JAX package's): named wall-clock
+  accumulators around host-side phases (scan prep, sensor update,
+  resample). On a CUDA device a phase times what the host spends in it,
+  dispatch and host syncs included, not the device's work behind it;
+  `report()` gives per-phase mean/max/total.
+- `trace(logdir)`: a `torch.profiler` window around a block, written into
+  `logdir` as a Chrome trace (Perfetto, chrome://tracing), in place of
+  the JAX package's `jax.profiler` TensorBoard trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict
+
+import torch
 
 
 class PhaseTimer:
@@ -48,3 +55,24 @@ class PhaseTimer:
         self._sums.clear()
         self._maxs.clear()
         self._counts.clear()
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Trace the block's host ops, and its CUDA kernels where a card is
+    present, with torch.profiler (profiling.py:56-65); on exit the trace is
+    written to `logdir`/trace_<pid>_<ns>.json. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

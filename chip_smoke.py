@@ -37,13 +37,30 @@ the port's three paths:
   and with every yaw bin live), drives the likelihood-field
   step on "corr_q" in the steady and tracking regimes and compares the
   card with the CPU at 4096 x 360;
+- 2D cell-space resampling contract: `sensor_resample_step(
+  resample_contract="cell")` on "corr" at 50,000 x 720 in the steady and
+  tracking (likelihood field), Gompertz and prob (exp form) steady and
+  spread cells: the arm each step took (steady: the cell arm; spread: the
+  pick contract's step, equal to it on the same variates), u_count, #1's
+  launches, the timing rows of the cell and the pick contract on the same
+  state, a chi-square (p > 1e-3) of one steady cell step's per-cell picks
+  against the cell masses, and the card against the CPU at 4096 x 360
+  (>= 99.9% of picks equal, n_active equal);
 - fleet: holds fleet_corr_table against its plain version on 16 robots
   scattered over the 1024^2 map (one without a valid beam) and at the
   fleet's own shape, drives `fleet_init` and `fleet_step` at 256 robots x
   10,000 particles x 180 beams (3 steps, then 3 pinned steps; the fleet
   table must launch on every step), compares the card with the CPU at
   4 x 2048 x 60 and times the fleet step (robot-steps/s, host syncs per
-  step at 16 and 256 robots);
+  step at 16 and 256 robots); then the sharded fleet
+  (`make_sharded_fleet_step`, `fleet_health(group)`) at the same shape:
+  one NCCL rank in this process (a file store in a temporary directory)
+  must equal `fleet_step` over 3 steps with motion and launch #5 once a
+  step, its NCCL health equal the local one; two gloo ranks spawned on the
+  one card (`--fleet-rank`; NCCL refuses two ranks on one device), 128
+  robots each, must match their rows of the one-process run, launch #5 on
+  every step and reduce the whole fleet's health, each under its own time
+  limit; their step ms are two processes sharing one card;
 - 3D: builds the 20 x 20 x 1 m voxel scene at 0.05 m (401 x 401 x 21 EDT)
   and its 256-point cloud, holds the windowed arm's kernels against their
   plain versions (the window prepass on the 50k steady, 10k tracking and
@@ -92,13 +109,17 @@ the port's three paths:
 
 The launch counters are set to 0 just before each main-path run and read
 just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
-fleet, 3d, node_2d, node_3d, cli) keeps
+2d_cells, fleet, sharded_fleet (its in-process rank), 3d, node_2d,
+node_3d, cli) keeps
 its own count; every cell must go through its kernel and leave a sane
 filter state. Kernels, likelihoods and steps are timed with CUDA events,
 kernels also by their profiled device time, the corr tables' wrappers
 also by their host time per call.
 
     python3 chip_smoke.py
+
+(`python3 chip_smoke.py --fleet-rank RANK WORLD DIR` is one gloo rank of
+the sharded-fleet phase, which spawns it.)
 
 Prints progress lines, then a {"kernels": [...]} JSON line, the card's
 name and power limit, and as its last line
@@ -1233,6 +1254,190 @@ def phase_kernels_q(omap, scan, states):
     return {"corr_table_q": out[0]}
 
 
+# --- 2D cell-space resampling contract -----------------------------------------
+
+# the cells of the cell contract: key of CELLS_2D (its state and cloud) ->
+# laser model; prob in the exp form, as the contract combines it
+CELL_CONTRACT = {"steady": "likelihood_field", "tracking": "likelihood_field",
+                 "gompertz_steady": "likelihood_field_gompertz",
+                 "prob_steady": "likelihood_field_prob", "spread": "likelihood_field"}
+CELLS_REF = (4096, 360)  # card vs CPU: particles, beams (448^2 map)
+
+
+def contract_step(omap, sp, scan, pool, params, model, contract, gen=None, noise=None):
+    """s -> `sensor_resample_step` on "corr" under the given resampling
+    contract, variates from `noise` or `gen`."""
+    from badger_amcl_tpu_torch import mcl
+
+    return lambda s: mcl.sensor_resample_step(s, omap, sp, scan, pool, params,
+                                              laser_model=model, backend="corr",
+                                              resample_contract=contract, noise=noise,
+                                              generator=gen)
+
+
+def cell_picks_chi_square(omap, sp, scan, state, params, pool, gen):
+    """One cell step of the flagship cloud with each particle's index as
+    its pose (the contract reads poses only as the payload of its picks):
+    the per-cell pick counts against the cell masses cnt_c p_c / T, cells
+    whose expected count is under 5 pooled. Returns (p, cells, bins)."""
+    import numpy as np
+    import torch
+    from scipy import stats as scipy_stats
+
+    from badger_amcl_tpu_torch import mcl
+    from badger_amcl_tpu_torch.pf import filter as pf_filter
+    from badger_amcl_tpu_torch.sensors import planar
+
+    m = params.max_samples
+    tbl, key_m, ok = planar.planar_likelihood_cells(omap, sp, scan, state.poses,
+                                                    "likelihood_field")
+    check(ok, "cells chi-square: the steady cloud left the cell envelope")
+    ident = torch.zeros_like(state.poses)
+    ident[:, 0] = torch.arange(m, dtype=torch.float32, device=ident.device)
+    noise = mcl.StepNoise.draw(gen, m, ident.device, odom=False)
+
+    def no_classic():
+        raise Failure("cells chi-square: the classic arm was taken")
+
+    out = pf_filter.sensor_resample_cells(state.replace(poses=ident), params, pool, tbl, key_m,
+                                          ok, no_classic, noise.inject, noise.pick)
+    check(bool((out.poses[:, 1:] == 0).all()), "cells chi-square: draws came from the pool")
+    _, cell = torch.unique(key_m, return_inverse=True)
+    mass = torch.bincount(cell, weights=tbl[key_m].double()).cpu().numpy()
+    seen = torch.bincount(cell[out.poses[:, 0].long()], minlength=mass.size).cpu().numpy()
+    expected = m * mass / mass.sum()
+    small = expected < 5.0
+    obs = np.append(seen[~small], seen[small].sum())
+    exp = np.append(expected[~small], expected[small].sum())
+    keep = exp > 0
+    _, p = scipy_stats.chisquare(obs[keep], exp[keep] * obs[keep].sum() / exp[keep].sum())
+    return float(p), int(mass.size), int(keep.sum())
+
+
+def phase_cells(dev, maps, scan, states):
+    """The cell-space resampling contract at 50,000 x 720
+    (`sensor_resample_step(resample_contract="cell")` on "corr"): per cell
+    the arm taken (steady: the cell arm; spread: the pick contract's step,
+    equal to it on the same variates), u_count, corr_table launches of 3
+    steps and 3 pinned steps, the timing rows of the cell and the pick
+    contract on the same state, and a chi-square of one steady cell step's
+    per-cell picks. Returns (launch counts, timings)."""
+    import torch
+
+    from badger_amcl_tpu_torch import mcl
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import spread_kernel as sk
+    from badger_amcl_tpu_torch.pf import filter as pf_filter
+    from badger_amcl_tpu_torch.pf import kld
+    from badger_amcl_tpu_torch.sensors import planar
+
+    sp = planar.PlanarScanParams()
+    counts = Launches({"corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums})
+    gen = torch.Generator(device=dev).manual_seed(11)
+    timings = {}
+    for key, model in CELL_CONTRACT.items():
+        omap = maps[model]
+        params, state, pool = states[key]
+        step_fn = contract_step(omap, sp, scan, pool, params, model, "cell", gen)
+        step, box = pinned_step_fn(step_fn, state, params.max_samples)
+        arms0 = dict(pf_filter.CELL_ARMS)
+
+        def run():
+            s = state
+            for _ in range(3):
+                s = step_fn(s)
+            check_state(s, params, f"cells {key}")
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+
+        rose = counts.run(run, 6)
+        check_state(box["out"], params, f"cells {key} pinned")
+        arms = {a: pf_filter.CELL_ARMS[a] - arms0.get(a, 0) for a in ("cell", "classic")}
+        tbl, key_m, ok = planar.planar_likelihood_cells(omap, sp, scan, state.poses, model)
+        u_count = int(kld.sort_by_bin(key_m, state.active_mask)[3].sum()) if ok else None
+        if key == "steady":
+            check(arms == {"cell": 6, "classic": 0}, f"cells steady: arms {arms}")
+        if key == "spread":
+            check(arms == {"cell": 0, "classic": 6} and rose["spread_term_sums"] > 0,
+                  f"cells spread: arms {arms}, spread_term_sums launched "
+                  f"{rose['spread_term_sums']} times")
+            noise = mcl.StepNoise.draw(gen, params.max_samples, dev, odom=False)
+            a, b = (contract_step(omap, sp, scan, pool, params, model, c, noise=noise)(state)
+                    for c in ("cell", "pick"))
+            check(torch.equal(a.poses, b.poses) and torch.equal(a.n_active, b.n_active)
+                  and torch.equal(a.weights, b.weights),
+                  "cells spread: the classic arm differs from the pick step")
+        else:
+            check(rose["corr_table"] >= arms["cell"] > 0 or arms["classic"] == 6,
+                  f"cells {key}: corr_table launched {rose['corr_table']} times, arms {arms}")
+        out = box["out"]
+        log(f"cells {key} ({model}, cell contract): arms {arms} of 6 steps, u_count "
+            f"{u_count}, launches { {k: v for k, v in rose.items() if v} }, n_active "
+            f"{int(out.n_active)}, w_slow {float(out.w_slow):.4g}, "
+            f"mean={[round(v, 4) for v in out.stats.mean.tolist()]}")
+        pick_step, _ = pinned_step_fn(
+            contract_step(omap, sp, scan, pool, params, model, "pick", gen), state,
+            params.max_samples)
+
+        def like_pick():
+            p, mf = planar.planar_likelihood(omap, sp, scan, state.poses, state.active_mask,
+                                             state.n_active, model, backend="corr",
+                                             fold_factors=True)
+            return p if mf is None else p * mf
+
+        timings[key] = dict(
+            arms=arms, u_count=u_count, corr_table_launches=rose["corr_table"],
+            cell=timing_row(f"cells {key} cell", lambda: planar.planar_likelihood_cells(
+                omap, sp, scan, state.poses, model), step),
+            pick=timing_row(f"cells {key} pick", like_pick, pick_step))
+    params, state, pool = states["steady"]
+    p, n_cells, bins = cell_picks_chi_square(maps["likelihood_field"], sp, scan, state, params,
+                                             pool, gen)
+    log(f"cells chi-square (steady, {params.max_samples} picks over {n_cells} cells, {bins} "
+        f"bins): p = {p:.4g}")
+    check(p > 1e-3, f"cells chi-square: p = {p:.3g}")
+    timings["chi_square"] = dict(p=p, cells=n_cells, bins=bins)
+    return counts.read(), timings
+
+
+def phase_cells_reference(dev):
+    """The cell contract's step on the card (kernel) against the same step
+    on the CPU (plain version), same inputs and draws, at 4096 x 360 on a
+    448^2 map: steady and tracking likelihood field, steady Gompertz;
+    >= 99.9% of picks equal (the tables' sums differ in order, and the
+    cumulative masses with them), n_active equal, the cell arm on both."""
+    import torch
+
+    from badger_amcl_tpu_torch import mcl, scenario
+    from badger_amcl_tpu_torch.pf import filter as pf_filter
+    from badger_amcl_tpu_torch.sensors import planar
+
+    sp = planar.PlanarScanParams()
+    n, b = CELLS_REF
+    omap_g = scenario.build_map(448, device=dev)
+    omap_c = to_device(omap_g, "cpu")
+    scan_c = scenario.build_scan(b, device="cpu")
+    for regime, model in (("steady", "likelihood_field"), ("tracking", "likelihood_field"),
+                          ("steady", "likelihood_field_gompertz")):
+        params, state_c, pool_c = scenario.build_filter(n, pose_cov=REGIMES[regime],
+                                                        min_particles=1024, device="cpu")
+        noise_c = mcl.StepNoise.draw(torch.Generator().manual_seed(7), n, "cpu", odom=False)
+        arms0 = pf_filter.CELL_ARMS["cell"]
+        out_c, out_g = (
+            contract_step(om, sp, to_device(scan_c, d), to_device(pool_c, d), params, model,
+                          "cell", noise=to_device(noise_c, d))(to_device(state_c, d))
+            for om, d in ((omap_c, "cpu"), (omap_g, dev)))
+        check(pf_filter.CELL_ARMS["cell"] == arms0 + 2,
+              f"cells reference {model}/{regime}: the cell arm was not taken on both")
+        same = (out_g.poses.cpu() == out_c.poses).all(dim=1).float().mean().item()
+        check(int(out_g.n_active) == int(out_c.n_active),
+              f"cells reference {model}/{regime}: n_active differs")
+        check(same >= 0.999, f"cells reference {model}/{regime}: picks equal {same:.4f}")
+        log(f"cells reference {model}/{regime} ({n} x {b} on 448^2, card vs CPU, cell "
+            f"contract): picks equal {same:.4f}, n_active {int(out_g.n_active)}")
+
+
 # --- fleet -------------------------------------------------------------------
 
 
@@ -1509,6 +1714,191 @@ def phase_timings_fleet(dev, omap, fl):
     check(row["host_syncs_per_step_16_robots"] == row["host_syncs_per_step"],
           "the fleet step's host syncs grow with the robot count")
     return row
+
+
+SHARDED_RANKS = 2  # gloo ranks spawned on the one card
+RANK_TIMEOUT_S = 300
+SHARDED_NOISE_SEED = 12
+
+
+def sharded_noises(dev, r, m):
+    """The 3 steps' global FleetNoise of the sharded-fleet phase, drawn
+    from one seeded generator: every rank draws them all and takes its
+    rows, as the one-process run uses them whole."""
+    import torch
+
+    from badger_amcl_tpu_torch.fleet import FleetNoise
+
+    gen = torch.Generator(device=dev).manual_seed(SHARDED_NOISE_SEED)
+    return [FleetNoise.draw(gen, r, m, dev) for _ in range(3)]
+
+
+def sharded_steps(group, fl, omap, noises):
+    """(step, s): the rank's robots of `fl` after `make_sharded_fleet_step`
+    on "corr" ran one step per noise (each sliced to the rank's rows), and
+    the step with its rank's scans, pools and odometry bound (variates
+    from a generator)."""
+    from badger_amcl_tpu_torch import fleet
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+
+    params, states, scans, pools, odom_poses, deltas, alphas = fl
+    sp = PlanarScanParams()
+    step = fleet.make_sharded_fleet_step(group, params, backend="corr",
+                                         n_robots=states.poses.shape[0])
+    own = [fleet.shard_robots(x, group) for x in (scans, pools, odom_poses, deltas, deltas)]
+    s = fleet.shard_robots(states, group)
+    for noise in noises:
+        s = step(s, omap, sp, *own, alphas, noise=fleet.shard_robots(noise, group))
+    return (lambda gen: lambda x: step(x, omap, sp, *own, alphas, generator=gen)), s
+
+
+def fleet_rank(rank, world, tmp):
+    """One gloo rank of phase_sharded_fleet, in its own process on the one
+    card: rebuild the flagship map and the 256-robot fleet from their
+    seeds (the initial poses must equal the parent's), run 3 sharded steps
+    on this rank's rows of the global draws, time pinned steps, and write
+    tmp/rank{rank}.json (match with the parent's one-process rows,
+    fleet_corr_table launches, the group's health)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from badger_amcl_tpu_torch import fleet, scenario
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    group = fleet.init_fleet_group(f"file://{tmp}/gloo_store", world, rank, backend="gloo")
+    try:
+        dev = fleet.rank_device(group)
+        job = torch.load(f"{tmp}/job.pt", map_location="cpu")
+        omap = scenario.build_map(MAP_CELLS, device=dev)
+        fl = scenario.build_fleet(FLEET_ROBOTS, FLEET_PARTICLES, FLEET_BEAMS, device=dev)
+        params, states = fl[0], fl[1]
+        check(torch.equal(states.poses.cpu(), job["init_poses"]),
+              f"rank {rank}: the rebuilt fleet differs from the parent's")
+        r, m = states.weights.shape
+        noises = sharded_noises(dev, r, m)
+        ck.fleet_corr_table.launches = 0
+        bind, s = sharded_steps(group, fl, omap, noises)
+        torch.cuda.synchronize()
+        launches = ck.fleet_corr_table.launches
+        rows = slice(rank * (r // world), (rank + 1) * (r // world))
+        close = ((s.poses.cpu() - job["want_poses"][rows]).abs() <= 1e-5).all(-1)
+        health = {k: float(v) for k, v in fleet.fleet_health(s, group).items()}
+        step, _ = pinned_step_fn(bind(torch.Generator(device=dev).manual_seed(rank)), s,
+                                 params.max_samples)
+        ms = cuda_ms(step, iters=10, warmup=2)
+        out = dict(rank=rank, robots=s.poses.shape[0], launches=launches, steps=len(noises),
+                   poses_within_1e5=close.float().mean().item(),
+                   n_active_equal=torch.equal(s.n_active.cpu(), job["want_n_active"][rows]),
+                   health=health, step_ms=ms)
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_sharded_fleet(dev, omap, fl):
+    """The sharded fleet (`make_sharded_fleet_step`, `fleet_health(group)`)
+    at 256 x 10,000 x 180: (i) one NCCL rank in this process (a file store
+    in a temporary directory): 3 steps with motion on the one-process
+    `fleet_step`'s variates must equal it, the NCCL health equal the local
+    one (rtol 1e-6), #5 launch once a step; (ii) two gloo ranks spawned on
+    the one card (NCCL refuses two ranks on one device, so gloo is this
+    test's choice), 128 robots each: each rank's robots against its rows
+    of the one-process run (n_active equal, >= 99.9% of particles within
+    1e-5), #5 on every step, the group's health equal to the whole
+    fleet's, and per-rank step ms of two processes sharing one card.
+    Returns (launch counts of (i), timings)."""
+    import tempfile
+
+    import torch
+
+    from badger_amcl_tpu_torch import fleet
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+
+    params, states = fl[0], fl[1]
+    r, m = states.weights.shape
+    noises = sharded_noises(dev, r, m)
+    one = states
+    for noise in noises:
+        one = fleet_step_fn(fl, omap, None, noise)(one)
+    want = {k: float(v) for k, v in fleet.fleet_health(one).items()}
+    counts = Launches({"fleet_corr_table": ck.fleet_corr_table})
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        group = fleet.init_fleet_group(f"file://{tmp}/nccl_store", 1, 0, device="cuda")
+        try:
+            box = {}
+
+            def run():
+                box["s"] = sharded_steps(group, fl, omap, noises)[1]
+                torch.cuda.synchronize()
+
+            rose = counts.run(run, len(noises))
+            s = box["s"]
+            health = fleet.fleet_health(s, group)
+        finally:
+            torch.distributed.destroy_process_group()
+        check(rose["fleet_corr_table"] == len(noises),
+              f"sharded fleet (NCCL): #5 launched {rose['fleet_corr_table']} times in "
+              f"{len(noises)} steps")
+        check(torch.equal(s.poses, one.poses) and torch.equal(s.n_active, one.n_active),
+              "sharded fleet (NCCL): the one-rank step differs from fleet_step")
+        check(all(v.device.type == "cuda" for v in health.values()),
+              "sharded fleet (NCCL): the health was not reduced on the card")
+        for k, v in health.items():
+            check(math.isclose(float(v), want[k], rel_tol=1e-6),
+                  f"sharded fleet (NCCL): {k} {float(v)} vs {want[k]}")
+        log(f"sharded fleet in process (1 NCCL rank, {r} x {m} x {FLEET_BEAMS}, 3 steps): "
+            f"equal to fleet_step, #5 launches {rose['fleet_corr_table']}, health "
+            f"{ {k: round(float(v), 6) for k, v in health.items()} }")
+
+        torch.save(dict(init_poses=states.poses.cpu(), want_poses=one.poses.cpu(),
+                        want_n_active=one.n_active.cpu()), f"{tmp}/job.pt")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH",
+                                                                                 "")]))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fleet-rank",
+                                   str(rank), str(SHARDED_RANKS), tmp], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for rank in range(SHARDED_RANKS)]
+        errs = []
+        try:
+            for p in procs:
+                errs.append(p.communicate(timeout=RANK_TIMEOUT_S)[1])
+        except subprocess.TimeoutExpired:
+            raise Failure(f"sharded fleet: a gloo rank ran past {RANK_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for rank, (p, err) in enumerate(zip(procs, errs)):
+            check(p.returncode == 0, f"sharded fleet: gloo rank {rank} exited {p.returncode}:\n"
+                                     f"{err[-4000:]}")
+        ranks = []
+        for rank in range(SHARDED_RANKS):
+            with open(f"{tmp}/rank{rank}.json") as f:
+                ranks.append(json.load(f))
+    for out in ranks:
+        tag = f"sharded fleet: gloo rank {out['rank']}"
+        check(out["launches"] == out["steps"], f"{tag}: #5 launched {out['launches']} times in "
+                                               f"{out['steps']} steps")
+        check(out["n_active_equal"], f"{tag}: n_active differs from the one-process run")
+        check(out["poses_within_1e5"] >= 0.999,
+              f"{tag}: only {out['poses_within_1e5']:.4f} of poses within 1e-5")
+        for k, v in out["health"].items():
+            check(math.isclose(v, want[k], rel_tol=1e-6), f"{tag}: {k} {v} vs {want[k]}")
+        out["robot_steps_per_s"] = out["robots"] / (out["step_ms"] / 1e3)
+        log(f"sharded fleet gloo rank {out['rank']} of {SHARDED_RANKS} ({out['robots']} robots "
+            f"x {m} x {FLEET_BEAMS}; two processes sharing one card, not a scaling figure): "
+            f"poses within 1e-5 {out['poses_within_1e5']:.4f}, n_active equal, #5 "
+            f"{out['launches']}/{out['steps']}, step_ms {out['step_ms']:.4f}, "
+            f"robot_steps_per_s {out['robot_steps_per_s']:.1f}")
+    log(f"sharded fleet: {SHARDED_RANKS} gloo ranks in {wall:.1f} s wall (start-up included)")
+    return counts.read(), dict(ranks=ranks, wall_s=wall, health=want)
 
 
 # --- 3D --------------------------------------------------------------------
@@ -2793,6 +3183,8 @@ def main():
     phase_reference(dev)
     timings = phase_timings(dev, maps, scan, states)
     timings["range_image_bake"] = dict(seconds=bake_s, bytes=bake_bytes)
+    paths["2d_cells"], timings["cells"] = phase_cells(dev, maps, scan, states)
+    phase_cells_reference(dev)
     del bmap, maps, scan, states, built
     torch.cuda.empty_cache()
 
@@ -2806,6 +3198,7 @@ def main():
     paths["fleet"] = phase_main_path_fleet(dev, omap, fl)
     phase_reference_fleet(dev, omap)
     timings["fleet"] = phase_timings_fleet(dev, omap, fl)
+    paths["sharded_fleet"], timings["sharded_fleet"] = phase_sharded_fleet(dev, omap, fl)
     del omap, fl
     torch.cuda.empty_cache()
 
@@ -2882,7 +3275,10 @@ def main():
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--fleet-rank"]:  # one rank of phase_sharded_fleet
+            code = fleet_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        else:
+            code = main()
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         code = 1

@@ -103,11 +103,13 @@ def test_init_with_poses_stats_match(both_setups):
 
 def test_port_imports_no_jax():
     """Importing every port module and running a CPU step (2D, 3D, beam, a
-    corr_q likelihood, a fleet step, a few Node2D scans with systematic
-    resampling, a few Node3D scans on a .bt octomap from the simulator and
-    a three-step `cli.main --sim`) must work with JAX and the JAX package
-    made unimportable."""
+    corr_q likelihood, a fleet step, a cell-contract step under
+    `profiling.trace`, a one-rank gloo sharded fleet step and its health, a
+    few Node2D scans with systematic resampling, a few Node3D scans on a
+    .bt octomap from the simulator and a three-step `cli.main --sim`) must
+    work with JAX and the JAX package made unimportable."""
     code = textwrap.dedent("""
+        import os
         import sys
         sys.modules["jax"] = None
         sys.modules["badger_amcl_tpu"] = None
@@ -153,6 +155,25 @@ def test_port_imports_no_jax():
                               torch.zeros(2, 256, 3), torch.zeros(2, 3), odom, odom,
                               [0.05] * 5, fparams, backend="corr", generator=gen)
         assert fs.poses.shape == (2, 256, 3) and torch.isfinite(fs.weights).all()
+        import tempfile
+        from badger_amcl_tpu_torch.pf import filter as pf_filter
+        from badger_amcl_tpu_torch.utils import profiling
+        with tempfile.TemporaryDirectory() as d:
+            with profiling.trace(d):
+                out = mcl.sensor_resample_step(state, omap, sp, scan, pool, params,
+                                               backend="corr", resample_contract="cell",
+                                               generator=gen)
+            assert len(os.listdir(d)) == 1
+            group = fleet.init_fleet_group("file://" + d + "/store", 1, 0, device="cpu")
+            step = fleet.make_sharded_fleet_step(group, fparams, device="cpu", n_robots=2)
+            fs = step(fleet.shard_robots(fs, group), omap, sp, fleet.FleetScan.tile(scan, 2),
+                      torch.zeros(2, 256, 3), torch.zeros(2, 3), odom, odom, [0.05] * 5,
+                      generator=gen)
+            health = fleet.fleet_health(fs, group)
+            assert float(health["mean_active"]) == float(fs.n_active.float().mean())
+            assert torch.equal(fleet.gather_robots(fs, group).poses, fs.poses)
+            torch.distributed.destroy_process_group()
+        assert pf_filter.CELL_ARMS["cell"] == 1 and torch.isfinite(out.weights).all()
         import numpy as np
         from badger_amcl_tpu_torch import config
         from badger_amcl_tpu_torch.node import (checkpoint, make_node, messages,
@@ -183,7 +204,6 @@ def test_port_imports_no_jax():
         from badger_amcl_tpu_torch import __main__, cli, sim  # noqa: F401
         from badger_amcl_tpu_torch.maps import octree_io
         from badger_amcl_tpu_torch.node import node_3d, ros_bridge
-        import tempfile
         occ = np.random.default_rng(1).uniform(0.0, 4.0, (600, 3))
         with tempfile.TemporaryDirectory() as d:
             octree_io.write_bt(d + "/m.bt", 0.1, occ)
