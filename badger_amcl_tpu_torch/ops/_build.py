@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 
 class BeamConsts(ctypes.Structure):
@@ -70,6 +71,8 @@ _SIGNATURES = {
     "beam_table_launch": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,
                           ctypes.POINTER(BeamConsts), _P, _I, _P, _I, _I, _P],
     "beam_spread_sums_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
+    "edt_2d_launch": [_P, _I, _I, _I, _D, _D, _P, _P, _P],
+    "edt_3d_launch": [_P, _I, _I, _I, _I, _D, _D, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -46,7 +46,7 @@ import torch
 
 from badger_amcl_tpu_torch.pf import cluster, gaussian, kld
 from badger_amcl_tpu_torch.pf.types import MCLState, PFParams
-from badger_amcl_tpu_torch.utils.numerics import host_bool, host_values
+from badger_amcl_tpu_torch.utils.numerics import cumsum_det, host_bool, host_values
 
 
 class ResampleModel(enum.IntEnum):
@@ -208,7 +208,7 @@ def update_converged(state: MCLState, params: PFParams, mean_xy=None) -> MCLStat
 def _pick_indices(weights: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Index i with cum[i-1] <= r < cum[i] (particle_filter.cpp:394-398),
     clipped to the last particle."""
-    cum = torch.cumsum(weights, 0)
+    cum = cumsum_det(weights)
     idx = torch.searchsorted(cum, r, right=True)
     return idx.clamp(max=weights.shape[0] - 1)
 
@@ -321,7 +321,7 @@ def systematic_comb(poses, weights, k_old, params: PFParams, w_diff, pool, u_sta
     t = torch.remainder(u_start[..., None]
                         + (i - num_random[..., None]).to(torch.float32) * delta[..., None],
                         1.0)
-    idx = torch.searchsorted(torch.cumsum(weights, -1), t.contiguous(), right=True)
+    idx = torch.searchsorted(cumsum_det(weights), t.contiguous(), right=True)
     picked = torch.take_along_dim(poses, idx.clamp(max=m - 1)[..., None], dim=-2)
     new_poses = torch.where((i < num_random[..., None])[..., None], pool, picked)
     return new_poses, new_count.to(torch.int32)
@@ -407,7 +407,7 @@ def fleet_resample(states: MCLState, params: PFParams, pools: torch.Tensor,
     shape = params.hist_shape
     w_diff = _w_diff(states, False)
     use_random = u_inject < w_diff[:, None]
-    idx = torch.searchsorted(torch.cumsum(states.weights, 1), u_pick.contiguous(),
+    idx = torch.searchsorted(cumsum_det(states.weights), u_pick.contiguous(),
                              right=True).clamp(max=m - 1)
     picked = torch.gather(states.poses, 1, idx[..., None].expand(r, m, 3))
     new_poses = torch.where(use_random[..., None], pools, picked)
@@ -556,7 +556,7 @@ def sensor_resample_cells(state: MCLState, params: PFParams, random_pose_pool: t
     # (particle_filter.cpp:258-266)
     mass_u = torch.where(ok_t, cnt_f * p_u, cnt_f)
     mass_n = mass_u / mass_u.sum()
-    cum_u = torch.cumsum(mass_n, 0)
+    cum_u = cumsum_det(mass_n)
     # updateResample: w_diff from the updated averages
     w_diff = torch.where(w_slow > 0.0, torch.clamp(
         1.0 - w_fast / torch.where(w_slow > 0, w_slow, 1.0), min=0.0), 0.0)

@@ -1,11 +1,17 @@
-"""Scalar division that rounds the same on every device, and the count of
-host syncs taken by the dispatch tree.
+"""Scalar division that rounds the same on every device, a cumulative sum
+that rounds the same on every call, and the count of host syncs taken by
+the dispatch tree.
 
 `fdiv`: PyTorch's CUDA division by a Python number multiplies by its f32
 reciprocal, which can differ from true division in the last bit; the JAX
 package divides exactly, and a kernel that divides exactly must agree with
 its plain version bit for bit. Dividing by a 0-dim tensor on the same
 device takes true IEEE division everywhere.
+
+`cumsum_det`: PyTorch scans a single CUDA row of floats with CUB's
+decoupled look-back, whose association follows the timing of its tiles,
+so two calls on the same weights can differ in the last bit and a
+resampling pick at a boundary can move to the neighbouring particle.
 
 `host_values`: the JAX package branches on device scalars inside
 `lax.cond`; in eager PyTorch each such branch reads the predicate back to
@@ -24,6 +30,34 @@ import torch
 def fdiv(x: torch.Tensor, s: float) -> torch.Tensor:
     """x / s with IEEE f32 division on CPU and CUDA alike."""
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+SCAN_ROW = 1024  # the row length of cumsum_det's blocked scan
+
+
+def cumsum_det(x: torch.Tensor) -> torch.Tensor:
+    """torch.cumsum(x, -1), bit-identical from call to call. A single row
+    of floats is scanned as rows of SCAN_ROW by PyTorch's per-row kernel
+    (on CUDA one block a row, a fixed order), then each row offset by the
+    scanned totals of the rows before it, on every device alike; several
+    rows and integers take torch.cumsum, which is deterministic there."""
+    if not x.is_floating_point() or x.numel() != x.shape[-1]:
+        return torch.cumsum(x, -1)
+    return blocked_cumsum(x.reshape(-1)).view_as(x)
+
+
+def blocked_cumsum(flat: torch.Tensor) -> torch.Tensor:
+    """cumsum_det's scan of a 1-D tensor: rows of SCAN_ROW (at least two,
+    so that PyTorch takes its per-row kernel), each offset by the scanned
+    totals of the rows before it."""
+    n = flat.shape[0]
+    if n <= SCAN_ROW:  # a zero second row keeps PyTorch off the one-row path
+        return torch.cumsum(torch.stack([flat, torch.zeros_like(flat)]), -1)[0]
+    rows = -(-n // SCAN_ROW)
+    part = torch.cumsum(torch.nn.functional.pad(flat, (0, rows * SCAN_ROW - n))
+                        .view(rows, SCAN_ROW), -1)
+    part[1:] += blocked_cumsum(part[:, -1])[:-1, None]
+    return part.reshape(-1)[:n]
 
 
 class _SyncCounter:

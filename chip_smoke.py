@@ -72,6 +72,22 @@ the port's three paths:
   cloud models in the steady (50k), tracking (10k) and spread (50k)
   regimes (every regime runs the prepass, steady the fused sums), and
   compares the step on the card with the CPU at 4096 x 128;
+- map set-up: the maps' distance fields (`ops/edt_kernel`, csrc/edt.cu)
+  at the receipt of store-sized maps through the nodes' entry points: a
+  seeded 2000 x 1200 ROS grid of a 100 x 60 m store at 0.05 m through
+  `Node2D.map_msg_received` with examples/amcl_2d.yaml (4000 x 2400 at
+  0.025 m, 0.36 m cap; each stage timed; the field bit-equal to the numpy
+  `capped_distance_field` and the plain version) and a 2000 x 1200 x 50
+  voxel store through `Node3D.octomap_msg_received` with
+  examples/amcl_3d.yaml (0.3 m; the texture equal to the plain version
+  and to a brute-force minimum on the card at 65,536 random voxels and one
+  64 x 64 x 50 block); no port module but maps/edt.py may import the
+  numpy EDT, so the receipts cannot reach it;
+  kernel, plain, numpy and scipy times, bounds and peak device memory;
+  then 3 steps of 50,000 particles on each store map above the texture
+  gates (2D corr from the tracking and the spread covariance, 3D
+  Gompertz from the tracking one): the arm each step took, step ms and
+  device busy;
 - the 2D node: `make_node` on the card at 50,000 particles x 720 beams,
   fed the flagship map as an OccupancyGrid message, a TransformBuffer
   (odom->base, static base->laser) and 30 scans raycast along a scripted
@@ -90,9 +106,11 @@ the port's three paths:
   `cli.load_config`, `make_node` on the card at 50,000 particles x 256
   points, fed the 3D scene as an OctomapMsg whose binary .bt payload the
   port's `write_bt` wrote (the map's set-up timed stage by stage: write,
-  read, host EDT, upload) and 30 clouds of fresh voxel centres of the map
-  the .bt round trip rebuilt, around a scripted path: the pose within 0.3 m and 0.25 rad, #9's prepass and
-  fused sums must launch; per scan the same figures as the 2D node. Then
+  read, the card EDT, which must equal its plain version and the numpy
+  EDT and launch once in the node's receipt) and 30 clouds of fresh voxel
+  centres of the map the .bt round trip rebuilt, around a scripted path:
+  the pose within 0.3 m and 0.25 rad, #9's prepass and fused sums must
+  launch; per scan the same figures as the 2D node. Then
   global localization (#10 must launch), the card node against a CPU node
   (both on corr, 4096 x 128, zero-noise odometry, no resample: every
   weight to 1e-4 but those of particles with an endpoint within 1e-4
@@ -109,8 +127,8 @@ the port's three paths:
 
 The launch counters are set to 0 just before each main-path run and read
 just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
-2d_cells, fleet, sharded_fleet (its in-process rank), 3d, node_2d,
-node_3d, cli) keeps
+2d_cells, fleet, sharded_fleet (its in-process rank), 3d, map_setup,
+node_2d, node_3d, cli) keeps
 its own count; every cell must go through its kernel and leave a sane
 filter state. Kernels, likelihoods and steps are timed with CUDA events,
 kernels also by their profiled device time, the corr tables' wrappers
@@ -201,6 +219,9 @@ F32_OPS_PER_S = 67e12
 # and the SM boost clock
 L1_BYTES_PER_S = 30e12
 SM_CLOCK_HZ = 1.98e9
+# integer adds and minima: 64 INT32 lanes in each of the 132 SMs (NVIDIA's
+# H100 architecture paper) at that clock, the rate behind 67 TFLOP/s
+INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 # the kernels held against their plain versions that no main path
 # launches, each with the note the kernels line carries: the (B, M)
 # distances, kept as the counterparts of the JAX package's functions
@@ -246,11 +267,12 @@ def cuda_ms(fn, iters=ITERS, warmup=WARMUP):
     return statistics.median(times)
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     """Least time (ms) the card could take: the larger of the bytes over
-    the memory rate and the f32 operations over the f32 rate."""
+    the memory rate and the operations over their type's rate (f32 unless
+    given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1275,6 +1297,28 @@ def contract_step(omap, sp, scan, pool, params, model, contract, gen=None, noise
                                               generator=gen)
 
 
+def scan_repeats(dev, calls=200):
+    """How many of `calls` repeated scans of one seeded (N_PARTICLES,)
+    weight vector differ in any bit from the first: PyTorch's one-row CUDA
+    cumsum, and `numerics.cumsum_det`, which the resampling picks take and
+    which must never differ."""
+    import torch
+
+    from badger_amcl_tpu_torch.utils.numerics import cumsum_det
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    w = torch.rand(N_PARTICLES, generator=g, device=dev)
+    w = w / w.sum()
+    first = torch.cumsum(w, 0), cumsum_det(w)
+    torch_diff = sum(not torch.equal(torch.cumsum(w, 0), first[0]) for _ in range(calls))
+    det_diff = sum(not torch.equal(cumsum_det(w), first[1]) for _ in range(calls))
+    log(f"scan repeats ({N_PARTICLES} weights, {calls} calls): torch.cumsum differed "
+        f"{torch_diff} times, cumsum_det {det_diff} times; max |cumsum_det - "
+        f"torch.cumsum| {float((first[1] - first[0]).abs().max()):.3e}")
+    check(det_diff == 0, f"cumsum_det differed on {det_diff} of {calls} calls")
+    return dict(calls=calls, torch_cumsum_differed=torch_diff, cumsum_det_differed=det_diff)
+
+
 def cell_picks_chi_square(omap, sp, scan, state, params, pool, gen):
     """One cell step of the flagship cloud with each particle's index as
     its pose (the contract reads poses only as the payload of its picks):
@@ -1334,7 +1378,7 @@ def phase_cells(dev, maps, scan, states):
     sp = planar.PlanarScanParams()
     counts = Launches({"corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums})
     gen = torch.Generator(device=dev).manual_seed(11)
-    timings = {}
+    timings = {"scan_repeats": scan_repeats(dev)}
     for key, model in CELL_CONTRACT.items():
         omap = maps[model]
         params, state, pool = states[key]
@@ -2209,6 +2253,462 @@ def phase_timings_3d(dev, omap, cloud, states):
     return out
 
 
+# --- map set-up: the distance fields at map receipt -------------------------
+
+STORE_RES = 0.05
+STORE_GRID = (2000, 1200)  # ROS grid (width, height): 100 x 60 m at 0.05 m
+STORE_VOXELS = (2000, 1200, 50)  # 100 x 60 x 2.5 m at 0.05 m
+STORE_MARGIN = 20  # unknown cells outside the 2D store's walls
+STORE_SHELF_VOXELS = 36  # gondola faces 1.8 m high
+STORE_PARTICLES = 50_000
+STORE_STEPS = 3
+STORE_POSE = (30.0, 9.2, 0.0)  # in the first aisle, world metres of both maps
+SPOT_VOXELS = 65_536
+SPOT_BLOCK = 64
+
+
+def store_gondolas(w, h, seed):
+    """Gondola rows of the store's plan in cells of STORE_RES, as (x0, x1,
+    y0, y1) half-open boxes: rows along x 1.2 m deep with 2 m aisles,
+    behind a 6 m front area, split by 3 m cross aisles every ~19 m
+    (seeded lengths)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    m, rows = STORE_MARGIN, []
+    y = m + 120
+    while y + 24 < h - m - 60:
+        x = m + 100
+        while x < w - m - 160:
+            x1 = min(x + int(rng.integers(340, 420)), w - m - 100)
+            rows.append((x, x1, y, y + 24))
+            x = x1 + 60
+        y += 24 + 40
+    return rows
+
+
+def store_grid(w, h, seed=0):
+    """The seeded (h, w) int8 ROS occupancy grid of the store (0 free, 100
+    occupied, -1 unknown), as a lidar map shows it: 2-cell outer walls
+    STORE_MARGIN cells inside the grid, unknown outside them; each gondola's
+    faces occupied and its inside unknown; 40 pallets of 1 m in the front
+    area; single-cell clutter on 0.02% of the free cells."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    m = STORE_MARGIN
+    g = np.full((h, w), -1, np.int8)
+    g[m:h - m, m:w - m] = 0
+    g[m:m + 2, m:w - m] = g[h - m - 2:h - m, m:w - m] = 100
+    g[m:h - m, m:m + 2] = g[m:h - m, w - m - 2:w - m] = 100
+    for x0, x1, y0, y1 in store_gondolas(w, h, seed):
+        g[y0:y1, x0:x1] = -1
+        g[y0, x0:x1] = g[y1 - 1, x0:x1] = g[y0:y1, x0] = g[y0:y1, x1 - 1] = 100
+    for _ in range(40):
+        px, py = rng.integers(m + 10, w - m - 30), rng.integers(m + 10, m + 100)
+        g[py:py + 20, px:px + 20] = 100
+    g[(g == 0) & (rng.random((h, w)) < 2e-4)] = 100
+    return g
+
+
+def store_voxels(nx, ny, nz, seed=0):
+    """(K, 3) int64 occupied voxel cells of the store volume: the floor
+    plane, the four outer walls to full height at the volume's edges, and
+    the gondolas' faces to STORE_SHELF_VOXELS with seeded gaps (a missing
+    face column, 10%)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 2)
+    gx, gy = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    parts = [np.stack([gx.ravel(), gy.ravel(), np.zeros(nx * ny, np.int64)], axis=1)]
+    rim = (gx == 0) | (gx == nx - 1) | (gy == 0) | (gy == ny - 1)
+    faces = np.zeros((nx, ny), bool)
+    for x0, x1, y0, y1 in store_gondolas(nx, ny, seed):
+        faces[x0:x1, y0] = faces[x0:x1, y1 - 1] = faces[x0, y0:y1] = faces[x1 - 1, y0:y1] = True
+    faces &= rng.random((nx, ny)) >= 0.1
+    for mask, top in ((rim, nz), (faces, min(STORE_SHELF_VOXELS, nz))):
+        xs, ys = np.nonzero(mask)
+        zs = np.arange(1, top)
+        parts.append(np.stack([np.repeat(xs, len(zs)), np.repeat(ys, len(zs)),
+                               np.tile(zs, len(xs))], axis=1))
+    return np.concatenate(parts)
+
+
+def numpy_texture(vol_zyx, res, max_dist):
+    """The numpy exact EDT of a (nz, ny, nx) occupancy volume in the JAX
+    package's (x, y, z) layout, quantized as octomap_3d.py:136-141 does;
+    returned (nz, ny, nx)."""
+    import numpy as np
+
+    from badger_amcl_tpu_torch.maps import edt
+
+    d_m = np.minimum(edt.edt_3d(np.ascontiguousarray(vol_zyx.transpose(2, 1, 0)) != 0) * res,
+                     max_dist)
+    return np.floor(d_m / max_dist * 255.0).astype(np.uint8).transpose(2, 1, 0)
+
+
+def scipy_seconds(free):
+    """Host seconds of scipy.ndimage.distance_transform_edt (the distance
+    to the nearest False) on a bool array, or None without scipy."""
+    try:
+        from scipy import ndimage
+    except ImportError:
+        return None
+    t0 = time.perf_counter()
+    ndimage.distance_transform_edt(free)
+    return time.perf_counter() - t0
+
+
+def numpy_edt_importers():
+    """The port's modules, maps/edt.py aside, that import the numpy EDT
+    (maps/edt.py): a map receipt can reach it only through one of them."""
+    import ast
+
+    pkg, own = os.path.join(ROOT, "badger_amcl_tpu_torch"), os.path.join("maps", "edt.py")
+    found = []
+    for dirpath, _, files in os.walk(pkg):
+        for f in sorted(files):
+            path = os.path.join(dirpath, f)
+            if not f.endswith(".py") or os.path.relpath(path, pkg) == own:
+                continue
+            with open(path) as fh:
+                tree = ast.parse(fh.read())
+            for node in ast.walk(tree):
+                if not isinstance(node, (ast.Import, ast.ImportFrom)):
+                    continue
+                names = [a.name for a in node.names]
+                if (any(n.endswith("maps.edt") for n in names) or "edt" in names
+                        or (getattr(node, "module", None) or "").split(".")[-1] == "edt"):
+                    found.append(os.path.relpath(path, ROOT))
+                    break
+    return found
+
+
+def brute_texture(vol, idx, r, res, max_dist, chunk=4096):
+    """The uint8 texture at the (S, 3) (z, y, x) voxels `idx` of a (nz, ny,
+    nx) occupancy volume by brute force on the card: the least squared
+    offset to an occupied voxel of the (2r + 1)^3 cube around each, then
+    the reference's quantization (a voxel with none in its cube is beyond
+    r, so reads 255)."""
+    import torch
+
+    from badger_amcl_tpu_torch.utils.numerics import fdiv
+
+    dev, shape = vol.device, torch.tensor(vol.shape, device=vol.device)
+    o = torch.arange(-r, r + 1, device=dev)
+    offs = torch.cartesian_prod(o, o, o)
+    d2o = (offs * offs).sum(dim=1)
+    flat_vol = vol.reshape(-1)
+    out = []
+    for s in range(0, idx.shape[0], chunk):
+        p = idx[s:s + chunk, None, :] + offs[None]
+        inb = ((p >= 0) & (p < shape)).all(dim=-1)
+        p = torch.minimum(p.clamp(min=0), shape - 1)
+        hit = (flat_vol[(p[..., 0] * vol.shape[1] + p[..., 1]) * vol.shape[2] + p[..., 2]] != 0) \
+            & inb
+        d2 = torch.where(hit, d2o[None], 1 << 30).min(dim=1).values
+        d = torch.sqrt(d2.to(torch.float64))
+        out.append(torch.floor(fdiv(torch.clamp(d * res, max=max_dist), max_dist) * 255.0)
+                   .to(torch.uint8))
+    return torch.cat(out)
+
+
+def edt_figures(label, fn, plain_fn, n, axes, design_bytes, bytes_io, numpy_s, scipy_s,
+                iters=ITERS):
+    """The kernel's wrapper ms (CUDA events), profiled device ms, the plain
+    version's ms on the card and the bound of one EDT call over n cells on
+    `axes` axes: the input read once and the output written once, and the
+    int32 operations of two linear sweeps a cell per axis (an add and a
+    min each), whatever the design. The design's int32 intermediates give
+    a byte floor that is logged and kept in the timings only."""
+    ms = cuda_ms(fn, iters=iters)
+    dev = kernel_ms(fn)
+    plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
+    b = bound(bytes_io, 4.0 * axes * n, INT32_OPS_PER_S)
+    floor_ms = design_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"{label}: ms={ms:.4f} (wrapper) device_ms={device_text(dev)} "
+        f"({'; '.join(f'{k} {t:.4f}' for k, t in dev.items())}) plain_ms={plain_ms:.4f} "
+        f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']}; the design's intermediates "
+        f"{floor_ms:.4f}) numpy_s={'not run' if numpy_s is None else f'{numpy_s:.4f}'} "
+        f"scipy_s={'not run' if scipy_s is None else f'{scipy_s:.4f}'}")
+    return dict(ms=ms, device_ms=device_ms(dev), plain_ms=plain_ms, **b,
+                library_ms=None), dict(design_floor_ms=floor_ms, numpy_s=numpy_s,
+                                       scipy_s=scipy_s)
+
+
+def timed(fn):
+    """(fn(), its wall seconds up to a CUDA synchronise)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def store_steps(label, state, step_fn, counters, smi):
+    """STORE_STEPS steps of `step_fn` from `state` (each synchronised, the
+    kernels it launched and so the arm it took), then the device busy of
+    as many pinned steps from the same state."""
+    import torch
+
+    rows, s = [], state
+    for _ in range(STORE_STEPS):
+        for c in counters.values():
+            c.launches = 0
+        s, sec = timed(lambda: step_fn(s))
+        launched = {k: c.launches for k, c in counters.items() if c.launches}
+        rows.append(dict(step_ms=sec * 1e3, launched=launched))
+    step, _ = pinned_step_fn(step_fn, state, state.poses.shape[0])
+    busy_ms, ops, top = device_busy(step, steps=STORE_STEPS)
+    step_ms = statistics.median(r["step_ms"] for r in rows)
+    log(f"map_setup steps {label} ({smi}): step_ms {[round(r['step_ms'], 4) for r in rows]} "
+        f"(median {step_ms:.4f}, host clock, synchronised); kernels launched per step "
+        f"{[r['launched'] or 'none' for r in rows]}; device busy ms per "
+        f"step {busy_ms:.4f}, ops {ops:.0f}, idle share {1.0 - busy_ms / step_ms:.3f}; top "
+        + "; ".join(f"{n} {t:.4f}" for n, t in top))
+    check(bool(torch.isfinite(s.weights).all()) and bool(torch.isfinite(s.poses).all()),
+          f"map_setup steps {label}: non-finite state")
+    return dict(steps=rows, step_ms_median=step_ms, device_busy_ms=busy_ms,
+                device_ops_per_step=ops, device_idle_share=1.0 - busy_ms / step_ms,
+                top_device_ops=top)
+
+
+def phase_map_setup(dev, smi):
+    """The maps' distance fields at map receipt, on store-sized maps
+    through the nodes' entry points: a seeded 2000 x 1200 ROS grid of a
+    100 x 60 m store through `Node2D.map_msg_received` with
+    examples/amcl_2d.yaml (supersampled to 4000 x 2400 at 0.025 m, 0.36 m
+    cap), each stage timed, the field bit-equal to the numpy
+    `capped_distance_field` and to the plain version; the 2000 x 1200 x 50
+    voxel store through `Node3D.octomap_msg_received` with
+    examples/amcl_3d.yaml (0.3 m), the texture equal to the plain version
+    and to a brute-force minimum on the card at 65,536 random voxels and
+    every voxel of one 64 x 64 x nz block. No port module but maps/edt.py
+    may import the numpy EDT, so the receipts cannot reach it. Kernel, plain, numpy and scipy times, bounds and
+    peak device memory per map; then, as measurements, STORE_STEPS steps of
+    50,000 particles on each map above the texture gates (2D corr from the
+    tracking and the spread covariance, 3D Gompertz from the tracking one):
+    the arm each step takes, step ms and device busy. Returns (the path's
+    launch counts, kernels-line entries, timings)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from badger_amcl_tpu_torch import cli, scenario
+    from badger_amcl_tpu_torch.maps import edt
+    from badger_amcl_tpu_torch.maps.occupancy_2d import CellState, OccupancyMap2D
+    from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
+    from badger_amcl_tpu_torch.node import TransformBuffer, make_node
+    from badger_amcl_tpu_torch.node.messages import OccupancyGrid, OctomapMsg
+    from badger_amcl_tpu_torch.ops import corr_kernel, lf_kernel, pc_kernel, pc_spread_kernel
+    from badger_amcl_tpu_torch.ops import edt_kernel as ek
+    from badger_amcl_tpu_torch.ops import spread_kernel
+    from badger_amcl_tpu_torch.sensors import planar
+    from badger_amcl_tpu_torch.sensors.point_cloud import PointCloudParams
+
+    importers = numpy_edt_importers()
+    check(not importers, f"map_setup: {importers} import the numpy EDT")
+    log("map_setup: no port module but maps/edt.py imports the numpy EDT")
+    counts = Launches({"edt_2d": ek.capped_field_2d, "edt_3d": ek.voxel_texture_3d})
+    kernels, timing = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the 2D store
+        w, h = STORE_GRID
+        t0 = time.perf_counter()
+        grid = store_grid(w, h)
+        msg = OccupancyGrid(width=w, height=h, resolution=STORE_RES, origin_x=0.0,
+                            origin_y=0.0, data=grid.ravel())
+        make_s = time.perf_counter() - t0
+        cfg = cli.load_config(os.path.join(ROOT, "examples", "amcl_2d.yaml")).replace(
+            save_pose=False, saved_pose_filepath=os.path.join(tmp, "saved_pose.yaml"))
+        md, s = cfg.laser_likelihood_max_dist, cfg.map_scale_up_factor
+        omap, grid_s = timed(lambda: OccupancyMap2D.from_occupancy_grid_msg(
+            w, h, STORE_RES, 0.0, 0.0, msg.data, s, device=dev))
+        lut, field_s = timed(lambda: ek.capped_field_2d(omap.cells, omap.resolution, md))
+        omap, bakes_s = timed(lambda: dataclasses.replace(
+            omap, distances=lut, max_distance_to_object=md).with_distance_bakes())
+        _, free_s = timed(lambda: omap.free_space_indices(cfg.laser_non_free_space_radius))
+        tf = TransformBuffer()
+        node = make_node(cfg, tf_buffer=tf, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        counts.run(lambda: timing.setdefault("2d_receipt_s", timed(
+            lambda: node.map_msg_received(msg))[1]), 1)
+        peak = torch.cuda.max_memory_allocated()
+        cells, got = node.map.cells, node.map.distances
+        check(tuple(got.shape) == (h * s, w * s) and node.map.resolution == STORE_RES / s,
+              f"map_setup 2D: field {tuple(got.shape)} at {node.map.resolution}")
+        occ = cells.cpu().numpy() == int(CellState.OCCUPIED)
+        t0 = time.perf_counter()
+        want = edt.capped_distance_field(occ, node.map.resolution, md)
+        numpy_s = time.perf_counter() - t0
+        plain = ek.capped_field_2d_plain(cells, node.map.resolution, md)
+        err = float((got - plain).abs().max())
+        check(torch.equal(got, plain), f"map_setup 2D: kernel != plain ({err})")
+        n_bad = int((got.cpu().numpy() != want).sum())
+        check(n_bad == 0, f"map_setup 2D: {n_bad} cells differ from the numpy field")
+        r = ek.window_2d(node.map.resolution, md)
+        n = cells.numel()
+        fig, extra = edt_figures(
+            f"edt_2d ({h * s} x {w * s} store field, R {r})",
+            lambda: ek.capped_field_2d(cells, node.map.resolution, md),
+            lambda: ek.capped_field_2d_plain(cells, node.map.resolution, md), n, 2,
+            13 * n, 5 * n, numpy_s, scipy_seconds(~occ))
+        kernels["edt_2d"] = dict(max_abs_err=err, **fig)
+        timing["2d"] = dict(
+            grid=[w, h], field=[w * s, h * s], resolution=node.map.resolution,
+            max_dist=md, window=r, occupied_cells=int(occ.sum()), make_grid_s=make_s,
+            grid_upload_s=grid_s, field_s=field_s, bakes_s=bakes_s, free_space_s=free_s,
+            receipt_s=timing.pop("2d_receipt_s"), peak_gb=peak / 1e9,
+            before_gb=before / 1e9, **fig, **extra)
+        log(f"map_setup 2D store ({smi}): {w} x {h} grid at {STORE_RES} m made in "
+            f"{make_s:.4f} s -> {w * s} x {h * s} at {node.map.resolution} m, "
+            f"{int(occ.sum())} occupied; stages: grid + upload {grid_s:.4f} s, field "
+            f"{field_s:.4f} s, bakes {bakes_s:.4f} s, free-space indices {free_s:.4f} s; "
+            f"the node's receipt {timing['2d']['receipt_s']:.4f} s; peak device memory "
+            f"{peak / 1e9:.3f} GB ({before / 1e9:.3f} before); bit-equal to the numpy field "
+            f"({numpy_s:.4f} s) and the plain version")
+
+        # steps above the texture gates (measurement only)
+        smap = planar.bake_factor_texture(planar.bake_corr_texture(
+            node.map, planar.PlanarScanParams(), scenario.RANGE_MAX, "likelihood_field"),
+            planar.PlanarScanParams())
+        angles = np.linspace(-2.35, 2.35, N_BEAMS).astype(np.float32)
+        ls = scenario.laser_scan(smap, STORE_POSE, angles, 0.0)
+        scan = planar.PlanarScan(ranges=torch.as_tensor(ls.ranges, device=dev),
+                                 angles=torch.as_tensor(angles, device=dev),
+                                 range_max=ls.range_max)
+        sp = planar.PlanarScanParams()
+        gen = torch.Generator(device=dev).manual_seed(5)
+        lf_counters = {"corr_table": corr_kernel.corr_table,
+                       "spread_term_sums": spread_kernel.spread_term_sums,
+                       "lf_term_sums": lf_kernel.lf_term_sums,
+                       "lf_extents": lf_kernel.beam_extents}
+        gates = dict(spread_tex_fits=spread_kernel.tex_fits(smap),
+                     corr_map_fits=corr_kernel.map_fits(smap))
+        log(f"map_setup steps 2D: {smap.size_x * smap.size_y} cells; spread_kernel.tex_fits "
+            f"{gates['spread_tex_fits']} (<= {spread_kernel.MAX_TEX_CELLS}), "
+            f"corr_kernel.map_fits {gates['corr_map_fits']}")
+        timing["2d_steps"] = dict(gates=gates)
+        for regime in ("tracking", "spread"):
+            params, state, pool = scenario.build_filter(
+                STORE_PARTICLES, pose_cov=REGIMES[regime], min_particles=STORE_PARTICLES,
+                pose_mean=STORE_POSE, device=dev, pool_lo=(0.0, 0.0, -math.pi),
+                pool_hi=(w * STORE_RES, h * STORE_RES, math.pi))
+            timing["2d_steps"][regime] = store_steps(
+                f"2D {regime} ({STORE_PARTICLES} x {N_BEAMS}, corr)", state,
+                lambda st: step_2d(st, smap, sp, scan, pool, params, "likelihood_field",
+                                   "corr", gen, motion=False), lf_counters, smi)
+        del node, omap, lut, smap, cells, got, plain, want, occ, scan
+        torch.cuda.empty_cache()
+
+        # the 3D store
+        nx, ny, nz = STORE_VOXELS
+        t0 = time.perf_counter()
+        vox = store_voxels(nx, ny, nz)
+        centres = vox.astype(np.float64) * STORE_RES
+        make_s = time.perf_counter() - t0
+        cfg3 = node3d_config(tmp)
+        md3 = cfg3.resolved_cloud_likelihood_max_dist
+        omap3, points_s = timed(lambda: OctoMap3D.from_occupied_points(
+            centres, STORE_RES, md3, device=dev))
+        check(omap3.size == STORE_VOXELS, f"map_setup 3D: size {omap3.size}")
+        vol, scatter_s = timed(omap3.occupancy_volume)
+        _, field_s = timed(lambda: ek.voxel_texture_3d(vol, STORE_RES, md3))
+        _, free_s = timed(omap3.free_space_indices)
+        del omap3
+        tf3 = TransformBuffer()
+        node3 = make_node(cfg3, tf_buffer=tf3, device=dev)
+        msg3 = OctomapMsg(resolution=STORE_RES, occupied_centers=centres)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        counts.run(lambda: timing.setdefault("3d_receipt_s", timed(
+            lambda: node3.octomap_msg_received(msg3))[1]), 1)
+        peak = torch.cuda.max_memory_allocated()
+        tex = node3.map.tex_zyx
+        check(tuple(tex.shape) == (nz, ny, nx), f"map_setup 3D: texture {tuple(tex.shape)}")
+        plain = ek.voxel_texture_3d_plain(vol, STORE_RES, md3)
+        err = float((tex.int() - plain.int()).abs().max())
+        check(torch.equal(tex, plain), f"map_setup 3D: kernel != plain ({err})")
+        del plain
+        r = ek.window_3d(STORE_RES, md3)
+        g = torch.Generator(device=dev).manual_seed(7)
+        shape = torch.tensor([nz, ny, nx], device=dev)
+        rand = (torch.rand((SPOT_VOXELS, 3), generator=g, device=dev) * shape).long()
+        x0, _, y0, _ = store_gondolas(nx, ny, 0)[0]
+        bz, by, bx = torch.meshgrid(torch.arange(min(SPOT_BLOCK, nz), device=dev),
+                                    torch.arange(y0 - 20, y0 - 20 + SPOT_BLOCK, device=dev),
+                                    torch.arange(x0 - 20, x0 - 20 + SPOT_BLOCK, device=dev),
+                                    indexing="ij")
+        idx = torch.cat([rand, torch.stack([bz.reshape(-1), by.reshape(-1),
+                                            bx.reshape(-1)], dim=1)])
+        want = brute_texture(vol, idx, r, STORE_RES, md3)
+        have = tex[idx[:, 0], idx[:, 1], idx[:, 2]]
+        mism = int((want != have).sum())
+        below = int((have < 255).sum())
+        check(mism == 0, f"map_setup 3D: {mism} of {idx.shape[0]} spot voxels differ from "
+                         "the brute-force minimum")
+        n = vol.numel()
+        fig, extra = edt_figures(
+            f"edt_3d ({nz} x {ny} x {nx} store volume, R {r})",
+            lambda: ek.voxel_texture_3d(vol, STORE_RES, md3),
+            lambda: ek.voxel_texture_3d_plain(vol, STORE_RES, md3), n, 3, 18 * n, 2 * n,
+            None, None, iters=10)
+        kernels["edt_3d"] = dict(max_abs_err=err, **fig)
+        timing["3d"] = dict(
+            voxels=list(STORE_VOXELS), resolution=STORE_RES, max_dist=md3, window=r,
+            occupied_voxels=len(vox), make_voxels_s=make_s, points_s=points_s,
+            scatter_s=scatter_s, field_s=field_s, free_space_s=free_s,
+            receipt_s=timing.pop("3d_receipt_s"), peak_gb=peak / 1e9,
+            before_gb=before / 1e9, spot_voxels=int(idx.shape[0]), spot_mismatches=mism,
+            spot_below_cap=below, **fig, **extra)
+        log(f"map_setup 3D store ({smi}): {nx} x {ny} x {nz} voxels at {STORE_RES} m, "
+            f"{len(vox)} occupied, made in {make_s:.4f} s; stages: centres -> cells "
+            f"{points_s:.4f} s, scatter {scatter_s:.4f} s, texture {field_s:.4f} s, "
+            f"free-space indices {free_s:.4f} s; the node's receipt "
+            f"{timing['3d']['receipt_s']:.4f} s; peak device memory {peak / 1e9:.3f} GB "
+            f"({before / 1e9:.3f} before); equal to the plain version; spot check "
+            f"{idx.shape[0]} voxels ({below} below the cap), {mism} mismatches (the numpy "
+            "EDT is not run at this size)")
+
+        # the 3D step above the texture gates (measurement only)
+        smap3 = node3.map
+        pose = np.array(STORE_POSE)
+        d = np.hypot(centres[:, 0] - pose[0], centres[:, 1] - pose[1])
+        near = centres[(d > 0.5) & (d < 6.0) & (centres[:, 2] > 0.0)]
+        sel = near[np.random.default_rng(4).choice(len(near), NODE3D_POINTS, replace=False)]
+        c, sn = math.cos(-pose[2]), math.sin(-pose[2])
+        rel = sel[:, :2] - pose[:2]
+        cloud = torch.as_tensor(np.concatenate(
+            [np.stack([c * rel[:, 0] - sn * rel[:, 1], sn * rel[:, 0] + c * rel[:, 1]], 1),
+             sel[:, 2:3]], axis=1).astype(np.float32), device=dev)
+        gates = dict(pc_tex_fits=pc_kernel.tex_fits(smap3),
+                     pc_spread_tex_fits=pc_spread_kernel.tex_fits(smap3))
+        log(f"map_setup steps 3D: texture {tex.numel() / 1e6:.1f} MB; pc_kernel.tex_fits "
+            f"{gates['pc_tex_fits']}, pc_spread_kernel.tex_fits {gates['pc_spread_tex_fits']} "
+            f"(<= {pc_kernel.MAX_TEX_BYTES} bytes)")
+        params, state, pool = scenario.build_filter(
+            STORE_PARTICLES, pose_cov=REGIMES["tracking"], min_particles=STORE_PARTICLES,
+            pose_mean=STORE_POSE, device=dev, pool_lo=(0.0, 0.0, -math.pi),
+            pool_hi=(nx * STORE_RES, ny * STORE_RES, math.pi))
+        pcp = PointCloudParams()
+        gen = torch.Generator(device=dev).manual_seed(6)
+        timing["3d_steps"] = dict(gates=gates, tracking=store_steps(
+            f"3D tracking ({STORE_PARTICLES} x {NODE3D_POINTS}, Gompertz)", state,
+            lambda st: step_3d(st, smap3, pcp, cloud, pool, params,
+                               "likelihood_field_gompertz", gen, motion=False),
+            {"pc_extents": pc_kernel.pc_extents, "pc_term_sums": pc_kernel.pc_term_sums,
+             "pc_spread_term_sums": pc_spread_kernel.pc_spread_term_sums}, smi))
+        del node3, smap3, vol, tex, centres, vox
+        torch.cuda.empty_cache()
+    timing["phase_s"] = time.perf_counter() - t_phase
+    log(f"map_setup: the phase took {timing['phase_s']:.1f} s")
+    return counts.read(), kernels, timing
+
+
 # --- 2D node ---------------------------------------------------------------
 
 NODE_SCANS = 30
@@ -2742,12 +3242,14 @@ def phase_node_3d(dev, smi):
     from badger_amcl_tpu_torch import scenario
     from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
     from badger_amcl_tpu_torch.maps.octree_io import read_bt, write_bt
+    from badger_amcl_tpu_torch.ops import edt_kernel as ek
     from badger_amcl_tpu_torch.ops import pc_kernel as pk
     from badger_amcl_tpu_torch.ops import pc_spread_kernel as psk
 
     counts = Launches({"pc_term_sums": pk.pc_term_sums, "pc_extents": pk.pc_extents,
                        "pc_distances": pk.pc_distances,
-                       "pc_spread_term_sums": psk.pc_spread_term_sums})
+                       "pc_spread_term_sums": psk.pc_spread_term_sums,
+                       "edt_3d": ek.voxel_texture_3d})
     occ, _ = scenario.scene_3d()
     with tempfile.TemporaryDirectory() as tmp:
         # the map set-up, stage by stage (the node's receipt runs all three)
@@ -2761,31 +3263,48 @@ def phase_node_3d(dev, smi):
         t0 = time.perf_counter()
         tree = read_bt(payload)
         read_s = time.perf_counter() - t0
+        md = cfg.resolved_cloud_likelihood_max_dist
+        staged, edt_s = timed(lambda: OctoMap3D.from_binary_octree(
+            tree, md, device=dev).with_distance_field())
+        vol = staged.occupancy_volume()
+        plain = ek.voxel_texture_3d_plain(vol, staged.resolution, md)
         t0 = time.perf_counter()
-        staged = OctoMap3D.from_binary_octree(tree, cfg.resolved_cloud_likelihood_max_dist,
-                                              device="cpu").with_distance_field()
-        edt_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        tex = staged.tex_zyx.to(dev)
-        torch.cuda.synchronize()
-        upload_s = time.perf_counter() - t0
+        want = numpy_texture(vol.cpu().numpy(), staged.resolution, md)
+        numpy_s = time.perf_counter() - t0
+        check(torch.equal(staged.tex_zyx, plain)
+              and np.array_equal(staged.tex_zyx.cpu().numpy(), want),
+              "node_3d: the scene's card EDT differs from its plain version or the numpy EDT")
+        edt_ms = cuda_ms(lambda: ek.voxel_texture_3d(vol, staged.resolution, md))
+        edt_plain_ms = cuda_ms(lambda: ek.voxel_texture_3d_plain(vol, staged.resolution, md))
+        scipy_s = scipy_seconds(vol.cpu().numpy() == 0)
         world = tree.occupied_centers()  # the clouds sample the map's own voxels
         # from the steady covariance, the cloud's per-point windows fit (#9's
         # fused sums) while the Gompertz model lets it widen over the scans
-        run = Node3DRun(dev, cfg, payload, world, NODE3D_SCANS, NODE3D_POINTS,
-                        init_cov=REGIMES["steady"])
+        box = {}
+        rose = counts.run(lambda: box.setdefault("run", Node3DRun(
+            dev, cfg, payload, world, NODE3D_SCANS, NODE3D_POINTS,
+            init_cov=REGIMES["steady"])), 1)
+        run = box.pop("run")
         node = run.node
-        check(torch.equal(node.map.tex_zyx, tex) and node.map.min_cells == staged.min_cells,
-              "node_3d: the octomap message does not rebuild the staged bake")
+        check(rose["edt_3d"] == 1, f"node_3d: the receipt launched edt_3d {rose['edt_3d']} times")
+        check(torch.equal(node.map.tex_zyx, plain) and node.map.min_cells == staged.min_cells,
+              "node_3d: the octomap message's receipt does not give the plain version's "
+              "texture")
         check(node.backend == "corr", f"node_3d: backend {node.backend}, not corr")
         setup = dict(scene_voxels=len(occ), octree_keys=len(tree.occupied_keys),
                      payload_bytes=len(payload), texture=list(node.map.size),
-                     write_bt_s=write_s, read_bt_s=read_s, edt_s=edt_s, upload_s=upload_s,
+                     write_bt_s=write_s, read_bt_s=read_s, edt_s=edt_s, edt_kernel_ms=edt_ms,
+                     edt_plain_ms=edt_plain_ms, numpy_edt_s=numpy_s, scipy_edt_s=scipy_s,
                      node_receipt_s=run.map_s)
         log(f"node_3d set-up: scene {len(occ)} voxel centres -> {len(tree.occupied_keys)} "
             f"octree keys, .bt {len(payload)} bytes written in {write_s:.4f} s; read_bt "
-            f"{read_s:.4f} s, host EDT {edt_s:.4f} s ({node.map.size} voxels), upload "
-            f"{upload_s:.4f} s; the node's receipt {run.map_s:.4f} s (read, EDT, upload)")
+            f"{read_s:.4f} s, card EDT {edt_s:.4f} s ({node.map.size} voxels: centres, "
+            f"scatter, kernel; the kernel {edt_ms:.4f} ms, its plain version "
+            f"{edt_plain_ms:.4f} ms; bit-equal to both and to the numpy EDT, "
+            f"{numpy_s:.4f} s on the host; scipy "
+            f"{'not run' if scipy_s is None else f'{scipy_s:.4f} s'}); the node's receipt "
+            f"{run.map_s:.4f} s (read, card EDT)")
+        del vol, plain, want
 
         box = {}
         warm = node_scans(run, NODE_WARMUP, counts)
@@ -3221,6 +3740,10 @@ def main():
     del omap3, cloud, states3
     torch.cuda.empty_cache()
 
+    # the maps' distance fields at the receipt of store-sized maps
+    paths["map_setup"], edt_kernels, timings["map_setup"] = phase_map_setup(dev, smi)
+    kernels.update(edt_kernels)
+
     # the 2D node, the 3D node, the command line
     paths["node_2d"], timings["node_2d"] = phase_node(dev, smi)
     paths["node_3d"], timings["node_3d"] = phase_node_3d(dev, smi)
@@ -3256,6 +3779,9 @@ def main():
                              "badger_amcl_tpu/ops/corr_kernel.py:366"),
         "corr_table_q": ("badger_amcl_tpu_torch/csrc/corr_table.cu",
                          "badger_amcl_tpu/ops/corr_kernel.py:489"),
+        # the native host hook of the JAX package, not a TPU kernel
+        "edt_2d": ("badger_amcl_tpu_torch/csrc/edt.cu", "badger_amcl_tpu/utils/native.py:68"),
+        "edt_3d": ("badger_amcl_tpu_torch/csrc/edt.cu", "badger_amcl_tpu/utils/native.py:68"),
     }
     for k in meta:
         if k not in OFF_MAIN_PATH:

@@ -102,8 +102,8 @@ def test_init_with_poses_stats_match(both_setups):
 
 
 def test_port_imports_no_jax():
-    """Importing every port module and running a CPU step (2D, 3D, beam, a
-    corr_q likelihood, a fleet step, a cell-contract step under
+    """Importing every port module and running a CPU step (2D, 3D, the
+    maps' distance fields, beam, a corr_q likelihood, a fleet step, a cell-contract step under
     `profiling.trace`, a one-rank gloo sharded fleet step and its health, a
     few Node2D scans with systematic resampling, a few Node3D scans on a
     .bt octomap from the simulator and a three-step `cli.main --sim`) must
@@ -133,6 +133,12 @@ def test_port_imports_no_jax():
         p, mf = point_cloud.point_cloud_likelihood(
             omap3, pcp, cloud, state3.poses, "likelihood_field_gompertz", backend="corr")
         assert p.shape == (256,) and torch.isfinite(p).all() and (mf == 1.0).all()
+        from badger_amcl_tpu_torch.ops import edt_kernel
+        assert torch.equal(edt_kernel.capped_field_2d(omap.cells, omap.resolution,
+                                                      scenario.MAX_DIST), omap.distances)
+        assert torch.equal(edt_kernel.voxel_texture_3d(
+            omap3.occupancy_volume(), omap3.resolution, omap3.max_distance_to_object),
+            omap3.tex_zyx)
         from badger_amcl_tpu_torch.ops import beam_kernel, beam_spread_kernel
         from badger_amcl_tpu_torch.sensors import planar, raycast
         bmap = scenario.build_map(256, device="cpu", range_image_bins=64)

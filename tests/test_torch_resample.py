@@ -282,3 +282,22 @@ def test_systematic_fleet_step_matches_vmapped_resample():
                                   np.asarray(jr.stats.cluster_count))
     np.testing.assert_allclose(tr.stats.mean.numpy(), np.asarray(jr.stats.mean), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1024, 1025, 50_000, 2_100_000])
+def test_blocked_cumsum(n):
+    """The resampling picks' scan (`numerics.cumsum_det`, one association
+    on every call and every device): exact where the partial sums are
+    exact, and within f32 rounding of torch.cumsum otherwise; a single row
+    takes the blocked scan, several rows take torch.cumsum."""
+    from badger_amcl_tpu_torch.utils.numerics import blocked_cumsum, cumsum_det
+
+    ints = torch.arange(n, dtype=torch.float64) % 7
+    assert torch.equal(blocked_cumsum(ints), torch.cumsum(ints, 0))
+    w = torch.from_numpy(np.random.default_rng(n).random(n).astype(np.float32))
+    w = w / w.sum()
+    np.testing.assert_allclose(blocked_cumsum(w).numpy(), torch.cumsum(w, 0).numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.equal(cumsum_det(w), blocked_cumsum(w))
+    rows = torch.stack([w, w.flip(0)])
+    assert torch.equal(cumsum_det(rows), torch.cumsum(rows, -1))
