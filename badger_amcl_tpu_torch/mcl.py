@@ -11,6 +11,16 @@ log-space pipeline is the node's to compose (node/node_2d.py:39-56):
 `sensor_update_2d(..., log_space=True)` (log p into `sensor_update_log`),
 then `pf.filter.resample(..., log_averages=True)` over log-domain
 w_slow/w_fast (start from `pf.filter.init_log_averages`).
+
+`mcl_step_2d_jit`, `sensor_resample_step_jit` and `likelihood_only_jit`
+are the JAX package's compiled entry points (mcl.py:62,123,147), with its
+static arguments: on CUDA tensors each captures its step into a CUDA
+graph once per static key (`utils.graph.graph_jit`; every branch of the
+dispatch tree a conditional node) and replays it after that, with no host
+read inside a replay; on CPU tensors they run the step eagerly. Their
+slice: the likelihood_field and likelihood_field_gompertz models on the
+corr, lf and exact backends, the pick contract, multinomial resampling
+without a cluster cap; any other static argument raises.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from badger_amcl_tpu_torch.sensors import odom as odom_models
 from badger_amcl_tpu_torch.sensors.planar import (
     CELL_MODELS, planar_likelihood, planar_likelihood_cells,
 )
+from badger_amcl_tpu_torch.utils.graph import graph_jit
 
 
 @dataclasses.dataclass
@@ -155,3 +166,105 @@ def default_backend(device) -> str:
     """"corr" (the stencil-correlation kernel with its exact fallbacks) on
     CUDA, "exact" elsewhere."""
     return "corr" if torch.device(device).type == "cuda" else "exact"
+
+
+# --- the compiled entry points (the JAX package's jax.jit wrappers) ----------
+
+JIT_MODELS = ("likelihood_field", "likelihood_field_gompertz")
+JIT_BACKENDS = ("corr", "lf", "exact")
+_LATER = "a later slice of the compiled step (ROADMAP.md)"
+
+
+def _check_jit_slice(laser_model, backend, params=None, resample_model=ResampleModel.MULTINOMIAL,
+                     do_beamskip=False, resample_contract="pick"):
+    """Raise for a static argument outside the compiled step's slice."""
+    if laser_model not in JIT_MODELS:
+        raise ValueError(f"laser_model {laser_model!r}: the compiled step covers {JIT_MODELS}; "
+                         f"the prob and beam models are {_LATER}")
+    if backend not in JIT_BACKENDS:
+        raise ValueError(f"backend {backend!r}: the compiled step covers {JIT_BACKENDS}; "
+                         f"corr_q is {_LATER}")
+    if do_beamskip:
+        raise ValueError(f"do_beamskip: beam skipping is {_LATER}")
+    if resample_model != ResampleModel.MULTINOMIAL:
+        raise ValueError(f"resample_model {ResampleModel(resample_model).name}: the "
+                         f"systematic resampler is {_LATER}")
+    if resample_contract != "pick":
+        raise ValueError(f"resample_contract {resample_contract!r}: the cell contract is "
+                         f"{_LATER}")
+    if params is not None and params.stats_max_clusters:
+        raise ValueError(f"stats_max_clusters {params.stats_max_clusters}: the capped "
+                         f"statistics are {_LATER}")
+
+
+def _device_vec(v, device):
+    """An odometry 3-vector as an f32 tensor on the state's device: a
+    device tensor as it is, host data copied there before the replay."""
+    if v is None or (isinstance(v, torch.Tensor) and v.device == device
+                     and v.dtype == torch.float32):
+        return v
+    return torch.as_tensor(v, dtype=torch.float32).to(device)
+
+
+_mcl_step_graph = graph_jit(mcl_step_2d, static_argnames=(
+    "params", "odom_model", "laser_model", "resample_model", "do_resample", "do_beamskip",
+    "backend"))
+_sensor_resample_graph = graph_jit(sensor_resample_step, static_argnames=(
+    "params", "laser_model", "resample_model", "backend", "resample_contract"))
+_likelihood_graph = graph_jit(likelihood_only, static_argnames=("laser_model", "backend"))
+
+
+def mcl_step_2d_jit(state: MCLState, omap, scan_params, scan, random_pose_pool,
+                    odom_pose, odom_delta, absolute_motion, alphas, params: PFParams,
+                    odom_model=odom_models.OdomModel.DIFF,
+                    laser_model: str = "likelihood_field",
+                    resample_model=ResampleModel.MULTINOMIAL, do_resample: bool = True,
+                    do_beamskip: bool = False, backend: str = "exact",
+                    noise: Optional[StepNoise] = None,
+                    generator: Optional[torch.Generator] = None) -> MCLState:
+    """`mcl_step_2d` compiled (the JAX package's mcl_step_2d_jit, static
+    params, odom_model, laser_model, resample_model, do_resample,
+    do_beamskip, backend). The variates are drawn before the replay; the
+    alphas are part of the key (Python floats, as the motion model takes
+    them)."""
+    _check_jit_slice(laser_model, backend, params, resample_model, do_beamskip)
+    dev = state.poses.device
+    noise = _noise(noise, generator, state, odom=True)
+    return _mcl_step_graph(
+        state, omap, scan_params, scan, random_pose_pool, _device_vec(odom_pose, dev),
+        _device_vec(odom_delta, dev), _device_vec(absolute_motion, dev),
+        tuple(float(a) for a in alphas), params, odom_models.OdomModel(odom_model),
+        laser_model, ResampleModel(resample_model), do_resample, do_beamskip, backend,
+        noise=noise)
+
+
+def sensor_resample_step_jit(state: MCLState, omap, scan_params, scan, random_pose_pool,
+                             params: PFParams, laser_model: str = "likelihood_field",
+                             resample_model=ResampleModel.MULTINOMIAL,
+                             backend: str = "exact", resample_contract: str = "pick",
+                             noise: Optional[StepNoise] = None,
+                             generator: Optional[torch.Generator] = None) -> MCLState:
+    """`sensor_resample_step` compiled (the JAX package's
+    sensor_resample_step_jit, the unit bench.py times; static params,
+    laser_model, resample_model, backend, resample_contract)."""
+    _check_jit_slice(laser_model, backend, params, resample_model,
+                     resample_contract=resample_contract)
+    return _sensor_resample_graph(
+        state, omap, scan_params, scan, random_pose_pool, params, laser_model,
+        ResampleModel(resample_model), backend, resample_contract,
+        noise=_noise(noise, generator, state, odom=False))
+
+
+def likelihood_only_jit(state: MCLState, omap, scan_params, scan,
+                        laser_model: str = "likelihood_field", backend: str = "exact"):
+    """`likelihood_only` compiled (the JAX package's likelihood_only_jit,
+    static laser_model, backend)."""
+    _check_jit_slice(laser_model, backend)
+    return _likelihood_graph(state, omap, scan_params, scan, laser_model, backend)
+
+
+# the compiled wrappers (utils.graph.graph_jit: `.entries` per static key,
+# `.captures`), for diagnostics
+mcl_step_2d_jit.graph = _mcl_step_graph
+sensor_resample_step_jit.graph = _sensor_resample_graph
+likelihood_only_jit.graph = _likelihood_graph

@@ -73,6 +73,9 @@ _SIGNATURES = {
     "beam_spread_sums_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P],
     "edt_2d_launch": [_P, _I, _I, _I, _D, _D, _P, _P, _P],
     "edt_3d_launch": [_P, _I, _I, _I, _I, _D, _D, _P, _P, _P, _P],
+    "cluster_labels_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "graph_if_begin": [_P, _P, _P],
+    "graph_if_end": [_P],
 }
 
 _lib = None

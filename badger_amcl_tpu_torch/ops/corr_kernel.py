@@ -41,9 +41,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from badger_amcl_tpu_torch.ops import _build
+from badger_amcl_tpu_torch.utils import control
 from badger_amcl_tpu_torch.utils.numerics import fdiv
 
 PAD_R = 192  # row padding: >= max |row offset| + margin
@@ -187,7 +189,7 @@ def corr_prepass(omap, spose, ranges, angles, valid, dedup=False):
     # signed offsets (|o| <= 183 by range_ok) and a 12-bit multiplicity
     theta = ((t_min[:, None, None] + t_order[:, :, None]).to(torch.float32)
              * dtheta[:, None, None] + angles_c[:, None, :])
-    inv_res = float(torch.tensor(1.0 / res, dtype=torch.float32))
+    inv_res = float(np.float32(1.0 / res))
     oi = torch.round(ranges_c[:, None, :] * torch.cos(theta) * inv_res).to(torch.int32)
     oj = torch.round(ranges_c[:, None, :] * torch.sin(theta) * inv_res).to(torch.int32)
     oo = ((oj & 0x3FF) << 10) | (oi & 0x3FF)
@@ -229,14 +231,22 @@ def corr_prepass(omap, spose, ranges, angles, valid, dedup=False):
     }
 
 
+def window_cond(pre, tight, narrow, run, name: str = "corr.window"):
+    """run(rows, j0) on the smallest table the cloud's row span allows: the
+    JAX package's `_window_cond_tree` (corr_kernel.py:910-922), nested
+    `control.cond`s on tight, then narrow (read bools, or device flags in a
+    capture). Each variant keeps its own static rows; run must return the
+    same shapes for all three."""
+    return control.cond(
+        tight, lambda: run(PWIN_R_TIGHT, pre["j0_tight"]),
+        lambda: control.cond(narrow, lambda: run(PWIN_R_NARROW, pre["j0_narrow"]),
+                             lambda: run(PWIN_R, pre["j0"]), name=f"{name}.narrow"),
+        name=f"{name}.tight")
+
+
 def window_variant(pre, tight: bool, narrow: bool):
-    """(rows, j0) of the smallest table the cloud's row span allows — the
-    JAX package's `_window_cond_tree`, on host-read flags."""
-    if tight:
-        return PWIN_R_TIGHT, pre["j0_tight"]
-    if narrow:
-        return PWIN_R_NARROW, pre["j0_narrow"]
-    return PWIN_R, pre["j0"]
+    """(rows, j0) of `window_cond`'s choice, on read flags."""
+    return window_cond(pre, tight, narrow, lambda rows, j0: (rows, j0))
 
 
 def _unpack(off: torch.Tensor):
@@ -248,6 +258,7 @@ def _unpack(off: torch.Tensor):
     return w, torch.where(oj >= 512, oj - 1024, oj), torch.where(oi >= 512, oi - 1024, oi)
 
 
+@control.plain_version
 def _table_plain(tex, off, nu, t_n, org, n_beams: int, rows: int):
     """The plain tap sum of every table kernel, R windows at once: off
     (R, T_MAX * n_beams) packed taps, nu (R, T_MAX) taps per bin, t_n
@@ -458,8 +469,8 @@ def particle_flat(pre, rows: int, j0) -> torch.Tensor:
 class Fold:
     """Factor folding into the table read: `combine` maps psi sums to p,
     `factor_tex` is the recalcWeight factor texture, `all_valid` whether
-    every particle is on the map (host value), `fallback_mf` the
-    per-particle factors for the generic arm."""
+    every particle is on the map (a read bool, or a device flag in a
+    capture), `fallback_mf` the per-particle factors for the generic arm."""
 
     combine: Callable
     factor_tex: torch.Tensor
@@ -483,10 +494,11 @@ def _folded_take(corr_s, pre, rows, j0, fold: Fold):
     off-map factor, so the fused arm runs only when every particle is on
     the map (recalcWeight, planar_scanner.cpp:646-650)."""
     flat_idx = particle_flat(pre, rows, j0)
-    if fold.all_valid:
-        return _folded_table(corr_s, pre, rows, j0, fold).reshape(-1)[flat_idx]
-    p = fold.combine(corr_s.reshape(-1)[flat_idx])
-    return p * fold.fallback_mf()
+    return control.cond(
+        fold.all_valid,
+        lambda: _folded_table(corr_s, pre, rows, j0, fold).reshape(-1)[flat_idx],
+        lambda: fold.combine(corr_s.reshape(-1)[flat_idx]) * fold.fallback_mf(),
+        name="corr.all_on_map")
 
 
 def corr_values(tex_pad, pre, n_beams: int, rows: int, j0, fold: Fold = None):

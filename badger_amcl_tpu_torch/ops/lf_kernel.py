@@ -13,12 +13,14 @@ the plain version beside each):
 - `lf_obs_counts`: beam skipping's per-beam count of the active particles
   whose in-map endpoint lies within the skip distance of the map, (B,).
 
-`lf_texture` keeps the JAX package's contract: where its windowed TPU
-kernel would run (every beam's endpoints fit a WIN_ROWS x WIN_COLS window)
-the texture is read in bf16 (the map's baked `distances_bf16`), which is
-what that kernel returns; elsewhere in f32, the JAX package's exact
-gather. The per-beam windows themselves are not ported: a GPU gathers
-directly.
+`with_lf_texture` keeps the JAX package's contract: where its windowed
+TPU kernel would run (every beam's endpoints fit a WIN_ROWS x WIN_COLS
+window) the texture is read in bf16 (the map's baked `distances_bf16`),
+which is what that kernel returns; elsewhere in f32, the JAX package's
+exact gather: a `utils.control.cond` on the fits flag, as the JAX
+package's `lax.cond` (lf_kernel.py:224). `lf_texture` hands back the
+texture itself after a host read (eager use only). The per-beam windows
+themselves are not ported: a GPU gathers directly.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from badger_amcl_tpu_torch.ops import _build
 from badger_amcl_tpu_torch.ops.spread_kernel import TERM_FORMS, BeamTerm
-from badger_amcl_tpu_torch.utils.numerics import host_bool
+from badger_amcl_tpu_torch.utils import control
 
 WIN_ROWS = 64
 WIN_COLS = 256
@@ -258,17 +260,28 @@ lf_term_sums.launches = 0
 
 
 def lf_texture(omap, spose, ranges, angles):
-    """The texture the JAX package's lf arm reads: the baked bf16 one where
-    the TPU kernel's windows fit (its contract; one host read of fits),
-    the f32 one where the JAX package takes the exact gather (maps under
-    the window size, or a spread cloud)."""
-    if omap.size_x >= WIN_COLS and omap.size_y >= WIN_ROWS:
-        _, _, fits = window_origins(omap, spose, ranges, angles)
-        if host_bool(fits):
-            if omap.distances_bf16 is None:
-                raise ValueError("the map has no bf16 distance texture (with_distance_field)")
-            return omap.distances_bf16
-    return omap.distances
+    """The texture the JAX package's lf arm reads (`with_lf_texture`'s
+    choice), after one host read of the fits flag: eager use only (the
+    two textures' dtypes differ, so no graph capture takes it)."""
+    return with_lf_texture(omap, spose, ranges, angles, lambda tex: tex)
+
+
+def with_lf_texture(omap, spose, ranges, angles, fn):
+    """fn(texture) over the texture the JAX package's lf arm reads: the
+    baked bf16 one where the TPU kernel's windows fit (its contract), the
+    f32 one where the JAX package takes the exact gather (maps under the
+    window size, or a spread cloud), chosen by a `control.cond` on the
+    windows' fits flag. fn must return the same shapes for both."""
+    if omap.size_x < WIN_COLS or omap.size_y < WIN_ROWS:
+        return fn(omap.distances)
+
+    def bf16():
+        if omap.distances_bf16 is None:
+            raise ValueError("the map has no bf16 distance texture (with_distance_field)")
+        return fn(omap.distances_bf16)
+
+    _, _, fits = window_origins(omap, spose, ranges, angles)
+    return control.cond(fits, bf16, lambda: fn(omap.distances), name="lf.window_fits")
 
 
 def lf_distances_t(omap, spose, ranges, angles):

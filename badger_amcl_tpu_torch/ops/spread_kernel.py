@@ -93,7 +93,7 @@ def endpoint_inputs(omap, spose, ranges, angles):
     pxc = fdiv(spose[:, 0] - omap.origin_x, omap.resolution) + (0.5 + omap.size_x // 2)
     pyc = fdiv(spose[:, 1] - omap.origin_y, omap.resolution) + (0.5 + omap.size_y // 2)
     ct, st = torch.cos(spose[:, 2]), torch.sin(spose[:, 2])
-    inv_res = float(torch.tensor(1.0 / omap.resolution, dtype=torch.float32))
+    inv_res = float(np.float32(1.0 / omap.resolution))
     r = ranges.to(torch.float32)
     a = angles.to(torch.float32)
     rca = r * torch.cos(a) * inv_res

@@ -4,10 +4,14 @@ cluster/set statistics (counterpart of badger_amcl_tpu.pf.cluster).
 Two bins share a cluster when their keys are within the 3x3x3 neighborhood
 (pf_kdtree.cpp:58-76,169-194); statistics accumulate per cluster with
 circular yaw means (particle_filter.cpp:505-636). Labels start as each
-occupied grid cell's flat index and diffuse by separable 3x3x3
-min-dilation until fixpoint; dense root ranks come from a cumulative sum
-of root flags. Segment sums are `index_add_` (the JAX package's one-hot
-MXU contractions exist only for the TPU).
+occupied grid cell's flat index and take its component's minimum, the
+fixpoint of the JAX package's separable 3x3x3 min-dilation
+(`ops.cluster_kernel.cluster_labels`: a kernel on the card, the sweeps on
+the CPU); dense root ranks come from a cumulative sum of root flags.
+Segment sums are `index_add_` (the JAX package's one-hot MXU contractions
+exist only for the TPU). Each `lax.cond` of the JAX module is a
+`utils.control.cond`: a host branch in eager steps, a conditional node of
+a compiled step's graph.
 
 A fleet (leading robot axis R) takes `_ranks_fleet`: one composite-key
 sort over R * M, the unique (robot, bin) keys compacted to the front, one
@@ -20,8 +24,10 @@ from __future__ import annotations
 
 import torch
 
+from badger_amcl_tpu_torch.ops.cluster_kernel import cluster_labels
 from badger_amcl_tpu_torch.pf import kld
 from badger_amcl_tpu_torch.pf.types import ClusterStats, map_tensors
+from badger_amcl_tpu_torch.utils import control
 from badger_amcl_tpu_torch.utils.numerics import host_bool
 
 MAX_FAST_CLUSTERS = 128
@@ -30,44 +36,12 @@ MAX_UNIQUE_BINS = 8192
 # past it the ranks come from the per-robot grid path (cluster.py:200-203)
 FLEET_U_MAX = 32768
 SMALL_GRID = (32, 32, 40)
-# dilation sweeps per convergence check: each check is a host sync, and
-# sweeps past the fixpoint change nothing
-_SWEEPS_PER_CHECK = 8
-
-
-def _box_min(g3: torch.Tensor) -> torch.Tensor:
-    """Separable 3x3x3 minimum over the last three axes via rolls; the
-    1-cell empty border kept by kld.grid_cells stops roll wrap-around from
-    leaking labels."""
-    for axis in (-3, -2, -1):
-        g3 = torch.minimum(g3, torch.minimum(torch.roll(g3, 1, dims=axis),
-                                             torch.roll(g3, -1, dims=axis)))
-    return g3
-
-
-def _cluster_grid(occ_flat: torch.Tensor, shape) -> torch.Tensor:
-    """Label the occupied-bin grid by connected component (26-neighborhood):
-    occupied cells hold their component's minimum flat index, empty cells
-    hold BIG. occ_flat: bool (..., gx*gy*ga) in (a, x, y) packing, one
-    grid per leading index (a fleet's robots dilate together, and the
-    fixpoint check stays one host sync per 8 sweeps for all of them)."""
-    gx, gy, ga = shape
-    n = gx * gy * ga
-    occ3 = occ_flat.reshape(occ_flat.shape[:-1] + (ga, gx, gy))
-    idx = torch.arange(n, dtype=torch.int32, device=occ_flat.device)
-    labels = torch.where(occ3, idx.reshape(ga, gx, gy), kld.BIG)
-    while True:
-        prev = labels
-        for _ in range(_SWEEPS_PER_CHECK):
-            labels = torch.where(occ3, _box_min(labels), kld.BIG)
-        if not host_bool(torch.any(labels != prev)):
-            return labels.reshape(occ_flat.shape)
 
 
 def _label_grid_machinery(occ: torch.Tensor, shape):
     """Component labels, dense root ranks and the cluster count (per
     leading index of occ (..., n_cells))."""
-    labels_grid = _cluster_grid(occ, shape)
+    labels_grid = cluster_labels(occ, shape)
     cell_idx = torch.arange(labels_grid.shape[-1], dtype=torch.int32,
                             device=occ.device)
     is_root = occ & (labels_grid == cell_idx)
@@ -110,22 +84,26 @@ def _ranks_from_unique(uk_raw: torch.Tensor, valid_u: torch.Tensor, shape):
     gsx, gsy, gsa = SMALL_GRID
     fits_small = ((hi(x_u) - x_lo <= gsx - 3) & (hi(y_u) - y_lo <= gsy - 3)
                   & (hi(a_u) - a_lo <= gsa - 3))
-    if host_bool(fits_small):
+
+    def small():
         xs = (x_u - x_lo + 1).clamp(0, gsx - 2)
         ys = (y_u - y_lo + 1).clamp(0, gsy - 2)
         as_ = (a_u - a_lo + 1).clamp(0, gsa - 2)
         flat_s = (as_ * gsx + xs) * gsy + ys
-        n_s = gsx * gsy * gsa
-        occ = torch.zeros((n_s,), dtype=torch.bool, device=uk_raw.device)
-        occ[flat_s[valid_u].long()] = True
-        labels_grid, rank_grid, cluster_count = _label_grid_machinery(occ, SMALL_GRID)
-        lab_u = labels_grid[flat_s.clamp(0, n_s - 1).long()]
-        return rank_grid[lab_u.clamp(0, n_s - 1).long()], cluster_count
-    occ = torch.zeros((n_cells,), dtype=torch.bool, device=uk_raw.device)
-    occ[uk_raw[valid_u].long()] = True
-    labels_grid, rank_grid, cluster_count = _label_grid_machinery(occ, shape)
-    lab_u = labels_grid[uk_raw.clamp(0, n_cells - 1).long()]
-    return rank_grid[lab_u.clamp(0, n_cells - 1).long()], cluster_count
+        return ranks_on(flat_s, SMALL_GRID)
+
+    def ranks_on(flat_u, grid):
+        n = grid[0] * grid[1] * grid[2]
+        # invalid slots scatter into a spare last cell (no mask index: it
+        # would read the mask's count back to the host)
+        occ = torch.zeros((n + 1,), dtype=torch.bool, device=uk_raw.device)
+        occ.index_fill_(0, torch.where(valid_u, flat_u, n).long(), True)
+        labels_grid, rank_grid, cluster_count = _label_grid_machinery(occ[:n], grid)
+        lab_u = labels_grid[flat_u.clamp(0, n - 1).long()]
+        return rank_grid[lab_u.clamp(0, n - 1).long()], cluster_count
+
+    return control.cond(fits_small, small, lambda: ranks_on(uk_raw, shape),
+                        name="cluster.small_grid")
 
 
 def _compact_front(segstart: torch.Tensor, *carried: torch.Tensor):
@@ -174,7 +152,7 @@ def _ranks_fleet(flat: torch.Tensor, active: torch.Tensor, shape):
     rk = (uk // n_cells).clamp(0, r - 1)
     cell = (uk - rk * n_cells).clamp(0, n_cells - 1)
     occ = torch.zeros((r * n_cells + 1,), dtype=torch.bool, device=dev)
-    occ[torch.where(valid_u, rk * n_cells + cell, r * n_cells)] = True
+    occ.index_fill_(0, torch.where(valid_u, rk * n_cells + cell, r * n_cells), True)
     labels, rank_grid, cluster_count = _label_grid_machinery(
         occ[:-1].reshape(r, n_cells), shape)
     lab_u = labels[rk, cell].clamp(0, n_cells - 1).long()
@@ -198,10 +176,9 @@ def compute_cluster_stats(poses, weights, active, params,
     else:
         _, flat = kld.grid_cells(kld.bin_keys(poses), active, shape)
         sb = kld.sort_by_bin(flat, active)
-        if host_bool(sb[3].sum() <= MAX_UNIQUE_BINS):
-            rank_p, cluster_count = _ranks_sorted_path(sb, shape)
-        else:
-            rank_p, cluster_count = _ranks_grid_path(flat, active, shape)
+        rank_p, cluster_count = control.cond(
+            sb[3].sum() <= MAX_UNIQUE_BINS, lambda: _ranks_sorted_path(sb, shape),
+            lambda: _ranks_grid_path(flat, active, shape), name="cluster.sorted")
 
     return stats_from_ranks(poses, weights, active, params, rank_p, cluster_count)
 
@@ -219,11 +196,20 @@ def stats_from_ranks(poses, weights, active, params, rank_p, cluster_count) -> C
         stats = stats_from_ranks(poses[None], weights[None], active[None], params,
                                  rank_p[None], cluster_count.reshape(1))
         return map_tensors(lambda t: t[0], stats)
-    r, m = weights.shape
-    dev = poses.device
+    m = weights.shape[1]
     cap = params.stats_max_clusters
     k_fast = min(cap if cap else MAX_FAST_CLUSTERS, m)
-    width = k_fast if cap or host_bool(cluster_count.max() <= k_fast) else m
+    args = poses, weights, active, rank_p, cluster_count
+    if cap:
+        return _stats_width(k_fast, *args)
+    return control.cond(cluster_count.max() <= k_fast, lambda: _stats_width(k_fast, *args),
+                        lambda: _stats_width(m, *args), name="cluster.stats_width")
+
+
+def _stats_width(width, poses, weights, active, rank_p, cluster_count) -> ClusterStats:
+    """`stats_from_ranks` over `width` segments a robot."""
+    r, m = weights.shape
+    dev = poses.device
     pc = torch.where(active, rank_p, m - 1).clamp(0, m - 1).to(torch.int32)
     w = torch.where(active, weights, 0.0)
     x, y, th = poses[..., 0], poses[..., 1], poses[..., 2]

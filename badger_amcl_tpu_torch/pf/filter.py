@@ -46,7 +46,8 @@ import torch
 
 from badger_amcl_tpu_torch.pf import cluster, gaussian, kld
 from badger_amcl_tpu_torch.pf.types import MCLState, PFParams
-from badger_amcl_tpu_torch.utils.numerics import cumsum_det, host_bool, host_values
+from badger_amcl_tpu_torch.utils import control
+from badger_amcl_tpu_torch.utils.numerics import cumsum_det, host_values
 
 
 class ResampleModel(enum.IntEnum):
@@ -246,7 +247,7 @@ def _kld_stop_and_ranks(new_poses: torch.Tensor, params: PFParams):
     u = min(cluster.MAX_UNIQUE_BINS, m)
     lim = (params.min_samples, params.max_samples, params.pop_err, params.pop_z)
 
-    if host_bool(u_count <= u):
+    def sorted_bins():
         ks_c, d_c = cluster._compact_front(segstart, ks, idx_s.to(torch.int32))
         uk = ks_c[:u]
         dmin = d_c[:u]
@@ -268,17 +269,20 @@ def _kld_stop_and_ranks(new_poses: torch.Tensor, params: PFParams):
         rank_s = rank_u[segid.clamp(0, u - 1).long()]
         return new_count, kld.to_draw_order(idx_s, rank_s), cluster_count
 
-    flags = kld.to_draw_order(idx_s, segstart.to(torch.int32))
-    k_n = torch.cumsum(flags, 0, dtype=torch.int32)
-    limit_n = kld.resample_limit(k_n, *lim)
-    draw = torch.arange(m, dtype=torch.int32, device=dev)
-    stop = (draw + 1) > limit_n
-    new_count = torch.where(stop.any(), torch.argmax(stop.to(torch.int32)) + 1,
-                            m).to(torch.int32)
-    active = draw < new_count
-    rank_p, cluster_count = cluster._ranks_grid_path(
-        torch.where(active, flat, 0), active, params.hist_shape)
-    return new_count, rank_p, cluster_count
+    def prefix_scan():
+        flags = kld.to_draw_order(idx_s, segstart.to(torch.int32))
+        k_n = torch.cumsum(flags, 0, dtype=torch.int32)
+        limit_n = kld.resample_limit(k_n, *lim)
+        draw = torch.arange(m, dtype=torch.int32, device=dev)
+        stop = (draw + 1) > limit_n
+        new_count = torch.where(stop.any(), torch.argmax(stop.to(torch.int32)) + 1,
+                                m).to(torch.int32)
+        active = draw < new_count
+        rank_p, cluster_count = cluster._ranks_grid_path(
+            torch.where(active, flat, 0), active, params.hist_shape)
+        return new_count, rank_p, cluster_count
+
+    return control.cond(u_count <= u, sorted_bins, prefix_scan, name="resample.u_count")
 
 
 def _resample_multinomial(state, params, w_diff, pool, u_inject, u_pick):

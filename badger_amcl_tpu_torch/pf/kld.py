@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from badger_amcl_tpu_torch.utils.numerics import fdiv
+from badger_amcl_tpu_torch.utils.numerics import device_vector, fdiv
 
 CELL_X = 0.5
 CELL_Y = 0.5
@@ -31,7 +31,7 @@ BIG = 2 ** 30
 
 def bin_keys(poses: torch.Tensor) -> torch.Tensor:
     """(N, 3) poses -> (N, 3) int32 histogram keys (pf_kdtree.cpp:49-56)."""
-    cell = torch.tensor([CELL_X, CELL_Y, CELL_A], dtype=poses.dtype).to(poses.device)
+    cell = device_vector((CELL_X, CELL_Y, CELL_A), poses.dtype, poses.device)
     return torch.floor(poses / cell).to(torch.int32)
 
 
@@ -43,18 +43,21 @@ def grid_cells(keys3: torch.Tensor, active: torch.Tensor, shape):
     masked = torch.where(active[..., None], keys3, BIG)
     mins = masked.min(dim=-2).values
     mins = torch.where(mins == BIG, 0, mins)
-    sizes = torch.tensor([gx - 2, gy - 2, ga - 2], dtype=torch.int32).to(keys3.device)
+    sizes = device_vector((gx - 2, gy - 2, ga - 2), torch.int32, keys3.device)
     rel = torch.minimum(torch.clamp(keys3 - mins[..., None, :], min=0), sizes - 1) + 1
     flat = (rel[..., 2] * gx + rel[..., 0]) * gy + rel[..., 1]
     return rel, torch.where(active, flat, 0).to(torch.int32)
 
 
 def occupancy_grid(flat: torch.Tensor, active: torch.Tensor, shape) -> torch.Tensor:
-    """bool (gx*gy*ga,) occupancy of the bin grid."""
+    """bool (gx*gy*ga,) occupancy of the bin grid. Inactive entries
+    scatter into a spare last cell: a mask index would read the mask's
+    count back to the host."""
     gx, gy, ga = shape
-    occ = torch.zeros((gx * gy * ga,), dtype=torch.bool, device=flat.device)
-    occ[flat[active].long()] = True
-    return occ
+    n = gx * gy * ga
+    occ = torch.zeros((n + 1,), dtype=torch.bool, device=flat.device)
+    occ.index_fill_(0, torch.where(active, flat, n).long(), True)
+    return occ[:n]
 
 
 def leaf_count(poses: torch.Tensor, active: torch.Tensor, shape) -> torch.Tensor:

@@ -19,6 +19,8 @@ import dataclasses
 
 import torch
 
+from badger_amcl_tpu_torch.utils.tree import map_tensors
+
 
 @dataclasses.dataclass(frozen=True)
 class PFParams:
@@ -82,15 +84,6 @@ class MCLState:
 
     def replace(self, **changes) -> "MCLState":
         return dataclasses.replace(self, **changes)
-
-
-def map_tensors(fn, *objs):
-    """fn over the matching tensors of (nested) dataclasses of tensors."""
-    first = objs[0]
-    if not dataclasses.is_dataclass(first):
-        return fn(*objs)
-    return type(first)(**{f.name: map_tensors(fn, *(getattr(o, f.name) for o in objs))
-                          for f in dataclasses.fields(first)})
 
 
 def stack_states(states) -> MCLState:

@@ -22,6 +22,7 @@ from __future__ import annotations
 import enum
 import math
 
+import numpy as np
 import torch
 
 from badger_amcl_tpu_torch.pf.types import MCLState
@@ -118,8 +119,7 @@ def motion_update(state: MCLState, model: OdomModel, alphas, pose, delta,
     pose, delta = vec(pose), vec(delta)
     absolute_motion = delta if absolute_motion is None else vec(absolute_motion)
     normals = normals.movedim(-2, 0)
-    a1, a2, a3, a4, a5 = [float(torch.tensor(float(a), dtype=torch.float32))
-                          for a in alphas]
+    a1, a2, a3, a4, a5 = [float(np.float32(a)) for a in alphas]
     old_theta = pose[2] - delta[2]
     model = OdomModel(model)
     poses = state.poses

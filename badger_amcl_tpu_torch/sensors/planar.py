@@ -26,8 +26,11 @@ Backends:
   spread clouds to ops.spread_kernel, everything else to "lf"; for the
   beam model the lattice kernel (ops.beam_kernel) where the cloud fits,
   the spread kernel (ops.beam_spread_kernel) where the transposed range
-  image is baked, the raycast otherwise. Each `lax.cond` is a host branch
-  on values read in as few syncs as possible;
+  image is baked, the raycast otherwise. Each `lax.cond` is a
+  `utils.control.cond` (the LF models' whole tree) or a branch on
+  `control.read` values (the beam model's): in an eager step a host
+  branch on values read in as few syncs as possible, in a compiled step
+  (the LF models) a conditional node of its graph;
 - "corr_q" (JAX "pallas_corr_q"): the "corr" tree, except that the
   likelihood-field and Gompertz models read their table from the int8
   quantized psi texture (ops.corr_kernel.corr_table_q) where it is baked
@@ -52,7 +55,8 @@ from badger_amcl_tpu_torch.ops import (
 from badger_amcl_tpu_torch.ops.spread_kernel import BeamTerm
 from badger_amcl_tpu_torch.sensors.raycast import calc_range
 from badger_amcl_tpu_torch.utils.angles import normalize_angle
-from badger_amcl_tpu_torch.utils.numerics import fdiv, host_values
+from badger_amcl_tpu_torch.utils import control
+from badger_amcl_tpu_torch.utils.numerics import fdiv
 
 BACKENDS = ("exact", "corr", "corr_q", "lf")
 MODELS = ("beam", "likelihood_field", "likelihood_field_prob",
@@ -225,9 +229,10 @@ def map_factors(omap: OccupancyMap2D, params: PlanarScanParams, poses: torch.Ten
 
 def _corr_flags(omap, scan, spose, fold_poses=None):
     """The corr arm's prepass (dedup from 360 beams, the JAX package's
-    measured gate) and its predicates, read in one host sync: (pre, valid,
-    fits, tight, narrow, all_valid); all_valid (every fold pose on the
-    map) is None without fold_poses."""
+    measured gate) and its predicates, read in one host sync (device flags
+    in a capture, `control.read`): (pre, valid, fits, tight, narrow,
+    all_valid); all_valid (every fold pose on the map) is None without
+    fold_poses."""
     valid = scan.valid()
     pre = corr_kernel.corr_prepass(omap, spose, scan.ranges, scan.angles, valid,
                                    dedup=int(scan.ranges.shape[0]) >= 360)
@@ -235,7 +240,7 @@ def _corr_flags(omap, scan, spose, fold_poses=None):
     if fold_poses is not None:
         ci_f, cj_f = omap.cells_of(fold_poses[:, 0], fold_poses[:, 1])
         preds.append(omap.in_bounds(ci_f, cj_f).all())
-    fits, tight, narrow, *all_valid = (bool(f) for f in host_values(*preds))
+    fits, tight, narrow, *all_valid = control.read(*preds)
     return pre, valid, fits, tight, narrow, all_valid[0] if all_valid else None
 
 
@@ -264,8 +269,6 @@ def _corr_dispatch(omap, scan, spose, params, model, combine, fallback_fn,
     if not corr_kernel.map_fits(omap):
         return fallback_fn()
     pre, valid, fits, tight, narrow, all_valid = _corr_flags(omap, scan, spose, fold_poses)
-    if not fits:
-        return fallback_fn()
     n_beams = int(scan.ranges.shape[0])
     n_valid = valid.sum()
     fold = None
@@ -274,14 +277,20 @@ def _corr_dispatch(omap, scan, spose, params, model, combine, fallback_fn,
             combine=lambda s: combine(s, n_valid),
             factor_tex=_factor_texture(omap, params), all_valid=all_valid,
             fallback_mf=lambda: map_factors(omap, params, fold_poses))
-    if quantized and _baked(omap, params, scan, model) and omap.corr_psi_pad_q is not None:
-        s = corr_kernel.corr_values_q(omap.corr_psi_pad_q, omap.corr_psi_q, pre, n_beams,
-                                      narrow, fold)
+
+    def finish(s):
         return s if fold is not None else combine(s, n_valid)
-    rows, j0 = corr_kernel.window_variant(pre, tight, narrow)
-    s = corr_kernel.corr_values(_tex_pad(omap, params, scan, model), pre, n_beams, rows, j0,
-                                fold)
-    return s if fold is not None else combine(s, n_valid)
+
+    if quantized and _baked(omap, params, scan, model) and omap.corr_psi_pad_q is not None:
+        def table():
+            return finish(corr_kernel.corr_values_q(omap.corr_psi_pad_q, omap.corr_psi_q,
+                                                    pre, n_beams, narrow, fold))
+    else:
+        def table():
+            tex_pad = _tex_pad(omap, params, scan, model)
+            return corr_kernel.window_cond(pre, tight, narrow, lambda rows, j0: finish(
+                corr_kernel.corr_values(tex_pad, pre, n_beams, rows, j0, fold)))
+    return control.cond(fits, table, fallback_fn, name="corr.fits")
 
 
 # the JAX package's small-cloud gate: below it the exact gather beats its
@@ -329,10 +338,13 @@ def _lf_model(omap, params, scan, spose, model, backend="exact", fold_poses=None
                 omap, scan, spose, term, lambda s: combine(s, n_valid),
                 lambda: _lf_model(omap, params, scan, spose, model, "lf", log_p=log_p))),
             fold_poses=fold_poses, quantized=quantized)
-    tex = (lf_kernel.lf_texture(omap, spose, scan.ranges, scan.angles) if backend == "lf"
-           else omap.distances)
     valid = scan.valid()
-    s = lf_kernel.lf_term_sums(omap, tex, spose, scan.ranges, scan.angles, valid, term)
+
+    def sums(tex):
+        return lf_kernel.lf_term_sums(omap, tex, spose, scan.ranges, scan.angles, valid, term)
+
+    s = (lf_kernel.with_lf_texture(omap, spose, scan.ranges, scan.angles, sums)
+         if backend == "lf" else sums(omap.distances))
     return combine(s, valid.sum())
 
 
@@ -345,22 +357,26 @@ def _lf_prob_beamskip(omap, params, scan, spose, active, n_active, converged, ba
     temp pz is 0, give log 0 = -inf (planar.py:550-570). Two passes over
     the endpoints, nothing (B, M): the per-beam counts, then the log pz
     sums over the beams kept; the skip rule runs on (B,) device vectors."""
-    tex = (lf_kernel.lf_texture(omap, spose, scan.ranges, scan.angles) if backend == "lf"
-           else omap.distances)
     valid = scan.valid()
-    obs_count = lf_kernel.lf_obs_counts(omap, tex, spose, scan.ranges, scan.angles, valid,
-                                        active, params.beam_skip_distance)
-    obs_mask = obs_count.to(torch.float32) / n_active.to(torch.float32).clamp(min=1.0) > \
-        params.beam_skip_threshold
-    skipped = (~obs_mask).sum()
-    error = skipped >= scan.ranges.shape[0] * params.beam_skip_error_threshold
-    use_beam = error | obs_mask
-    converged = torch.as_tensor(converged, device=valid.device)
+    if not isinstance(converged, torch.Tensor):  # filled on the device: no host copy
+        converged = torch.full((), bool(converged), device=valid.device)
     term = model_term("likelihood_field_prob", params, scan.range_max)
-    s = lf_kernel.lf_term_sums(omap, tex, spose, scan.ranges, scan.angles,
-                               valid & (use_beam | ~converged), term)
-    # an invalid beam in use adds log 0 for every particle
-    return torch.where(converged & (use_beam & ~valid).any(), float("-inf"), s)
+
+    def skip(tex):
+        obs_count = lf_kernel.lf_obs_counts(omap, tex, spose, scan.ranges, scan.angles, valid,
+                                            active, params.beam_skip_distance)
+        obs_mask = obs_count.to(torch.float32) / n_active.to(torch.float32).clamp(min=1.0) > \
+            params.beam_skip_threshold
+        skipped = (~obs_mask).sum()
+        error = skipped >= scan.ranges.shape[0] * params.beam_skip_error_threshold
+        use_beam = error | obs_mask
+        s = lf_kernel.lf_term_sums(omap, tex, spose, scan.ranges, scan.angles,
+                                   valid & (use_beam | ~converged), term)
+        # an invalid beam in use adds log 0 for every particle
+        return torch.where(converged & (use_beam & ~valid).any(), float("-inf"), s)
+
+    return (lf_kernel.with_lf_texture(omap, spose, scan.ranges, scan.angles, skip)
+            if backend == "lf" else skip(omap.distances))
 
 
 def _beam_exact(omap, params, scan, spose):
@@ -381,9 +397,9 @@ def _beam_dispatch(omap, scan, spose, backend):
     (and without a range image or off the "corr" backend)."""
     if backend == "corr" and beam_kernel.ri_fits(omap):
         pre = beam_kernel.beam_prepass(omap, spose, scan.range_max)
-        fits, tight, narrow = host_values(pre["fits"], pre["tight"], pre["narrow"])
+        fits, tight, narrow = control.read(pre["fits"], pre["tight"], pre["narrow"])
         if fits:
-            return "table", pre, corr_kernel.window_variant(pre, bool(tight), bool(narrow))
+            return "table", pre, corr_kernel.window_variant(pre, tight, narrow)
         if omap.range_rows is not None and beam_spread_kernel.fits(omap, scan.range_max):
             return "spread", None, None
     return "exact", None, None
@@ -476,7 +492,7 @@ def planar_likelihood_cells(omap, params, scan, poses, model: str, backend: str 
     fold = corr_kernel.Fold(combine=lambda s: corr_combine(model, params, s, n_valid),
                             factor_tex=_factor_texture(omap, params), all_valid=True,
                             fallback_mf=None)
-    rows, j0 = corr_kernel.window_variant(pre, tight, narrow)
-    tbl, key = corr_kernel.corr_cells(_tex_pad(omap, params, scan, model), pre,
-                                      int(scan.ranges.shape[0]), rows, j0, fold)
+    tex_pad = _tex_pad(omap, params, scan, model)
+    tbl, key = corr_kernel.window_cond(pre, tight, narrow, lambda rows, j0: corr_kernel.corr_cells(
+        tex_pad, pre, int(scan.ranges.shape[0]), rows, j0, fold))
     return tbl, key, True

@@ -14,9 +14,10 @@ so two calls on the same weights can differ in the last bit and a
 resampling pick at a boundary can move to the neighbouring particle.
 
 `host_values`: the JAX package branches on device scalars inside
-`lax.cond`; in eager PyTorch each such branch reads the predicate back to
-the host. Every read goes through here so a run can count them
-(`SYNCS.count`); several predicates known at once are read in one sync.
+`lax.cond`; in an eager PyTorch step each such branch reads the predicate
+back to the host (`utils.control`). Every read goes through here so a run
+can count them (`SYNCS.count`); several predicates known at once are read
+in one sync.
 `host_arrays` reads whole tensors (the node's published pose, covariance
 and particle cloud) the same way.
 """
@@ -30,6 +31,12 @@ import torch
 def fdiv(x: torch.Tensor, s: float) -> torch.Tensor:
     """x / s with IEEE f32 division on CPU and CUDA alike."""
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def device_vector(values, dtype, device) -> torch.Tensor:
+    """A short constant vector filled on the device: a tensor built from
+    host data is a host-to-device copy, which a graph capture refuses."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])
 
 
 SCAN_ROW = 1024  # the row length of cumsum_det's blocked scan

@@ -17,6 +17,23 @@ the port's three paths:
   in the steady, tracking and spread regimes plus the steady regime on the
   "lf" backend, and compares the step on the card with the CPU at 4096 x
   360;
+- the compiled 2D step (`mcl.sensor_resample_step_jit`, `mcl_step_2d_jit`
+  with the diff-drive model, `likelihood_only_jit`: a CUDA graph per
+  static key, every branch of the dispatch tree a conditional node) in the
+  steady, tracking, spread, steady_lf, gompertz_steady and gompertz_spread
+  cells at 50,000 x 720: 10 chained steps equal to the eager step on the
+  same variates (poses, weights, n_active, converged and the integer
+  statistics bit for bit, the float statistics, a float index_add_,
+  within 1e-4), the same arms as the eager step (the compiled arms from
+  device counters), 0 host syncs inside the compiled calls (replays under
+  sync debug mode "error"), one capture a key, compiled and eager step_ms,
+  device busy and idle share; the cluster-labelling kernel
+  (`ops/cluster_kernel.cluster_labels`, csrc/cluster_labels.cu) equal to
+  its plain version's sweeps on the steady cloud's small grid, the
+  spread cloud's full grid and the fleet step's batched (robots x cells)
+  grid, recorded as the fleet path hands it to the kernel; #1/#2, #3, #4
+  and the labelling kernel must launch inside replays (path "2d_compiled"),
+  and every path counts the labelling kernel's launches;
 - 2D beam, Gompertz and prob models: bakes the K = 256 range image of the
   1024^2 map on the card (and a 256^2 map on the card and the CPU, which
   must agree bit for bit), holds the beam_table kernel (bit-equal, at its
@@ -129,8 +146,10 @@ The launch counters are set to 0 just before each main-path run and read
 just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
 2d_cells, fleet, sharded_fleet (its in-process rank), 3d, map_setup,
 node_2d, node_3d, cli) keeps
-its own count; every cell must go through its kernel and leave a sane
-filter state. Kernels, likelihoods and steps are timed with CUDA events,
+its own count; the compiled path's (2d_compiled) launches happen inside
+graph replays, where no host counter moves: each arm's device counter
+times the launches captured in that arm, the rest once a replay. Every
+cell must go through its kernel and leave a sane filter state. Kernels, likelihoods and steps are timed with CUDA events,
 kernels also by their profiled device time, the corr tables' wrappers
 also by their host time per call.
 
@@ -724,6 +743,24 @@ class Launches:
         return {k: (self.launches[k], self.steps[k]) for k in self.counters}
 
 
+def counters_2d():
+    """{name in the kernels line: wrapper} of every kernel a 2D step may
+    launch."""
+    from badger_amcl_tpu_torch.ops import beam_kernel as bk
+    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
+    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import lf_kernel as lk
+    from badger_amcl_tpu_torch.ops import spread_kernel as sk
+
+    return {"corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums,
+            "cluster_labels": clk.cluster_labels,
+            "lf_distances": lk.lf_distances, "lf_term_sums": lk.lf_term_sums,
+            "lf_extents": lk.beam_extents, "lf_obs_counts": lk.lf_obs_counts,
+            "beam_table": bk.beam_table,
+            "beam_spread_sums": bsk.beam_spread_sums, "corr_table_q": ck.corr_table_q}
+
+
 def launch_counts(paths):
     """Per kernel, from {path: Launches.read()}: its launches over every
     path's main-path runs, launches per step, and each path's own count."""
@@ -810,19 +847,10 @@ def phase_main_path(dev, maps, scan, states):
     import torch
 
     from badger_amcl_tpu_torch import mcl
-    from badger_amcl_tpu_torch.ops import beam_kernel as bk
-    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
-    from badger_amcl_tpu_torch.ops import corr_kernel as ck
-    from badger_amcl_tpu_torch.ops import lf_kernel as lk
-    from badger_amcl_tpu_torch.ops import spread_kernel as sk
     from badger_amcl_tpu_torch.sensors import planar
 
     sp = planar.PlanarScanParams()
-    counters = {"corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums,
-                "lf_distances": lk.lf_distances, "lf_term_sums": lk.lf_term_sums,
-                "lf_extents": lk.beam_extents, "lf_obs_counts": lk.lf_obs_counts,
-                "beam_table": bk.beam_table,
-                "beam_spread_sums": bsk.beam_spread_sums, "corr_table_q": ck.corr_table_q}
+    counters = counters_2d()
     paths = {}
     gen = torch.Generator(device=dev).manual_seed(1)
     for key, c in CELLS_2D.items():
@@ -1059,6 +1087,302 @@ def phase_timings(dev, maps, scan, states):
         out[key] = timing_row(key, likelihood_fn(c.model, omap, sp, scan, state, c.backend,
                                                  c.beamskip), step)
     return out
+
+
+# --- the compiled 2D step ----------------------------------------------------
+
+# the cells of the compiled step's slice, and the chained steps that hold
+# it against the eager step
+COMPILED_CELLS = ("steady", "tracking", "spread", "steady_lf", "gompertz_steady",
+                  "gompertz_spread")
+COMPILED_CHAIN = 10
+# the statistics' segment sums are a float index_add_ (atomics: the eager
+# step itself sums them in another order on every call, up to 7.6e-5 apart
+# in the spread cell's covariance in S1), so the float statistics are held
+# to the card-vs-CPU checks' 1e-4 (the node reference's weights and poses)
+# as a relative and an absolute tolerance, everything else bit for bit
+STATS_TOL = 1e-4
+
+
+def cluster_grids(states):
+    """The cluster kernel's inputs on the main path: the SMALL_GRID
+    occupancy of the steady cloud's bins (the sorted path's recode) and the
+    full histogram grid of the spread cloud."""
+    import torch
+
+    from badger_amcl_tpu_torch.pf import cluster, kld
+
+    params, state, _ = states["steady"]
+    keys = kld.bin_keys(state.poses)
+    rel = keys - keys.min(0).values + 1
+    gsx, gsy, gsa = cluster.SMALL_GRID
+    check(bool((rel.max(0).values <= torch.tensor([gsx - 2, gsy - 2, gsa - 2],
+                                                  device=rel.device)).all()),
+          "the steady cloud does not fit the small grid")
+    occ_s = torch.zeros((gsx * gsy * gsa,), dtype=torch.bool, device=keys.device)
+    occ_s[((rel[:, 2] * gsx + rel[:, 0]) * gsy + rel[:, 1]).long()] = True
+    params, state, _ = states["spread"]
+    ones = torch.ones_like(state.weights, dtype=torch.bool)
+    _, flat = kld.grid_cells(kld.bin_keys(state.poses), ones, params.hist_shape)
+    return {"small (steady)": (occ_s, cluster.SMALL_GRID),
+            "full (spread)": (kld.occupancy_grid(flat, ones, params.hist_shape),
+                              params.hist_shape)}
+
+
+def fleet_cluster_grids(dev, omap, fl):
+    """The occupancy grids the fleet step hands the cluster kernel: one
+    fleet step from the fleet's state, each call's grid recorded (the
+    batched (R, n_cells) grid of `pf.cluster._ranks_fleet`)."""
+    import torch
+
+    from badger_amcl_tpu_torch.pf import cluster
+
+    seen, kernel = [], cluster.cluster_labels
+
+    def record(occ, shape):
+        seen.append((occ.clone(), shape))
+        return kernel(occ, shape)
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cluster.cluster_labels = record
+    try:
+        fleet_step_fn(fl, omap, gen)(fl[1])
+    finally:
+        cluster.cluster_labels = kernel
+    batched = [(occ, shape) for occ, shape in seen if occ.dim() == 2]
+    check(len(batched) > 0, "the fleet step handed the cluster kernel no batched grid")
+    return {f"fleet {tuple(occ.shape)}": (occ, shape) for occ, shape in batched}
+
+
+def phase_kernels_cluster(grids):
+    """cluster_labels against its plain version (the box-min sweeps to
+    their fixpoint, on the card) on each of `grids` ({label: (occupancy,
+    grid shape)}): equal labels. Returns {label: row}."""
+    import torch
+
+    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
+
+    rows = {}
+    for label, (occ, shape) in grids.items():
+        got = clk.cluster_labels(occ, shape)
+        want = clk.cluster_labels_plain(occ, shape)
+        err = int((got - want).abs().max())
+        check(err == 0, f"cluster_labels ({label}) differs from the sweeps in "
+                        f"{int((got != want).sum())} cells")
+        ms = cuda_ms(lambda: clk.cluster_labels(occ, shape))
+        ops = kernel_ms(lambda: clk.cluster_labels(occ, shape))
+        plain_ms = cuda_ms(lambda: clk.cluster_labels_plain(occ, shape), iters=5, warmup=1)
+        n = occ.numel()
+        # the occupancy read and the labels written once
+        b = bound(5 * n, 0)
+        cell = torch.arange(occ.shape[-1], device=occ.device, dtype=got.dtype)
+        log(f"cluster_labels {label}: {n} cells, {int(occ.sum())} occupied, "
+            f"{int((occ & (got == cell)).sum())} components; equal to the sweeps; "
+            f"ms={ms:.4f} (wrapper) "
+            f"device_ms={device_text(ops)} "
+            f"({'; '.join(f'{k} {t:.4f}' for k, t in ops.items())}) plain_ms={plain_ms:.4f} "
+            f"bound_ms={b['bound_ms']:.6f} ({b['bound_by']})")
+        rows[label] = dict(max_abs_err=err, ms=ms, device_ms=device_ms(ops), plain_ms=plain_ms,
+                           **b, library_ms=None)
+    return rows
+
+
+def compiled_steps(omap, sp, scan, pool, params, model, backend):
+    """{path: (eager step, compiled step)}, each (state, noise) -> state:
+    `sensor_resample_step` and `mcl_step_2d` with the diff-drive model."""
+    import torch
+
+    from badger_amcl_tpu_torch import mcl
+
+    kw = dict(laser_model=model, backend=backend)
+    # the odometry as device tensors, as a compiled step takes it
+    odom = [torch.tensor(v, dtype=torch.float32, device=pool.device) for v in ODOM[:3]]
+    return {
+        "sensor_resample_step": tuple(
+            (lambda s, nz, f=f: f(s, omap, sp, scan, pool, params, noise=nz, **kw))
+            for f in (mcl.sensor_resample_step, mcl.sensor_resample_step_jit)),
+        "mcl_step_2d": tuple(
+            (lambda s, nz, f=f: f(s, omap, sp, scan, pool, *odom, ODOM[3], params, noise=nz,
+                                  **kw))
+            for f in (mcl.mcl_step_2d, mcl.mcl_step_2d_jit)),
+    }
+
+
+def graph_arms(graph):
+    """{arm: executions} over every key of a compiled entry point's graph
+    wrapper (one host read a key)."""
+    out = collections.Counter()
+    for entry in graph.entries.values():
+        out.update(entry.capture.arm_counts())
+    return out
+
+
+def compare_chain(label, eager, compiled):
+    """The eager and the compiled chain, step by step: poses, weights,
+    n_active, converged and the integer statistics bit for bit, the float
+    statistics within STATS_TOL; returns the largest difference of each
+    float statistic."""
+    import torch
+
+    worst = collections.Counter()
+    for k, (e, c) in enumerate(zip(eager, compiled)):
+        for name in ("poses", "weights", "n_active", "converged"):
+            check(torch.equal(getattr(e, name), getattr(c, name)),
+                  f"{label} step {k}: {name} differs from the eager step")
+        for name in ("cluster_count", "cluster_counts", "cluster_valid", "particle_cluster"):
+            check(torch.equal(getattr(e.stats, name), getattr(c.stats, name)),
+                  f"{label} step {k}: stats.{name} differs from the eager step")
+        for name in ("mean", "cov", "cluster_weights", "cluster_means", "cluster_covs"):
+            a, b = getattr(e.stats, name), getattr(c.stats, name)
+            worst[name] = max(worst[name], float((a - b).abs().max()))
+            check(torch.allclose(a, b, rtol=STATS_TOL, atol=STATS_TOL),
+                  f"{label} step {k}: stats.{name} differs by {worst[name]:.3e}, beyond rtol "
+                  f"and atol {STATS_TOL} (index_add_)")
+    return dict(worst)
+
+
+def phase_compiled(dev, maps, scan, states):
+    """The compiled step (`sensor_resample_step_jit`, `mcl_step_2d_jit`,
+    `likelihood_only_jit`) in the COMPILED_CELLS at 50k x 720: per cell and
+    path, COMPILED_CHAIN chained steps against the eager step on the same
+    variates (compare_chain), the arms taken (device counters against the
+    eager step's), 0 host syncs inside the compiled calls (SYNCS, and the
+    replays under torch.cuda.set_sync_debug_mode("error")), one capture a
+    key, then compiled and eager step_ms (pinned step, CUDA events), device
+    busy, ops and idle share. Returns the compiled path's launches (from
+    the device arm counters and the launches captured in each arm) and the
+    timing rows."""
+    import torch
+
+    from badger_amcl_tpu_torch import mcl
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+    from badger_amcl_tpu_torch.utils import control
+    from badger_amcl_tpu_torch.utils.numerics import SYNCS
+
+    sp = PlanarScanParams()
+    graphs = {"sensor_resample_step": mcl.sensor_resample_step_jit.graph,
+              "mcl_step_2d": mcl.mcl_step_2d_jit.graph}
+    for graph in (*graphs.values(), mcl.likelihood_only_jit.graph):
+        # the kernels whose launches each capture attributes to its arms
+        graph.kernels.update(counters_2d())
+    rows, keyed = {}, set()
+    for key in COMPILED_CELLS:
+        c = CELLS_2D[key]
+        omap = maps[c.model]
+        params, state, pool = cell_state(key, states)
+        m = params.max_samples
+        gen = torch.Generator(device=dev).manual_seed(11)
+        for path, (eager_fn, jit_fn) in compiled_steps(omap, sp, scan, pool, params, c.model,
+                                                        c.backend).items():
+            label = f"compiled {key}/{path}"
+            motion = path == "mcl_step_2d"
+            noises = [mcl.StepNoise.draw(gen, m, dev, odom=motion)
+                      for _ in range(COMPILED_CHAIN)]
+            n_keys = len(graphs[path].entries)
+            t0 = time.perf_counter()
+            jit_fn(state, noises[0])  # captures where the key is new
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            arms0 = graph_arms(graphs[path])
+            control.ARMS.clear()
+            eager, s = [], state
+            for nz in noises:
+                s = eager_fn(s, nz)
+                eager.append(s)
+            eager_arms = +collections.Counter(control.ARMS)
+            s0 = SYNCS.count
+            compiled, s = [], state
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for nz in noises:
+                    s = jit_fn(s, nz)
+                    compiled.append(s)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs = SYNCS.count - s0
+            check(syncs == 0, f"{label}: {syncs} host syncs inside compiled calls")
+            compiled_arms = +(graph_arms(graphs[path]) - arms0)
+            check(compiled_arms == eager_arms,
+                  f"{label}: compiled arms {dict(compiled_arms)} != eager {dict(eager_arms)}")
+            stats_diff = compare_chain(label, eager, compiled)
+            again, s = [], state
+            for nz in noises:
+                s = eager_fn(s, nz)
+                again.append(s)
+            twice = compare_chain(label + " (eager twice)", eager, again)
+            log(f"{label}: eager vs eager {twice}, "
+                f"eager vs compiled {stats_diff}")
+            check_state(compiled[-1], params, label)
+            keys, captures = len(graphs[path].entries), graphs[path].captures
+            check(captures == keys, f"{label}: {captures} captures of {keys} keys")
+            # one key per (map, model, backend): the cells of a key replay its graph
+            new_keys = keys - n_keys
+            check(new_keys == (0 if (path, c.model, c.backend) in keyed else 1),
+                  f"{label}: {new_keys} new keys")
+            keyed.add((path, c.model, c.backend))
+            entry_s = [e.capture_s for e in graphs[path].entries.values()]
+
+            # timings: the pinned step of bench.py, compiled and eager
+            out = {}
+            for mode, fn in (("compiled", jit_fn), ("eager", eager_fn)):
+                step, _ = pinned_step_fn(
+                    lambda st, f=fn: f(st, mcl.StepNoise.draw(gen, m, dev, odom=motion)),
+                    state, m)
+                step_ms = cuda_ms(step)
+                busy_ms, ops, top = device_busy(step)
+                s0 = SYNCS.count
+                step()
+                out[mode] = dict(step_ms=step_ms, device_busy_ms=busy_ms,
+                                 device_ops_per_step=ops,
+                                 device_idle_share=1.0 - busy_ms / step_ms if ops else None,
+                                 host_syncs_per_step=SYNCS.count - s0, top_device_ops=top)
+            check(out["compiled"]["host_syncs_per_step"] == 0,
+                  f"{label}: the pinned compiled step took host syncs")
+            co, ea = out["compiled"], out["eager"]
+            busy = (f"{co['device_busy_ms']:.4f} ({co['device_ops_per_step']:.0f} ops, idle "
+                    f"share {co['device_idle_share']:.3f})" if co["device_ops_per_step"]
+                    else "not measured (the profiler recorded no device op)")
+            log(f"{label}: step_ms compiled {co['step_ms']:.4f} eager {ea['step_ms']:.4f}; "
+                f"device busy ms compiled {busy} eager {ea['device_busy_ms']:.4f} "
+                f"({ea['device_ops_per_step']:.0f} ops, idle share "
+                f"{ea['device_idle_share']:.3f}); host syncs per step compiled 0 eager "
+                f"{ea['host_syncs_per_step']}")
+            log(f"{label}: {COMPILED_CHAIN} chained steps equal to the eager step (poses, "
+                f"weights, n_active, converged, integer statistics bit for bit; float "
+                f"statistics max diff {stats_diff}, index_add_); arms "
+                f"{dict(compiled_arms)}; keys {keys} (new: {new_keys}), captures {captures} "
+                f"(one a key), "
+                f"capture s {[round(x, 4) for x in entry_s]}, first call {first_s:.3f} s; "
+                f"top device ops compiled "
+                + "; ".join(f"{n} {t:.4f}" for n, t in out["compiled"]["top_device_ops"]))
+            rows[f"{key}/{path}"] = dict(out, arms=dict(compiled_arms),
+                                         chain_stats_diff=stats_diff,
+                                         captures=captures, capture_s=entry_s)
+
+    # likelihood_only_jit on the tracking cloud: bit-equal to the eager one
+    params, state, _ = cell_state("tracking", states)
+    like = mcl.likelihood_only(state, maps["likelihood_field"], sp, scan, backend="corr")
+    like_c = mcl.likelihood_only_jit(state, maps["likelihood_field"], sp, scan, backend="corr")
+    check(torch.equal(like, like_c), "likelihood_only_jit differs from likelihood_only")
+    ms = cuda_ms(lambda: mcl.likelihood_only_jit(state, maps["likelihood_field"], sp, scan,
+                                                 backend="corr"))
+    log(f"compiled tracking/likelihood_only: bit-equal to the eager likelihood, "
+        f"likelihood_ms compiled {ms:.4f}")
+    rows["tracking/likelihood_only"] = dict(likelihood_ms=ms)
+
+    # the compiled path's launches: each arm's captured launches times its
+    # device counter, the rest once a replay
+    launches, replays = collections.Counter(), 0
+    for graph in (*graphs.values(), mcl.likelihood_only_jit.graph):
+        for entry in graph.entries.values():
+            launches.update(entry.capture.replay_launches(entry.replays))
+            replays += entry.replays
+    for k in ("corr_table", "spread_term_sums", "lf_term_sums", "lf_extents",
+              "cluster_labels"):
+        check(launches[k] > 0, f"the compiled path never launched {k} in a replay")
+    log(f"compiled path: {replays} replays, kernel launches inside them {dict(launches)}")
+    return {k: (n, replays) for k, n in launches.items()}, rows
 
 
 # --- 2D beam, Gompertz and prob models ----------------------------------------
@@ -1369,6 +1693,7 @@ def phase_cells(dev, maps, scan, states):
     import torch
 
     from badger_amcl_tpu_torch import mcl
+    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
     from badger_amcl_tpu_torch.ops import spread_kernel as sk
     from badger_amcl_tpu_torch.pf import filter as pf_filter
@@ -1376,7 +1701,8 @@ def phase_cells(dev, maps, scan, states):
     from badger_amcl_tpu_torch.sensors import planar
 
     sp = planar.PlanarScanParams()
-    counts = Launches({"corr_table": ck.corr_table, "spread_term_sums": sk.spread_term_sums})
+    counts = Launches({"cluster_labels": clk.cluster_labels, "corr_table": ck.corr_table,
+                       "spread_term_sums": sk.spread_term_sums})
     gen = torch.Generator(device=dev).manual_seed(11)
     timings = {"scan_repeats": scan_repeats(dev)}
     for key, model in CELL_CONTRACT.items():
@@ -1654,13 +1980,15 @@ def phase_main_path_fleet(dev, omap, fl):
     import torch
 
     from badger_amcl_tpu_torch.fleet import fleet_window
+    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
     from badger_amcl_tpu_torch.ops import lf_kernel as lk
     from badger_amcl_tpu_torch.ops import spread_kernel as sk
     from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
 
     params, states, scans = fl[0], fl[1], fl[2]
-    counts = Launches({"fleet_corr_table": ck.fleet_corr_table, "corr_table": ck.corr_table,
+    counts = Launches({"cluster_labels": clk.cluster_labels,
+                       "fleet_corr_table": ck.fleet_corr_table, "corr_table": ck.corr_table,
                        "spread_term_sums": sk.spread_term_sums,
                        "lf_term_sums": lk.lf_term_sums})
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1859,6 +2187,7 @@ def phase_sharded_fleet(dev, omap, fl):
     import torch
 
     from badger_amcl_tpu_torch import fleet
+    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
 
     params, states = fl[0], fl[1]
@@ -1868,7 +2197,8 @@ def phase_sharded_fleet(dev, omap, fl):
     for noise in noises:
         one = fleet_step_fn(fl, omap, None, noise)(one)
     want = {k: float(v) for k, v in fleet.fleet_health(one).items()}
-    counts = Launches({"fleet_corr_table": ck.fleet_corr_table})
+    counts = Launches({"cluster_labels": clk.cluster_labels,
+                       "fleet_corr_table": ck.fleet_corr_table})
     with tempfile.TemporaryDirectory() as tmp:
         os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
         group = fleet.init_fleet_group(f"file://{tmp}/nccl_store", 1, 0, device="cuda")
@@ -2128,6 +2458,7 @@ def phase_main_path_3d(dev, omap, cloud, states):
     per-kernel launch counts of this run only."""
     import torch
 
+    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
     from badger_amcl_tpu_torch.ops import pc_kernel as pk
     from badger_amcl_tpu_torch.ops import pc_spread_kernel as psk
     from badger_amcl_tpu_torch.scenario import TRUE_POSE_3D
@@ -2139,8 +2470,8 @@ def phase_main_path_3d(dev, omap, cloud, states):
     expect = {"steady": "pc_term_sums", "tracking": "pc_spread_term_sums",
               "spread": "pc_spread_term_sums"}
     pcp = PointCloudParams()
-    counts = Launches({"pc_term_sums": pk.pc_term_sums, "pc_extents": pk.pc_extents,
-                       "pc_distances": pk.pc_distances,
+    counts = Launches({"cluster_labels": clk.cluster_labels, "pc_term_sums": pk.pc_term_sums,
+                       "pc_extents": pk.pc_extents, "pc_distances": pk.pc_distances,
                        "pc_spread_term_sums": psk.pc_spread_term_sums})
     gen = torch.Generator(device=dev).manual_seed(3)
     for regime in PARTICLES_3D:
@@ -2502,6 +2833,7 @@ def phase_map_setup(dev, smi):
     from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
     from badger_amcl_tpu_torch.node import TransformBuffer, make_node
     from badger_amcl_tpu_torch.node.messages import OccupancyGrid, OctomapMsg
+    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
     from badger_amcl_tpu_torch.ops import corr_kernel, lf_kernel, pc_kernel, pc_spread_kernel
     from badger_amcl_tpu_torch.ops import edt_kernel as ek
     from badger_amcl_tpu_torch.ops import spread_kernel
@@ -2511,7 +2843,8 @@ def phase_map_setup(dev, smi):
     importers = numpy_edt_importers()
     check(not importers, f"map_setup: {importers} import the numpy EDT")
     log("map_setup: no port module but maps/edt.py imports the numpy EDT")
-    counts = Launches({"edt_2d": ek.capped_field_2d, "edt_3d": ek.voxel_texture_3d})
+    counts = Launches({"cluster_labels": clk.cluster_labels, "edt_2d": ek.capped_field_2d,
+                       "edt_3d": ek.voxel_texture_3d})
     kernels, timing = {}, {}
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2918,18 +3251,8 @@ def phase_node(dev, smi):
 
     from badger_amcl_tpu_torch import scenario
     from badger_amcl_tpu_torch.maps.occupancy_2d import OccupancyMap2D
-    from badger_amcl_tpu_torch.ops import beam_kernel as bk
-    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
-    from badger_amcl_tpu_torch.ops import corr_kernel as ck
-    from badger_amcl_tpu_torch.ops import lf_kernel as lk
-    from badger_amcl_tpu_torch.ops import spread_kernel as sk
 
-    counts = Launches({"corr_table": ck.corr_table, "corr_table_q": ck.corr_table_q,
-                       "spread_term_sums": sk.spread_term_sums,
-                       "lf_term_sums": lk.lf_term_sums, "lf_extents": lk.beam_extents,
-                       "lf_obs_counts": lk.lf_obs_counts, "lf_distances": lk.lf_distances,
-                       "beam_table": bk.beam_table,
-                       "beam_spread_sums": bsk.beam_spread_sums})
+    counts = Launches(counters_2d())
     world = OccupancyMap2D.from_cells(scenario.map_cells(MAP_CELLS, 0), scenario.RESOLUTION,
                                       device=dev)
     t0 = time.perf_counter()
@@ -3242,12 +3565,13 @@ def phase_node_3d(dev, smi):
     from badger_amcl_tpu_torch import scenario
     from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
     from badger_amcl_tpu_torch.maps.octree_io import read_bt, write_bt
+    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
     from badger_amcl_tpu_torch.ops import edt_kernel as ek
     from badger_amcl_tpu_torch.ops import pc_kernel as pk
     from badger_amcl_tpu_torch.ops import pc_spread_kernel as psk
 
-    counts = Launches({"pc_term_sums": pk.pc_term_sums, "pc_extents": pk.pc_extents,
-                       "pc_distances": pk.pc_distances,
+    counts = Launches({"cluster_labels": clk.cluster_labels, "pc_term_sums": pk.pc_term_sums,
+                       "pc_extents": pk.pc_extents, "pc_distances": pk.pc_distances,
                        "pc_spread_term_sums": psk.pc_spread_term_sums,
                        "edt_3d": ek.voxel_texture_3d})
     occ, _ = scenario.scene_3d()
@@ -3587,18 +3911,8 @@ def phase_cli(dev, smi):
     import tempfile
 
     from badger_amcl_tpu_torch import cli
-    from badger_amcl_tpu_torch.ops import beam_kernel as bk
-    from badger_amcl_tpu_torch.ops import beam_spread_kernel as bsk
-    from badger_amcl_tpu_torch.ops import corr_kernel as ck
-    from badger_amcl_tpu_torch.ops import lf_kernel as lk
-    from badger_amcl_tpu_torch.ops import spread_kernel as sk
 
-    counts = Launches({"corr_table": ck.corr_table, "corr_table_q": ck.corr_table_q,
-                       "spread_term_sums": sk.spread_term_sums,
-                       "lf_term_sums": lk.lf_term_sums, "lf_extents": lk.beam_extents,
-                       "lf_obs_counts": lk.lf_obs_counts, "lf_distances": lk.lf_distances,
-                       "beam_table": bk.beam_table,
-                       "beam_spread_sums": bsk.beam_spread_sums})
+    counts = Launches(counters_2d())
     box = {}
     argv = ["--config", os.path.join(ROOT, "examples", "amcl_2d.yaml"), "--sim", "--steps",
             str(CLI_STEPS), "--seed", "0"]
@@ -3684,6 +3998,7 @@ def main():
     log(f"scenario: {N_PARTICLES} x {N_BEAMS} on {MAP_CELLS}^2 in "
         f"{time.perf_counter() - t0:.2f} s")
     kernels = phase_kernels(dev, omap, scan, states)
+    cluster_rows = phase_kernels_cluster(cluster_grids(states))
     kernels.update(phase_kernels_q(omap, scan, states))
     bmap, bake_s, bake_bytes = phase_range_image(dev, omap)
     maps = {"likelihood_field": omap, "beam": bmap,
@@ -3701,6 +4016,7 @@ def main():
     paths = phase_main_path(dev, maps, scan, states)
     phase_reference(dev)
     timings = phase_timings(dev, maps, scan, states)
+    paths["2d_compiled"], timings["compiled"] = phase_compiled(dev, maps, scan, states)
     timings["range_image_bake"] = dict(seconds=bake_s, bytes=bake_bytes)
     paths["2d_cells"], timings["cells"] = phase_cells(dev, maps, scan, states)
     phase_cells_reference(dev)
@@ -3714,6 +4030,12 @@ def main():
     log(f"scenario fleet: {FLEET_ROBOTS} robots x {FLEET_PARTICLES} x {FLEET_BEAMS} on "
         f"{MAP_CELLS}^2, fleet_init in {time.perf_counter() - t0:.2f} s")
     kernels.update(phase_kernels_fleet(dev, omap, fl))
+    cluster_rows.update(phase_kernels_cluster(fleet_cluster_grids(dev, omap, fl)))
+    # the kernels line's row is the full grid, the spread cells' every step;
+    # its error the largest over every grid
+    kernels["cluster_labels"] = dict(
+        cluster_rows["full (spread)"],
+        max_abs_err=max(r["max_abs_err"] for r in cluster_rows.values()))
     paths["fleet"] = phase_main_path_fleet(dev, omap, fl)
     phase_reference_fleet(dev, omap)
     timings["fleet"] = phase_timings_fleet(dev, omap, fl)
@@ -3782,6 +4104,10 @@ def main():
         # the native host hook of the JAX package, not a TPU kernel
         "edt_2d": ("badger_amcl_tpu_torch/csrc/edt.cu", "badger_amcl_tpu/utils/native.py:68"),
         "edt_3d": ("badger_amcl_tpu_torch/csrc/edt.cu", "badger_amcl_tpu/utils/native.py:68"),
+        # the lax.while_loop of the JAX package's cluster labelling, not a
+        # TPU kernel
+        "cluster_labels": ("badger_amcl_tpu_torch/csrc/cluster_labels.cu",
+                           "badger_amcl_tpu/pf/cluster.py:72"),
     }
     for k in meta:
         if k not in OFF_MAIN_PATH:

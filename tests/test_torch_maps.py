@@ -102,7 +102,8 @@ def test_init_with_poses_stats_match(both_setups):
 
 
 def test_port_imports_no_jax():
-    """Importing every port module and running a CPU step (2D, 3D, the
+    """Importing every port module and running a CPU step (2D, eager and
+    through `sensor_resample_step_jit`, 3D, the
     maps' distance fields, beam, a corr_q likelihood, a fleet step, a cell-contract step under
     `profiling.trace`, a one-rank gloo sharded fleet step and its health, a
     few Node2D scans with systematic resampling, a few Node3D scans on a
@@ -126,6 +127,13 @@ def test_port_imports_no_jax():
                               [0.1, 0.0, 0.02], None, [0.1] * 5, params,
                               backend="corr", generator=gen)
         assert torch.isfinite(out.weights).all()
+        from badger_amcl_tpu_torch.ops import cluster_kernel  # noqa: F401
+        from badger_amcl_tpu_torch.ops import graph_cond  # noqa: F401
+        from badger_amcl_tpu_torch.utils import control, graph, tree  # noqa: F401
+        out = mcl.sensor_resample_step_jit(state, omap, sp, scan, pool, params,
+                                           backend="corr", generator=gen)
+        # both 2D steps took the corr table's arm
+        assert torch.isfinite(out.weights).all() and control.ARMS["corr.fits:true"] == 2
         from badger_amcl_tpu_torch.ops import pc_kernel, pc_spread_kernel
         from badger_amcl_tpu_torch.sensors import point_cloud
         omap3, _, state3, cloud, pcp, _ = scenario.build_setup_3d(
