@@ -19,8 +19,9 @@ graph once per static key (`utils.graph.graph_jit`; every branch of the
 dispatch tree a conditional node) and replays it after that, with no host
 read inside a replay; on CPU tensors they run the step eagerly. Their
 slice: the likelihood_field and likelihood_field_gompertz models on the
-corr, lf and exact backends, the pick contract, multinomial resampling
-without a cluster cap; any other static argument raises.
+corr, lf and exact backends, the pick contract, multinomial or
+systematic resampling without a cluster cap; any other static argument
+raises.
 """
 
 from __future__ import annotations
@@ -175,9 +176,10 @@ JIT_BACKENDS = ("corr", "lf", "exact")
 _LATER = "a later slice of the compiled step (ROADMAP.md)"
 
 
-def _check_jit_slice(laser_model, backend, params=None, resample_model=ResampleModel.MULTINOMIAL,
-                     do_beamskip=False, resample_contract="pick"):
-    """Raise for a static argument outside the compiled step's slice."""
+def _check_jit_slice(laser_model, backend, params=None, do_beamskip=False,
+                     resample_contract="pick"):
+    """Raise for a static argument outside the compiled step's slice (both
+    resamplers are inside it)."""
     if laser_model not in JIT_MODELS:
         raise ValueError(f"laser_model {laser_model!r}: the compiled step covers {JIT_MODELS}; "
                          f"the prob and beam models are {_LATER}")
@@ -186,9 +188,6 @@ def _check_jit_slice(laser_model, backend, params=None, resample_model=ResampleM
                          f"corr_q is {_LATER}")
     if do_beamskip:
         raise ValueError(f"do_beamskip: beam skipping is {_LATER}")
-    if resample_model != ResampleModel.MULTINOMIAL:
-        raise ValueError(f"resample_model {ResampleModel(resample_model).name}: the "
-                         f"systematic resampler is {_LATER}")
     if resample_contract != "pick":
         raise ValueError(f"resample_contract {resample_contract!r}: the cell contract is "
                          f"{_LATER}")
@@ -227,7 +226,7 @@ def mcl_step_2d_jit(state: MCLState, omap, scan_params, scan, random_pose_pool,
     do_beamskip, backend). The variates are drawn before the replay; the
     alphas are part of the key (Python floats, as the motion model takes
     them)."""
-    _check_jit_slice(laser_model, backend, params, resample_model, do_beamskip)
+    _check_jit_slice(laser_model, backend, params, do_beamskip)
     dev = state.poses.device
     noise = _noise(noise, generator, state, odom=True)
     return _mcl_step_graph(
@@ -247,8 +246,7 @@ def sensor_resample_step_jit(state: MCLState, omap, scan_params, scan, random_po
     """`sensor_resample_step` compiled (the JAX package's
     sensor_resample_step_jit, the unit bench.py times; static params,
     laser_model, resample_model, backend, resample_contract)."""
-    _check_jit_slice(laser_model, backend, params, resample_model,
-                     resample_contract=resample_contract)
+    _check_jit_slice(laser_model, backend, params, resample_contract=resample_contract)
     return _sensor_resample_graph(
         state, omap, scan_params, scan, random_pose_pool, params, laser_model,
         ResampleModel(resample_model), backend, resample_contract,

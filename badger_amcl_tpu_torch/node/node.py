@@ -18,6 +18,20 @@ values is one counted sync (`utils/numerics.host_arrays`): the published
 pose, its covariance and the particle cloud are read per update, and the
 convergence flag only while global localization is active (the JAX node
 reads it after every resample; it acts on it only then).
+
+The device work goes through the JAX node's `jax.jit` helpers, here
+`utils.graph.graph_jit` entries of the same names: `_motion_update_jit`,
+`_resample_jit` and `_uniform_pool_jit` (this module), `_sensor_update_jit`
+and `_score_poses_jit` (node_2d.py, node_3d.py). On the card each static
+key is captured once into a CUDA graph and replayed, so a scan reads to
+the host only where the JAX node reads. The node decides from its
+configuration, at construction and at `reconfigure`, whether it runs
+them compiled (`compiled`, with `compiled_reason`): a configuration
+outside the compiled slice (`mcl._check_jit_slice`: the prob and beam
+models, corr_q, beam skipping) calls the same functions eagerly. A
+compiled call that fails raises; nothing falls back at run time. A map or
+free-cell table the node replaces takes the graph entries holding it
+along (`release_graphs`).
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from badger_amcl_tpu_torch.pf.filter import ResampleModel
 from badger_amcl_tpu_torch.pf.types import PFParams
 from badger_amcl_tpu_torch.sensors import odom as odom_models
 from badger_amcl_tpu_torch.utils.angles import shortest_angular_distance
+from badger_amcl_tpu_torch.utils.graph import graph_jit
 from badger_amcl_tpu_torch.utils.numerics import host_arrays, host_bool
 from badger_amcl_tpu_torch.utils.profiling import PhaseTimer
 
@@ -104,8 +119,21 @@ def uniform_poses(u_idx: torch.Tensor, u_yaw: torch.Tensor, fsi: torch.Tensor,
     return torch.cat([xy, yaw[:, None]], dim=1)
 
 
+# the JAX node's jits (node.py:74-94): the motion model (static model and
+# alphas, its (3, M) normals an argument), the resampler (static params,
+# model and weight domain, its uniforms arguments) and the uniform pool
+# (the free cells held by reference, like a map)
+_motion_update_jit = graph_jit(odom_models.motion_update, static_argnames=("model", "alphas"))
+_resample_jit = graph_jit(pf_filter.resample,
+                          static_argnames=("params", "model", "log_averages"))
+_uniform_pool_jit = graph_jit(uniform_poses, static_argnames=())
+
+
 class Node:
-    """Shared node logic; Node2D adds the laser pipeline."""
+    """Shared node logic; Node2D and Node3D add the sensor pipelines."""
+
+    # the graph_jit helpers the node calls (subclasses add their sensor's)
+    JITS = (_motion_update_jit, _resample_jit, _uniform_pool_jit)
 
     def __init__(self, config: AMCLConfig, tf_buffer: Optional[TransformBuffer] = None,
                  seed: int = 0, device="cuda"):
@@ -121,6 +149,7 @@ class Node:
         self.params = self._pf_params(config)
         self.state = None  # MCLState, created on the first map (node.cpp:670-709)
         self.map = None
+        self.compiled, self.compiled_reason = False, "not decided"
 
         # odometry bookkeeping (node.cpp:716-793,1019-1112)
         self.odom_init = False
@@ -166,6 +195,45 @@ class Node:
             pop_z=config.kld_z,
             convergence_threshold=config.global_localization_convergence_threshold,
         )
+
+    # ------------------------------------------------------- compiled slice
+
+    @property
+    def map(self):
+        return self._map
+
+    @map.setter
+    def map(self, new_map):
+        """A map the node replaces (a receipt, a bake, new bounds) takes its
+        graph entries along."""
+        old, self._map = getattr(self, "_map", None), new_map
+        if old is not None and old is not new_map:
+            self.release_graphs(old)
+
+    def release_graphs(self, obj) -> int:
+        """Drop the entries of the node's graph_jit helpers that hold obj by
+        reference (a map, a free-cell table): their graphs, buffers and
+        pools. Returns how many."""
+        return sum(jit.release(obj) for jit in self.JITS)
+
+    def _jit_slice_error(self) -> Optional[str]:
+        """Why the configuration lies outside the compiled slice, or None
+        (subclasses check their sensor model)."""
+        if self.params.stats_max_clusters:
+            return "the capped statistics (stats_max_clusters) are outside the compiled slice"
+        return None
+
+    def _decide_compiled(self) -> None:
+        """Record whether the node calls its helpers compiled (graph_jit) or
+        eagerly, from the configuration alone."""
+        reason = self._jit_slice_error()
+        self.compiled = reason is None
+        self.compiled_reason = reason or "inside the compiled slice"
+
+    def _call(self, helper, *args, **kwargs):
+        """A graph_jit helper where the node runs compiled, the function it
+        wraps otherwise."""
+        return (helper if self.compiled else helper.__wrapped__)(*args, **kwargs)
 
     # ------------------------------------------------------------------ I/O
 
@@ -217,6 +285,8 @@ class Node:
         """updateFreeSpaceIndices (node.cpp:711-714) + the geometry of
         on-device pose generation."""
         dev = self.device
+        if self.free_space_indices is not None:
+            self.release_graphs(self.free_space_indices)
         self.free_space_indices = torch.as_tensor(np.asarray(fsi, np.int32), device=dev)
         self._fsi_geom = (
             torch.as_tensor(np.asarray(origin_xy, np.float32), device=dev),
@@ -243,7 +313,8 @@ class Node:
         gen, dev = self.generator, self.device
         u_idx = torch.rand((m,), generator=gen, device=dev)
         u_yaw = torch.rand((m,), generator=gen, device=dev)
-        return uniform_poses(u_idx, u_yaw, self.free_space_indices, *self._fsi_geom)
+        return self._call(_uniform_pool_jit, u_idx, u_yaw, self.free_space_indices,
+                          *self._fsi_geom)
 
     def random_pose_pool(self, m: Optional[int] = None) -> torch.Tensor:
         """Batched uniformPoseGenerator (node.cpp:847-868): uniform
@@ -372,9 +443,10 @@ class Node:
         def f32(v):
             return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
 
-        self.state = odom_models.motion_update(
-            self.state, _ODOM_MODEL_MAP[cfg.odom_model_type], alphas, f32(pose), f32(delta),
-            normals, f32(absolute_motion))
+        self.state = self._call(
+            _motion_update_jit, self.state, _ODOM_MODEL_MAP[cfg.odom_model_type],
+            tuple(float(a) for a in alphas), f32(pose), f32(delta), normals,
+            f32(absolute_motion))
         self.odom_integrator_absolute_motion = np.zeros(3)
         self.pf_odom_pose = np.asarray(pose, float)
 
@@ -392,8 +464,8 @@ class Node:
             else:
                 kw = dict(u_inject=torch.rand((m,), generator=gen, device=dev),
                           u_pick=torch.rand((m,), generator=gen, device=dev))
-            self.state = pf_filter.resample(self.state, self.params, pool, model=model,
-                                            log_averages=self._log_space, **kw)
+            self.state = self._call(_resample_jit, self.state, self.params, pool, model=model,
+                                    log_averages=self._log_space, **kw)
         if self.global_localization_active and host_bool(self.state.converged):
             log.info("Global localization converged!")
             self.global_localization_active = False
@@ -610,7 +682,12 @@ class Node:
         self._init_gaussian(mean, cov3, new_config.recovery_alpha_slow,
                             new_config.recovery_alpha_fast)
         self.odom_init = False
+        # the entries keyed on the old configuration go with it
+        for held in (self.map, self.free_space_indices):
+            if held is not None:
+                self.release_graphs(held)
         self._reconfigure_sensors()
+        self._decide_compiled()
 
     def _reconfigure_sensors(self) -> None:
         """Subclass: rebuild scanner params from the new config."""

@@ -11,10 +11,13 @@ cadence, cluster-argmax pose extraction, free-space indices, the scan
 watchdog, global-localization factor overrides and pose scoring for the
 uniform pose generator.
 
-The measurement update composes `mcl.sensor_update_2d` as the JAX node's
+The measurement update is `mcl.sensor_update_2d`, the JAX node's
 `_sensor_update_jit` (node_2d.py:39-56): the likelihood-field-prob model
 in log space when `laser_likelihood_log_space` is set, every other model
-with its factors folded.
+with its factors folded. `_sensor_update_jit` and `_score_poses_jit` are
+its graph_jit entries (static model, do_beamskip, backend and log_space),
+which the node calls compiled where its configuration lies inside
+`mcl._check_jit_slice` (node.Node).
 """
 
 from __future__ import annotations
@@ -41,11 +44,29 @@ from badger_amcl_tpu_torch.sensors.planar import (
     bake_factor_texture,
     planar_likelihood,
 )
+from badger_amcl_tpu_torch.utils.graph import graph_jit
 
 log = logging.getLogger("badger_amcl_tpu_torch")
 
 SCAN_WATCHDOG_INTERVAL = 15.0  # node_2d.cpp:107-110
 CORR_BACKENDS = ("corr", "corr_q")
+
+
+def _score_poses(omap, params, scan, poses, model, do_beamskip, backend):
+    """scorePose batched (node_2d.cpp:298-316, node_2d.py:59-68): a fake
+    1-weight sample set through the full sensor model incl. map factors."""
+    n = poses.shape[0]
+    p, mf = planar_likelihood(
+        omap, params, scan, poses, torch.ones((n,), dtype=torch.bool, device=poses.device),
+        torch.full((), n, dtype=torch.int32, device=poses.device), model, converged=False,
+        do_beamskip=False, backend=backend, fold_factors=True)
+    return p if mf is None else p * mf
+
+
+# the JAX node's jits (node_2d.py:39-68)
+_sensor_update_jit = graph_jit(mcl.sensor_update_2d, static_argnames=(
+    "laser_model", "do_beamskip", "backend", "log_space"))
+_score_poses_jit = graph_jit(_score_poses, static_argnames=("model", "do_beamskip", "backend"))
 
 
 def _f32(v) -> float:
@@ -55,6 +76,8 @@ def _f32(v) -> float:
 
 
 class Node2D(Node):
+    JITS = Node.JITS + (_sensor_update_jit, _score_poses_jit)
+
     def __init__(self, config: AMCLConfig, tf_buffer=None, seed: int = 0, device="cuda"):
         super().__init__(config, tf_buffer, seed, device)
         self.map: Optional[OccupancyMap2D] = None
@@ -69,6 +92,16 @@ class Node2D(Node):
         self.backend = resolve_backend(config.compute_backend, self.device)
         self._map_version = 0
         self._corr_tex_key = None
+        self._decide_compiled()
+
+    def _jit_slice_error(self) -> Optional[str]:
+        cfg = self.config
+        try:
+            mcl._check_jit_slice(cfg.laser_model_type.value, self.backend, self.params,
+                                 cfg.do_beamskip)
+        except ValueError as e:
+            return str(e)
+        return super()._jit_slice_error()
 
     # --------------------------------------------------------------- params
 
@@ -235,9 +268,9 @@ class Node2D(Node):
         self.latest_scan = pscan
         self._ensure_corr_texture(pscan.range_max)
         with self.timers.phase("sensor_update"):
-            self.state = mcl.sensor_update_2d(
-                self.state, self.map, self.scanner_params[scanner_index], pscan,
-                cfg.laser_model_type.value, cfg.do_beamskip, self.backend,
+            self.state = self._call(
+                _sensor_update_jit, self.state, self.map, self.scanner_params[scanner_index],
+                pscan, cfg.laser_model_type.value, cfg.do_beamskip, self.backend,
                 log_space=self._log_space)
         self.scanners_update[scanner_index] = False
         self.resample_count += 1
@@ -256,14 +289,8 @@ class Node2D(Node):
         set through the full sensor model incl. map factors."""
         if self.latest_scan is None:
             return torch.ones((poses.shape[0],), dtype=torch.float32, device=self.device)
-        n = poses.shape[0]
-        p, mf = planar_likelihood(
-            self.map, self._base_params, self.latest_scan, poses,
-            torch.ones((n,), dtype=torch.bool, device=self.device),
-            torch.full((), n, dtype=torch.int32, device=self.device),
-            self.config.laser_model_type.value, converged=False, do_beamskip=False,
-            backend=self.backend, fold_factors=True)
-        return p if mf is None else p * mf
+        return self._call(_score_poses_jit, self.map, self._base_params, self.latest_scan,
+                          poses, self.config.laser_model_type.value, False, self.backend)
 
     # ------------------------------------------------------------- watchdog
 

@@ -11,11 +11,14 @@ pose scoring for the uniform pose generator, all shared with the 2D node
 through `node.Node`.
 
 The measurement update composes `point_cloud_likelihood` and
-`pf.filter.sensor_update` eagerly, as the JAX node's `_sensor_update_jit`
-(node_3d.py:37-41) does under jit. The point-cloud models have no int8
-table: on "corr_q" (the JAX package's "pallas_corr_q") the likelihood
-takes the exact gather, as the JAX dispatch sends that name to its XLA
-gather (point_cloud.py:133,178).
+`pf.filter.sensor_update` as the JAX node's `_sensor_update_jit`
+(node_3d.py:37-41); it and `_score_poses_jit` are graph_jit entries
+(static model and backend; the windowed arm's predicate a conditional
+node), which the node calls compiled: every 3D configuration lies inside
+the compiled slice but the capped statistics. The point-cloud models
+have no int8 table: on "corr_q" (the JAX package's "pallas_corr_q") the
+likelihood takes the exact gather, as the JAX dispatch sends that name to
+its XLA gather (point_cloud.py:133,178).
 """
 
 from __future__ import annotations
@@ -37,10 +40,26 @@ from badger_amcl_tpu_torch.node.node_2d import _f32
 from badger_amcl_tpu_torch.node.transforms import Transform, TransformLookupError
 from badger_amcl_tpu_torch.pf import filter as pf_filter
 from badger_amcl_tpu_torch.sensors.point_cloud import PointCloudParams, point_cloud_likelihood
+from badger_amcl_tpu_torch.utils.graph import graph_jit
 
 log = logging.getLogger("badger_amcl_tpu_torch")
 
 SCAN_WATCHDOG_INTERVAL = 15.0  # node_3d.cpp:102-105
+
+
+def _sensor_update(state, omap, params, points_base, model, backend):
+    p, mf = point_cloud_likelihood(omap, params, points_base, state.poses, model, backend)
+    return pf_filter.sensor_update(state, p, mf)
+
+
+def _score_poses(omap, params, points_base, poses, model, backend):
+    p, mf = point_cloud_likelihood(omap, params, points_base, poses, model, backend)
+    return p * mf
+
+
+# the JAX node's jits (node_3d.py:37-47)
+_sensor_update_jit = graph_jit(_sensor_update, static_argnames=("model", "backend"))
+_score_poses_jit = graph_jit(_score_poses, static_argnames=("model", "backend"))
 
 
 def cloud_backend(name: str, device) -> str:
@@ -51,6 +70,8 @@ def cloud_backend(name: str, device) -> str:
 
 
 class Node3D(Node):
+    JITS = Node.JITS + (_sensor_update_jit, _score_poses_jit)
+
     def __init__(self, config: AMCLConfig, tf_buffer=None, seed: int = 0, device="cuda"):
         super().__init__(config, tf_buffer, seed, device)
         self.map: Optional[OctoMap3D] = None
@@ -67,6 +88,7 @@ class Node3D(Node):
         self.scanners_update: List[bool] = []
         self.pc_params = self._make_params()
         self.backend = cloud_backend(config.compute_backend, self.device)
+        self._decide_compiled()
 
     # --------------------------------------------------------------- params
 
@@ -214,10 +236,9 @@ class Node3D(Node):
             self.latest_points_base = torch.as_tensor(np.asarray(pts_base, np.float32),
                                                       device=self.device)
         with self.timers.phase("sensor_update"):
-            p, mf = point_cloud_likelihood(self.map, self.pc_params, self.latest_points_base,
-                                           self.state.poses,
-                                           cfg.point_cloud_model_type.value, self.backend)
-            self.state = pf_filter.sensor_update(self.state, p, mf)
+            self.state = self._call(_sensor_update_jit, self.state, self.map, self.pc_params,
+                                    self.latest_points_base, cfg.point_cloud_model_type.value,
+                                    self.backend)
         self.scanners_update[scanner_index] = False
         self.resample_count += 1
         resampled = False
@@ -234,10 +255,8 @@ class Node3D(Node):
         """scorePose batched (node_3d.cpp:286-304)."""
         if self.latest_points_base is None:
             return torch.ones((poses.shape[0],), dtype=torch.float32, device=self.device)
-        p, mf = point_cloud_likelihood(self.map, self.pc_params, self.latest_points_base,
-                                       poses, self.config.point_cloud_model_type.value,
-                                       self.backend)
-        return p * mf
+        return self._call(_score_poses_jit, self.map, self.pc_params, self.latest_points_base,
+                          poses, self.config.point_cloud_model_type.value, self.backend)
 
     # ------------------------------------------------------------- watchdog
 

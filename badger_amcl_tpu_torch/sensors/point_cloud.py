@@ -18,7 +18,10 @@ Backends:
   where its windows fit (converged and tracking clouds), else
   ops.pc_spread_kernel where its texture gate holds (spread clouds), else
   the exact gather. The windowed predicate (the CUDA window prepass, then
-  (B,) vectors) is read in one host sync; the spread gate is static.
+  (B,) vectors) is a `utils.control.cond` named "pc.fits": one host sync
+  in an eager call, a conditional node of a compiled one (the nodes'
+  `_sensor_update_jit`, `_score_poses_jit`); the texture gates are
+  static properties of the map and stay Python branches.
 
 Parameters are Python floats (fixed per configuration).
 """
@@ -32,7 +35,8 @@ import torch
 from badger_amcl_tpu_torch.ops import pc_kernel, pc_spread_kernel
 from badger_amcl_tpu_torch.ops.pc_kernel import PCTerm
 from badger_amcl_tpu_torch.sensors.planar import apply_gompertz
-from badger_amcl_tpu_torch.utils.numerics import fdiv, host_bool
+from badger_amcl_tpu_torch.utils import control
+from badger_amcl_tpu_torch.utils.numerics import fdiv
 
 BACKENDS = ("exact", "corr", "lf")
 
@@ -109,15 +113,25 @@ def point_cloud_likelihood(omap, params: PointCloudParams, points_base: torch.Te
         raise ValueError("the map has no distance field (with_distance_field)")
     term, finalize, combine = _model_term_finalize(omap, params, model,
                                                    points_base.shape[0])
+    def exact():
+        return combine(_exact_distances(omap, points_base, poses))
+
+    def spread():
+        if pc_spread_kernel.tex_fits(omap):
+            return finalize(pc_spread_kernel.pc_spread_term_sums(omap, poses, points_base,
+                                                                 term))
+        return exact()
+
+    def windowed():
+        return finalize(pc_kernel.pc_term_sums(omap, points_base, poses, term))
+
     if backend == "exact":
-        p = combine(_exact_distances(omap, points_base, poses))
-    elif pc_kernel.tex_fits(omap) and host_bool(
-            pc_kernel.window_origins(omap, points_base, poses)[3]):
-        p = finalize(pc_kernel.pc_term_sums(omap, points_base, poses, term))
-    elif pc_spread_kernel.tex_fits(omap):
-        p = finalize(pc_spread_kernel.pc_spread_term_sums(omap, poses, points_base, term))
+        p = exact()
+    elif pc_kernel.tex_fits(omap):
+        p = control.cond(pc_kernel.window_origins(omap, points_base, poses)[3], windowed,
+                         spread, name="pc.fits")
     else:
-        p = combine(_exact_distances(omap, points_base, poses))
+        p = spread()
     return p, map_factors(omap, params, poses)
 
 

@@ -1,11 +1,12 @@
 """`graph_jit`, the port's counterpart of `jax.jit`: a step captured into a
 CUDA graph once per static key and replayed after that.
 
-The key is the static arguments' values, the identity of the map argument
-(`omap`: its textures are read where they lie, never copied, and the entry
-holds the map so they stay alive), and of every other argument its
-structure, its non-tensor values and the shape, dtype and device of each
-tensor (`utils.tree`). The first call of a key
+The key is the static arguments' values, the identity of the arguments
+held by reference (`omap`, the map, and `fsi`, a node's free cells: they
+are read where they lie, never copied, and the entry holds them so they
+stay alive), and of every other argument its structure, its non-tensor
+values and the shape, dtype and device of each tensor (`utils.tree`).
+The first call of a key
 
 1. loads the kernel library (`graph_cond.load_library()`: the nvcc build
    never runs inside a capture),
@@ -17,8 +18,14 @@ tensor (`utils.tree`). The first call of a key
 
 Every call copies its tensors into the key's buffers, replays the graph
 and returns fresh copies of the outputs, as JAX returns new arrays: no
-host read happens inside a replay. A key's graph, buffers and memory
-pools live as long as the process, as a JAX compile cache does. Random
+host read happens inside a replay, which a caller can hold it to with
+`torch.cuda.set_sync_debug_mode("error")`; a capture, which reads
+predicates and synchronises, runs with the mode off. The launch counts of
+the kernel wrappers in `.kernels` move with the warm-up's launches only:
+what the capture records is counted per replay (`Capture.replay_launches`). A key's graph, buffers and memory
+pools live until `release` drops the entries holding an object by
+reference (a node does so for the map it replaces), else as long as the
+process, as a JAX compile cache does. Random
 variates are arguments, drawn before the call. On CPU tensors the step
 runs eagerly through the same helpers, as every kernel wrapper runs its
 plain version on the CPU; on CUDA tensors a call captures or raises and
@@ -40,7 +47,7 @@ from badger_amcl_tpu_torch.ops import graph_cond
 from badger_amcl_tpu_torch.utils import control, tree
 
 # the arguments held by identity in the key, not copied into buffers
-_REFERENCES = ("omap",)
+_REFERENCES = ("omap", "fsi")
 
 
 class Capture:
@@ -60,6 +67,8 @@ class Capture:
         # counter index (None: outside every arm) -> {kernel: launches in it}
         self.launches = collections.defaultdict(collections.Counter)
         self.pool = torch.cuda.graph_pool_handle()
+        self._index = device.index if device.index is not None else torch.cuda.current_device()
+        self._pool_uses = 0  # the allocator counts a use of the pool per arm routed to it
         self._frames = []
 
     def _snapshot(self):
@@ -91,10 +100,11 @@ class Capture:
         if slot >= self.SLOTS:
             raise RuntimeError(f"more than {self.SLOTS} cond arms in one capture")
         body = graph_cond.if_begin(pred)
-        index = pred.device.index if pred.device.index is not None else torch.cuda.current_device()
+        index = self._index
         outermost = all(f[0] is None for f in self._frames)
         if outermost:  # nested arms allocate under the outermost arm's routing
             torch._C._cuda_beginAllocateCurrentThreadToPool(index, self.pool)
+            self._pool_uses += 1
         self._frames.append([slot, self._snapshot(), collections.Counter()])
         try:
             with torch.cuda.stream(torch.cuda.ExternalStream(body, device=pred.device)):
@@ -125,6 +135,13 @@ class Capture:
             for a, b in zip(mine, theirs):
                 a.copy_(b)
         return out
+
+    def release(self) -> None:
+        """Give the arms' pool back to the allocator (once its graph is
+        gone): its blocks free as their tensors die."""
+        for _ in range(self._pool_uses):
+            torch._C._cuda_releasePool(self._index, self.pool)
+        self._pool_uses = 0
 
     def arm_counts(self) -> dict:
         """{"name:arm": executions} over every replay so far (one host read)."""
@@ -163,11 +180,20 @@ def graph_jit(fn, static_argnames):
     `wrapper.entries` maps each key to its `Entry`; `wrapper.captures`
     counts the captures (one per key); `wrapper.kernels` ({name: kernel
     wrapper}, empty unless a caller fills it) names the kernels whose
-    launches each later capture attributes to its arms."""
+    launches each later capture attributes to its arms;
+    `wrapper.release(obj)` drops every entry holding obj by reference."""
     sig = inspect.signature(fn)
     entries = {}
 
     def capture(bound, leaves, spec, references):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return capture_step(bound, leaves, spec, references)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def capture_step(bound, leaves, spec, references):
         wrapper.captures += 1
         graph_cond.load_library()
         inputs = [t.clone() for t in leaves]
@@ -181,14 +207,19 @@ def graph_jit(fn, static_argnames):
         torch.cuda.synchronize(dev)
         cap = Capture(dev, wrapper.kernels)
         graph = torch.cuda.CUDAGraph()
+        counted = {k: k_fn.launches for k, k_fn in cap.kernels.items()}
         t0 = time.perf_counter()
         with cap.recording(), torch.cuda.graph(graph):
             outputs = fn(**args)
         torch.cuda.synchronize(dev)
+        for k, k_fn in cap.kernels.items():  # recorded, not launched
+            k_fn.launches = counted[k]
         return Entry(graph, inputs, outputs, cap, references, time.perf_counter() - t0)
 
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
+    def bind(args, kwargs):
+        """(bound arguments, those held by reference, flattening spec,
+        tensor leaves, key); the key is None for CPU tensors, which run the
+        step eagerly."""
         bound = sig.bind(*args, **kwargs)
         bound.apply_defaults()
         static = tuple((k, bound.arguments[k]) for k in static_argnames)
@@ -201,9 +232,16 @@ def graph_jit(fn, static_argnames):
             raise ValueError(f"{fn.__name__}: the tensors must lie on one device, got "
                              f"{sorted(map(str, devices))}")
         if devices.pop().type != "cuda":
-            return fn(**bound.arguments)
+            return bound, references, spec, leaves, None
         key = (static, tuple((k, id(v)) for k, v in references.items()), spec,
                tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+        return bound, references, spec, leaves, key
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        bound, references, spec, leaves, key = bind(args, kwargs)
+        if key is None:
+            return fn(**bound.arguments)
         entry = entries.get(key)
         if entry is None:
             entry = entries[key] = capture(bound, leaves, spec, references)
@@ -213,7 +251,19 @@ def graph_jit(fn, static_argnames):
         entry.replays += 1
         return tree.map_tensors(torch.clone, entry.outputs)
 
+    def release(obj) -> int:
+        """Drop every entry holding obj by reference (its graph, buffers,
+        pools and its hold on obj); returns how many."""
+        dead = [k for k, e in entries.items()
+                if any(v is obj for v in e.references.values())]
+        for k in dead:
+            entry = entries.pop(k)
+            del entry.graph  # the graph's own pool goes back with it
+            entry.capture.release()
+        return len(dead)
+
     wrapper.entries = entries
+    wrapper.release = release
     wrapper.captures = 0
     wrapper.kernels = {}
     return wrapper

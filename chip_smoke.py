@@ -33,7 +33,9 @@ the port's three paths:
   spread cloud's full grid and the fleet step's batched (robots x cells)
   grid, recorded as the fleet path hands it to the kernel; #1/#2, #3, #4
   and the labelling kernel must launch inside replays (path "2d_compiled"),
-  and every path counts the labelling kernel's launches;
+  and every path counts the labelling kernel's launches; the IF nodes of
+  csrc/graph_cond.cu: 16 chained conds against the same adds without
+  conds (replay ms per IF node, the handle kernel's device time);
 - 2D beam, Gompertz and prob models: bakes the K = 256 range image of the
   1024^2 map on the card (and a 256^2 map on the card and the CPU, which
   must agree bit for bit), holds the beam_table kernel (bit-equal, at its
@@ -140,15 +142,31 @@ the port's three paths:
   CUDA, the pose saved on exit, the pose within 0.3 m and 0.25 rad of the
   simulator's truth, its wall seconds and kernel launches; then #4's
   prepass, distances and fused sums against their plain versions on the
-  node's own last scan, cloud and a uniform pool.
+  node's own last scan, cloud and a uniform pool;
+- the nodes' compiled helpers (the JAX nodes' seven jax.jit helpers as
+  graph_jit entries, which every node above calls where its configuration
+  lies inside the compiled slice): the flagship 2D node (50,000 x 720, 30
+  tracking scans and 4 after global localization), examples/amcl_2d.yaml
+  unchanged on the CLI's map and stream (8,000 x 60, the pool's score
+  rejection) and examples/amcl_3d.yaml at 50,000 x 256 on the scene, each
+  beside an eager twin (same config, seed and stream, its helpers
+  uncaptured): at every scan n_active and the particle poses equal and
+  the published poses within 1e-4, the device arm counters equal to the
+  twin's arms, every helper call held to sync debug mode "error" (no host
+  read inside a replay), one capture per new key, no entry holding the
+  old map after a second map receipt, #1, #3, #4, #9, #10 and the
+  labelling kernel launched inside replays; per twin the scan_received
+  medians (update-only, resampling), host syncs, device busy and idle
+  share, score rounds and ms per round, pose errors.
 
 The launch counters are set to 0 just before each main-path run and read
 just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
 2d_cells, fleet, sharded_fleet (its in-process rank), 3d, map_setup,
-node_2d, node_3d, cli) keeps
-its own count; the compiled path's (2d_compiled) launches happen inside
-graph replays, where no host counter moves: each arm's device counter
-times the launches captured in that arm, the rest once a replay. Every
+node_2d, node_3d, cli, node_compiled) keeps
+its own count; the compiled paths' launches (2d_compiled, and the nodes'
+helpers on node_2d, node_3d, cli and node_compiled) happen inside graph
+replays, where no host counter moves: each arm's device counter times the
+launches captured in that arm, the rest once a replay. Every
 cell must go through its kernel and leave a sane filter state. Kernels, likelihoods and steps are timed with CUDA events,
 kernels also by their profiled device time, the corr tables' wrappers
 also by their host time per call.
@@ -720,18 +738,37 @@ def pinned_step_fn(step_fn, state, n):
 class Launches:
     """Launch counts of a path's kernels over its main-path runs: each run
     sets every count to 0 just before it and reads them just after, so a
-    launch outside a run (a comparison, a diagnostic) is never counted."""
+    launch outside a run (a comparison, a diagnostic) is never counted.
+    With `graphs` (graph_jit wrappers whose `.kernels` name the counters),
+    the launches inside their replays during a run count too: each arm's
+    captured launches times its device counter's rise, the rest once a
+    replay (`replayed` keeps those apart)."""
 
-    def __init__(self, counters):
+    def __init__(self, counters, graphs=()):
         self.counters = counters
+        self.graphs = tuple(graphs)
         self.launches = dict.fromkeys(counters, 0)
         self.steps = dict.fromkeys(counters, 0)
+        self.replayed = collections.Counter()
+
+    def _replay_state(self):
+        return {id(e): (e.replays, e.capture.arm_counts())
+                for g in self.graphs for e in g.entries.values()}
 
     def run(self, fn, n_steps):
         for c in self.counters.values():
             c.launches = 0
+        before = self._replay_state() if self.graphs else {}
         fn()
         rose = {k: c.launches for k, c in self.counters.items()}
+        for g in self.graphs:
+            for e in g.entries.values():
+                replays0, arms0 = before.get(id(e), (0, {}))
+                arms = {k: v - arms0.get(k, 0) for k, v in e.capture.arm_counts().items()}
+                for k, n in e.capture.replay_launches(e.replays - replays0, arms).items():
+                    if k in rose:
+                        rose[k] += n
+                        self.replayed[k] += n
         for k, r in rose.items():
             self.launches[k] += r
             if r > 0:
@@ -741,6 +778,28 @@ class Launches:
     def read(self):
         """{kernel: (launches, steps of the runs in which it launched)}."""
         return {k: (self.launches[k], self.steps[k]) for k in self.counters}
+
+
+def node_graphs():
+    """{"module.name": helper} of the nodes' graph_jit helpers (the JAX
+    nodes' seven jax.jit helpers)."""
+    from badger_amcl_tpu_torch.node import node, node_2d, node_3d
+
+    mods = {"node": node, "node_2d": node_2d, "node_3d": node_3d}
+    return {f"{m}.{name}": getattr(mods[m], name)
+            for m, names in NODE_HELPERS.items() for name in names}
+
+
+def counters_3d():
+    """{name in the kernels line: wrapper} of every kernel a 3D step may
+    launch."""
+    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
+    from badger_amcl_tpu_torch.ops import pc_kernel as pk
+    from badger_amcl_tpu_torch.ops import pc_spread_kernel as psk
+
+    return {"cluster_labels": clk.cluster_labels, "pc_term_sums": pk.pc_term_sums,
+            "pc_extents": pk.pc_extents, "pc_distances": pk.pc_distances,
+            "pc_spread_term_sums": psk.pc_spread_term_sums}
 
 
 def counters_2d():
@@ -1185,6 +1244,61 @@ def phase_kernels_cluster(grids):
         rows[label] = dict(max_abs_err=err, ms=ms, device_ms=device_ms(ops), plain_ms=plain_ms,
                            **b, library_ms=None)
     return rows
+
+
+GRAPH_COND_CONDS = 16  # 32 IF nodes of the 64 a capture holds
+
+
+def phase_graph_cond(dev):
+    """The IF nodes of csrc/graph_cond.cu: a graph_jit of GRAPH_COND_CONDS
+    chained conds on one float (each arm one add; every predicate true)
+    against a graph_jit of the same adds without conds. Equal to the eager
+    function; the replays' ms (CUDA events over `graph.replay()`), their
+    difference per IF node, and the handle kernel's device time per launch
+    (torch.profiler). Returns the figures."""
+    import torch
+
+    from badger_amcl_tpu_torch.utils import control
+    from badger_amcl_tpu_torch.utils.graph import graph_jit
+
+    k = GRAPH_COND_CONDS
+
+    def conds(x):
+        for i in range(k):
+            x = control.cond(x[0] > i - 0.5, lambda v: v + 1.0, lambda v: v - 0.5, x,
+                             name=f"probe{i}")
+        return x
+
+    def adds(x):
+        for _ in range(k):
+            x = x + 1.0
+        return x
+
+    with_if, without = graph_jit(conds, ()), graph_jit(adds, ())
+    x = torch.zeros((1,), device=dev)
+    want = conds(x)
+    got = with_if(x)
+    check(torch.equal(got, want) and torch.equal(without(x), want),
+          f"graph_cond: the compiled conds give {got.tolist()}, eager {want.tolist()}")
+    entry = next(iter(with_if.entries.values()))
+    plain = next(iter(without.entries.values()))
+    n_if = len(entry.capture.slots)
+    check(n_if == 2 * k, f"graph_cond: {n_if} IF nodes for {k} conds")
+    rep_if, rep_plain = cuda_ms(entry.graph.replay, iters=200), cuda_ms(plain.graph.replay,
+                                                                        iters=200)
+    ops = kernel_ms(entry.graph.replay, calls=20)
+    handle = {n: t for n, t in ops.items() if "set_if_handle" in n}
+    arms = entry.capture.arm_counts()
+    out = dict(conds=k, if_nodes=n_if, replay_ms=rep_if, replay_ms_without_conds=rep_plain,
+               ms_per_if_node=(rep_if - rep_plain) / n_if,
+               handle_kernel_device_ms=device_ms(handle), arms_true=sum(
+                   v for a, v in arms.items() if a.endswith(":true")), max_abs_err=0.0)
+    log(f"graph_cond: {k} chained conds ({n_if} IF nodes, one handle kernel each) equal to "
+        f"the eager conds; replay {rep_if:.4f} ms vs {rep_plain:.4f} ms for the same {k} adds "
+        f"without conds: {1e3 * out['ms_per_if_node']:.2f} us per IF node; the handle "
+        f"kernel's device time per launch {device_text(handle)} ms (torch.profiler; ops "
+        + "; ".join(f"{n} {t:.4f}" for n, t in ops.items()) + ")")
+    return out
 
 
 def compiled_steps(omap, sp, scan, pool, params, model, backend):
@@ -3182,27 +3296,32 @@ def check_node(run, label):
 
 def node_scans(run, n, counts=None):
     """Feed n scans, each CUDA synchronised: [(wall ms, host syncs, whether
-    it resampled, its launches)] (launches counted when `counts` is
-    given)."""
+    it resampled, its launches, whether it updated the filter)] (launches
+    counted when `counts` is given, outside the timed window)."""
     import torch
 
     from badger_amcl_tpu_torch.utils.numerics import SYNCS
 
     node, out = run.node, []
     for _ in range(n):
-        torch.cuda.synchronize()
-        s0, r0 = SYNCS.count, node.resample_count
-        a = time.perf_counter()
-        if counts is None:
+        box = {}
+
+        def scan():
+            torch.cuda.synchronize()
+            s0, r0 = SYNCS.count, node.resample_count
+            a = time.perf_counter()
             run.feed()
-            rose = {}
-        else:
-            rose = counts.run(run.feed, 1)
-        torch.cuda.synchronize()
-        out.append((1e3 * (time.perf_counter() - a), SYNCS.count - s0,
-                    node.resample_count > r0
-                    and node.resample_count % node.config.resample_interval == 0,
-                    {k: v for k, v in rose.items() if v}))
+            torch.cuda.synchronize()
+            box.update(ms=1e3 * (time.perf_counter() - a), syncs=SYNCS.count - s0,
+                       updated=node.resample_count > r0,
+                       resampled=node.resample_count > r0
+                       and node.resample_count % node.config.resample_interval == 0)
+
+        rose = {} if counts is None else counts.run(scan, 1)
+        if counts is None:
+            scan()
+        out.append((box["ms"], box["syncs"], box["resampled"],
+                    {k: v for k, v in rose.items() if v}, box["updated"]))
     return out
 
 
@@ -3219,7 +3338,7 @@ def scan_figures(rows, busy, label, smi):
                device_busy_ms_per_scan=busy_ms, device_ops_per_scan=ops,
                device_idle_share=1.0 - busy_ms / wall_mean, top_device_ops=top, device=smi)
     res = [r[0] for r in rows if r[2]]
-    upd = [r[0] for r in rows if not r[2]]
+    upd = [r[0] for r in rows if r[4] and not r[2]]
     if res and upd:
         out.update(scan_ms_median_resampling=statistics.median(res),
                    scan_ms_median_update_only=statistics.median(upd))
@@ -3252,7 +3371,7 @@ def phase_node(dev, smi):
     from badger_amcl_tpu_torch import scenario
     from badger_amcl_tpu_torch.maps.occupancy_2d import OccupancyMap2D
 
-    counts = Launches(counters_2d())
+    counts = Launches(counters_2d(), node_graphs().values())
     world = OccupancyMap2D.from_cells(scenario.map_cells(MAP_CELLS, 0), scenario.RESOLUTION,
                                       device=dev)
     t0 = time.perf_counter()
@@ -3430,7 +3549,7 @@ def phase_node_reference(dev, world):
                                  ("exact", "cpu", "xla"))}
     for label in ("card", "exact"):
         runs[label].node.state = to_device(runs["cpu"].node.state, runs[label].node.device)
-    before = ck.corr_table.launches
+    counts = Launches({"corr_table": ck.corr_table}, node_graphs().values())
     exact = {"rel": 0.0}
 
     def exact_rel():
@@ -3438,14 +3557,16 @@ def phase_node_reference(dev, world):
         exact["rel"] = max(exact["rel"], float(((w_e - w_c).abs()
                                                 / w_c.abs().clamp(min=1e-30)).max()))
 
-    got = card_vs_cpu(runs, n_scans, "node reference", exact_rel)
-    check(ck.corr_table.launches > before, "node reference: the card node launched no "
-                                           "corr_table")
+    box = {}
+    rose = counts.run(lambda: box.update(got=card_vs_cpu(runs, n_scans, "node reference",
+                                                         exact_rel)), n_scans)
+    got = box["got"]
+    check(rose["corr_table"] > 0, "node reference: the card node launched no corr_table")
     log(f"node reference ({n} x {b} on {MAP_CELLS}^2, card vs CPU on corr, {n_scans} scans, "
         f"zero-noise odometry, no resample): weights within 1e-4: >= "
         f"{got['weights_within_1e4']:.4f} per scan ({got['outliers']} particles off); "
         f"particle clouds max diff {got['cloud_max_diff']:.3e} m, amcl_pose max diff "
-        f"{got['pose_max_diff']:.3e}; corr_table launched {ck.corr_table.launches - before} "
+        f"{got['pose_max_diff']:.3e}; corr_table launched {rose['corr_table']} "
         f"times on the card; CPU exact vs CPU corr weights max rel diff {exact['rel']:.3e} "
         f"(logged only)")
     return dict(got, exact_vs_corr_max_rel=exact["rel"])
@@ -3565,15 +3686,9 @@ def phase_node_3d(dev, smi):
     from badger_amcl_tpu_torch import scenario
     from badger_amcl_tpu_torch.maps.octomap_3d import OctoMap3D
     from badger_amcl_tpu_torch.maps.octree_io import read_bt, write_bt
-    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
     from badger_amcl_tpu_torch.ops import edt_kernel as ek
-    from badger_amcl_tpu_torch.ops import pc_kernel as pk
-    from badger_amcl_tpu_torch.ops import pc_spread_kernel as psk
 
-    counts = Launches({"cluster_labels": clk.cluster_labels, "pc_term_sums": pk.pc_term_sums,
-                       "pc_extents": pk.pc_extents, "pc_distances": pk.pc_distances,
-                       "pc_spread_term_sums": psk.pc_spread_term_sums,
-                       "edt_3d": ek.voxel_texture_3d})
+    counts = Launches({**counters_3d(), "edt_3d": ek.voxel_texture_3d}, node_graphs().values())
     occ, _ = scenario.scene_3d()
     with tempfile.TemporaryDirectory() as tmp:
         # the map set-up, stage by stage (the node's receipt runs all three)
@@ -3746,11 +3861,13 @@ def phase_node_3d_reference(dev, payload, occ, tmp):
     runs = {label: Node3DRun(d, cfg, payload, occ, n_scans, b, init_cov=REGIMES["tracking"])
             for label, d in (("card", dev), ("cpu", "cpu"))}
     runs["card"].node.state = to_device(runs["cpu"].node.state, dev)
-    before = pk.pc_extents.launches
+    counts = Launches({"pc_extents": pk.pc_extents}, node_graphs().values())
     flips = CellFlips3D(CELL_FLIP_MARGIN)
-    got = card_vs_cpu(runs, n_scans, "node_3d reference", flips=flips)
-    check(pk.pc_extents.launches > before, "node_3d reference: the card node launched no "
-                                           "pc_extents")
+    box = {}
+    rose = counts.run(lambda: box.update(got=card_vs_cpu(runs, n_scans, "node_3d reference",
+                                                         flips=flips)), n_scans)
+    got = box["got"]
+    check(rose["pc_extents"] > 0, "node_3d reference: the card node launched no pc_extents")
     w_c = runs["cpu"].node.state.weights
     w_g = runs["card"].node.state.weights.cpu()
     off = ((w_g - w_c).abs() > 1e-4 * w_c.abs()).nonzero().flatten().tolist()
@@ -3766,7 +3883,7 @@ def phase_node_3d_reference(dev, payload, occ, tmp):
         f"{CELL_FLIP_MARGIN} cells (0.1% / 1% quantiles of every particle's nearest approach "
         f"{got['closest_quantiles']}); particle clouds max diff {got['cloud_max_diff']:.3e} m,"
         f" amcl_pose max diff {got['pose_max_diff']:.3e}; pc_extents launched "
-        f"{pk.pc_extents.launches - before} times on the card")
+        f"{rose['pc_extents']} times on the card")
     return got
 
 
@@ -3821,6 +3938,344 @@ def phase_node_3d_production(dev, payload, occ, tmp, counts, smi):
         f"{out['host_syncs']}, launches {out['launches']}; the last pose {err[0]:.4f} m / "
         f"{err[1]:.4f} rad from the truth")
     return out
+
+
+# --- the nodes' compiled helpers ------------------------------------------------
+
+NODE_C_SCANS = 30
+NODE_C_GL_SCANS = 4
+NODE_C_BUSY_SCANS = 4
+NODE_C_CLI_SCANS = 30
+NODE_C_3D_SCANS = 24
+POSE_TOL = 1e-4  # m / rad: compiled vs eager published poses (index_add_ statistics)
+# the helpers the strict wrappers stand in for, {module name: helper names}
+NODE_HELPERS = {"node": ("_motion_update_jit", "_resample_jit", "_uniform_pool_jit"),
+                "node_2d": ("_sensor_update_jit", "_score_poses_jit"),
+                "node_3d": ("_sensor_update_jit", "_score_poses_jit")}
+
+
+@dataclasses.dataclass
+class StrictHelpers:
+    """The node modules' graph_jit helpers, each called under sync debug
+    mode "error" (graph_jit turns it off for a capture, so only a replay
+    is held to it) and counted by name; an eager node calls the functions
+    they wrap (`__wrapped__`) past them."""
+
+    calls: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    saved: dict = dataclasses.field(default_factory=dict)
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        for mod_name, names in NODE_HELPERS.items():
+            mod = importlib.import_module(f"badger_amcl_tpu_torch.node.{mod_name}")
+            for name in names:
+                jit = getattr(mod, name)
+                self.saved[mod, name] = jit
+
+                def call(*args, _jit=jit, _key=f"{mod_name}.{name}", **kwargs):
+                    self.calls[_key] += 1
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        return _jit(*args, **kwargs)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+
+                call.__wrapped__ = jit.__wrapped__
+                setattr(mod, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), jit in self.saved.items():
+            setattr(mod, name, jit)
+
+
+class CliRun(NodeRun):
+    """The CLI's simulator stream (`cli.run_sim`: the room grid, SIM_START,
+    SIM_TWIST, the simulator's seeded odometry noise and ranges), made
+    ahead of the scans (the simulator's TF history serves every stamp) and
+    fed to a node that `make_node` built from `cfg`."""
+
+    def __init__(self, dev, cfg, n_scans, seed=0):
+        import numpy as np
+
+        from badger_amcl_tpu_torch import cli
+        from badger_amcl_tpu_torch.node import make_node
+        from badger_amcl_tpu_torch.sim import Sim2D, make_room_grid
+
+        grid = make_room_grid()
+        self.sim = Sim2D(grid, start_pose=cli.SIM_START, base_frame=cfg.base_frame_id)
+        self.node = make_node(cfg, tf_buffer=self.sim.tf, seed=seed, device=dev)
+        self.node.init_pose = np.array(cli.SIM_START)
+        self.out = {k: [] for k in ("amcl_pose", "particlecloud", "tf")}
+        for k, v in self.out.items():
+            self.node.subscribe_output(k, v.append)
+        self.node.map_msg_received(grid)
+        self.scans, self.truth_at, self.k = [], {}, 0
+        self.extend(n_scans)
+
+    def extend(self, n):
+        from badger_amcl_tpu_torch import cli
+
+        for _ in range(n):
+            odom = self.sim.step(*cli.SIM_TWIST)
+            self.truth_at[round(self.sim.t, 6)] = self.sim.true_pose.copy()
+            self.scans.append((odom, self.sim.make_scan()))
+
+    def feed(self):
+        odom, scan = self.scans[self.k]
+        self.k += 1
+        self.node.integrate_odom(odom)
+        self.node.scan_received(scan)
+        self.node.spin_once(odom.stamp)
+
+    def pose_error(self):
+        p = self.out["amcl_pose"][-1]
+        true = self.truth_at[round(p.stamp, 6)]
+        return (math.hypot(p.pose[0] - true[0], p.pose[1] - true[1]),
+                abs(math.remainder(p.pose[2] - true[2], 2 * math.pi)))
+
+
+def compare_twins(twins, label, k):
+    """The compiled node against its eager twin after scan k: n_active and
+    the particle poses equal, every published amcl_pose within POSE_TOL.
+    Returns the weights' and the published poses' largest differences."""
+    import numpy as np
+    import torch
+
+    c, e = twins["compiled"], twins["eager"]
+    cs, es = c.node.state, e.node.state
+    check(torch.equal(cs.n_active, es.n_active),
+          f"{label} scan {k}: n_active {int(cs.n_active)} vs {int(es.n_active)} eager")
+    check(torch.equal(cs.poses, es.poses), f"{label} scan {k}: the particle poses differ from "
+                                           f"the eager twin's")
+    pc, pe = c.out["amcl_pose"], e.out["amcl_pose"]
+    check(len(pc) == len(pe), f"{label} scan {k}: {len(pc)} poses published vs {len(pe)}")
+    pose = max((float(np.abs(a.pose - b.pose).max()) for a, b in zip(pc, pe)), default=0.0)
+    check(pose <= POSE_TOL, f"{label} scan {k}: published poses differ by {pose:.3e}")
+    return float((cs.weights - es.weights).abs().max()), pose
+
+
+def graph_arm_totals(graphs):
+    """{arm: executions} summed over every entry of the graph wrappers."""
+    out = collections.Counter()
+    for g in graphs.values():
+        out.update(graph_arms(g))
+    return out
+
+
+def drive_twins(twins, n, label, counts, strict, graphs):
+    """n scans fed to the compiled node and its eager twin in turns, each
+    compared after the scan: (rows {mode: node_scans rows}, score rounds
+    per compiled scan, whether the compiled scan captured a graph, worst
+    weight and pose differences, the compiled node's device arms and the
+    eager twin's arms over the run)."""
+    from badger_amcl_tpu_torch.utils import control
+
+    rows, rounds, captured = {"compiled": [], "eager": []}, [], []
+    worst_w = worst_p = 0.0
+    arms0, eager0 = graph_arm_totals(graphs), collections.Counter(control.ARMS)
+    for k in range(n):
+        calls0 = strict.calls["node_2d._score_poses_jit"] + strict.calls["node_3d._score_poses_jit"]
+        captures0 = sum(g.captures for g in graphs.values())
+        rows["compiled"] += node_scans(twins["compiled"], 1, counts)
+        captured.append(sum(g.captures for g in graphs.values()) > captures0)
+        rounds.append(strict.calls["node_2d._score_poses_jit"]
+                      + strict.calls["node_3d._score_poses_jit"] - calls0)
+        rows["eager"] += node_scans(twins["eager"], 1)
+        w, p = compare_twins(twins, label, k)
+        worst_w, worst_p = max(worst_w, w), max(worst_p, p)
+    arms = +(graph_arm_totals(graphs) - arms0)
+    eager_arms = +(collections.Counter(control.ARMS) - eager0)
+    return rows, rounds, captured, worst_w, worst_p, arms, eager_arms
+
+
+def twin_figures(twins, rows, rounds, captured, label, smi):
+    """scan_figures of each twin over the scans in which no graph was
+    captured (device busy over NODE_C_BUSY_SCANS more scans each, compared
+    after), the nodes' host phases, score rounds and ms per round."""
+    out = {}
+    for mode, run in twins.items():
+        run.extend(NODE_C_BUSY_SCANS)
+        busy = device_busy(run.feed, steps=NODE_C_BUSY_SCANS)
+        kept = [r for r, c in zip(rows[mode], captured) if not c]
+        out[mode] = scan_figures(kept, busy, f"{label} {mode}", smi)
+        out[mode].update(capture_scans=sum(captured), host_phases=run.node.timers.report())
+        log(f"{label} {mode}: {sum(captured)} scans that captured a graph left out; host "
+            "phases " + ", ".join(f"{k} {v['mean_ms']:.3f} ms x {v['count']}"
+                                  for k, v in run.node.timers.report().items()))
+    compare_twins(twins, label + " (after the busy window)", "busy")
+    res = [r for r, row, c in zip(rounds, rows["compiled"], captured) if row[2] and not c]
+    if res:
+        per = statistics.median(res)
+        for mode, fig in out.items():
+            if "scan_ms_median_resampling" in fig and per:
+                fig["ms_per_score_round"] = ((fig["scan_ms_median_resampling"]
+                                              - fig["scan_ms_median_update_only"]) / per)
+        log(f"{label}: score rounds per resampling scan {res} (median {per}); ms per round "
+            "(resampling minus update-only median, over the rounds) "
+            + ", ".join(f"{m} {f.get('ms_per_score_round', float('nan')):.4f}"
+                        for m, f in out.items()))
+        out["score_rounds_per_resampling_scan"] = res
+    return out
+
+
+def second_receipt(run, receive, graphs, label):
+    """The map received again by the compiled node: no live entry may hold
+    the old map or free cells; the live entries and the memory the
+    allocator keeps before and after, logged. Returns the figures."""
+    import torch
+
+    old_map, old_fsi = run.node.map, run.node.free_space_indices
+    live0 = sum(len(g.entries) for g in graphs.values())
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    receive(run.node)
+    del old_fsi
+    held = sum(1 for g in graphs.values() for e in g.entries.values()
+               for v in e.references.values() if v is old_map)
+    check(held == 0, f"{label}: {held} graph entries still hold the old map")
+    del old_map
+    torch.cuda.empty_cache()
+    live = sum(len(g.entries) for g in graphs.values())
+    out = dict(live_entries_before=live0, live_entries_after=live,
+               reserved_gb_before=reserved0 / 1e9,
+               reserved_gb_after=torch.cuda.memory_reserved() / 1e9)
+    log(f"{label}: a second map receipt left {live} live graph_jit entries (of {live0}), none "
+        f"holding the old map; allocator reserved {out['reserved_gb_before']:.3f} GB -> "
+        f"{out['reserved_gb_after']:.3f} GB after empty_cache")
+    return out
+
+
+def drop_node(run):
+    """Release a node's graph entries (its map and free cells)."""
+    node = run.node
+    if node.free_space_indices is not None:
+        node.release_graphs(node.free_space_indices)
+    node.map = None
+
+
+def run_twins(make, n, label, counts, strict, graphs, smi, gl_scans=0, receive=None):
+    """A compiled node and its eager twin (`make(mode)` -> a NodeRun; the
+    twin's `compiled` set False), driven n scans, then gl_scans after
+    global localization on both; figures, arms (the compiled node's device
+    counters equal the eager twin's arms), pose errors, keys and captures
+    per helper, then a second map receipt (`receive`)."""
+    twins = {mode: make(mode) for mode in ("compiled", "eager")}
+    check(twins["compiled"].node.compiled, f"{label}: the node is not compiled "
+                                           f"({twins['compiled'].node.compiled_reason})")
+    twins["eager"].node.compiled, twins["eager"].node.compiled_reason = False, "eager twin"
+    captures0 = {k: g.captures for k, g in graphs.items()}
+    entries0 = {id(e) for g in graphs.values() for e in g.entries.values()}
+    t0 = time.perf_counter()
+    rows, rounds, captured, w, p, arms, eager_arms = drive_twins(twins, n, label, counts,
+                                                                 strict, graphs)
+    errors = {m: list(r.pose_error()) for m, r in twins.items()}
+    gl = {}
+    if gl_scans:
+        for run in twins.values():
+            run.node.global_localization()
+            run.extend(gl_scans)
+        g_rows, _, _, gw, gp, g_arms, g_eager = drive_twins(twins, gl_scans, label + " gl",
+                                                             counts, strict, graphs)
+        w, p = max(w, gw), max(p, gp)
+        arms.update(g_arms)
+        eager_arms.update(g_eager)
+        gl = dict(launches=[r[3] for r in g_rows["compiled"]],
+                  scan_ms={m: [r[0] for r in rs] for m, rs in g_rows.items()})
+    check(arms == eager_arms, f"{label}: compiled arms {dict(arms)} != eager {dict(eager_arms)}")
+    figs = twin_figures(twins, rows, rounds, captured, label, smi)
+    keys = {k: len(g.entries) for k, g in graphs.items()}
+    captures = {k: g.captures - captures0[k] for k, g in graphs.items()}
+    # the IF nodes (one handle kernel each, graph_cond.cu) of each graph this run captured
+    if_nodes = {k: [len(e.capture.slots) for e in g.entries.values() if id(e) not in entries0]
+                for k, g in graphs.items()}
+    for k, graph_ifs in if_nodes.items():  # no key is ever captured twice
+        check(captures[k] == len(graph_ifs), f"{label}: {k} captured {captures[k]} graphs "
+                                             f"for {len(graph_ifs)} new keys")
+    out = dict(figs, arms=dict(arms), weights_max_diff=w, pose_max_diff=p, pose_error=errors,
+               live_keys=keys, captures=captures, if_nodes_per_graph=if_nodes, gl=gl,
+               launches_by_scan=[r[3] for r in rows["compiled"]],
+               seconds=time.perf_counter() - t0)
+    log(f"{label}: {n} scans{f' + {gl_scans} after global localization' if gl_scans else ''}, "
+        f"the compiled node equal to its eager twin at every scan (n_active, particle poses; "
+        f"weights max diff {w:.3e}, published poses max diff {p:.3e}); arms (device counters "
+        f"= the eager twin's) {dict(arms)}; pose error m/rad after the {n} scans {errors}; "
+        f"live keys {keys}, captures this run {captures} (one a new key), IF nodes per new "
+        f"graph {if_nodes}; launches by scan {out['launches_by_scan']}")
+    if receive is not None:
+        out["second_receipt"] = second_receipt(twins["compiled"], receive, graphs, label)
+    for run in twins.values():
+        drop_node(run)
+    return out
+
+
+def phase_node_compiled(dev, smi):
+    """The nodes' compiled helpers on the card, each node beside an eager
+    twin (same config, seed and stream; its helpers run uncaptured): the
+    flagship 2D node at 50,000 x 720 (30 tracking scans, 4 after global
+    localization), examples/amcl_2d.yaml unchanged on the CLI's map and
+    stream (8,000 x 60, score rejection) and examples/amcl_3d.yaml at
+    50,000 x 256 on the scene. Checks at every scan n_active and the
+    particle poses equal and the published poses within POSE_TOL, the
+    arms equal, no host read inside a replay (sync debug mode "error"),
+    the old map's entries gone after a second receipt, and #1, #3, #4,
+    #9, #10 and cluster_labels launched inside replays. Returns (the path's
+    launch counts, timings)."""
+    import tempfile
+
+    from badger_amcl_tpu_torch import cli, scenario
+    from badger_amcl_tpu_torch.maps.occupancy_2d import OccupancyMap2D
+    from badger_amcl_tpu_torch.maps.octree_io import read_bt, write_bt
+    from badger_amcl_tpu_torch.node.messages import OctomapMsg
+    from badger_amcl_tpu_torch.sim import make_room_grid
+
+    graphs = node_graphs()
+    counts = Launches({**counters_2d(), **counters_3d()}, graphs.values())
+    out = {}
+    t_phase = time.perf_counter()
+    with StrictHelpers() as strict:
+        world = OccupancyMap2D.from_cells(scenario.map_cells(MAP_CELLS, 0),
+                                          scenario.RESOLUTION, device=dev)
+        out["flagship_2d"] = run_twins(
+            lambda mode: NodeRun(dev, node_config(), world, NODE_C_SCANS), NODE_C_SCANS,
+            f"node_compiled 2d ({N_PARTICLES} x {N_BEAMS})", counts, strict, graphs, smi,
+            gl_scans=NODE_C_GL_SCANS,
+            receive=lambda node: node.map_msg_received(scenario.grid_msg(MAP_CELLS)))
+        del world
+        cfg = cli.load_config(os.path.join(ROOT, "examples", "amcl_2d.yaml")).replace(
+            save_pose=False)
+        out["amcl_2d_yaml"] = run_twins(
+            lambda mode: CliRun(dev, cfg, NODE_C_CLI_SCANS), NODE_C_CLI_SCANS,
+            f"node_compiled amcl_2d.yaml ({cfg.min_particles}-{cfg.max_particles} x "
+            f"{cfg.laser_max_beams}, CLI stream)", counts, strict, graphs, smi,
+            receive=lambda node: node.map_msg_received(make_room_grid()))
+        occ, _ = scenario.scene_3d()
+        with tempfile.TemporaryDirectory() as tmp:
+            write_bt(os.path.join(tmp, "scene.bt"), scenario.RESOLUTION_3D, occ)
+            with open(os.path.join(tmp, "scene.bt"), "rb") as f:
+                payload = f.read()
+            cfg3 = node3d_config(tmp, min_particles=NODE3D_PARTICLES,
+                                 max_particles=NODE3D_PARTICLES, laser_max_beams=NODE3D_POINTS)
+            centres = read_bt(payload).occupied_centers()
+            msg = OctomapMsg(resolution=scenario.RESOLUTION_3D, binary_data=payload)
+            out["amcl_3d_yaml"] = run_twins(
+                lambda mode: Node3DRun(dev, cfg3, payload, centres, NODE_C_3D_SCANS,
+                                       NODE3D_POINTS, init_cov=REGIMES["tracking"]),
+                NODE_C_3D_SCANS, f"node_compiled amcl_3d.yaml ({NODE3D_PARTICLES} x "
+                f"{NODE3D_POINTS})", counts, strict, graphs, smi,
+                receive=lambda node: node.octomap_msg_received(msg))
+    replayed = dict(counts.replayed)
+    for k in ("corr_table", "spread_term_sums", "lf_term_sums", "lf_extents", "pc_extents",
+              "pc_term_sums", "pc_spread_term_sums", "cluster_labels"):
+        check(replayed.get(k, 0) > 0, f"node_compiled: {k} never launched inside a replay")
+    out.update(replayed_launches=replayed, helper_calls=dict(strict.calls),
+               phase_s=time.perf_counter() - t_phase)
+    log(f"node_compiled: kernel launches inside replays {replayed}; helper calls "
+        f"{dict(strict.calls)}; the phase took {out['phase_s']:.1f} s")
+    return counts.read(), out
 
 
 def cli_truth(steps):
@@ -3912,7 +4367,7 @@ def phase_cli(dev, smi):
 
     from badger_amcl_tpu_torch import cli
 
-    counts = Launches(counters_2d())
+    counts = Launches(counters_2d(), node_graphs().values())
     box = {}
     argv = ["--config", os.path.join(ROOT, "examples", "amcl_2d.yaml"), "--sim", "--steps",
             str(CLI_STEPS), "--seed", "0"]
@@ -4017,6 +4472,7 @@ def main():
     phase_reference(dev)
     timings = phase_timings(dev, maps, scan, states)
     paths["2d_compiled"], timings["compiled"] = phase_compiled(dev, maps, scan, states)
+    timings["graph_cond"] = phase_graph_cond(dev)
     timings["range_image_bake"] = dict(seconds=bake_s, bytes=bake_bytes)
     paths["2d_cells"], timings["cells"] = phase_cells(dev, maps, scan, states)
     phase_cells_reference(dev)
@@ -4062,6 +4518,10 @@ def main():
     del omap3, cloud, states3
     torch.cuda.empty_cache()
 
+    # the nodes' graph_jit helpers attribute these kernels' launches to their arms
+    for jit in node_graphs().values():
+        jit.kernels.update(counters_2d(), **counters_3d())
+
     # the maps' distance fields at the receipt of store-sized maps
     paths["map_setup"], edt_kernels, timings["map_setup"] = phase_map_setup(dev, smi)
     kernels.update(edt_kernels)
@@ -4070,6 +4530,7 @@ def main():
     paths["node_2d"], timings["node_2d"] = phase_node(dev, smi)
     paths["node_3d"], timings["node_3d"] = phase_node_3d(dev, smi)
     paths["cli"], timings["cli"] = phase_cli(dev, smi)
+    paths["node_compiled"], timings["node_compiled"] = phase_node_compiled(dev, smi)
     launches = launch_counts(paths)
 
     meta = {

@@ -20,7 +20,9 @@
   likelihoods rtol 1e-5; equal n_active, weights and cluster count,
   >= 99.9% equal picks (after the motion update within atol 1e-5),
   statistics rtol 1e-4 / atol 1e-5 against the JAX statistics of the same
-  set. Static arguments outside the slice raise.
+  set; `sensor_resample_step_jit` with the systematic resampler (the comb's
+  start replayed from the JAX key) likewise, on the exact arms. Static
+  arguments outside the slice raise.
 """
 
 import collections
@@ -377,10 +379,28 @@ def test_mcl_step_2d_jit_matches():
     _check_state(t, j, jparams, pose_atol=1e-5)
 
 
+def test_sensor_resample_step_jit_systematic_matches():
+    """The systematic resampler inside the compiled step's slice: the JAX
+    package's jit on "xla" against the port's on "exact", the comb's start
+    the JAX resample's uniform from its key."""
+    (jmap, jparams, jstate, jscan, jsp, jpool), (tmap, tparams, tstate, tscan, tsp,
+                                                 tpool) = _setup()
+    j = jmcl.sensor_resample_step_jit(jstate, jmap, jsp, jscan, jpool, params=jparams,
+                                      resample_model=ResampleModel.SYSTEMATIC, backend="xla")
+    _, sub = jax.random.split(jstate.key)
+    start = torch.tensor(np.asarray(jax.random.uniform(sub, ())))
+    m = jparams.max_samples
+    noise = tmcl.StepNoise(odom=None, inject=torch.zeros(m), pick=torch.zeros(m), start=start)
+    t = tmcl.sensor_resample_step_jit(tstate, tmap, tsp, tscan, tpool, tparams,
+                                      resample_model=ResampleModel.SYSTEMATIC,
+                                      backend="exact", noise=noise)
+    _check_state(t, j, jparams)
+
+
 @pytest.mark.parametrize("kw", [
     dict(laser_model="beam"), dict(laser_model="likelihood_field_prob"),
-    dict(backend="corr_q"), dict(resample_model=ResampleModel.SYSTEMATIC),
-    dict(resample_contract="cell"), dict(stats_max_clusters=8), dict(do_beamskip=True)])
+    dict(backend="corr_q"), dict(resample_contract="cell"), dict(stats_max_clusters=8),
+    dict(do_beamskip=True)])
 def test_jits_refuse_what_is_outside_the_slice(kw):
     _, (tmap, tparams, tstate, tscan, tsp, tpool) = _setup()
     kw = dict(kw)

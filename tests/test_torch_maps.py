@@ -106,9 +106,10 @@ def test_port_imports_no_jax():
     through `sensor_resample_step_jit`, 3D, the
     maps' distance fields, beam, a corr_q likelihood, a fleet step, a cell-contract step under
     `profiling.trace`, a one-rank gloo sharded fleet step and its health, a
-    few Node2D scans with systematic resampling, a few Node3D scans on a
-    .bt octomap from the simulator and a three-step `cli.main --sim`) must
-    work with JAX and the JAX package made unimportable."""
+    few Node2D scans with systematic resampling and a few Node3D scans on a
+    .bt octomap from the simulator, both through the nodes' compiled
+    helpers, and a three-step `cli.main --sim`) must work with JAX and the
+    JAX package made unimportable."""
     code = textwrap.dedent("""
         import os
         import sys
@@ -200,6 +201,7 @@ def test_port_imports_no_jax():
                                 resample_model_type="systematic",
                                 saved_pose_filepath="/nonexistent/saved_pose.yaml")
         node = make_node(cfg, tf_buffer=tfb, device="cpu")
+        assert node.compiled  # the graph_jit helpers, eager on the CPU
         node.init_pose = np.array([0.5, -0.5, 0.2])
         node.init_cov = np.array([0.01, 0.01, 0.005])
         node.map_msg_received(scenario.grid_msg(448))
@@ -227,7 +229,7 @@ def test_port_imports_no_jax():
                                         laser_max_beams=32, update_min_d=0.01,
                                         saved_pose_filepath="/nonexistent/saved_pose.yaml")
         node3 = make_node(cfg3, tf_buffer=s3.tf, device="cpu")
-        assert isinstance(node3, node_3d.Node3D)
+        assert isinstance(node3, node_3d.Node3D) and node3.compiled
         node3.init_pose = s3.true_pose.copy()
         node3.octomap_msg_received(messages.OctomapMsg(resolution=0.1, binary_data=payload))
         poses3 = []
