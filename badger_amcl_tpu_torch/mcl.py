@@ -18,10 +18,10 @@ static arguments: on CUDA tensors each captures its step into a CUDA
 graph once per static key (`utils.graph.graph_jit`; every branch of the
 dispatch tree a conditional node) and replays it after that, with no host
 read inside a replay; on CPU tensors they run the step eagerly. Their
-slice: the likelihood_field and likelihood_field_gompertz models on the
-corr, lf and exact backends, the pick contract, multinomial or
-systematic resampling without a cluster cap; any other static argument
-raises.
+slice: every planar model (the prob model also with beam skipping) on
+every backend, the pick contract, multinomial or systematic resampling
+without a cluster cap; the capped statistics and the cell contract
+raise.
 """
 
 from __future__ import annotations
@@ -171,27 +171,17 @@ def default_backend(device) -> str:
 
 # --- the compiled entry points (the JAX package's jax.jit wrappers) ----------
 
-JIT_MODELS = ("likelihood_field", "likelihood_field_gompertz")
-JIT_BACKENDS = ("corr", "lf", "exact")
 _LATER = "a later slice of the compiled step (ROADMAP.md)"
 
 
-def _check_jit_slice(laser_model, backend, params=None, do_beamskip=False,
-                     resample_contract="pick"):
-    """Raise for a static argument outside the compiled step's slice (both
-    resamplers are inside it)."""
-    if laser_model not in JIT_MODELS:
-        raise ValueError(f"laser_model {laser_model!r}: the compiled step covers {JIT_MODELS}; "
-                         f"the prob and beam models are {_LATER}")
-    if backend not in JIT_BACKENDS:
-        raise ValueError(f"backend {backend!r}: the compiled step covers {JIT_BACKENDS}; "
-                         f"corr_q is {_LATER}")
-    if do_beamskip:
-        raise ValueError(f"do_beamskip: beam skipping is {_LATER}")
+def _check_jit_slice(params, resample_contract="pick"):
+    """Raise for a static argument outside the compiled step's slice: the
+    cell contract or the capped statistics (every model and backend and
+    both resamplers are inside it)."""
     if resample_contract != "pick":
         raise ValueError(f"resample_contract {resample_contract!r}: the cell contract is "
                          f"{_LATER}")
-    if params is not None and params.stats_max_clusters:
+    if params.stats_max_clusters:
         raise ValueError(f"stats_max_clusters {params.stats_max_clusters}: the capped "
                          f"statistics are {_LATER}")
 
@@ -226,7 +216,7 @@ def mcl_step_2d_jit(state: MCLState, omap, scan_params, scan, random_pose_pool,
     do_beamskip, backend). The variates are drawn before the replay; the
     alphas are part of the key (Python floats, as the motion model takes
     them)."""
-    _check_jit_slice(laser_model, backend, params, do_beamskip)
+    _check_jit_slice(params)
     dev = state.poses.device
     noise = _noise(noise, generator, state, odom=True)
     return _mcl_step_graph(
@@ -246,7 +236,7 @@ def sensor_resample_step_jit(state: MCLState, omap, scan_params, scan, random_po
     """`sensor_resample_step` compiled (the JAX package's
     sensor_resample_step_jit, the unit bench.py times; static params,
     laser_model, resample_model, backend, resample_contract)."""
-    _check_jit_slice(laser_model, backend, params, resample_contract=resample_contract)
+    _check_jit_slice(params, resample_contract)
     return _sensor_resample_graph(
         state, omap, scan_params, scan, random_pose_pool, params, laser_model,
         ResampleModel(resample_model), backend, resample_contract,
@@ -257,7 +247,6 @@ def likelihood_only_jit(state: MCLState, omap, scan_params, scan,
                         laser_model: str = "likelihood_field", backend: str = "exact"):
     """`likelihood_only` compiled (the JAX package's likelihood_only_jit,
     static laser_model, backend)."""
-    _check_jit_slice(laser_model, backend)
     return _likelihood_graph(state, omap, scan_params, scan, laser_model, backend)
 
 

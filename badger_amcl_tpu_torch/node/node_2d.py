@@ -16,8 +16,7 @@ The measurement update is `mcl.sensor_update_2d`, the JAX node's
 in log space when `laser_likelihood_log_space` is set, every other model
 with its factors folded. `_sensor_update_jit` and `_score_poses_jit` are
 its graph_jit entries (static model, do_beamskip, backend and log_space),
-which the node calls compiled where its configuration lies inside
-`mcl._check_jit_slice` (node.Node).
+which the node calls compiled for every model and backend (node.Node).
 """
 
 from __future__ import annotations
@@ -93,15 +92,6 @@ class Node2D(Node):
         self._map_version = 0
         self._corr_tex_key = None
         self._decide_compiled()
-
-    def _jit_slice_error(self) -> Optional[str]:
-        cfg = self.config
-        try:
-            mcl._check_jit_slice(cfg.laser_model_type.value, self.backend, self.params,
-                                 cfg.do_beamskip)
-        except ValueError as e:
-            return str(e)
-        return super()._jit_slice_error()
 
     # --------------------------------------------------------------- params
 

@@ -89,8 +89,7 @@ def beam_prepass(omap, spose, range_max: float):
     t_min = t_m.min()
     t_count = t_m.max() - t_min + 1
     t_rel = (t_m - t_min).clamp(0, T_MAX - 1)
-    t_occ = torch.zeros((T_MAX,), dtype=torch.bool, device=dev)
-    t_occ[t_rel.long()] = True
+    t_occ = torch.zeros((T_MAX,), dtype=torch.bool, device=dev).scatter_(0, t_rel.long(), True)
     t_n = t_occ.sum().to(torch.int32)
     t_dest, t_order = _compaction(t_occ, t_n)
     return {"ci": ci, "cj": cj, "i0": i0, "j0": j0, "j0_narrow": j0_n, "j0_tight": j0_t,
@@ -160,8 +159,7 @@ def beam_table_plain(rimg, obs, angles, t_n, t_min, t_order, org, mix: BeamMix,
     win = gather_u16(rimg, slice(None), jj[:, None], ii[None, :])  # (K, rows, PWIN_C)
     acc = torch.zeros((t_max, rows, PWIN_C), dtype=torch.float32, device=dev)
     for b in range(obs.shape[0]):
-        r = torch.minimum(win[kk[:, b]].to(torch.float32) * mix.res,
-                          torch.tensor(mix.range_max, device=dev))
+        r = torch.clamp(win[kk[:, b]].to(torch.float32) * mix.res, max=mix.range_max)
         acc = acc + beam_pz3(mix, obs[b], r)
     live = torch.arange(t_max, device=dev) < torch.clamp(t_n, min=1)
     return torch.where(live[:, None, None], acc, 0.0)

@@ -60,8 +60,7 @@ def beam_spread_prepass(omap, spose, angles):
     binv = bin_inv(k)
     sig = torch.remainder(torch.round(spose[:, 2] * binv).to(torch.int32), k)
     kap = torch.remainder(torch.round(angles.to(torch.float32) * binv).to(torch.int32), k)
-    occ = torch.zeros((k,), dtype=torch.bool, device=spose.device)
-    occ[kap.long()] = True
+    occ = torch.zeros((k,), dtype=torch.bool, device=spose.device).scatter_(0, kap.long(), True)
     n_g = occ.sum().to(torch.int32)
     _, gocc = _compaction(occ, n_g)
     return {"flat": (cj.to(torch.int64) * omap.size_x + ci).contiguous(),
@@ -72,12 +71,13 @@ def beam_spread_prepass(omap, spose, angles):
 def phi_tables(omap, params, scan, kap) -> torch.Tensor:
     """(K, V) f32: Phi[g, v] = sum over beams with offset g of pz(obs_b,
     min(v res, range_max))^3 (beam_spread_kernel.py:225-260). The segment
-    sum is an f32 `index_add_` — never TF32, unlike a matmul; on CUDA its
-    atomics add a row's beams in no fixed order, so a row may differ in the
-    last ulp between runs (the kernel and its plain version share one Phi).
-    A NaN range poisons its row, which every particle reads: calcBeamModel
-    has no NaN-beam skip, and a NaN makes every particle's p NaN, as in the
-    exact arm."""
+    sum is an f32 accumulating `index_put_` — never TF32, unlike a matmul;
+    on CUDA it sorts the beams by offset (stably) and adds each row's beams
+    in one fixed order, so every run gives the same Phi (an `index_add_`'s
+    atomics would not, and the weights and picks that follow would differ
+    between runs). A NaN range poisons its row, which every particle reads:
+    calcBeamModel has no NaN-beam skip, and a NaN makes every particle's p
+    NaN, as in the exact arm."""
     k = int(omap.range_image.shape[0])
     dev = scan.ranges.device
     mix = BeamMix.of(params, scan.range_max, omap.resolution)
@@ -85,7 +85,8 @@ def phi_tables(omap, params, scan, kap) -> torch.Tensor:
     m_v = torch.clamp(torch.arange(V, dtype=torch.float32, device=dev) * mix.res,
                       max=mix.range_max)[None, :]  # (1, V)
     phi = torch.zeros((k, V), dtype=torch.float32, device=dev)
-    return phi.index_add_(0, kap.long(), beam_pz3(mix, obs, m_v, divide=True))
+    return phi.index_put_((kap.long(),), beam_pz3(mix, obs, m_v, divide=True),
+                          accumulate=True)
 
 
 def beam_spread_sums_plain(range_rows, flat, sig, gocc, n_g, phi, cap: int):

@@ -539,14 +539,19 @@ def _dequantize(acc, qscale, nv):
             + nv_off.to(torch.float64)).to(torch.float32)
 
 
-def corr_values_q(tex_q, qscale, pre, n_beams: int, narrow: bool, fold: Fold = None):
+def corr_values_q(tex_q, qscale, pre, n_beams: int, narrow, fold: Fold = None):
     """`corr_values` over the int8 texture (corr_kernel.py:558-592): the
-    narrow (32) or standard (64) window (no tight variant), the int32 table
-    dequantized as acc * qstep + nv * qoff, per particle or, with `fold`,
-    table-side before the fused take."""
-    rows, j0 = (PWIN_R_NARROW, pre["j0_narrow"]) if narrow else (PWIN_R, pre["j0"])
-    corr = corr_table_q(tex_q, pre["off"], pre["nu"], pre["t_n"],
-                        table_origin(pre, j0, PAD_RQ), n_beams, rows)
-    if fold is not None:
-        return _folded_take(_dequantize(corr, qscale, pre["nv"]), pre, rows, j0, fold)
-    return _dequantize(corr.reshape(-1)[particle_flat(pre, rows, j0)], qscale, pre["nv"])
+    narrow (32) or standard (64) window (no tight variant), chosen by a
+    `control.cond` on narrow (a read bool, or the device flag in a
+    capture), as the JAX package's `lax.cond`; the int32 table dequantized
+    as acc * qstep + nv * qoff, per particle or, with `fold`, table-side
+    before the fused take."""
+    def run(rows, j0):
+        corr = corr_table_q(tex_q, pre["off"], pre["nu"], pre["t_n"],
+                            table_origin(pre, j0, PAD_RQ), n_beams, rows)
+        if fold is not None:
+            return _folded_take(_dequantize(corr, qscale, pre["nv"]), pre, rows, j0, fold)
+        return _dequantize(corr.reshape(-1)[particle_flat(pre, rows, j0)], qscale, pre["nv"])
+
+    return control.cond(narrow, lambda: run(PWIN_R_NARROW, pre["j0_narrow"]),
+                        lambda: run(PWIN_R, pre["j0"]), name="corr_q.window.narrow")

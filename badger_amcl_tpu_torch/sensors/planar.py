@@ -27,10 +27,9 @@ Backends:
   beam model the lattice kernel (ops.beam_kernel) where the cloud fits,
   the spread kernel (ops.beam_spread_kernel) where the transposed range
   image is baked, the raycast otherwise. Each `lax.cond` is a
-  `utils.control.cond` (the LF models' whole tree) or a branch on
-  `control.read` values (the beam model's): in an eager step a host
-  branch on values read in as few syncs as possible, in a compiled step
-  (the LF models) a conditional node of its graph;
+  `utils.control.cond`: in an eager step a host branch on values read in
+  as few syncs as possible (`control.read`), in a compiled step a
+  conditional node of its graph;
 - "corr_q" (JAX "pallas_corr_q"): the "corr" tree, except that the
   likelihood-field and Gompertz models read their table from the int8
   quantized psi texture (ops.corr_kernel.corr_table_q) where it is baked
@@ -389,36 +388,52 @@ def _beam_exact(omap, params, scan, spose):
     return 1.0 + pz3.sum(dim=1)
 
 
-def _beam_dispatch(omap, scan, spose, backend):
-    """The JAX beam dispatch (planar.py:582-619), one host sync: ("table",
-    prepass, window variant) where the cloud fits the lattice kernel's
-    window and yaw bins, ("spread", ...) where the transposed image is
-    baked and the value table covers range_max, ("exact", ...) otherwise
-    (and without a range image or off the "corr" backend)."""
-    if backend == "corr" and beam_kernel.ri_fits(omap):
-        pre = beam_kernel.beam_prepass(omap, spose, scan.range_max)
-        fits, tight, narrow = control.read(pre["fits"], pre["tight"], pre["narrow"])
-        if fits:
-            return "table", pre, corr_kernel.window_variant(pre, tight, narrow)
-        if omap.range_rows is not None and beam_spread_kernel.fits(omap, scan.range_max):
-            return "spread", None, None
-    return "exact", None, None
+def _beam_route(omap, scan, spose, backend):
+    """The beam dispatch's static part (planar.py:582-619): (the lattice
+    kernel's prepass, whose fits flag picks the table arm, or None off the
+    "corr" backend or without a range image in the kernel's gate; the slow
+    arm: "spread" where the transposed range image is baked and its value
+    table covers range_max, "exact", the raycast, otherwise)."""
+    if backend != "corr" or not beam_kernel.ri_fits(omap):
+        return None, "exact"
+    slow = ("spread" if omap.range_rows is not None
+            and beam_spread_kernel.fits(omap, scan.range_max) else "exact")
+    return beam_kernel.beam_prepass(omap, spose, scan.range_max), slow
 
 
 def beam_arm(omap, scan, spose, backend="corr") -> str:
     """Which arm of the beam dispatch a cloud takes: "table", "spread" or
-    "exact"."""
-    return _beam_dispatch(omap, scan, spose, backend)[0]
+    "exact" (an eager diagnostic: one host read of the fits flag)."""
+    pre, slow = _beam_route(omap, scan, spose, backend)
+    if pre is None:
+        return slow
+    (fits,) = control.read(pre["fits"])
+    return "table" if fits else slow
 
 
 def _beam_model(omap, params, scan, spose, backend="exact"):
-    """calcBeamModel over the JAX dispatch tree (planar.py:573-636)."""
-    arm, pre, variant = _beam_dispatch(omap, scan, spose, backend)
-    if arm == "table":
-        return beam_kernel.beam_corr_values(omap, params, scan, pre, *variant)
-    if arm == "spread":
-        return beam_spread_kernel.beam_spread_values(omap, params, scan, spose)
-    return _beam_exact(omap, params, scan, spose)
+    """calcBeamModel over the JAX dispatch tree (planar.py:573-636), routed
+    by `_beam_route`: a `control.cond` on the prepass's fits flag between
+    the lattice table (its window variant a `window_cond`) and the slow
+    arm; the raycast where there is no prepass. The three flags are read in
+    one host sync in an eager step (`control.read`)."""
+    pre, slow = _beam_route(omap, scan, spose, backend)
+    if pre is None:
+        return _beam_exact(omap, params, scan, spose)
+    fits, tight, narrow = control.read(pre["fits"], pre["tight"], pre["narrow"])
+
+    def table():
+        return corr_kernel.window_cond(
+            pre, tight, narrow,
+            lambda rows, j0: beam_kernel.beam_corr_values(omap, params, scan, pre, rows, j0),
+            name="beam.window")
+
+    def slow_arm():
+        if slow == "spread":
+            return beam_spread_kernel.beam_spread_values(omap, params, scan, spose)
+        return _beam_exact(omap, params, scan, spose)
+
+    return control.cond(fits, table, slow_arm, name="beam.fits")
 
 
 def planar_likelihood(omap, params, scan, poses, active, n_active,

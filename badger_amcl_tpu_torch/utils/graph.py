@@ -24,8 +24,12 @@ predicates and synchronises, runs with the mode off. The launch counts of
 the kernel wrappers in `.kernels` move with the warm-up's launches only:
 what the capture records is counted per replay (`Capture.replay_launches`). A key's graph, buffers and memory
 pools live until `release` drops the entries holding an object by
-reference (a node does so for the map it replaces), else as long as the
-process, as a JAX compile cache does. Random
+reference (a node does so for the map it replaces and when it goes),
+`release_where` those whose static arguments a predicate picks (a node's
+reconfiguration), or the wrapper evicts the entry as the least recently
+used of more than MAX_ENTRIES (a JAX compile cache keeps every entry; an
+entry here pins device memory). A release asked for while a call runs (a
+node collected inside it) waits for the call's end. Random
 variates are arguments, drawn before the call. On CPU tensors the step
 runs eagerly through the same helpers, as every kernel wrapper runs its
 plain version on the CPU; on CUDA tensors a call captures or raises and
@@ -48,6 +52,15 @@ from badger_amcl_tpu_torch.utils import control, tree
 
 # the arguments held by identity in the key, not copied into buffers
 _REFERENCES = ("omap", "fsi")
+# the live entries of one wrapper, beyond which the least recently used one
+# goes. Each entry pins its buffers and pools on the card, ~13 MB for a 3D
+# node's key at 50,000 particles, and a new key costs its warm-up and
+# capture, ~35 ms of a scan (chip_smoke.py's "entries" lines, NVIDIA H100
+# 80GB HBM3 at 700 W; PERF.md). A node keeps 1-3 keys a helper, and a
+# 128-point cloud budget decimates raw clouds of 200-5,000 points to ~20
+# sizes: 16 keeps such a stream resident and caps what ever-new sizes pin
+# at ~0.2 GB a helper
+MAX_ENTRIES = 16
 
 
 class Capture:
@@ -173,28 +186,73 @@ class Entry:
     references: dict
     capture_s: float
     replays: int = 0
+    static: dict = dataclasses.field(default_factory=dict)
 
 
-def graph_jit(fn, static_argnames):
-    """fn compiled per static key into a CUDA graph (module docstring).
-    `wrapper.entries` maps each key to its `Entry`; `wrapper.captures`
-    counts the captures (one per key); `wrapper.kernels` ({name: kernel
-    wrapper}, empty unless a caller fills it) names the kernels whose
-    launches each later capture attributes to its arms;
-    `wrapper.release(obj)` drops every entry holding obj by reference."""
-    sig = inspect.signature(fn)
-    entries = {}
+# while a call runs, from its lookup to its replay (_deferring_drops): the
+# releases asked for in it (a node collected there) and the graphs of the
+# entries dropped in it wait for its end
+_PENDING = []  # (entries, key, entry, tally) released while a call runs
+_DEFERRED = []  # (entry, tally) dropped while a call runs
+_busy = [0]
 
-    def capture(bound, leaves, spec, references):
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            return capture_step(bound, leaves, spec, references)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
 
-    def capture_step(bound, leaves, spec, references):
-        wrapper.captures += 1
+@contextlib.contextmanager
+def _sync_mode(mode):
+    """torch.cuda's sync debug mode set to `mode` for the block."""
+    saved = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(saved)
+
+
+def _destroy(entry: Entry, tally: collections.Counter) -> None:
+    """Destroy a dropped entry's graph (its own pool goes back with it) and
+    release its arms' pool, or defer that until the running call ends.
+    Where its capture attributed kernel launches, add those of its replays
+    to `tally` (one host read)."""
+    if _busy[0]:
+        _DEFERRED.append((entry, tally))
+        return
+    if entry.replays and any(entry.capture.launches.values()):
+        with _sync_mode(0):
+            tally.update(entry.capture.replay_launches(entry.replays))
+    del entry.graph
+    entry.capture.release()
+
+
+@contextlib.contextmanager
+def _deferring_drops():
+    """While a call runs, every release asked for and every dropped
+    entry's destruction wait for its end."""
+    _busy[0] += 1
+    try:
+        yield
+    finally:
+        _busy[0] -= 1
+        while not _busy[0] and (_PENDING or _DEFERRED):
+            if _PENDING:
+                entries, key, entry, tally = _PENDING.pop()
+                if entries.get(key) is entry:
+                    del entries[key]
+                    _destroy(entry, tally)
+            else:
+                _destroy(*_DEFERRED.pop())
+
+
+def _captures_on(device: torch.device) -> bool:
+    """Whether a call on tensors of this device captures a graph (CUDA) or
+    runs its function eagerly."""
+    return device.type == "cuda"
+
+
+def _capture(fn, bound, leaves, spec, references, kernels, static) -> Entry:
+    """A new key's entry: its buffers, the warm-up with every arm run, then
+    the capture, with the sync debug mode off (a capture reads predicates
+    and synchronises)."""
+    with _sync_mode(0):
         graph_cond.load_library()
         inputs = [t.clone() for t in leaves]
         args = dict(bound.arguments, **tree.unflatten(spec, inputs))
@@ -205,7 +263,7 @@ def graph_jit(fn, static_argnames):
             fn(**args)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
-        cap = Capture(dev, wrapper.kernels)
+        cap = Capture(dev, kernels)
         graph = torch.cuda.CUDAGraph()
         counted = {k: k_fn.launches for k, k_fn in cap.kernels.items()}
         t0 = time.perf_counter()
@@ -214,7 +272,24 @@ def graph_jit(fn, static_argnames):
         torch.cuda.synchronize(dev)
         for k, k_fn in cap.kernels.items():  # recorded, not launched
             k_fn.launches = counted[k]
-        return Entry(graph, inputs, outputs, cap, references, time.perf_counter() - t0)
+        return Entry(graph, inputs, outputs, cap, references, time.perf_counter() - t0,
+                     static=static)
+
+
+def graph_jit(fn, static_argnames):
+    """fn compiled per static key into a CUDA graph (module docstring).
+    `wrapper.entries` maps each live key to its `Entry`, least recently
+    used first, at most MAX_ENTRIES of them; `wrapper.captures` counts the
+    captures (one per key while it lives) and `wrapper.evictions` the
+    entries evicted; `wrapper.kernels` ({name: kernel wrapper}, empty
+    unless a caller fills it) names the kernels whose launches each later
+    capture attributes to its arms, and `wrapper.dropped_launches` counts
+    those launched in the replays of the entries dropped so far;
+    `wrapper.release(obj)` drops every entry holding obj by reference,
+    `wrapper.release_where(pred)` every entry whose static arguments
+    ({name: value}) pred accepts."""
+    sig = inspect.signature(fn)
+    entries = collections.OrderedDict()
 
     def bind(args, kwargs):
         """(bound arguments, those held by reference, flattening spec,
@@ -231,7 +306,7 @@ def graph_jit(fn, static_argnames):
         if len(devices) != 1:
             raise ValueError(f"{fn.__name__}: the tensors must lie on one device, got "
                              f"{sorted(map(str, devices))}")
-        if devices.pop().type != "cuda":
+        if not _captures_on(devices.pop()):
             return bound, references, spec, leaves, None
         key = (static, tuple((k, id(v)) for k, v in references.items()), spec,
                tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
@@ -242,28 +317,51 @@ def graph_jit(fn, static_argnames):
         bound, references, spec, leaves, key = bind(args, kwargs)
         if key is None:
             return fn(**bound.arguments)
-        entry = entries.get(key)
-        if entry is None:
-            entry = entries[key] = capture(bound, leaves, spec, references)
-        for buf, t in zip(entry.inputs, leaves):
-            buf.copy_(t)
-        entry.graph.replay()
-        entry.replays += 1
-        return tree.map_tensors(torch.clone, entry.outputs)
+        with _deferring_drops():
+            entry = entries.get(key)
+            if entry is None:
+                while len(entries) >= MAX_ENTRIES:  # the least recently used goes first
+                    _destroy(entries.popitem(last=False)[1], wrapper.dropped_launches)
+                    wrapper.evictions += 1
+                wrapper.captures += 1
+                entry = entries[key] = _capture(fn, bound, leaves, spec, references,
+                                                wrapper.kernels, dict(key[0]))
+            entries.move_to_end(key)
+            for buf, t in zip(entry.inputs, leaves):
+                buf.copy_(t)
+            entry.graph.replay()
+            entry.replays += 1
+            return tree.map_tensors(torch.clone, entry.outputs)
+
+    def drop(key):
+        """Drop one entry: its graph, buffers, arm pool and its hold on what
+        it references; inside a call, once the call ends."""
+        if _busy[0]:
+            _PENDING.append((entries, key, entries[key], wrapper.dropped_launches))
+            return
+        _destroy(entries.pop(key), wrapper.dropped_launches)
+
+    def release_where(pred) -> int:
+        """Drop every entry whose static arguments ({name: value}) pred
+        accepts; returns how many."""
+        dead = [k for k, e in entries.items() if pred(e.static)]
+        for k in dead:
+            drop(k)
+        return len(dead)
 
     def release(obj) -> int:
-        """Drop every entry holding obj by reference (its graph, buffers,
-        pools and its hold on obj); returns how many."""
+        """Drop every entry holding obj by reference; returns how many."""
         dead = [k for k, e in entries.items()
                 if any(v is obj for v in e.references.values())]
         for k in dead:
-            entry = entries.pop(k)
-            del entry.graph  # the graph's own pool goes back with it
-            entry.capture.release()
+            drop(k)
         return len(dead)
 
     wrapper.entries = entries
     wrapper.release = release
+    wrapper.release_where = release_where
     wrapper.captures = 0
+    wrapper.evictions = 0
     wrapper.kernels = {}
+    wrapper.dropped_launches = collections.Counter()
     return wrapper

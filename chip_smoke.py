@@ -23,8 +23,8 @@ the port's three paths:
   steady, tracking, spread, steady_lf, gompertz_steady and gompertz_spread
   cells at 50,000 x 720: 10 chained steps equal to the eager step on the
   same variates (poses, weights, n_active, converged and the integer
-  statistics bit for bit, the float statistics, a float index_add_,
-  within 1e-4), the same arms as the eager step (the compiled arms from
+  statistics bit for bit, the float statistics, float64 sums rounded to
+  float32, within 1e-4), the same arms as the eager step (the compiled arms from
   device counters), 0 host syncs inside the compiled calls (replays under
   sync debug mode "error"), one capture a key, compiled and eager step_ms,
   device busy and idle share; the cluster-labelling kernel
@@ -35,7 +35,12 @@ the port's three paths:
   and the labelling kernel must launch inside replays (path "2d_compiled"),
   and every path counts the labelling kernel's launches; the IF nodes of
   csrc/graph_cond.cu: 16 chained conds against the same adds without
-  conds (replay ms per IF node, the handle kernel's device time);
+  conds (replay ms per IF node, the handle kernel's device time); the
+  grid arms (the KLD stop's prefix scan past MAX_UNIQUE_BINS, the wide
+  statistics past MAX_FAST_CLUSTERS) inside replays: 10 chained replays of
+  `sensor_resample_step_jit` on 50,000 poses spread over the map's free
+  cells equal to the eager step, the device arm counters showing both
+  arms;
 - 2D beam, Gompertz and prob models: bakes the K = 256 range image of the
   1024^2 map on the card (and a 256^2 map on the card and the CPU, which
   must agree bit for bit), holds the beam_table kernel (bit-equal, at its
@@ -146,7 +151,11 @@ the port's three paths:
 - the nodes' compiled helpers (the JAX nodes' seven jax.jit helpers as
   graph_jit entries, which every node above calls where its configuration
   lies inside the compiled slice): the flagship 2D node (50,000 x 720, 30
-  tracking scans and 4 after global localization), examples/amcl_2d.yaml
+  tracking scans and 4 after global localization), the same node on
+  corr_q, with the prob model in log space with and without beam
+  skipping, and with the beam model and its range image baked (20
+  tracking scans each from the tracking covariance, the prob and beam
+  nodes 4 more after global localization), examples/amcl_2d.yaml
   unchanged on the CLI's map and stream (8,000 x 60, the pool's score
   rejection) and examples/amcl_3d.yaml at 50,000 x 256 on the scene, each
   beside an eager twin (same config, seed and stream, its helpers
@@ -154,10 +163,21 @@ the port's three paths:
   the published poses within 1e-4, the device arm counters equal to the
   twin's arms, every helper call held to sync debug mode "error" (no host
   read inside a replay), one capture per new key, no entry holding the
-  old map after a second map receipt, #1, #3, #4, #9, #10 and the
-  labelling kernel launched inside replays; per twin the scan_received
-  medians (update-only, resampling), host syncs, device busy and idle
-  share, score rounds and ms per round, pose errors.
+  old map after a second map receipt, #1, #3, #4 (sums, extents and
+  counts), #6, #7, #8, #9, #10 and the labelling kernel launched inside
+  replays; per twin the scan_received medians (update-only, resampling),
+  host syncs, device busy and idle share, score rounds and ms per round,
+  pose errors;
+- the compiled entries, bounded: the compiled 3D node
+  (examples/amcl_3d.yaml, 50,000 particles) fed 40 clouds of seeded raw
+  sizes in [200, 5000] (each decimated size a new key), reconfigured
+  three times with new alphas, then dropped: per scan the live entries
+  per helper (at or under utils.graph.MAX_ENTRIES), captures, capture
+  seconds and memory_reserved; no entry keyed on a replaced
+  configuration that no live node holds; after the drop no entry holding
+  its map, the map freed,
+  and memory_reserved after empty_cache within 5% of its value before the
+  node was built.
 
 The launch counters are set to 0 just before each main-path run and read
 just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
@@ -752,23 +772,33 @@ class Launches:
         self.replayed = collections.Counter()
 
     def _replay_state(self):
-        return {id(e): (e.replays, e.capture.arm_counts())
-                for g in self.graphs for e in g.entries.values()}
+        """{graph: ({id: (entry, replays, arm counts)} of its live entries,
+        held so that no entry captured in a run takes one's id; the
+        launches of its dropped entries' replays so far)}."""
+        return {g: ({id(e): (e, e.replays, e.capture.arm_counts()) for e in g.entries.values()},
+                    collections.Counter(g.dropped_launches)) for g in self.graphs}
 
     def run(self, fn, n_steps):
         for c in self.counters.values():
             c.launches = 0
-        before = self._replay_state() if self.graphs else {}
+        before = self._replay_state()
         fn()
         rose = {k: c.launches for k, c in self.counters.items()}
-        for g in self.graphs:
-            for e in g.entries.values():
-                replays0, arms0 = before.get(id(e), (0, {}))
+        for g, (live0, dropped0) in before.items():
+            replayed = collections.Counter(g.dropped_launches)
+            replayed.subtract(dropped0)  # the replays of the entries dropped in the run ...
+            live = {id(e): e for e in g.entries.values()}
+            for i, (e, replays0, arms0) in live0.items():
+                if i not in live:  # ... less those before it
+                    replayed.subtract(e.capture.replay_launches(replays0, arms0))
+            for i, e in live.items():
+                _, replays0, arms0 = live0.get(i, (e, 0, {}))
                 arms = {k: v - arms0.get(k, 0) for k, v in e.capture.arm_counts().items()}
-                for k, n in e.capture.replay_launches(e.replays - replays0, arms).items():
-                    if k in rose:
-                        rose[k] += n
-                        self.replayed[k] += n
+                replayed.update(e.capture.replay_launches(e.replays - replays0, arms))
+            for k, n in replayed.items():
+                if k in rose and n:
+                    rose[k] += n
+                    self.replayed[k] += n
         for k, r in rose.items():
             self.launches[k] += r
             if r > 0:
@@ -1155,11 +1185,11 @@ def phase_timings(dev, maps, scan, states):
 COMPILED_CELLS = ("steady", "tracking", "spread", "steady_lf", "gompertz_steady",
                   "gompertz_spread")
 COMPILED_CHAIN = 10
-# the statistics' segment sums are a float index_add_ (atomics: the eager
-# step itself sums them in another order on every call, up to 7.6e-5 apart
-# in the spread cell's covariance in S1), so the float statistics are held
-# to the card-vs-CPU checks' 1e-4 (the node reference's weights and poses)
-# as a relative and an absolute tolerance, everything else bit for bit
+# the statistics' segment sums are a float64 index_add_ rounded to float32
+# (its atomics add in no fixed order, so a sum near a float32 rounding
+# boundary may round either way), so the float statistics are held to the
+# card-vs-CPU checks' 1e-4 (the node reference's weights and poses) as a
+# relative and an absolute tolerance, everything else bit for bit
 STATS_TOL = 1e-4
 
 
@@ -1334,8 +1364,8 @@ def graph_arms(graph):
 def compare_chain(label, eager, compiled):
     """The eager and the compiled chain, step by step: poses, weights,
     n_active, converged and the integer statistics bit for bit, the float
-    statistics within STATS_TOL; returns the largest difference of each
-    float statistic."""
+    statistics within STATS_TOL (relative and absolute); returns the largest
+    difference of each float statistic."""
     import torch
 
     worst = collections.Counter()
@@ -1351,7 +1381,7 @@ def compare_chain(label, eager, compiled):
             worst[name] = max(worst[name], float((a - b).abs().max()))
             check(torch.allclose(a, b, rtol=STATS_TOL, atol=STATS_TOL),
                   f"{label} step {k}: stats.{name} differs by {worst[name]:.3e}, beyond rtol "
-                  f"and atol {STATS_TOL} (index_add_)")
+                  f"and atol {STATS_TOL}")
     return dict(worst)
 
 
@@ -1464,7 +1494,7 @@ def phase_compiled(dev, maps, scan, states):
                 f"{ea['host_syncs_per_step']}")
             log(f"{label}: {COMPILED_CHAIN} chained steps equal to the eager step (poses, "
                 f"weights, n_active, converged, integer statistics bit for bit; float "
-                f"statistics max diff {stats_diff}, index_add_); arms "
+                f"statistics max diff {stats_diff}); arms "
                 f"{dict(compiled_arms)}; keys {keys} (new: {new_keys}), captures {captures} "
                 f"(one a key), "
                 f"capture s {[round(x, 4) for x in entry_s]}, first call {first_s:.3f} s; "
@@ -1492,6 +1522,7 @@ def phase_compiled(dev, maps, scan, states):
         for entry in graph.entries.values():
             launches.update(entry.capture.replay_launches(entry.replays))
             replays += entry.replays
+        launches.update(graph.dropped_launches)  # and those of the entries it dropped
     for k in ("corr_table", "spread_term_sums", "lf_term_sums", "lf_extents",
               "cluster_labels"):
         check(launches[k] > 0, f"the compiled path never launched {k} in a replay")
@@ -3947,7 +3978,24 @@ NODE_C_GL_SCANS = 4
 NODE_C_BUSY_SCANS = 4
 NODE_C_CLI_SCANS = 30
 NODE_C_3D_SCANS = 24
-POSE_TOL = 1e-4  # m / rad: compiled vs eager published poses (index_add_ statistics)
+NODE_C_MODEL_SCANS = 20
+# the flagship node with each model or backend the compiled step took in
+# last: {label: (config keys, initial covariance, scans after global
+# localization)}. The beam node tracks with precise odometry from the steady
+# covariance: its lattice window spans 64 yaw bins of 1/160 rad, and at the
+# default alphas (0.2) one motion update spreads the cloud's yaw past that,
+# so every scan took the spread arm (#8)
+NODE_C_BEAM_ALPHAS = {f"odom_alpha{i}": 0.005 for i in range(1, 5)}
+NODE_C_MODELS = {
+    "corr_q": (dict(compute_backend="pallas_corr_q"), "tracking", 0),
+    "prob_log": (dict(laser_model_type="likelihood_field_prob",
+                      laser_likelihood_log_space=True), "tracking", NODE_C_GL_SCANS),
+    "prob_log_beamskip": (dict(laser_model_type="likelihood_field_prob",
+                               laser_likelihood_log_space=True, do_beamskip=True),
+                          "tracking", 0),
+    "beam": (dict(laser_model_type="beam", **NODE_C_BEAM_ALPHAS), "steady", NODE_C_GL_SCANS),
+}
+POSE_TOL = 1e-4  # m / rad: compiled vs eager published poses (as STATS_TOL)
 # the helpers the strict wrappers stand in for, {module name: helper names}
 NODE_HELPERS = {"node": ("_motion_update_jit", "_resample_jit", "_uniform_pool_jit"),
                 "node_2d": ("_sensor_update_jit", "_score_poses_jit"),
@@ -4168,7 +4216,8 @@ def run_twins(make, n, label, counts, strict, graphs, smi, gl_scans=0, receive=N
                                            f"({twins['compiled'].node.compiled_reason})")
     twins["eager"].node.compiled, twins["eager"].node.compiled_reason = False, "eager twin"
     captures0 = {k: g.captures for k, g in graphs.items()}
-    entries0 = {id(e) for g in graphs.values() for e in g.entries.values()}
+    # held, so that no entry of this run takes the id of one released in it
+    entries0 = {id(e): e for g in graphs.values() for e in g.entries.values()}
     t0 = time.perf_counter()
     rows, rounds, captured, w, p, arms, eager_arms = drive_twins(twins, n, label, counts,
                                                                  strict, graphs)
@@ -4216,14 +4265,18 @@ def phase_node_compiled(dev, smi):
     """The nodes' compiled helpers on the card, each node beside an eager
     twin (same config, seed and stream; its helpers run uncaptured): the
     flagship 2D node at 50,000 x 720 (30 tracking scans, 4 after global
-    localization), examples/amcl_2d.yaml unchanged on the CLI's map and
-    stream (8,000 x 60, score rejection) and examples/amcl_3d.yaml at
-    50,000 x 256 on the scene. Checks at every scan n_active and the
-    particle poses equal and the published poses within POSE_TOL, the
-    arms equal, no host read inside a replay (sync debug mode "error"),
-    the old map's entries gone after a second receipt, and #1, #3, #4,
-    #9, #10 and cluster_labels launched inside replays. Returns (the path's
-    launch counts, timings)."""
+    localization), the same node with each model the compiled step took in
+    last (NODE_C_MODELS: corr_q, the prob model in log space with and
+    without beam skipping, the beam model with its range image baked;
+    NODE_C_MODEL_SCANS tracking scans, then global localization where
+    given), examples/amcl_2d.yaml unchanged on the CLI's map and stream
+    (8,000 x 60, score rejection) and examples/amcl_3d.yaml at 50,000 x
+    256 on the scene. Checks at every scan n_active and the particle poses
+    equal and the published poses within POSE_TOL, the arms equal, no host
+    read inside a replay (sync debug mode "error"), the old map's entries
+    gone after a second receipt, and #1, #3, #4 (its sums, extents and
+    counts), #6, #7, #8, #9, #10 and cluster_labels launched inside
+    replays. Returns (the path's launch counts, timings)."""
     import tempfile
 
     from badger_amcl_tpu_torch import cli, scenario
@@ -4244,6 +4297,12 @@ def phase_node_compiled(dev, smi):
             f"node_compiled 2d ({N_PARTICLES} x {N_BEAMS})", counts, strict, graphs, smi,
             gl_scans=NODE_C_GL_SCANS,
             receive=lambda node: node.map_msg_received(scenario.grid_msg(MAP_CELLS)))
+        for label, (kw, regime, gl) in NODE_C_MODELS.items():
+            out[label] = run_twins(
+                lambda mode, kw=kw, regime=regime: NodeRun(
+                    dev, node_config(**kw), world, NODE_C_MODEL_SCANS, init_cov=REGIMES[regime]),
+                NODE_C_MODEL_SCANS, f"node_compiled {label} ({N_PARTICLES} x {N_BEAMS})",
+                counts, strict, graphs, smi, gl_scans=gl)
         del world
         cfg = cli.load_config(os.path.join(ROOT, "examples", "amcl_2d.yaml")).replace(
             save_pose=False)
@@ -4269,13 +4328,308 @@ def phase_node_compiled(dev, smi):
                 receive=lambda node: node.octomap_msg_received(msg))
     replayed = dict(counts.replayed)
     for k in ("corr_table", "spread_term_sums", "lf_term_sums", "lf_extents", "pc_extents",
-              "pc_term_sums", "pc_spread_term_sums", "cluster_labels"):
+              "pc_term_sums", "pc_spread_term_sums", "cluster_labels", "corr_table_q",
+              "lf_obs_counts", "beam_table", "beam_spread_sums"):
         check(replayed.get(k, 0) > 0, f"node_compiled: {k} never launched inside a replay")
     out.update(replayed_launches=replayed, helper_calls=dict(strict.calls),
                phase_s=time.perf_counter() - t_phase)
     log(f"node_compiled: kernel launches inside replays {replayed}; helper calls "
         f"{dict(strict.calls)}; the phase took {out['phase_s']:.1f} s")
     return counts.read(), out
+
+
+# --- the compiled entries, bounded ---------------------------------------------
+
+ENTRY_SCANS = 40
+ENTRY_SIZES = (200, 5000)  # raw cloud points, drawn per scan
+ENTRY_SEED = 23
+ENTRY_ALPHAS = (0.15, 0.25, 0.35)  # odom_alpha1..5 of each reconfiguration
+# scans after each reconfiguration: the first initialises the odometry, the
+# second its integrator, the third runs the motion model (its new key)
+ENTRY_SCANS_AFTER = 3
+RESERVED_TOL = 0.05  # memory_reserved after the drop, relative to before the node
+
+
+class SizedCloudRun(Node3DRun):
+    """A Node3DRun whose clouds have the raw sizes `sizes` in turn (capped
+    at the scene's voxel centres 0.5-6 m around the pose)."""
+
+    def __init__(self, dev, cfg, payload, occ, n_scans, sizes, init_cov=None):
+        self.sizes = iter(sizes)
+        super().__init__(dev, cfg, payload, occ, n_scans, 0, init_cov=init_cov)
+
+    def make_scan(self, pose, t):
+        import numpy as np
+
+        d = np.hypot(self.occ[:, 0] - pose[0], self.occ[:, 1] - pose[1])
+        self.n_points = min(int(next(self.sizes)), int(((d > 0.5) & (d < 6.0)).sum()))
+        return super().make_scan(pose, t)
+
+
+def entry_figures(graphs):
+    """({helper: live entries}, {helper: captures so far}, torch's reserved
+    bytes) after a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    return ({k: len(g.entries) for k, g in graphs.items()},
+            {k: g.captures for k, g in graphs.items()}, torch.cuda.memory_reserved())
+
+
+def phase_entries_bound(dev, smi):
+    """The compiled 3D node (examples/amcl_3d.yaml, 50,000 particles) fed
+    ENTRY_SCANS clouds whose raw sizes are drawn from ENTRY_SIZES (seeded):
+    every decimated size is a new key of the sensor update and the pose
+    score. Per scan the live entries per helper, the captures, their
+    seconds and torch.cuda.memory_reserved(); then three reconfigurations
+    with new alphas, each followed by ENTRY_SCANS_AFTER scans; then the
+    node dropped. Checks live entries at or under utils.graph.MAX_ENTRIES
+    at every scan, no entry keyed on a replaced configuration's alphas or
+    PFParams that no live node holds, no entry holding the dropped node's
+    map, which is freed, and memory_reserved after the drop and
+    empty_cache within RESERVED_TOL of its value before the node was
+    built. Returns the figures."""
+    import gc
+    import tempfile
+    import weakref
+
+    import numpy as np
+    import torch
+
+    from badger_amcl_tpu_torch import scenario
+    from badger_amcl_tpu_torch.maps.octree_io import read_bt, write_bt
+    from badger_amcl_tpu_torch.node import node as node_mod
+    from badger_amcl_tpu_torch.utils import graph as graph_mod
+
+    bound = graph_mod.MAX_ENTRIES
+    graphs = node_graphs()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    live0, _, reserved0 = entry_figures(graphs)
+    n_after = len(ENTRY_ALPHAS) * ENTRY_SCANS_AFTER
+    sizes = np.random.default_rng(ENTRY_SEED).integers(ENTRY_SIZES[0], ENTRY_SIZES[1] + 1,
+                                                       ENTRY_SCANS + n_after)
+    occ, _ = scenario.scene_3d()
+    rows = []
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_bt(os.path.join(tmp, "scene.bt"), scenario.RESOLUTION_3D, occ)
+        with open(os.path.join(tmp, "scene.bt"), "rb") as f:
+            payload = f.read()
+        cfg = node3d_config(tmp, min_particles=NODE3D_PARTICLES, max_particles=NODE3D_PARTICLES)
+        run = SizedCloudRun(dev, cfg, payload, read_bt(payload).occupied_centers(), ENTRY_SCANS,
+                            sizes, init_cov=REGIMES["tracking"])
+        check(run.node.compiled, f"entries: the 3D node is not compiled "
+                                 f"({run.node.compiled_reason})")
+
+        def scan(label):
+            ids0 = {id(e): e for g in graphs.values() for e in g.entries.values()}
+            live_b, caps0, _ = entry_figures(graphs)
+            t0 = time.perf_counter()
+            run.feed()
+            live, caps, reserved = entry_figures(graphs)
+            new = [round(e.capture_s, 4) for g in graphs.values() for e in g.entries.values()
+                   if id(e) not in ids0]
+            row = dict(scan=label, raw_points=int(run.scans[run.k - 1][1].points.shape[0]),
+                       points=int(run.node.latest_points_base.shape[0]),
+                       wall_s=time.perf_counter() - t0, live=live,
+                       captures=sum(caps.values()) - sum(caps0.values()), capture_s=new,
+                       reserved_gb=reserved / 1e9)
+            rows.append(row)
+            log(f"entries scan {label}: {row['raw_points']} -> {row['points']} points, "
+                f"{row['wall_s']:.3f} s; live {live}; captures {row['captures']} "
+                f"({new} s); reserved {row['reserved_gb']:.3f} GB")
+            over = {k: n for k, n in live.items() if n > bound}
+            check(not over, f"entries scan {label}: {over} live entries over the bound {bound}")
+            return row
+
+        for k in range(ENTRY_SCANS):
+            scan(k)
+        motion, resample = node_mod._motion_update_jit, node_mod._resample_jit
+        reconf = []
+        for i, alpha in enumerate(ENTRY_ALPHAS):
+            old_cfg, old_params = run.node.config, run.node.params
+            old_alphas = tuple(float(getattr(old_cfg, f"odom_alpha{j}")) for j in range(1, 6))
+            run.node.reconfigure(old_cfg.replace(**{f"odom_alpha{j}": alpha
+                                                    for j in range(1, 6)}))
+            # the replaced values' entries, where no other live node holds them
+            others = {name: node_mod._HOLDERS[name, v]
+                      for name, v in (("alphas", old_alphas), ("params", old_params))}
+            stale = (sum(1 for key in motion.entries if dict(key[0])["alphas"] == old_alphas
+                         and not others["alphas"])
+                     + sum(1 for key in resample.entries if dict(key[0])["params"] == old_params
+                           and not others["params"]))
+            run.extend(ENTRY_SCANS_AFTER)
+            for k in range(ENTRY_SCANS_AFTER):
+                scan(f"r{i}.{k}")
+            reconf.append(dict(alphas=alpha, stale_entries=stale, other_holders=others,
+                               motion_entries=len(motion.entries)))
+            log(f"entries reconfigure {i} (alphas {alpha}): {stale} entries keyed on the "
+                f"replaced alphas / PFParams left (other live nodes holding them {others}); "
+                f"motion model entries {len(motion.entries)}")
+            check(stale == 0, f"entries reconfigure {i}: {stale} entries keyed on the "
+                              f"replaced configuration")
+        held = weakref.ref(run.node.map)
+        live_before_drop, _, reserved_before_drop = entry_figures(graphs)
+        del run
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        live_after, caps_after, reserved_after = entry_figures(graphs)
+        holding = sum(1 for g in graphs.values() for e in g.entries.values()
+                      for v in e.references.values() if v is held())
+    drift = (reserved_after - reserved0) / max(reserved0, 1)
+    captured = [r for r in rows if r["captures"]]
+    per_entry = [r["reserved_gb"] - p["reserved_gb"] for p, r in zip(rows, rows[1:])
+                 if r["captures"]]
+    out = dict(bound=bound, scans=rows, reconfigure=reconf, live_before=live0,
+               reserved_gb_before=reserved0 / 1e9, live_before_drop=live_before_drop,
+               reserved_gb_before_drop=reserved_before_drop / 1e9, live_after_drop=live_after,
+               reserved_gb_after_drop=reserved_after / 1e9, reserved_drift=drift,
+               map_freed=held() is None, entries_holding_map=holding,
+               capture_scans=len(captured), captures=sum(r["captures"] for r in rows),
+               capture_s=[x for r in rows for x in r["capture_s"]],
+               reserved_gb_per_capture_scan=per_entry,
+               wall_s_capture_scans=[r["wall_s"] for r in captured],
+               wall_s_other_scans=[r["wall_s"] for r in rows if not r["captures"]],
+               phase_s=time.perf_counter() - t_phase, device=smi)
+    log(f"entries ({smi}): bound {bound}; {out['captures']} captures over {len(rows)} scans "
+        f"({len(captured)} scans captured), capture s median "
+        f"{statistics.median(out['capture_s']) if out['capture_s'] else 0:.4f}; scan wall s "
+        f"median with a capture {statistics.median(out['wall_s_capture_scans'] or [0]):.4f}, "
+        f"without {statistics.median(out['wall_s_other_scans'] or [0]):.4f}; reserved GB "
+        f"before the node {reserved0 / 1e9:.3f}, before the drop "
+        f"{reserved_before_drop / 1e9:.3f}, after the drop and empty_cache "
+        f"{reserved_after / 1e9:.3f} ({drift:+.4f}); live entries before {live0}, before the "
+        f"drop {live_before_drop}, after {live_after}; the map freed {held() is None}, "
+        f"{holding} entries holding it; the phase took {out['phase_s']:.1f} s")
+    check(held() is None and holding == 0, "entries: the dropped node's map is still held")
+    check(abs(drift) <= RESERVED_TOL,
+          f"entries: memory_reserved {reserved_after / 1e9:.3f} GB after the drop, "
+          f"{drift:+.4f} of the {reserved0 / 1e9:.3f} GB before the node")
+    return out
+
+
+# --- the compiled grid arms inside replays ----------------------------------------
+
+GRID_ARMS = ("resample.u_count:false", "cluster.stats_width:false")
+GRID_SEED = 21
+
+
+def map_spread_state(omap, params, seed):
+    """An MCLState of max_samples poses on free cells of the map drawn
+    uniformly (a global localization's cloud) with uniform yaw, from a
+    seeded numpy generator."""
+    import numpy as np
+    import torch
+
+    from badger_amcl_tpu_torch.pf import filter as pf_filter
+
+    fsi = omap.free_space_indices()
+    rng = np.random.default_rng(seed)
+    ij = fsi[rng.integers(0, len(fsi), params.max_samples)]
+    xy = ((ij - np.array([omap.size_x // 2, omap.size_y // 2])) * omap.resolution
+          + np.array([omap.origin_x, omap.origin_y]))
+    yaw = rng.uniform(-math.pi, math.pi, params.max_samples)
+    poses = np.concatenate([xy, yaw[:, None]], axis=1).astype(np.float32)
+    return pf_filter.init_with_poses(params, torch.as_tensor(poses, device=omap.device))
+
+
+def unique_bins(poses, params):
+    """The KLD bins a set of poses occupies (the resampler's u_count)."""
+    import torch
+
+    from badger_amcl_tpu_torch.pf import kld
+
+    ones = torch.ones((poses.shape[0],), dtype=torch.bool, device=poses.device)
+    _, flat = kld.grid_cells(kld.bin_keys(poses), ones, params.hist_shape)
+    return int(kld.sort_by_bin(flat, ones)[3].sum())
+
+
+def phase_grid_arms(dev, omap, scan, pool):
+    """The compiled step's grid arms inside replays: the KLD stop's prefix
+    scan past MAX_UNIQUE_BINS occupied bins (resample.u_count:false) and
+    the wide statistics past MAX_FAST_CLUSTERS clusters
+    (cluster.stats_width:false). sensor_resample_step_jit (likelihood_field
+    on "corr": the spread arm) on 50,000 poses spread uniformly over the
+    1024^2 map's free cells: COMPILED_CHAIN chained replays against the
+    eager step on the same variates (compare_chain), the device arm
+    counters over those replays against the eager arms, 0 host syncs; both
+    arms must be taken in the replays. Returns the figures."""
+    import torch
+
+    from badger_amcl_tpu_torch import mcl
+    from badger_amcl_tpu_torch.pf import cluster
+    from badger_amcl_tpu_torch.pf.types import PFParams
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+    from badger_amcl_tpu_torch.utils import control
+    from badger_amcl_tpu_torch.utils.numerics import SYNCS
+
+    sp = PlanarScanParams()
+    params = PFParams(min_samples=N_PARTICLES, max_samples=N_PARTICLES)
+    state = map_spread_state(omap, params, GRID_SEED)
+    graph = mcl.sensor_resample_step_jit.graph
+    out = {"unique_bins": unique_bins(state.poses, params),
+           "max_unique_bins": cluster.MAX_UNIQUE_BINS,
+           "max_fast_clusters": cluster.MAX_FAST_CLUSTERS}
+
+    def case(label, omap_k):
+        gen = torch.Generator(device=dev).manual_seed(GRID_SEED)
+        noises = [mcl.StepNoise.draw(gen, N_PARTICLES, dev, odom=False)
+                  for _ in range(COMPILED_CHAIN)]
+        captures0 = graph.captures
+        mcl.sensor_resample_step_jit(state, omap_k, sp, scan, pool, params, backend="corr",
+                                     noise=noises[0])
+        control.ARMS.clear()
+        eager, s = [], state
+        for nz in noises:
+            s = mcl.sensor_resample_step(s, omap_k, sp, scan, pool, params, backend="corr",
+                                         noise=nz)
+            eager.append(s)
+        eager_arms = +collections.Counter(control.ARMS)
+        arms0, s0 = graph_arms(graph), SYNCS.count
+        compiled, s = [], state
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for nz in noises:
+                s = mcl.sensor_resample_step_jit(s, omap_k, sp, scan, pool, params,
+                                                 backend="corr", noise=nz)
+                compiled.append(s)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = SYNCS.count - s0
+        arms = +(graph_arms(graph) - arms0)
+        check(syncs == 0, f"{label}: {syncs} host syncs inside the replays")
+        check(arms == eager_arms, f"{label}: compiled arms {dict(arms)} != eager "
+                                  f"{dict(eager_arms)}")
+        stats = compare_chain(label, eager, compiled)
+        again, s = [], state
+        for nz in noises:
+            s = mcl.sensor_resample_step(s, omap_k, sp, scan, pool, params, backend="corr",
+                                         noise=nz)
+            again.append(s)
+        twice = compare_chain(label + " (eager twice)", eager, again)
+        clusters = [int(c.stats.cluster_count) for c in compiled]
+        bins = [unique_bins(c.poses[:int(c.n_active)], params) for c in compiled]
+        row = dict(arms=dict(arms), chain_stats_diff=stats, eager_twice_stats_diff=twice,
+                   captures=graph.captures - captures0, unique_bins_by_step=bins,
+                   clusters_by_step=clusters)
+        log(f"{label}: {COMPILED_CHAIN} chained replays equal to the eager step (float "
+            f"statistics max diff {stats}; the eager step against itself {twice}); arms in "
+            f"the replays (device counters = the eager arms) {dict(arms)}; unique bins after "
+            f"each step {bins}, clusters {clusters}; captures {row['captures']}")
+        return row
+
+    out["spread"] = case(f"grid_arms spread ({N_PARTICLES} over {MAP_CELLS}^2, "
+                         f"{out['unique_bins']} unique bins of {cluster.MAX_UNIQUE_BINS})", omap)
+    taken = {a: out["spread"]["arms"].get(a, 0) for a in GRID_ARMS}
+    for a in GRID_ARMS:
+        check(taken[a] > 0, f"grid_arms: {a} never taken inside a replay of the spread cloud")
+    out["taken_in_replays"] = dict(taken)
+    log(f"grid_arms: the grid arms taken inside replays {dict(taken)}")
+    return out
 
 
 def cli_truth(steps):
@@ -4472,6 +4826,8 @@ def main():
     phase_reference(dev)
     timings = phase_timings(dev, maps, scan, states)
     paths["2d_compiled"], timings["compiled"] = phase_compiled(dev, maps, scan, states)
+    timings["grid_arms"] = phase_grid_arms(dev, maps["likelihood_field"], scan,
+                                           cell_state("spread", states)[2])
     timings["graph_cond"] = phase_graph_cond(dev)
     timings["range_image_bake"] = dict(seconds=bake_s, bytes=bake_bytes)
     paths["2d_cells"], timings["cells"] = phase_cells(dev, maps, scan, states)
@@ -4531,6 +4887,7 @@ def main():
     paths["node_3d"], timings["node_3d"] = phase_node_3d(dev, smi)
     paths["cli"], timings["cli"] = phase_cli(dev, smi)
     paths["node_compiled"], timings["node_compiled"] = phase_node_compiled(dev, smi)
+    timings["entries"] = phase_entries_bound(dev, smi)
     launches = launch_counts(paths)
 
     meta = {

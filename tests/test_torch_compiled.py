@@ -329,7 +329,7 @@ def _step_noise(key, m):
 _jax_stats = jax.jit(jcluster.compute_cluster_stats, static_argnames=("params",))
 
 
-def _check_state(t, j, params, pose_atol=0.0):
+def _check_state(t, j, params, pose_atol=0.0, cov_atol=1e-5):
     m = params.max_samples
     n = int(j.n_active)
     assert int(t.n_active) == n
@@ -342,7 +342,7 @@ def _check_state(t, j, params, pose_atol=0.0):
     np.testing.assert_allclose(t.stats.mean.numpy(), np.asarray(js.mean), rtol=1e-4,
                                atol=1e-5)
     np.testing.assert_allclose(t.stats.cov.numpy(), np.asarray(js.cov), rtol=1e-4,
-                               atol=1e-5)
+                               atol=cov_atol)
     assert bool(t.converged) == bool(j.converged)
 
 
@@ -402,18 +402,32 @@ def test_sensor_resample_step_jit_systematic_matches():
     dict(backend="corr_q"), dict(resample_contract="cell"), dict(stats_max_clusters=8),
     dict(do_beamskip=True)])
 def test_jits_refuse_what_is_outside_the_slice(kw):
+    """The cell contract and the capped statistics raise; the beam and
+    prob models, corr_q and beam skipping are inside the slice and run
+    (tests/test_torch_compiled_models.py holds them against the JAX
+    package's jits)."""
     _, (tmap, tparams, tstate, tscan, tsp, tpool) = _setup()
     kw = dict(kw)
     if "stats_max_clusters" in kw:
         tparams = dataclasses.replace(tparams, stats_max_clusters=kw.pop("stats_max_clusters"))
+    refused = "resample_contract" in kw or tparams.stats_max_clusters > 0
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(ValueError, match="later slice"):
+
+    def step():
         if "do_beamskip" in kw or "resample_contract" not in kw and "laser_model" in kw:
-            tmcl.mcl_step_2d_jit(tstate, tmap, tsp, tscan, tpool, *ODOM, ALPHAS, tparams,
-                                 generator=gen, **{"backend": "corr", **kw})
-        else:
-            tmcl.sensor_resample_step_jit(tstate, tmap, tsp, tscan, tpool, tparams,
-                                          generator=gen, **{"backend": "corr", **kw})
-    if "laser_model" in kw or "backend" in kw:
+            kw.setdefault("laser_model", "likelihood_field_prob")
+            return tmcl.mcl_step_2d_jit(tstate, tmap, tsp, tscan, tpool, *ODOM, ALPHAS,
+                                        tparams, generator=gen, **{"backend": "corr", **kw})
+        return tmcl.sensor_resample_step_jit(tstate, tmap, tsp, tscan, tpool, tparams,
+                                             generator=gen, **{"backend": "corr", **kw})
+
+    if refused:
         with pytest.raises(ValueError, match="later slice"):
-            tmcl.likelihood_only_jit(tstate, tmap, tsp, tscan, **{"backend": "corr", **kw})
+            step()
+        return
+    assert torch.isfinite(step().weights).all()
+    if "laser_model" in kw or "backend" in kw:
+        p = tmcl.likelihood_only_jit(tstate, tmap, tsp, tscan,
+                                     **{"backend": "corr", **{k: v for k, v in kw.items()
+                                                             if k != "do_beamskip"}})
+        assert p.shape == tstate.weights.shape and not torch.isnan(p).any()

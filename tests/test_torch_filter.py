@@ -156,6 +156,29 @@ def test_cluster_stats_match(case):
 
 
 @pytest.mark.parametrize("case", list(CASES))
+def test_cluster_stats_independent_of_particle_order(case):
+    """The statistics of a cloud 25 m from the origin, with random weights,
+    equal bit for bit after the particles are permuted: the segment sums
+    may land in any order (a card's atomic adds do), and a float32 sum of
+    x ~ 25 m moved with its order."""
+    jparams, _, tparams, _ = _states(case)
+    m = jparams.max_samples
+    rng = np.random.default_rng(5)
+    poses = _cloud(case, m, 0) + np.array([25.0, -25.0, 0.0], np.float32)
+    w = rng.uniform(0.1, 1.0, m).astype(np.float32)
+    active = np.arange(m) < m - m // 7
+    perm = rng.permutation(m)
+    a, b = (tcluster.compute_cluster_stats(torch.from_numpy(poses[p]),
+                                           torch.from_numpy(w[p] / w.sum()),
+                                           torch.from_numpy(active[p]), tparams)
+            for p in (np.arange(m), perm))
+    assert int(a.cluster_count) == int(b.cluster_count)
+    for f in ("cluster_weights", "cluster_means", "cluster_covs", "mean", "cov"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(a.particle_cluster[perm], b.particle_cluster)
+
+
+@pytest.mark.parametrize("case", list(CASES))
 def test_kld_binning_matches(case):
     """Bin keys, grid cells, first-occurrence flags and the population
     bound: integer results, so bit-equal."""

@@ -105,7 +105,9 @@ def test_port_imports_no_jax():
     """Importing every port module and running a CPU step (2D, eager and
     through `sensor_resample_step_jit`, 3D, the
     maps' distance fields, beam, a corr_q likelihood, a fleet step, a cell-contract step under
-    `profiling.trace`, a one-rank gloo sharded fleet step and its health, a
+    `profiling.trace`, a one-rank gloo sharded fleet step and its health,
+    corr_q, the prob model, the beam model, beam skipping and the node's
+    log-space update through the compiled entries, a
     few Node2D scans with systematic resampling and a few Node3D scans on a
     .bt octomap from the simulator, both through the nodes' compiled
     helpers, and a three-step `cli.main --sim`) must work with JAX and the
@@ -159,6 +161,27 @@ def test_port_imports_no_jax():
         p, _ = planar.planar_likelihood(omap, sp, scan, state.poses, state.active_mask,
                                         state.n_active, backend="corr_q")
         assert omap.corr_psi_pad_q is not None and torch.isfinite(p).all()
+        # the models the compiled step took in last, each through a compiled
+        # entry (eager on the CPU): corr_q, prob (linear), the beam model,
+        # beam skipping, and the node's log-space sensor update
+        for mp, kw in ((omap, dict(backend="corr_q")),
+                       (omap, dict(laser_model="likelihood_field_prob")),
+                       (bmap, dict(laser_model="beam"))):
+            out = mcl.sensor_resample_step_jit(state, mp, sp, scan, pool, params,
+                                               generator=gen, **{"backend": "corr", **kw})
+            assert torch.isfinite(out.weights).all()
+        # each took its kernel's arm, as the eager calls above did
+        assert control.ARMS["corr_q.window.narrow:true"] == 2
+        assert control.ARMS["beam.fits:true"] == 2
+        out = mcl.mcl_step_2d_jit(state.replace(converged=torch.tensor(True)), omap, sp,
+                                  scan, pool, [0.1, 0.0, 0.02], [0.1, 0.0, 0.02], None,
+                                  [0.1] * 5, params, laser_model="likelihood_field_prob",
+                                  do_beamskip=True, backend="corr", generator=gen)
+        assert torch.isfinite(out.weights).all()
+        from badger_amcl_tpu_torch.node import node_2d
+        out = node_2d._sensor_update_jit(state, omap, sp, scan, "likelihood_field_prob",
+                                         True, "corr", log_space=True)
+        assert torch.isfinite(out.weights).all()
         from badger_amcl_tpu_torch import fleet
         fparams = type(params)(min_samples=16, max_samples=256, hist_x=32, hist_y=32,
                                stats_max_clusters=64)

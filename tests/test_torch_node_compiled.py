@@ -30,8 +30,11 @@ the device.
 """
 
 import collections
+import dataclasses
+import gc
 import os
 import sys
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -57,7 +60,7 @@ from badger_amcl_tpu_torch.pf import filter as pf_filter
 from badger_amcl_tpu_torch.pf.filter import ResampleModel
 from badger_amcl_tpu_torch.sensors import odom as todom
 from badger_amcl_tpu_torch.sensors import point_cloud
-from badger_amcl_tpu_torch.utils import control
+from badger_amcl_tpu_torch.utils import control, graph, tree
 from badger_amcl_tpu_torch.utils.graph import Entry, graph_jit
 from badger_amcl_tpu_torch.utils.numerics import SYNCS
 
@@ -346,11 +349,11 @@ DECISIONS = {
     "amcl_2d_yaml": (lambda: cli.load_config(os.path.join(ROOT, "examples", "amcl_2d.yaml")),
                      True),
     "2d_lf_backend": (lambda: config.AMCLConfig(compute_backend="pallas"), True),
-    "beam": (lambda: config.AMCLConfig(laser_model_type="beam"), False),
+    "beam": (lambda: config.AMCLConfig(laser_model_type="beam"), True),
     "prob_log_space": (lambda: config.AMCLConfig(laser_model_type="likelihood_field_prob",
-                                                 laser_likelihood_log_space=True), False),
-    "corr_q": (lambda: config.AMCLConfig(compute_backend="pallas_corr_q"), False),
-    "beamskip": (lambda: config.AMCLConfig(do_beamskip=True), False),
+                                                 laser_likelihood_log_space=True), True),
+    "corr_q": (lambda: config.AMCLConfig(compute_backend="pallas_corr_q"), True),
+    "beamskip": (lambda: config.AMCLConfig(do_beamskip=True), True),
     "3d_default": (lambda: config.AMCLConfig.for_3d(), True),
     "amcl_3d_yaml": (lambda: cli.load_config(os.path.join(ROOT, "examples", "amcl_3d.yaml")),
                      True),
@@ -358,22 +361,41 @@ DECISIONS = {
 }
 
 
-@pytest.mark.parametrize("family", list(DECISIONS))
-def test_node_compiled_decision(family, tmp_path):
-    make_cfg, compiled = DECISIONS[family]
+def _capped_params(monkeypatch):
+    """Nodes built from here on carry a cluster cap (no configuration key
+    sets one: the fleet's scenario does), the one static argument outside
+    the compiled slice a node can meet."""
+    pf_params = tnode.Node._pf_params
+    monkeypatch.setattr(tnode.Node, "_pf_params", staticmethod(
+        lambda cfg: dataclasses.replace(pf_params(cfg), stats_max_clusters=8)))
+
+
+@pytest.mark.parametrize("family", list(DECISIONS) + ["2d_capped", "3d_capped"])
+def test_node_compiled_decision(family, tmp_path, monkeypatch):
+    """Every 2D and 3D configuration runs compiled; only the capped
+    statistics do not."""
+    if family.endswith("_capped"):
+        make_cfg, compiled = DECISIONS[family.replace("capped", "default")][0], False
+        _capped_params(monkeypatch)
+    else:
+        make_cfg, compiled = DECISIONS[family]
     cfg = make_cfg().replace(saved_pose_filepath=str(tmp_path / "pose.yaml"))
     node = make_node(cfg, device="cpu")
     assert node.compiled is compiled, node.compiled_reason
     if not compiled:
-        assert "slice" in node.compiled_reason
+        assert "slice" in node.compiled_reason and "stats_max_clusters" in node.compiled_reason
 
 
-def test_reconfigure_decides_again(tmp_path):
+def test_reconfigure_decides_again(tmp_path, monkeypatch):
     cfg = config.AMCLConfig(saved_pose_filepath=str(tmp_path / "pose.yaml"))
     node = make_node(cfg, device="cpu")
     assert node.compiled
     node.reconfigure(cfg.replace(laser_model_type="beam"))
-    assert not node.compiled and "beam" in node.compiled_reason
+    assert node.compiled  # the beam model is inside the slice
+    _capped_params(monkeypatch)
+    node.reconfigure(cfg.replace(laser_model_type="beam"))
+    assert not node.compiled and "stats_max_clusters" in node.compiled_reason
+    monkeypatch.undo()
     node.reconfigure(restore_defaults=True)
     assert node.compiled
 
@@ -399,6 +421,246 @@ def test_graph_jit_release():
     assert jit.release(a) == 0 and jit.release(b) == 1 and not jit.entries
     x = torch.ones(2)
     assert torch.equal(jit(x, a, b), x + 1) and not jit.entries
+
+
+# --- the bound on the entries, their release by configuration and by node -----
+
+
+class FakeCapture:
+    """A capture record without a card: counts its releases."""
+
+    slots = {}
+    launches = {}  # it attributes no kernel launches
+
+    def __init__(self):
+        self.released = 0
+
+    def release(self):
+        self.released += 1
+
+
+class FakeGraph:
+    """A replay without a card: the function run again on the entry's
+    buffers, its outputs copied into the entry's."""
+
+    def __init__(self, run, outputs):
+        self.run, self.outputs = run, outputs
+
+    def replay(self):
+        for out, new in zip(tree.leaves(self.outputs), tree.leaves(self.run())):
+            out.copy_(new)
+
+
+def _fake_capture(fn, bound, leaves, spec, references, kernels, static):
+    inputs = [t.clone() for t in leaves]
+    args = dict(bound.arguments, **tree.unflatten(spec, inputs))
+    outputs = fn(**args)
+    return Entry(FakeGraph(lambda: fn(**args), outputs), inputs, outputs, FakeCapture(),
+                 references, 0.0, static=static)
+
+
+NODE_JITS = tnode2.Node2D.JITS + tnode3.Node3D.JITS[3:]
+
+
+@pytest.fixture
+def fake_graphs(monkeypatch):
+    """graph_jit's compiled path on CPU tensors (a fake capture and replay):
+    the node helpers' entries, keys, eviction and release as on the card.
+    The helpers' entries are cleared after the test."""
+    monkeypatch.setattr(graph, "_captures_on", lambda device: True)
+    monkeypatch.setattr(graph, "_capture", _fake_capture)
+    yield
+    for jit in NODE_JITS:
+        jit.entries.clear()
+
+
+def test_graph_jit_bounds_its_entries(fake_graphs, monkeypatch):
+    """Past MAX_ENTRIES keys the least recently used entry goes (its
+    capture released); a call that hits a key makes it the most recent;
+    the replayed values are the function's."""
+    monkeypatch.setattr(graph, "MAX_ENTRIES", 3)
+    jit = graph_jit(lambda x, k: x * k, static_argnames=("k",))
+    for n in range(1, 6):
+        assert torch.equal(jit(torch.ones(n), 2.0), torch.full((n,), 2.0))
+        assert len(jit.entries) <= 3
+    assert jit.captures == 5 and jit.evictions == 2
+    assert [key[-1][0][0][0] for key in jit.entries] == [3, 4, 5]
+    jit(torch.ones(3), 2.0)  # a hit: 3 is now the most recent, 4 the least
+    evicted = next(iter(jit.entries.values())).capture
+    jit(torch.ones(6), 2.0)
+    assert evicted.released == 1 and jit.captures == 6
+    assert [key[-1][0][0][0] for key in jit.entries] == [5, 3, 6]
+    assert torch.equal(jit(torch.arange(3.0), 2.0), torch.arange(3.0) * 2)
+
+
+@pytest.mark.parametrize("where", ["capture", "replay"])
+def test_graph_jit_defers_a_release_inside_a_call(where, fake_graphs, monkeypatch):
+    """A release that fires inside a call (a node collected there: in the
+    capture of a new key, or between a live key's lookup and its replay)
+    waits for the call's end: the call replays the entry it looked up, then
+    the released entry goes with its capture released."""
+    jit = graph_jit(lambda x: x + 1, static_argnames=())
+    x = torch.zeros(2)
+    if where == "capture":
+        victim = Entry(None, [], None, FakeCapture(), {"omap": "m"}, 0.0)
+        jit.entries["old"] = victim
+
+        def capture(*args):
+            assert jit.release("m") == 1 and jit.entries["old"] is victim
+            return _fake_capture(*args)
+
+        monkeypatch.setattr(graph, "_capture", capture)
+    else:
+        jit(x)
+        ((key, victim),) = jit.entries.items()
+        victim.references["omap"] = "m"
+
+        class Releasing:
+            """An input buffer whose copy fires the release."""
+
+            def copy_(self, t):
+                assert jit.release("m") == 1 and jit.entries[key] is victim
+
+        victim.inputs = [Releasing()]
+    assert torch.equal(jit(x), torch.ones(2))
+    assert all(e is not victim for e in jit.entries.values()) and victim.capture.released == 1
+    assert not graph._PENDING and not graph._DEFERRED and not graph._busy[0]
+
+
+def test_graph_jit_release_where():
+    """release_where drops exactly the entries whose static arguments the
+    predicate accepts."""
+    jit = graph_jit(lambda x, a, b: x, static_argnames=("a", "b"))
+    caps = [FakeCapture() for _ in range(3)]
+    for key, (cap, static) in enumerate(zip(caps, ({"a": 1, "b": 0}, {"a": 2, "b": 0},
+                                                   {"a": 1, "b": 1}))):
+        jit.entries[key] = Entry(None, [], None, cap, {}, 0.0, static=static)
+    assert jit.release_where(lambda st: st["a"] == 1) == 2 and list(jit.entries) == [1]
+    assert [c.released for c in caps] == [1, 0, 1]
+    assert jit.release_where(lambda st: st["a"] == 1) == 0
+    jit.entries.clear()
+
+
+def test_cloud_sizes_beyond_the_bound(world, fake_graphs, monkeypatch):
+    """A stream of more distinct cloud sizes than the bound: each 3D
+    helper keeps at most MAX_ENTRIES entries, every size captured once
+    while it lives, the likelihoods those of the eager helper."""
+    monkeypatch.setattr(graph, "MAX_ENTRIES", 4)
+    pts, steps, _ = world
+    _, _, tn, ttf = n3._nodes({"resample_interval": 1000}, pts=pts)
+    n3._feed(tn, ttf, Transform, steps[1], True)
+    cloud = tn.latest_points_base
+    model = tn.config.point_cloud_model_type.value
+    sizes = list(range(40, 40 + 3 * graph.MAX_ENTRIES))
+    captures0 = tnode3._score_poses_jit.captures
+    for n in sizes + sizes[-2:]:
+        got = tnode3._score_poses_jit(tn.map, tn.pc_params, cloud[:n], tn.state.poses, model,
+                                      tn.backend)
+        want = tnode3._score_poses_jit.__wrapped__(tn.map, tn.pc_params, cloud[:n],
+                                                   tn.state.poses, model, tn.backend)
+        assert torch.equal(got, want)
+        assert len(tnode3._score_poses_jit.entries) <= graph.MAX_ENTRIES
+    # the last two sizes hit their live keys
+    assert tnode3._score_poses_jit.captures - captures0 == len(sizes)
+    assert len(tnode3._score_poses_jit.entries) == graph.MAX_ENTRIES
+
+
+def _node_with_entries(tmp_path, **kw):
+    """A CPU 2D node after two scans through its helpers, compiled on fake
+    graphs: entries that hold its map and free cells, and entries keyed on
+    its alphas and PFParams (`kw` overrides the configuration)."""
+    cfg = config.AMCLConfig(max_particles=500, min_particles=100, laser_max_beams=30,
+                            resample_interval=1, saved_pose_filepath=str(tmp_path / "pose.yaml"),
+                            uniform_pose_starting_weight_threshold=0.0)
+    node = make_node(cfg.replace(**kw), device="cpu")
+    node.tf.set_static("base_link", "laser", Transform.identity())
+    node.map_msg_received(scenario.grid_msg(128))
+    omap = node.map
+    angles = np.linspace(-2.0, 2.0, 30).astype(np.float32)
+    for k in range(3):
+        pose = np.array([0.3 * k, 0.0, 0.0])
+        node.tf.set_transform("odom", "base_link", 0.1 * k, Transform.from_pose2d(pose))
+        node.integrate_odom(tnode.Odometry(0.1 * k, pose))
+        node.scan_received(scenario.laser_scan(omap, pose, angles, 0.1 * k))
+    return node
+
+
+def _holding(obj):
+    return sum(1 for jit in NODE_JITS for e in jit.entries.values()
+               for v in e.references.values() if v is obj)
+
+
+@pytest.mark.parametrize("how", ["shutdown", "collected"])
+def test_a_node_that_goes_releases_its_map(how, fake_graphs, tmp_path):
+    """A node shut down, or dropped and collected, leaves no entry that
+    holds its map or free cells, and a dropped node's map is freed (a
+    module-level helper keeps nothing of it)."""
+    node = _node_with_entries(tmp_path)
+    assert node.compiled and node.resample_count >= 2
+    omap, fsi = weakref.ref(node.map), weakref.ref(node.free_space_indices)
+    assert _holding(omap()) >= 1 and _holding(fsi()) >= 1
+    if how == "shutdown":
+        node.shutdown(1.0)
+        assert _holding(omap()) == 0 and _holding(fsi()) == 0
+    del node
+    gc.collect()
+    assert omap() is None and fsi() is None
+
+
+def _keyed(jit, name, value):
+    return sum(1 for e in jit.entries.values() if e.static.get(name) == value)
+
+
+# alphas no other node of the suite holds (a held value's entries stay)
+OWN_ALPHAS = {"odom_alpha5": 0.0123}
+
+
+def test_reconfigure_releases_the_old_configuration(fake_graphs, tmp_path):
+    """reconfigure drops the motion model's entries keyed on the old alphas
+    and the resampler's keyed on the old PFParams (its max_samples among
+    them); an entry keyed on other alphas stays."""
+    node = _node_with_entries(tmp_path, **OWN_ALPHAS)
+    other = Entry(None, [], None, FakeCapture(), {}, 0.0,
+                  static={"model": todom.OdomModel.DIFF, "alphas": (9.0,) * 5})
+    tnode._motion_update_jit.entries["other"] = other
+    old_params = node.params
+    old_alphas = tnode._alphas(node.config)
+    assert _keyed(tnode._motion_update_jit, "alphas", old_alphas) >= 1
+    assert _keyed(tnode._resample_jit, "params", old_params) >= 1
+    node.reconfigure(node.config.replace(odom_alpha1=0.5, max_particles=400))
+    assert _keyed(tnode._motion_update_jit, "alphas", old_alphas) == 0
+    assert _keyed(tnode._resample_jit, "params", old_params) == 0
+    assert "other" in tnode._motion_update_jit.entries and other.capture.released == 0
+
+
+@pytest.mark.parametrize("how", ["laser_model", "twin_reconfigured", "twin_collected",
+                                 "last_collected"])
+def test_config_entries_go_with_their_last_holder(how, fake_graphs, tmp_path):
+    """The entries keyed on a node's alphas and PFParams stay while a live
+    node holds those values: a reconfiguration that keeps them (a new laser
+    model) drops none, and a twin of the same configuration that is
+    reconfigured or collected leaves the node's entries alone; they go when
+    the last holder is collected."""
+    node = _node_with_entries(tmp_path, **OWN_ALPHAS)
+    alphas, params = tnode._alphas(node.config), node.params
+    held = {"alphas": _keyed(tnode._motion_update_jit, "alphas", alphas),
+            "params": _keyed(tnode._resample_jit, "params", params)}
+    assert held["alphas"] >= 1 and held["params"] >= 1
+    if how == "laser_model":
+        node.reconfigure(node.config.replace(laser_model_type="likelihood_field_prob"))
+        assert node.params == params
+    elif how == "last_collected":
+        del node
+        gc.collect()
+        held = {"alphas": 0, "params": 0}
+    else:
+        twin = make_node(node.config, device="cpu")
+        if how == "twin_reconfigured":
+            twin.reconfigure(twin.config.replace(odom_alpha1=0.5, max_particles=400))
+        del twin
+        gc.collect()
+    assert _keyed(tnode._motion_update_jit, "alphas", alphas) == held["alphas"]
+    assert _keyed(tnode._resample_jit, "params", params) == held["params"]
 
 
 def test_nodes_release_what_they_replace(stream, monkeypatch):
