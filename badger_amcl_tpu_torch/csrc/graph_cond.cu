@@ -12,8 +12,11 @@
 // and destroys the stream. At every replay the body runs exactly when the
 // predicate byte is nonzero; nothing is read back to the host. An if/else
 // is two IF nodes, on the predicate and on its negation (as PyTorch's own
-// cudagraph_conditional_nodes.py builds it). Needs CUDA 12.4 (conditional
-// nodes, capture to a graph).
+// cudagraph_conditional_nodes.py builds it). `graph_while_begin` /
+// `graph_while_end` build a WHILE node the same way, `utils/control.
+// fori_loop`'s (a loop body captured once, as `lax.map` traces one); the
+// body's last node sets the handle from the updated predicate. Needs CUDA
+// 12.4 (conditional nodes, capture to a graph).
 //
 // Bound: one single-thread kernel per node; the handle's cost is the node's
 // launch inside the graph.
@@ -30,9 +33,11 @@ __global__ void set_if_handle_kernel(cudaGraphConditionalHandle handle,
 
 }  // namespace
 
-// stream: the capturing stream; pred: device bool; body_out: receives the
-// body's capturing stream (a cudaStream_t). Returns a cudaError_t.
-extern "C" int graph_if_begin(void* stream, const void* pred, void** body_out) {
+// stream: the capturing stream; pred: device bool; type: cudaGraphCondTypeIf
+// or cudaGraphCondTypeWhile; body_out: receives the body's capturing stream
+// (a cudaStream_t); handle_out: the node's handle. Returns a cudaError_t.
+static int cond_begin(void* stream, const void* pred, cudaGraphConditionalNodeType type,
+                      void** body_out, unsigned long long* handle_out) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
@@ -53,7 +58,7 @@ extern "C" int graph_if_begin(void* stream, const void* pred, void** body_out) {
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
-  params.conditional.type = cudaGraphCondTypeIf;
+  params.conditional.type = type;
   params.conditional.size = 1;
   cudaGraphNode_t node;
   err = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
@@ -70,14 +75,57 @@ extern "C" int graph_if_begin(void* stream, const void* pred, void** body_out) {
     return (int)err;
   }
   *body_out = (void*)body;
+  *handle_out = (unsigned long long)handle;
   return (int)cudaSuccess;
 }
 
-// body: the stream graph_if_begin returned. Returns a cudaError_t.
-extern "C" int graph_if_end(void* body) {
+extern "C" int graph_if_begin(void* stream, const void* pred, void** body_out) {
+  unsigned long long handle;
+  return cond_begin(stream, pred, cudaGraphCondTypeIf, body_out, &handle);
+}
+
+// A WHILE node on pred: its body runs while the handle is set, which the
+// node's predecessor sets from pred and graph_while_end's last body node
+// sets from pred again (the body updates it). handle_out: for
+// graph_while_end. Returns a cudaError_t.
+extern "C" int graph_while_begin(void* stream, const void* pred, void** body_out,
+                                 unsigned long long* handle_out) {
+  return cond_begin(stream, pred, cudaGraphCondTypeWhile, body_out, handle_out);
+}
+
+// body: the stream graph_if_begin returned; nodes_out: receives the body
+// graph's node count (its own level: a nested IF node counts one here, its
+// body at its own graph_if_end). Returns a cudaError_t.
+extern "C" int graph_if_end(void* body, size_t* nodes_out) {
   cudaStream_t b = (cudaStream_t)body;
   cudaGraph_t graph;
   cudaError_t err = cudaStreamEndCapture(b, &graph);
+  if (err == cudaSuccess) err = cudaGraphGetNodes(graph, nullptr, nodes_out);
   cudaError_t err2 = cudaStreamDestroy(b);
   return (int)(err != cudaSuccess ? err : err2);
+}
+
+// body: the stream graph_while_begin returned; its last node sets the loop's
+// handle from pred (the body's updated predicate), then the body's capture
+// ends as in graph_if_end. Returns a cudaError_t.
+extern "C" int graph_while_end(void* body, unsigned long long handle, const void* pred,
+                               size_t* nodes_out) {
+  cudaStream_t b = (cudaStream_t)body;
+  set_if_handle_kernel<<<1, 1, 0, b>>>((cudaGraphConditionalHandle)handle,
+                                       (const uint8_t*)pred);
+  cudaError_t launched = cudaGetLastError();
+  int ended = graph_if_end(body, nodes_out);
+  return launched != cudaSuccess ? (int)launched : ended;
+}
+
+// The node count of the graph `stream` is capturing, at its top level (each
+// IF node one). Returns a cudaError_t.
+extern "C" int graph_capture_nodes(void* stream, size_t* nodes_out) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  cudaError_t err = cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, nullptr, &graph,
+                                             nullptr, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  if (status != cudaStreamCaptureStatusActive) return (int)cudaErrorStreamCaptureImplicit;
+  return (int)cudaGraphGetNodes(graph, nullptr, nodes_out);
 }

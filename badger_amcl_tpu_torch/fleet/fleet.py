@@ -15,9 +15,14 @@ passed in. A step (`fleet_step`):
     (the JAX package vmaps `resample` there).
 
 On the "corr" backend a step has no Python loop over robots outside its
-fallback arms, and its host syncs do not grow with R: the envelope flags
-of every robot in one read, the unique-key count, the cluster dilation's
-fixpoint checks (pf.cluster).
+robot-by-robot arm, and an eager step's host syncs do not grow with R: the
+envelope flags of every robot in one read, the unique-key count
+(pf.cluster). Each such branch is a `utils.control.cond`: "fleet.fits"
+(the batched table or the robots one by one), "fleet.window.*" (the
+window), "cluster.fleet_u" (the compacted or the batched grid ranks).
+`make_fleet_step` compiles the step (JAX jits it): on the card one CUDA
+graph per static key, every cond a conditional node, no host read inside
+a replay (`utils.graph.graph_jit`).
 
 `fleet_likelihood` keeps the JAX gate (fleet.py:136-155): the batched
 table runs only on "corr", for a likelihood-field-family model, with the
@@ -41,7 +46,9 @@ collective on the step's path (robots are independent);
 tensors on the ranks and read them back whole (the counterparts of a
 `NamedSharding` placement and a sharded array read whole).
 `init_fleet_group` starts the process group: NCCL for a CUDA fleet, gloo
-for a CPU one. `make_fleet_step` is a plain factory (JAX jits it).
+for a CPU one. Each rank's step is `make_fleet_step`'s compiled one, one
+graph entry per rank's card; `fleet_health` stays outside every graph (its
+`all_reduce` is a collective, and without a group it is three means).
 
 The per-rank noise: `FleetNoise.draw` draws one stream for the robots it
 is given, so a rank that draws its own (R / world, ...) noise, or steps
@@ -53,7 +60,6 @@ one-process step slices one global draw per rank (`shard_robots`).
 from __future__ import annotations
 
 import dataclasses
-import functools
 import os
 from typing import Optional
 
@@ -72,9 +78,16 @@ from badger_amcl_tpu_torch.sensors.planar import (
     CORR_MODELS, PlanarScan, coord_add, corr_combine, map_factors, planar_likelihood,
     psi_fingerprint,
 )
-from badger_amcl_tpu_torch.utils.numerics import host_values
+from badger_amcl_tpu_torch.utils import control
+from badger_amcl_tpu_torch.utils.graph import device_tensor, graph_jit
 
 FLEET_BACKENDS = ("exact", "corr", "corr_q")
+
+
+def _row(t: torch.Tensor, i):
+    """Row i of t: i a Python int, or a 0-dim int64 device tensor (a
+    captured loop's counter, read on the device)."""
+    return t[i] if isinstance(i, int) else t.index_select(0, i.reshape(1))[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +106,17 @@ class FleetScan:
             raise ValueError("FleetScan.valid needs one range_max for every robot")
         return (self.ranges < self.range_max[0]) & ~torch.isnan(self.ranges)
 
-    def robot(self, i: int) -> PlanarScan:
-        return PlanarScan(ranges=self.ranges[i], angles=self.angles[i],
-                          range_max=self.range_max[i])
+    def robot(self, i) -> PlanarScan:
+        """Robot i's scan: i a Python int, or a 0-dim int64 device tensor
+        (a captured loop's counter) where every robot has one range_max."""
+        if isinstance(i, int):
+            rmax = self.range_max[i]
+        elif len(set(self.range_max)) == 1:
+            rmax = self.range_max[0]
+        else:
+            raise ValueError("a device index needs one range_max for every robot")
+        return PlanarScan(ranges=_row(self.ranges, i), angles=_row(self.angles, i),
+                          range_max=rmax)
 
     @staticmethod
     def tile(scan: PlanarScan, r: int) -> "FleetScan":
@@ -182,26 +203,50 @@ def fleet_health(states: MCLState, group=None) -> dict:
 
 
 def _robot_by_robot(omap, params, scans, states, model, backend):
-    """(p, mf), each (R, N): `planar_likelihood` for one robot after another."""
-    active = states.active_mask
-    out = [planar_likelihood(omap, params, scans.robot(i), states.poses[i], active[i],
-                             states.n_active[i], model, converged=states.converged[i],
-                             backend=backend)
-           for i in range(states.poses.shape[0])]
-    return torch.stack([p for p, _ in out]), torch.stack([mf for _, mf in out])
+    """(p, mf), each (R, N): `planar_likelihood` for one robot after
+    another, each robot through its own dispatch (JAX's `lax.map`). With
+    one range_max for every robot the robots are a `control.fori_loop`,
+    so a compiled step captures the dispatch once, not once a robot; a
+    mixed fleet's robots each key their own (the range_max is static)."""
+    r, n = states.poses.shape[:2]
+    dev = states.poses.device
+    uniform = len(set(scans.range_max)) == 1
+
+    def robot(i, carry):
+        p, mf = carry
+        p_i, mf_i = planar_likelihood(omap, params, scans.robot(i), _row(states.poses, i),
+                                      _row(states.active_mask, i), _row(states.n_active, i),
+                                      model, converged=_row(states.converged, i),
+                                      backend=backend)
+        if isinstance(i, int):
+            p[i], mf[i] = p_i, mf_i
+        else:
+            p.index_copy_(0, i.reshape(1), p_i[None])
+            mf.index_copy_(0, i.reshape(1), mf_i[None])
+        return p, mf
+
+    carry = (torch.empty((r, n), device=dev), torch.empty((r, n), device=dev))
+    if not uniform:
+        for i in range(r):
+            carry = robot(i, carry)
+        return carry
+    return control.fori_loop(r, robot, carry, name="fleet.robot")
 
 
 def fleet_window(omap, params, scans: FleetScan, states: MCLState):
     """The batched prepass of every robot (dedup off, as the JAX fleet) and
-    the window all robots share: (prepass, valid (R, B), every robot fits,
-    rows, j0), the robots' envelope flags read in one host sync."""
+    the flags of the window all robots share: (prepass, valid (R, B),
+    every robot fits, every robot fits the tight window, every robot fits
+    the narrow one), the flags read in one host sync, or kept on the
+    device while a graph is captured (`control.read`).
+    `corr_kernel.window_variant(pre, tight, narrow)` names the window of
+    read flags."""
     spose = coord_add(params.scanner_pose, states.poses)
     valid = scans.valid()
     pre = corr_kernel.corr_prepass(omap, spose, scans.ranges, scans.angles, valid)
-    fits, tight, narrow = host_values(pre["fits"].all(), pre["tight"].all(),
-                                      pre["narrow"].all())
-    rows, j0 = corr_kernel.window_variant(pre, bool(tight), bool(narrow))
-    return pre, valid, bool(fits), rows, j0
+    fits, tight, narrow = control.read(pre["fits"].all(), pre["tight"].all(),
+                                       pre["narrow"].all())
+    return pre, valid, fits, tight, narrow
 
 
 def fleet_likelihood(omap, params, scans: FleetScan, states: MCLState,
@@ -210,7 +255,9 @@ def fleet_likelihood(omap, params, scans: FleetScan, states: MCLState,
     factor (R, N)) for pf.filter.sensor_update. On "corr", inside the JAX
     gate, every robot's table comes from one `fleet_corr_table` launch in
     the smallest window all robots fit (tight 24 / narrow 32 / standard 64
-    rows); the factors are one batched read."""
+    rows, a `corr_kernel.window_cond`); the factors are one batched read.
+    Whether every robot fits is a `control.cond` ("fleet.fits"), whose
+    false arm runs the robots one by one."""
     rmax = set(scans.range_max)
     if (backend != "corr" or model not in CORR_MODELS or omap.corr_psi_pad is None
             or len(rmax) != 1
@@ -218,17 +265,23 @@ def fleet_likelihood(omap, params, scans: FleetScan, states: MCLState,
             or not corr_kernel.map_fits(omap)):
         return _robot_by_robot(omap, params, scans, states, model, backend)
     r, n = states.poses.shape[:2]
-    pre, valid, fits, rows, j0 = fleet_window(omap, params, scans, states)
+    pre, valid, fits, tight, narrow = fleet_window(omap, params, scans, states)
     mf = map_factors(omap, params, states.poses.reshape(-1, 3)).reshape(r, n)
-    if not fits:
-        return _robot_by_robot(omap, params, scans, states, model, backend)[0], mf
     n_beams = int(scans.ranges.shape[1])
-    tables = corr_kernel.fleet_corr_table(omap.corr_psi_pad, pre["off"], pre["nv"],
-                                          pre["t_n"], corr_kernel.table_origin(pre, j0),
-                                          n_beams, rows)
-    s = torch.take_along_dim(tables.reshape(r, -1), corr_kernel.particle_flat(pre, rows, j0),
-                             dim=1)
-    return corr_combine(model, params, s, valid.sum(1)[:, None]), mf
+
+    def table(rows, j0):
+        tables = corr_kernel.fleet_corr_table(omap.corr_psi_pad, pre["off"], pre["nv"],
+                                              pre["t_n"], corr_kernel.table_origin(pre, j0),
+                                              n_beams, rows)
+        s = torch.take_along_dim(tables.reshape(r, -1),
+                                 corr_kernel.particle_flat(pre, rows, j0), dim=1)
+        return corr_combine(model, params, s, valid.sum(1)[:, None])
+
+    p = control.cond(
+        fits, lambda: corr_kernel.window_cond(pre, tight, narrow, table, name="fleet.window"),
+        lambda: _robot_by_robot(omap, params, scans, states, model, backend)[0],
+        name="fleet.fits")
+    return p, mf
 
 
 def fleet_step(states: MCLState, omap, scan_params, scans: FleetScan, pools: torch.Tensor,
@@ -244,11 +297,7 @@ def fleet_step(states: MCLState, omap, scan_params, scans: FleetScan, pools: tor
     the batched comb `fleet_resample_systematic` (JAX vmaps `resample`)."""
     if backend not in FLEET_BACKENDS:
         raise ValueError(f"backend must be one of {FLEET_BACKENDS}, got {backend!r}")
-    if noise is None:
-        if generator is None:
-            raise ValueError("pass noise or a torch.Generator")
-        r, m = states.weights.shape
-        noise = FleetNoise.draw(generator, r, m, states.poses.device)
+    noise = _fleet_noise(noise, generator, states)
     states = odom_models.motion_update(states, odom_model, alphas, odom_poses, odom_deltas,
                                        noise.odom, absolute_motions)
     p, mf = fleet_likelihood(omap, scan_params, scans, states, laser_model, backend)
@@ -258,16 +307,48 @@ def fleet_step(states: MCLState, omap, scan_params, scans: FleetScan, pools: tor
     return pf_filter.fleet_resample(states, params, pools, noise.inject, noise.pick)
 
 
+def _fleet_noise(noise, generator, states) -> FleetNoise:
+    if noise is not None:
+        return noise
+    if generator is None:
+        raise ValueError("pass noise or a torch.Generator")
+    r, m = states.weights.shape
+    return FleetNoise.draw(generator, r, m, states.poses.device)
+
+
+_fleet_step_graph = graph_jit(fleet_step, static_argnames=(
+    "params", "odom_model", "laser_model", "resample_model", "backend"))
+
+
 def make_fleet_step(params: PFParams, odom_model=odom_models.OdomModel.DIFF,
                     laser_model: str = "likelihood_field",
                     resample_model=ResampleModel.MULTINOMIAL, backend: str = "corr"):
-    """`fleet_step` with its model choices bound (fleet.py:252-263, where
-    JAX also jits it): step(states, omap, scan_params, scans, pools,
-    odom_poses, odom_deltas, absolute_motions, alphas, noise=...,
-    generator=...)."""
-    return functools.partial(fleet_step, params=params, odom_model=odom_model,
-                             laser_model=laser_model, resample_model=resample_model,
-                             backend=backend)
+    """`fleet_step` with its model choices bound and compiled
+    (fleet.py:252-263, JAX's jit): step(states, omap, scan_params, scans,
+    pools, odom_poses, odom_deltas, absolute_motions, alphas, noise=...,
+    generator=...). On CUDA tensors each static key (the model choices,
+    the alphas and each robot's range_max among them) is captured once
+    into a CUDA graph (`utils.graph.graph_jit`, `step.graph`) and replayed
+    with no host read; on CPU tensors the step runs eagerly. The variates
+    are drawn before the replay, the odometry copied to the card if it is
+    host data."""
+    if backend not in FLEET_BACKENDS:
+        raise ValueError(f"backend must be one of {FLEET_BACKENDS}, got {backend!r}")
+    odom_model = odom_models.OdomModel(odom_model)
+    resample_model = ResampleModel(resample_model)
+
+    def step(states, omap, scan_params, scans, pools, odom_poses, odom_deltas,
+             absolute_motions, alphas, noise: Optional[FleetNoise] = None,
+             generator: Optional[torch.Generator] = None) -> MCLState:
+        dev = states.poses.device
+        return _fleet_step_graph(
+            states, omap, scan_params, scans, pools, device_tensor(odom_poses, dev),
+            device_tensor(odom_deltas, dev), device_tensor(absolute_motions, dev),
+            tuple(float(a) for a in alphas), params, odom_model, laser_model, resample_model,
+            backend, noise=_fleet_noise(noise, generator, states))
+
+    step.graph = _fleet_step_graph
+    return step
 
 
 def init_fleet_group(init_method: str, world_size: int, rank: int, device="cuda",
@@ -358,7 +439,9 @@ def make_sharded_fleet_step(group, params: PFParams, odom_model=odom_models.Odom
     absolute_motions, alphas, noise=None, generator=None), which takes
     this rank's robots (`shard_robots`) and their `FleetNoise` or a
     per-rank torch.Generator, and runs `fleet_step` on them: no
-    collective. See the module docstring for the per-rank noise stream.
+    collective. The step is `make_fleet_step`'s compiled one (`step.graph`),
+    one graph entry per rank's card. See the module docstring for the
+    per-rank noise stream.
 
     n_robots: the whole fleet's robot count (JAX reads it from the global
     array), checked against each step's robots. device: this rank's
@@ -393,4 +476,5 @@ def make_sharded_fleet_step(group, params: PFParams, odom_model=odom_models.Odom
         return local(states, omap, scan_params, scans, pools, odom_poses, odom_deltas,
                      absolute_motions, alphas, noise=noise, generator=generator)
 
+    step.graph = local.graph
     return step

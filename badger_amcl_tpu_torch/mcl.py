@@ -17,11 +17,10 @@ are the JAX package's compiled entry points (mcl.py:62,123,147), with its
 static arguments: on CUDA tensors each captures its step into a CUDA
 graph once per static key (`utils.graph.graph_jit`; every branch of the
 dispatch tree a conditional node) and replays it after that, with no host
-read inside a replay; on CPU tensors they run the step eagerly. Their
-slice: every planar model (the prob model also with beam skipping) on
-every backend, the pick contract, multinomial or systematic resampling
-without a cluster cap; the capped statistics and the cell contract
-raise.
+read inside a replay; on CPU tensors they run the step eagerly. Every
+static configuration compiles: every planar model (the prob model also
+with beam skipping) on every backend, both resampling contracts,
+multinomial or systematic resampling, with or without a cluster cap.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ from badger_amcl_tpu_torch.sensors import odom as odom_models
 from badger_amcl_tpu_torch.sensors.planar import (
     CELL_MODELS, planar_likelihood, planar_likelihood_cells,
 )
-from badger_amcl_tpu_torch.utils.graph import graph_jit
+from badger_amcl_tpu_torch.utils.graph import device_tensor, graph_jit
 
 
 @dataclasses.dataclass
@@ -127,7 +126,7 @@ def sensor_resample_step(state: MCLState, omap, scan_params, scan, random_pose_p
     contract, not pick-equal. It needs multinomial resampling, a model in
     CELL_MODELS and the "corr" backend (raises otherwise), and runs the
     pick contract's step on the same variates wherever the cloud leaves
-    the cell envelope."""
+    the cell envelope: one `control.cond` ("cells.ok") between the two."""
     if resample_contract not in ("pick", "cell"):
         raise ValueError(f"resample_contract must be 'pick' or 'cell', got "
                          f"{resample_contract!r}")
@@ -171,30 +170,6 @@ def default_backend(device) -> str:
 
 # --- the compiled entry points (the JAX package's jax.jit wrappers) ----------
 
-_LATER = "a later slice of the compiled step (ROADMAP.md)"
-
-
-def _check_jit_slice(params, resample_contract="pick"):
-    """Raise for a static argument outside the compiled step's slice: the
-    cell contract or the capped statistics (every model and backend and
-    both resamplers are inside it)."""
-    if resample_contract != "pick":
-        raise ValueError(f"resample_contract {resample_contract!r}: the cell contract is "
-                         f"{_LATER}")
-    if params.stats_max_clusters:
-        raise ValueError(f"stats_max_clusters {params.stats_max_clusters}: the capped "
-                         f"statistics are {_LATER}")
-
-
-def _device_vec(v, device):
-    """An odometry 3-vector as an f32 tensor on the state's device: a
-    device tensor as it is, host data copied there before the replay."""
-    if v is None or (isinstance(v, torch.Tensor) and v.device == device
-                     and v.dtype == torch.float32):
-        return v
-    return torch.as_tensor(v, dtype=torch.float32).to(device)
-
-
 _mcl_step_graph = graph_jit(mcl_step_2d, static_argnames=(
     "params", "odom_model", "laser_model", "resample_model", "do_resample", "do_beamskip",
     "backend"))
@@ -216,12 +191,11 @@ def mcl_step_2d_jit(state: MCLState, omap, scan_params, scan, random_pose_pool,
     do_beamskip, backend). The variates are drawn before the replay; the
     alphas are part of the key (Python floats, as the motion model takes
     them)."""
-    _check_jit_slice(params)
     dev = state.poses.device
     noise = _noise(noise, generator, state, odom=True)
     return _mcl_step_graph(
-        state, omap, scan_params, scan, random_pose_pool, _device_vec(odom_pose, dev),
-        _device_vec(odom_delta, dev), _device_vec(absolute_motion, dev),
+        state, omap, scan_params, scan, random_pose_pool, device_tensor(odom_pose, dev),
+        device_tensor(odom_delta, dev), device_tensor(absolute_motion, dev),
         tuple(float(a) for a in alphas), params, odom_models.OdomModel(odom_model),
         laser_model, ResampleModel(resample_model), do_resample, do_beamskip, backend,
         noise=noise)
@@ -236,7 +210,6 @@ def sensor_resample_step_jit(state: MCLState, omap, scan_params, scan, random_po
     """`sensor_resample_step` compiled (the JAX package's
     sensor_resample_step_jit, the unit bench.py times; static params,
     laser_model, resample_model, backend, resample_contract)."""
-    _check_jit_slice(params, resample_contract)
     return _sensor_resample_graph(
         state, omap, scan_params, scan, random_pose_pool, params, laser_model,
         ResampleModel(resample_model), backend, resample_contract,

@@ -24,12 +24,10 @@ The device work goes through the JAX node's `jax.jit` helpers, here
 `_resample_jit` and `_uniform_pool_jit` (this module), `_sensor_update_jit`
 and `_score_poses_jit` (node_2d.py, node_3d.py). On the card each static
 key is captured once into a CUDA graph and replayed, so a scan reads to
-the host only where the JAX node reads. The node decides from its
-configuration, at construction and at `reconfigure`, whether it runs
-them compiled (`compiled`, with `compiled_reason`): a configuration
-outside the compiled slice (the capped statistics) calls the same
-functions eagerly. A compiled call that fails raises; nothing falls back
-at run time. A map or free-cell table the node replaces takes the graph
+the host only where the JAX node reads. Every configuration runs them
+compiled (`compiled`; a caller that sets it False calls the same
+functions eagerly, as an eager twin does). A compiled call that fails
+raises; nothing falls back at run time. A map or free-cell table the node replaces takes the graph
 entries holding it along (`release_graphs`), and `shutdown` or the
 node's collection those holding its map and free cells (a module-level
 helper never keeps a dropped node's map alive). The entries keyed on its
@@ -207,7 +205,7 @@ class Node:
 
         self.state = None  # MCLState, created on the first map (node.cpp:670-709)
         self.map = None
-        self.compiled, self.compiled_reason = False, "not decided"
+        self.compiled = True
 
         # odometry bookkeeping (node.cpp:716-793,1019-1112)
         self.odom_init = False
@@ -274,15 +272,6 @@ class Node:
         reference (a map, a free-cell table): their graphs, buffers and
         pools. Returns how many."""
         return sum(jit.release(obj) for jit in self.JITS)
-
-    def _decide_compiled(self) -> None:
-        """Record whether the node calls its helpers compiled (graph_jit) or
-        eagerly, from the configuration alone: every model and backend
-        compiles, the capped statistics do not (`mcl._check_jit_slice`)."""
-        self.compiled = not self.params.stats_max_clusters
-        self.compiled_reason = ("inside the compiled slice" if self.compiled else
-                                "the capped statistics (stats_max_clusters) are outside the "
-                                "compiled slice")
 
     def _call(self, helper, *args, **kwargs):
         """A graph_jit helper where the node runs compiled, the function it
@@ -747,7 +736,6 @@ class Node:
             if held is not None:
                 self.release_graphs(held)
         self._reconfigure_sensors()
-        self._decide_compiled()
 
     def _reconfigure_sensors(self) -> None:
         """Subclass: rebuild scanner params from the new config."""

@@ -91,7 +91,6 @@ class Node2D(Node):
         self.backend = resolve_backend(config.compute_backend, self.device)
         self._map_version = 0
         self._corr_tex_key = None
-        self._decide_compiled()
 
     # --------------------------------------------------------------- params
 

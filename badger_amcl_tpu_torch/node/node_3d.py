@@ -88,7 +88,6 @@ class Node3D(Node):
         self.scanners_update: List[bool] = []
         self.pc_params = self._make_params()
         self.backend = cloud_backend(config.compute_backend, self.device)
-        self._decide_compiled()
 
     # --------------------------------------------------------------- params
 

@@ -75,7 +75,10 @@ _SIGNATURES = {
     "edt_3d_launch": [_P, _I, _I, _I, _I, _D, _D, _P, _P, _P, _P],
     "cluster_labels_launch": [_P, _I, _I, _I, _I, _P, _P, _P],
     "graph_if_begin": [_P, _P, _P],
-    "graph_if_end": [_P],
+    "graph_if_end": [_P, _P],
+    "graph_while_begin": [_P, _P, _P, _P],
+    "graph_while_end": [_P, ctypes.c_ulonglong, _P, _P],
+    "graph_capture_nodes": [_P, _P],
 }
 
 _lib = None

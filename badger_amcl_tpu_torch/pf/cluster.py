@@ -15,7 +15,8 @@ eager steps, a conditional node of a compiled step's graph.
 
 A fleet (leading robot axis R) takes `_ranks_fleet`: one composite-key
 sort over R * M, the unique (robot, bin) keys compacted to the front, one
-batched dilation over (R, ga, gx, gy); `stats_from_ranks` serves one robot
+batched labelling over (R, ga, gx, gy), or past FLEET_U_MAX keys the same
+labelling over every robot's full grid; `stats_from_ranks` serves one robot
 and a fleet alike (one `index_add_` over R * k segments, a batched
 `_finalize`).
 """
@@ -28,12 +29,11 @@ from badger_amcl_tpu_torch.ops.cluster_kernel import cluster_labels
 from badger_amcl_tpu_torch.pf import kld
 from badger_amcl_tpu_torch.pf.types import ClusterStats, map_tensors
 from badger_amcl_tpu_torch.utils import control
-from badger_amcl_tpu_torch.utils.numerics import host_bool
 
 MAX_FAST_CLUSTERS = 128
 MAX_UNIQUE_BINS = 8192
 # capacity of the fleet's unique (robot, bin) compaction, across all robots;
-# past it the ranks come from the per-robot grid path (cluster.py:200-203)
+# past it the ranks come from the batched grid path (cluster.py:200-203)
 FLEET_U_MAX = 32768
 SMALL_GRID = (32, 32, 40)
 
@@ -128,37 +128,63 @@ def _ranks_sorted_path(sb, shape):
     return kld.to_draw_order(idx_s, rank_s), cluster_count
 
 
+def _ranks_grid_fleet(flat: torch.Tensor, active: torch.Tensor, shape):
+    """`_ranks_grid_path` of every robot of a fleet as one batched grid
+    path: flat, active (R, M); one occupancy scatter over (R, n_cells),
+    one labelling launch, two (R, M) gathers. Returns (rank_p (R, M),
+    cluster_count (R,)), each robot's equal to `_ranks_grid_path`'s."""
+    r = flat.shape[0]
+    gx, gy, ga = shape
+    n_cells = gx * gy * ga
+    robot = torch.arange(r, device=flat.device)[:, None] * n_cells
+    occ = torch.zeros((r * n_cells + 1,), dtype=torch.bool, device=flat.device)
+    occ.index_fill_(0, torch.where(active, robot + flat, r * n_cells).reshape(-1).long(), True)
+    labels, rank_grid, cluster_count = _label_grid_machinery(occ[:-1].reshape(r, n_cells),
+                                                             shape)
+    lbl_p = torch.take_along_dim(labels, flat.long(), dim=1)
+    rank_p = torch.take_along_dim(rank_grid, lbl_p.clamp(0, n_cells - 1).long(), dim=1)
+    return rank_p, cluster_count
+
+
 def _ranks_fleet(flat: torch.Tensor, active: torch.Tensor, shape):
     """Per-robot cluster ranks for a fleet (cluster.py:206-282): flat,
-    active (R, M). Returns (rank_p (R, M) int32, cluster_count (R,) int32),
-    or None when the fleet holds more than FLEET_U_MAX occupied (robot,
-    bin) keys (one host sync). Root ranks equal the per-robot grid path's:
-    the same occupancy grid, min-label components and cumsum ranking."""
+    active (R, M). Returns (rank_p (R, M) int32, cluster_count (R,)
+    int32). A `control.cond` ("cluster.fleet_u", filter.py:634) on whether
+    the fleet holds at most FLEET_U_MAX occupied (robot, bin) keys: its
+    true arm ranks the unique keys compacted to the front, its false arm
+    is the batched grid path `_ranks_grid_fleet`. Root ranks equal the
+    per-robot grid path's: the same occupancy grid, min-label components
+    and cumsum ranking."""
     r, m = flat.shape
     gx, gy, ga = shape
     n_cells = gx * gy * ga
     u = min(FLEET_U_MAX, r * m)
     dev = flat.device
     ks, idx_s, segstart = kld.composite_sort(flat, active, n_cells)
-    if not host_bool(segstart.sum() <= u):
-        return None
-    segid = torch.cumsum(segstart.to(torch.int32), 0, dtype=torch.int32) - 1
-    # unique keys to the front, ascending: each segment start writes slot
-    # segid; every other entry lands in the spare slot u
-    uk = torch.full((u + 1,), kld.FLEET_SENTINEL, dtype=torch.int64, device=dev)
-    uk.scatter_(0, torch.where(segstart, segid, u).long(), ks)
-    uk = uk[:u]
-    valid_u = uk < kld.FLEET_SENTINEL
-    rk = (uk // n_cells).clamp(0, r - 1)
-    cell = (uk - rk * n_cells).clamp(0, n_cells - 1)
-    occ = torch.zeros((r * n_cells + 1,), dtype=torch.bool, device=dev)
-    occ.index_fill_(0, torch.where(valid_u, rk * n_cells + cell, r * n_cells), True)
-    labels, rank_grid, cluster_count = _label_grid_machinery(
-        occ[:-1].reshape(r, n_cells), shape)
-    lab_u = labels[rk, cell].clamp(0, n_cells - 1).long()
-    rank_u = torch.where(valid_u, rank_grid[rk, lab_u], 0)
-    rank_s = rank_u[segid.clamp(0, u - 1).long()]
-    return kld.to_draw_order(idx_s, rank_s).reshape(r, m), cluster_count
+
+    def unique_keys():
+        segid = torch.cumsum(segstart.to(torch.int32), 0, dtype=torch.int32) - 1
+        # unique keys to the front, ascending: each segment start writes slot
+        # segid; every other entry, and a start past the capacity (the
+        # warm-up of a compiled step runs this arm on any fleet), the spare
+        # slot u
+        uk = torch.full((u + 1,), kld.FLEET_SENTINEL, dtype=torch.int64, device=dev)
+        uk.scatter_(0, torch.where(segstart & (segid < u), segid, u).long(), ks)
+        uk = uk[:u]
+        valid_u = uk < kld.FLEET_SENTINEL
+        rk = (uk // n_cells).clamp(0, r - 1)
+        cell = (uk - rk * n_cells).clamp(0, n_cells - 1)
+        occ = torch.zeros((r * n_cells + 1,), dtype=torch.bool, device=dev)
+        occ.index_fill_(0, torch.where(valid_u, rk * n_cells + cell, r * n_cells), True)
+        labels, rank_grid, cluster_count = _label_grid_machinery(
+            occ[:-1].reshape(r, n_cells), shape)
+        lab_u = labels[rk, cell].clamp(0, n_cells - 1).long()
+        rank_u = torch.where(valid_u, rank_grid[rk, lab_u], 0)
+        rank_s = rank_u[segid.clamp(0, u - 1).long()]
+        return kld.to_draw_order(idx_s, rank_s).reshape(r, m), cluster_count
+
+    return control.cond(segstart.sum() <= u, unique_keys,
+                        lambda: _ranks_grid_fleet(flat, active, shape), name="cluster.fleet_u")
 
 
 def compute_cluster_stats(poses, weights, active, params,

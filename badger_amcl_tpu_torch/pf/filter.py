@@ -47,7 +47,7 @@ import torch
 from badger_amcl_tpu_torch.pf import cluster, gaussian, kld
 from badger_amcl_tpu_torch.pf.types import MCLState, PFParams
 from badger_amcl_tpu_torch.utils import control
-from badger_amcl_tpu_torch.utils.numerics import cumsum_det, host_values
+from badger_amcl_tpu_torch.utils.numerics import cumsum_det
 
 
 class ResampleModel(enum.IntEnum):
@@ -400,7 +400,7 @@ def fleet_resample(states: MCLState, params: PFParams, pools: torch.Tensor,
     with a leading robot axis R, as the JAX package's fleet_resample
     (filter.py:570-658): the picks batched over robots, the KLD stop from
     one composite-key sort over R * M, cluster ranks from `_ranks_fleet`
-    (the per-robot grid path, robot by robot, past cluster.FLEET_U_MAX).
+    (the batched grid path past cluster.FLEET_U_MAX).
 
     pools: (R, M, 3); u_inject, u_pick: (R, M) uniforms in [0, 1) (the JAX
     head's k1/k2 draws). The candidates are binned over ALL M draws, not
@@ -432,22 +432,17 @@ def fleet_resample(states: MCLState, params: PFParams, pools: torch.Tensor,
 def _fleet_finish(states, params, new_poses, new_count, w_diff, flat=None):
     """A fleet's new set (R, M, 3) with its per-robot count -> the new
     state: uniform weights over the active set, the averages reset where
-    w_diff > 0, cluster statistics from `_ranks_fleet` (robot by robot
-    through the grid path past its capacity), convergence. flat: the
+    w_diff > 0, cluster statistics from `_ranks_fleet` (the batched grid
+    path past its capacity), convergence. flat: the
     candidates' bins over all M draws (fleet_resample); None bins the
     active set, as vmap(resample) does."""
-    r, m = states.weights.shape
+    m = states.weights.shape[1]
     dev = states.poses.device
     shape = params.hist_shape
     act = torch.arange(m, device=dev) < new_count[:, None]
     if flat is None:
         _, flat = kld.grid_cells(kld.bin_keys(new_poses), act, shape)
-    flat_act = torch.where(act, flat, 0)
-    ranks = cluster._ranks_fleet(flat_act, act, shape)
-    if ranks is None:
-        per_robot = [cluster._ranks_grid_path(flat_act[i], act[i], shape) for i in range(r)]
-        ranks = (torch.stack([p[0] for p in per_robot]),
-                 torch.stack([p[1] for p in per_robot]))
+    ranks = cluster._ranks_fleet(torch.where(act, flat, 0), act, shape)
 
     weights = torch.where(act, 1.0 / new_count[:, None].to(torch.float32), 0.0)
     reset = w_diff > 0.0
@@ -468,7 +463,7 @@ def fleet_resample_systematic(states: MCLState, params: PFParams, pools: torch.T
     batched over the robot axis: equal to the JAX package's vmapped
     `resample` (fleet.py:104-106). Each robot's leaf count comes from one
     composite-key sort over R * M, the comb from its u_start (R,), the
-    cluster ranks from `_ranks_fleet` over the active set (the per-robot
+    cluster ranks from `_ranks_fleet` over the active set (the batched
     grid path past cluster.FLEET_U_MAX)."""
     shape = params.hist_shape
     w_diff = _w_diff(states, False)
@@ -493,40 +488,55 @@ def fleet_resample_systematic(states: MCLState, params: PFParams, pools: torch.T
 # capacity of the unique-cell compaction; a cloud over more cells takes the
 # pick contract's step (filter.py:685)
 CELL_U_MAX = 8192
-# the arm each sensor_resample_cells call took (diagnostic, as SYNCS)
+# the arm each eager sensor_resample_cells call took (diagnostic, as SYNCS;
+# a compiled step's arms are its capture's counters, `Capture.arm_counts`,
+# under "cells.ok:true" / "cells.ok:false")
 CELL_ARMS = collections.Counter()
 
 
 def sensor_resample_cells(state: MCLState, params: PFParams, random_pose_pool: torch.Tensor,
-                          tbl, key_m, cells_ok: bool, classic_fn, u_inject: torch.Tensor,
+                          tbl, key_m, cells_ok, classic_fn, u_inject: torch.Tensor,
                           u_pick: torch.Tensor) -> MCLState:
     """Sensor update + multinomial KLD resample under the cell-space
     contract (filter.py:728-866, particle_filter.cpp:223-267 + :356-471).
-    tbl, key_m, cells_ok come from sensors.planar.planar_likelihood_cells;
-    classic_fn () -> MCLState is the pick contract's step on the same
-    variates, taken when cells_ok is False, the cloud holds more than
-    CELL_U_MAX cells, the active prior weights are not all equal (the
-    exchangeability precondition) or no particle is active; the last three
-    are read in one host sync. u_inject, u_pick: (M,) uniforms in [0, 1),
+    tbl, key_m, cells_ok come from sensors.planar.planar_likelihood_cells
+    (cells_ok a bool or a 0-dim bool tensor; no table at all, tbl None,
+    takes classic_fn at once); classic_fn () -> MCLState is the pick
+    contract's step on the same variates. One `control.cond` ("cells.ok",
+    as JAX's lax.cond at filter.py:876) takes classic_fn where cells_ok is
+    False, the cloud holds more than CELL_U_MAX cells, the active prior
+    weights are not all equal (the exchangeability precondition) or no
+    particle is active: one host sync in an eager step, a conditional
+    node in a compiled one. u_inject, u_pick: (M,) uniforms in [0, 1),
     the draws JAX takes from split(split(state.key)[1]) (filter.py:830-833),
     as `resample` takes them."""
-    if not cells_ok:
+    if tbl is None:
         CELL_ARMS["classic"] += 1
         return classic_fn()
-    m = params.max_samples
-    dev = state.poses.device
     active = state.active_mask
     # the active particles stably sorted by cell key, one segment a cell
     ks, order, _, segstart = kld.sort_by_bin(key_m, active)
     u_count = segstart.sum().to(torch.int32)
     wa_max = torch.where(active, state.weights, 0.0).max()
     wa_min = torch.where(active, state.weights, float("inf")).min()
-    u_ok, uniform, any_active = host_values(u_count <= CELL_U_MAX, wa_max == wa_min,
-                                            state.n_active > 0)
-    if not (u_ok and uniform and any_active):
-        CELL_ARMS["classic"] += 1
-        return classic_fn()
-    CELL_ARMS["cell"] += 1
+    (ok,) = control.read(cells_ok & (u_count <= CELL_U_MAX) & (wa_max == wa_min)
+                         & (state.n_active > 0))
+    if isinstance(ok, bool):  # an eager step
+        CELL_ARMS["cell" if ok else "classic"] += 1
+    return control.cond(
+        ok, lambda: _cell_arm(state, params, random_pose_pool, tbl, ks, order, segstart,
+                              u_count, u_inject, u_pick),
+        classic_fn, name="cells.ok")
+
+
+def _cell_arm(state, params, random_pose_pool, tbl, ks, order, segstart, u_count, u_inject,
+              u_pick) -> MCLState:
+    """The cell arm of `sensor_resample_cells`, from the particles sorted
+    by cell (ks, order, segstart) and the cell count. Memory-safe on any
+    input (a compiled step's warm-up runs it where its preconditions
+    fail): every index is clamped."""
+    m = params.max_samples
+    dev = state.poses.device
 
     # the cells compacted to the front: each segment's key and first
     # sorted position, padded to u (the JAX package's 128-aligned size)

@@ -484,15 +484,18 @@ CELL_MODELS = ("likelihood_field", "likelihood_field_gompertz", "likelihood_fiel
 def planar_likelihood_cells(omap, params, scan, poses, model: str, backend: str = "corr"):
     """The cell-space twin of `planar_likelihood` for the cell resampling
     contract (planar.py:817-852, pf.filter.sensor_resample_cells): (tbl
-    (T_FLAT_CELLS,) f32, key (M,) int64, ok) with ok a host bool: the
-    folded p * recalcWeight factor of every lattice cell and each
-    particle's cell in it (`corr_kernel.corr_cells`, kernel #1/#2), with
-    no per-particle take. The combines are JAX's: 1 + s, Gompertz of the
-    mean term (1 without a valid beam) and exp(s) for prob (the exp form,
-    not the log-space pipeline). ok is False, with no table (None, None),
-    when the map misses the corr gate, the cloud leaves the lattice
-    envelope or a particle is off the map (planar.py:260-265,290-315): the
-    caller then runs the pick-level step."""
+    (T_FLAT_CELLS,) f32, key (M,) int64, ok): the folded p * recalcWeight
+    factor of every lattice cell and each particle's cell in it
+    (`corr_kernel.corr_cells`, kernel #1/#2), with no per-particle take.
+    The combines are JAX's: 1 + s, Gompertz of the mean term (1 without a
+    valid beam) and exp(s) for prob (the exp form, not the log-space
+    pipeline). ok is whether the cloud fits the lattice envelope and every
+    particle is on the map (planar.py:260-265,290-315): a bool read in the
+    prepass's one host sync, or a device flag while a graph is captured.
+    As in JAX, the table is built before ok is known, whatever ok turns
+    out to be (the kernel and the take are memory-safe on any cloud); the
+    caller runs the pick-level step where ok is False. A map that misses
+    the corr gate returns (None, None, False): no table at all."""
     if backend != "corr":
         raise ValueError(f"the cell contract needs the corr backend, got {backend!r}")
     if model not in CELL_MODELS:
@@ -501,8 +504,6 @@ def planar_likelihood_cells(omap, params, scan, poses, model: str, backend: str 
         return None, None, False
     spose = coord_add(params.scanner_pose, poses)
     pre, valid, fits, tight, narrow, all_valid = _corr_flags(omap, scan, spose, poses)
-    if not (fits and all_valid):
-        return None, None, False
     n_valid = valid.sum()
     fold = corr_kernel.Fold(combine=lambda s: corr_combine(model, params, s, n_valid),
                             factor_tex=_factor_texture(omap, params), all_valid=True,
@@ -510,4 +511,4 @@ def planar_likelihood_cells(omap, params, scan, poses, model: str, backend: str 
     tex_pad = _tex_pad(omap, params, scan, model)
     tbl, key = corr_kernel.window_cond(pre, tight, narrow, lambda rows, j0: corr_kernel.corr_cells(
         tex_pad, pre, int(scan.ranges.shape[0]), rows, j0, fold))
-    return tbl, key, True
+    return tbl, key, fits & all_valid

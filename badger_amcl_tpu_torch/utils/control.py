@@ -1,9 +1,11 @@
-"""The port's counterparts of `lax.cond` and `lax.while_loop`.
+"""The port's counterparts of `lax.cond`, `lax.fori_loop` / `lax.map` and
+`lax.while_loop`.
 
 The JAX package branches on device scalars in `lax.cond` and loops in
-`lax.while_loop` (pf/cluster.py:72): its compiled step is one device
-program. Every such branch of the port goes through `cond`, every such
-loop through `while_loop`. By mode:
+`lax.map` (fleet/fleet.py:131) and `lax.while_loop` (pf/cluster.py:72):
+its compiled step is one device program. Every such branch of the port
+goes through `cond`, every such loop through `fori_loop` or
+`while_loop`. By mode:
 
 - eager (CPU tensors, or CUDA outside a capture): a predicate is read to
   the host in one counted sync (`numerics.SYNCS`) and one arm runs.
@@ -15,8 +17,10 @@ loop through `while_loop`. By mode:
   which makes them two conditional IF nodes of the graph, on the predicate
   and on its negation (ops/graph_cond.py). The arms return identically
   shaped outputs, as `lax.cond` requires. `read` returns the predicates as
-  they are. `while_loop` refuses to be captured: the slice's one loop, the
-  cluster-labelling fixpoint, is a kernel on the card
+  they are. `fori_loop` (a static trip count) becomes one WHILE node,
+  its body captured once (its executions count as "name:body").
+  `while_loop` refuses to be captured: the slice's one data-dependent
+  loop, the cluster-labelling fixpoint, is a kernel on the card
   (ops/cluster_kernel.py).
 - warm-up (`all_arms`): before its capture, graph_jit runs the step
   eagerly once with every `cond` running both arms and returning the one
@@ -38,6 +42,7 @@ import threading
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from badger_amcl_tpu_torch.utils import tree
 from badger_amcl_tpu_torch.utils.numerics import host_values
 
 # the arms taken by eager steps, "name:true" / "name:false" -> count
@@ -132,6 +137,26 @@ def cond(pred, true_fn, false_fn, *operands, name: str):
         return outs[0] if taken else outs[1]
     ARMS[f"{name}:{'true' if taken else 'false'}"] += 1
     return (true_fn if taken else false_fn)(*operands)
+
+
+def fori_loop(n: int, body_fn, carry, *, name: str):
+    """`lax.fori_loop(0, n, body_fn, carry)` (or `lax.map` over n rows)
+    with a static trip count: body_fn(i, carry) -> carry, the same
+    structure of tensors of the same shapes and dtypes; it may update the
+    carry's tensors in place and return them. Eagerly (warm-up included)
+    a Python loop, i a Python int; while a graph is captured one WHILE
+    node whose body is captured once, as JAX traces one (i a 0-dim int64
+    device tensor: index with it by `index_select`, never `int()`). `name`
+    keys the body's counter, and its executions count in `ARMS` as
+    "name:body"."""
+    cap = _capture_of(next(iter(tree.leaves(carry)), None))
+    if cap is not None:
+        return cap.fori(n, body_fn, carry, name)
+    for i in range(n):
+        if not _depth("warmup"):
+            ARMS[f"{name}:body"] += 1
+        carry = body_fn(i, carry)
+    return carry
 
 
 def while_loop(cond_fn, body_fn, init):

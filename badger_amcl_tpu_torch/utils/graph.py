@@ -65,17 +65,19 @@ MAX_ENTRIES = 16
 
 class Capture:
     """What one graph capture records: each `cond` as a pair of IF nodes,
-    a device counter per arm (SLOTS int64, one added at every execution),
-    the private pool of the arm bodies' allocations and, for the kernel
+    each `fori_loop` as a WHILE node, a device counter per body (SLOTS
+    int64, one added at every execution; a cond captured several times
+    has a body and a counter each time), the
+    private pool of the arm bodies' allocations and, for the kernel
     wrappers in `kernels` ({name: wrapper with a `launches` count}), the
-    launches captured in each arm (their host counters read before and
-    after each arm body)."""
+    launches captured in each arm body (their host counters read before
+    and after it)."""
 
-    SLOTS = 64
+    SLOTS = 4096
 
     def __init__(self, device: torch.device, kernels: dict):
         self.counts = torch.zeros((self.SLOTS,), dtype=torch.int64, device=device)
-        self.slots = {}  # "name:arm" -> counter index
+        self.slots = []  # "name:arm" of each arm body, by its counter index
         self.kernels = dict(kernels)
         # counter index (None: outside every arm) -> {kernel: launches in it}
         self.launches = collections.defaultdict(collections.Counter)
@@ -83,6 +85,7 @@ class Capture:
         self._index = device.index if device.index is not None else torch.cuda.current_device()
         self._pool_uses = 0  # the allocator counts a use of the pool per arm routed to it
         self._frames = []
+        self.nodes = 0  # the graph's nodes inside arm bodies (nested ones too)
 
     def _snapshot(self):
         return collections.Counter({k: fn.launches for k, fn in self.kernels.items()})
@@ -105,14 +108,22 @@ class Capture:
         if self._frames:
             self._frames[-1][2].update(inclusive)
 
-    @contextlib.contextmanager
     def arm(self, key: str, pred: torch.Tensor):
         """Capture what the block issues into the body of an IF node on
         pred (a 0-dim bool on the capturing device)."""
-        slot = self.slots.setdefault(key, len(self.slots))
+        return self._body(key, pred.device, lambda: (graph_cond.if_begin(pred), None),
+                          lambda body, _: graph_cond.if_end(body))
+
+    @contextlib.contextmanager
+    def _body(self, key: str, device, begin, end):
+        """Capture what the block issues into the body of a conditional
+        node: begin() -> (its capturing stream, a token), end(stream,
+        token) -> the body's node count."""
+        slot = len(self.slots)
         if slot >= self.SLOTS:
-            raise RuntimeError(f"more than {self.SLOTS} cond arms in one capture")
-        body = graph_cond.if_begin(pred)
+            raise RuntimeError(f"more than {self.SLOTS} cond arm bodies in one capture")
+        self.slots.append(key)
+        body, token = begin()
         index = self._index
         outermost = all(f[0] is None for f in self._frames)
         if outermost:  # nested arms allocate under the outermost arm's routing
@@ -120,14 +131,14 @@ class Capture:
             self._pool_uses += 1
         self._frames.append([slot, self._snapshot(), collections.Counter()])
         try:
-            with torch.cuda.stream(torch.cuda.ExternalStream(body, device=pred.device)):
+            with torch.cuda.stream(torch.cuda.ExternalStream(body, device=device)):
                 self.counts.narrow(0, slot, 1).add_(1)
                 yield
         finally:
             self._pop_frame()
             if outermost:
                 torch._C._cuda_endAllocateToPool(index, self.pool)
-            graph_cond.if_end(body)
+            self.nodes += end(body, token)
 
     def if_else(self, pred, true_fn, false_fn, operands, name):
         """`control.cond` under capture: the true arm's outputs are copied
@@ -149,6 +160,30 @@ class Capture:
                 a.copy_(b)
         return out
 
+    def fori(self, n: int, body_fn, carry, name: str):
+        """`control.fori_loop` under capture: one WHILE node whose body,
+        captured once, runs body_fn(i, carry) with i a 0-dim int64 device
+        counter, copies its result into the loop-carried buffers (unless
+        body_fn updated them in place and returned them) and counts i up;
+        the loop runs while i < n. Returns the buffers."""
+        state = tree.map_tensors(torch.clone, carry)
+        dev = tree.leaves(state)[0].device
+        i = torch.zeros((), dtype=torch.int64, device=dev)
+        pred = torch.lt(i, n)
+        with self._body(f"{name}:body", dev, lambda: graph_cond.while_begin(pred),
+                        lambda body, handle: graph_cond.while_end(body, handle, pred)):
+            out = body_fn(i, state)
+            mine, theirs = tree.leaves(state), tree.leaves(out)
+            if len(mine) != len(theirs) or any(
+                    a.shape != b.shape or a.dtype != b.dtype for a, b in zip(mine, theirs)):
+                raise ValueError(f"fori_loop {name}: the body changes the carry's shapes")
+            for a, b in zip(mine, theirs):
+                if a is not b:
+                    a.copy_(b)
+            i.add_(1)
+            torch.lt(i, n, out=pred)
+        return state
+
     def release(self) -> None:
         """Give the arms' pool back to the allocator (once its graph is
         gone): its blocks free as their tensors die."""
@@ -156,19 +191,28 @@ class Capture:
             torch._C._cuda_releasePool(self._index, self.pool)
         self._pool_uses = 0
 
-    def arm_counts(self) -> dict:
-        """{"name:arm": executions} over every replay so far (one host read)."""
-        counts = self.counts.tolist()
-        return {k: counts[i] for k, i in self.slots.items()}
+    def slot_counts(self) -> list:
+        """Executions of each arm body over every replay so far, by counter
+        index (one host read)."""
+        return self.counts[:len(self.slots)].tolist()
 
-    def replay_launches(self, replays: int, counts: dict = None) -> collections.Counter:
+    def arm_counts(self) -> dict:
+        """{"name:arm": executions of its bodies} over every replay so far
+        (one host read)."""
+        out = collections.Counter()
+        for k, n in zip(self.slots, self.slot_counts()):
+            out[k] += n
+        return dict(out)
+
+    def replay_launches(self, replays: int, counts: list = None) -> collections.Counter:
         """Kernel launches over `replays` replays: those outside every arm
-        once a replay, each arm's as often as its counter says."""
-        counts = self.arm_counts() if counts is None else counts
-        by_slot = {i: counts[k] for k, i in self.slots.items()}
+        once a replay, each arm body's as often as its counter says
+        (`counts`, by counter index: `slot_counts()` or a difference of
+        two)."""
+        counts = self.slot_counts() if counts is None else counts
         out = collections.Counter()
         for slot, launched in self.launches.items():
-            times = replays if slot is None else by_slot[slot]
+            times = replays if slot is None else counts[slot]
             for k, n in launched.items():
                 out[k] += n * times
         return out
@@ -185,6 +229,7 @@ class Entry:
     capture: Capture
     references: dict
     capture_s: float
+    nodes: int = 0  # the graph's nodes, every arm body's included
     replays: int = 0
     static: dict = dataclasses.field(default_factory=dict)
 
@@ -269,11 +314,22 @@ def _capture(fn, bound, leaves, spec, references, kernels, static) -> Entry:
         t0 = time.perf_counter()
         with cap.recording(), torch.cuda.graph(graph):
             outputs = fn(**args)
+            top = graph_cond.capture_nodes(dev)
         torch.cuda.synchronize(dev)
         for k, k_fn in cap.kernels.items():  # recorded, not launched
             k_fn.launches = counted[k]
         return Entry(graph, inputs, outputs, cap, references, time.perf_counter() - t0,
-                     static=static)
+                     nodes=top + cap.nodes, static=static)
+
+
+def device_tensor(v, device):
+    """An f32 argument (odometry) as a tensor on the step's device: a
+    device f32 tensor or None as it is, host data copied there before the
+    replay."""
+    if v is None or (isinstance(v, torch.Tensor) and v.device == device
+                     and v.dtype == torch.float32):
+        return v
+    return torch.as_tensor(v, dtype=torch.float32).to(device)
 
 
 def graph_jit(fn, static_argnames):

@@ -201,7 +201,10 @@ def one(root):
     torch.cuda.empty_cache()
 
     fl = scenario.build_fleet(cs.FLEET_ROBOTS, cs.FLEET_PARTICLES, cs.FLEET_BEAMS, device=dev)
-    pre, _, _, rows, j0 = fleet_window(omap, sp, fl[2], fl[1])
+    # the window of the flags read here (fleet_window returns them, or
+    # the window itself in older checkouts)
+    pre = fleet_window(omap, sp, fl[2], fl[1])[0]
+    rows, j0 = ck.window_variant(pre, bool(pre["tight"].all()), bool(pre["narrow"].all()))
     args = (omap.corr_psi_pad, pre["off"], pre["nv"], pre["t_n"], ck.table_origin(pre, j0),
             cs.FLEET_BEAMS, rows)
 

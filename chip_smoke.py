@@ -69,22 +69,37 @@ the port's three paths:
   launches, the timing rows of the cell and the pick contract on the same
   state, a chi-square (p > 1e-3) of one steady cell step's per-cell picks
   against the cell masses, and the card against the CPU at 4096 x 360
-  (>= 99.9% of picks equal, n_active equal);
+  (>= 99.9% of picks equal, n_active equal); compiled
+  (`sensor_resample_step_jit(resample_contract="cell")`, one cond
+  "cells.ok"): 10 chained replays in each of the five cells equal to the
+  eager cell step, the cell arm in every replay of the four tight cells
+  and the pick step in the spread one (device counters = the eager
+  arms), 0 host syncs, one capture a key, compiled and eager step_ms;
 - fleet: holds fleet_corr_table against its plain version on 16 robots
   scattered over the 1024^2 map (one without a valid beam) and at the
   fleet's own shape, drives `fleet_init` and `fleet_step` at 256 robots x
   10,000 particles x 180 beams (3 steps, then 3 pinned steps; the fleet
   table must launch on every step), compares the card with the CPU at
   4 x 2048 x 60 and times the fleet step (robot-steps/s, host syncs per
-  step at 16 and 256 robots); then the sharded fleet
-  (`make_sharded_fleet_step`, `fleet_health(group)`) at the same shape:
-  one NCCL rank in this process (a file store in a temporary directory)
-  must equal `fleet_step` over 3 steps with motion and launch #5 once a
-  step, its NCCL health equal the local one; two gloo ranks spawned on the
-  one card (`--fleet-rank`; NCCL refuses two ranks on one device), 128
-  robots each, must match their rows of the one-process run, launch #5 on
-  every step and reduce the whole fleet's health, each under its own time
-  limit; their step ms are two processes sharing one card;
+  step at 16 and 256 robots); the compiled fleet step
+  (`make_fleet_step`, one CUDA graph, its conds "fleet.fits",
+  "fleet.window.*" and "cluster.fleet_u" conditional nodes) on the
+  flagship fleet, the same with robot 0's cloud spread and every robot's
+  cloud spread: 10 chained replays each equal to eager `fleet_step`,
+  both arms of "fleet.fits" and of "cluster.fleet_u" inside replays, 0
+  host syncs, one capture, #5, #3 and the labelling kernel inside
+  replays, compiled and eager step_ms, the capture's seconds, graph
+  nodes and memory; then the sharded fleet (`make_sharded_fleet_step`,
+  each rank's step the compiled one; `fleet_health(group)`) at the same
+  shape: one NCCL rank in this process (a file store in a temporary
+  directory) must equal the one-process compiled step bit for bit over 3
+  steps with motion and launch #5 inside each replay, its NCCL health
+  equal the local one; two gloo ranks spawned on the one card
+  (`--fleet-rank`; NCCL refuses two ranks on one device), 128 robots
+  each, each capturing its own graph, must match their rows of the
+  one-process run, launch #5 inside every step's replay and reduce the
+  whole fleet's health, each under its own time limit; their step ms are
+  two processes sharing one card;
 - 3D: builds the 20 x 20 x 1 m voxel scene at 0.05 m (401 x 401 x 21 EDT)
   and its 256-point cloud, holds the windowed arm's kernels against their
   plain versions (the window prepass on the 50k steady, 10k tracking and
@@ -168,6 +183,12 @@ the port's three paths:
   replays; per twin the scan_received medians (update-only, resampling),
   host syncs, device busy and idle share, score rounds and ms per round,
   pose errors;
+- the capped statistics (`stats_max_clusters` 128) compiled:
+  `sensor_resample_step_jit` from the tracking and spread clouds and
+  `mcl_step_2d_jit` at 50,000 x 720, 10 chained replays each equal to the
+  eager step (the capped arms: "cluster.sorted", no fused KLD ranks), and
+  a capped flagship 2D node beside its eager twin for 20 scans, equal at
+  every scan;
 - the compiled entries, bounded: the compiled 3D node
   (examples/amcl_3d.yaml, 50,000 particles) fed 40 clouds of seeded raw
   sizes in [200, 5000] (each decimated size a new key), reconfigured
@@ -181,9 +202,11 @@ the port's three paths:
 
 The launch counters are set to 0 just before each main-path run and read
 just after, and each path (2d_lf, 2d_beam, 2d_gompertz, 2d_prob, 2d_q,
-2d_cells, fleet, sharded_fleet (its in-process rank), 3d, map_setup,
-node_2d, node_3d, cli, node_compiled) keeps
-its own count; the compiled paths' launches (2d_compiled, and the nodes'
+2d_cells, 2d_cells_compiled, fleet, fleet_compiled, sharded_fleet (its
+in-process rank), 3d, map_setup, node_2d, node_3d, cli, node_compiled,
+capped) keeps
+its own count; the compiled paths' launches (2d_compiled,
+2d_cells_compiled, fleet_compiled, sharded_fleet, capped, and the nodes'
 helpers on node_2d, node_3d, cli and node_compiled) happen inside graph
 replays, where no host counter moves: each arm's device counter times the
 launches captured in that arm, the rest once a replay. Every
@@ -292,8 +315,12 @@ OFF_MAIN_PATH = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A progress line, prefixed by the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 class Failure(Exception):
@@ -775,7 +802,7 @@ class Launches:
         """{graph: ({id: (entry, replays, arm counts)} of its live entries,
         held so that no entry captured in a run takes one's id; the
         launches of its dropped entries' replays so far)}."""
-        return {g: ({id(e): (e, e.replays, e.capture.arm_counts()) for e in g.entries.values()},
+        return {g: ({id(e): (e, e.replays, e.capture.slot_counts()) for e in g.entries.values()},
                     collections.Counter(g.dropped_launches)) for g in self.graphs}
 
     def run(self, fn, n_steps):
@@ -792,8 +819,9 @@ class Launches:
                 if i not in live:  # ... less those before it
                     replayed.subtract(e.capture.replay_launches(replays0, arms0))
             for i, e in live.items():
-                _, replays0, arms0 = live0.get(i, (e, 0, {}))
-                arms = {k: v - arms0.get(k, 0) for k, v in e.capture.arm_counts().items()}
+                _, replays0, arms0 = live0.get(i, (e, 0, []))
+                arms = [n - (arms0[j] if j < len(arms0) else 0)
+                        for j, n in enumerate(e.capture.slot_counts())]
                 replayed.update(e.capture.replay_launches(e.replays - replays0, arms))
             for k, n in replayed.items():
                 if k in rose and n:
@@ -1285,7 +1313,9 @@ def phase_graph_cond(dev):
     against a graph_jit of the same adds without conds. Equal to the eager
     function; the replays' ms (CUDA events over `graph.replay()`), their
     difference per IF node, and the handle kernel's device time per launch
-    (torch.profiler). Returns the figures."""
+    (torch.profiler). Then its WHILE node: a GRAPH_COND_CONDS-iteration
+    `control.fori_loop` equal to the Python loop, its body run that often.
+    Returns the figures."""
     import torch
 
     from badger_amcl_tpu_torch.utils import control
@@ -1328,6 +1358,27 @@ def phase_graph_cond(dev):
         f"without conds: {1e3 * out['ms_per_if_node']:.2f} us per IF node; the handle "
         f"kernel's device time per launch {device_text(handle)} ms (torch.profiler; ops "
         + "; ".join(f"{n} {t:.4f}" for n, t in ops.items()) + ")")
+
+    # the WHILE node of control.fori_loop: k iterations of a body that adds
+    # row i of a table, captured once, against the Python loop
+    def loop(x, table):
+        return control.fori_loop(k, lambda i, v: v + (table[i] if isinstance(i, int) else
+                                                      table.index_select(0, i.reshape(1))),
+                                 x, name="probe_loop")
+
+    table = torch.arange(k, dtype=torch.float32, device=dev) + 0.25
+    looped = graph_jit(loop, ())
+    got, want = looped(x, table), loop(x, table)
+    lentry = next(iter(looped.entries.values()))
+    n_body = lentry.capture.arm_counts().get("probe_loop:body", 0)
+    check(torch.equal(got, want) and n_body == k,
+          f"graph_cond: the compiled loop gives {got.tolist()} in {n_body} body runs, "
+          f"eager {want.tolist()} in {k}")
+    out.update(loop_iterations=k, loop_graph_nodes=lentry.nodes,
+               loop_replay_ms=cuda_ms(lentry.graph.replay, iters=200))
+    log(f"graph_cond: a {k}-iteration fori_loop (one WHILE node, its body captured once, "
+        f"{lentry.nodes} graph nodes) equal to the Python loop; replay "
+        f"{out['loop_replay_ms']:.4f} ms")
     return out
 
 
@@ -1385,7 +1436,7 @@ def compare_chain(label, eager, compiled):
     return dict(worst)
 
 
-def phase_compiled(dev, maps, scan, states):
+def phase_compiled(dev, maps, scan, states, smi):
     """The compiled step (`sensor_resample_step_jit`, `mcl_step_2d_jit`,
     `likelihood_only_jit`) in the COMPILED_CELLS at 50k x 720: per cell and
     path, COMPILED_CHAIN chained steps against the eager step on the same
@@ -1400,8 +1451,6 @@ def phase_compiled(dev, maps, scan, states):
 
     from badger_amcl_tpu_torch import mcl
     from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
-    from badger_amcl_tpu_torch.utils import control
-    from badger_amcl_tpu_torch.utils.numerics import SYNCS
 
     sp = PlanarScanParams()
     graphs = {"sensor_resample_step": mcl.sensor_resample_step_jit.graph,
@@ -1423,40 +1472,15 @@ def phase_compiled(dev, maps, scan, states):
             noises = [mcl.StepNoise.draw(gen, m, dev, odom=motion)
                       for _ in range(COMPILED_CHAIN)]
             n_keys = len(graphs[path].entries)
-            t0 = time.perf_counter()
-            jit_fn(state, noises[0])  # captures where the key is new
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            arms0 = graph_arms(graphs[path])
-            control.ARMS.clear()
-            eager, s = [], state
-            for nz in noises:
-                s = eager_fn(s, nz)
-                eager.append(s)
-            eager_arms = +collections.Counter(control.ARMS)
-            s0 = SYNCS.count
-            compiled, s = [], state
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                for nz in noises:
-                    s = jit_fn(s, nz)
-                    compiled.append(s)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            syncs = SYNCS.count - s0
-            check(syncs == 0, f"{label}: {syncs} host syncs inside compiled calls")
-            compiled_arms = +(graph_arms(graphs[path]) - arms0)
-            check(compiled_arms == eager_arms,
-                  f"{label}: compiled arms {dict(compiled_arms)} != eager {dict(eager_arms)}")
-            stats_diff = compare_chain(label, eager, compiled)
+            first = first_call(graphs[path], lambda: jit_fn(state, noises[0]))
+            diff, arms, eager, compiled, _ = compiled_chain(label, state, noises, eager_fn,
+                                                            jit_fn, graphs[path])
             again, s = [], state
             for nz in noises:
                 s = eager_fn(s, nz)
                 again.append(s)
             twice = compare_chain(label + " (eager twice)", eager, again)
-            log(f"{label}: eager vs eager {twice}, "
-                f"eager vs compiled {stats_diff}")
+            log(f"{label}: eager vs eager {twice}, eager vs compiled {diff}")
             check_state(compiled[-1], params, label)
             keys, captures = len(graphs[path].entries), graphs[path].captures
             check(captures == keys, f"{label}: {captures} captures of {keys} keys")
@@ -1466,42 +1490,17 @@ def phase_compiled(dev, maps, scan, states):
                   f"{label}: {new_keys} new keys")
             keyed.add((path, c.model, c.backend))
             entry_s = [e.capture_s for e in graphs[path].entries.values()]
-
             # timings: the pinned step of bench.py, compiled and eager
-            out = {}
-            for mode, fn in (("compiled", jit_fn), ("eager", eager_fn)):
-                step, _ = pinned_step_fn(
-                    lambda st, f=fn: f(st, mcl.StepNoise.draw(gen, m, dev, odom=motion)),
-                    state, m)
-                step_ms = cuda_ms(step)
-                busy_ms, ops, top = device_busy(step)
-                s0 = SYNCS.count
-                step()
-                out[mode] = dict(step_ms=step_ms, device_busy_ms=busy_ms,
-                                 device_ops_per_step=ops,
-                                 device_idle_share=1.0 - busy_ms / step_ms if ops else None,
-                                 host_syncs_per_step=SYNCS.count - s0, top_device_ops=top)
-            check(out["compiled"]["host_syncs_per_step"] == 0,
-                  f"{label}: the pinned compiled step took host syncs")
-            co, ea = out["compiled"], out["eager"]
-            busy = (f"{co['device_busy_ms']:.4f} ({co['device_ops_per_step']:.0f} ops, idle "
-                    f"share {co['device_idle_share']:.3f})" if co["device_ops_per_step"]
-                    else "not measured (the profiler recorded no device op)")
-            log(f"{label}: step_ms compiled {co['step_ms']:.4f} eager {ea['step_ms']:.4f}; "
-                f"device busy ms compiled {busy} eager {ea['device_busy_ms']:.4f} "
-                f"({ea['device_ops_per_step']:.0f} ops, idle share "
-                f"{ea['device_idle_share']:.3f}); host syncs per step compiled 0 eager "
-                f"{ea['host_syncs_per_step']}")
+            out = step_figures(label, state, m, {"compiled": jit_fn, "eager": eager_fn},
+                               lambda: mcl.StepNoise.draw(gen, m, dev, odom=motion), smi)
             log(f"{label}: {COMPILED_CHAIN} chained steps equal to the eager step (poses, "
                 f"weights, n_active, converged, integer statistics bit for bit; float "
-                f"statistics max diff {stats_diff}); arms "
-                f"{dict(compiled_arms)}; keys {keys} (new: {new_keys}), captures {captures} "
-                f"(one a key), "
-                f"capture s {[round(x, 4) for x in entry_s]}, first call {first_s:.3f} s; "
+                f"statistics max diff {diff}); arms {dict(arms)}; keys {keys} (new: "
+                f"{new_keys}), captures {captures} (one a key), capture s "
+                f"{[round(x, 4) for x in entry_s]}, first call {first['first_call_s']:.3f} s; "
                 f"top device ops compiled "
                 + "; ".join(f"{n} {t:.4f}" for n, t in out["compiled"]["top_device_ops"]))
-            rows[f"{key}/{path}"] = dict(out, arms=dict(compiled_arms),
-                                         chain_stats_diff=stats_diff,
+            rows[f"{key}/{path}"] = dict(out, arms=dict(arms), chain_stats_diff=diff,
                                          captures=captures, capture_s=entry_s)
 
     # likelihood_only_jit on the tracking cloud: bit-equal to the eager one
@@ -1916,6 +1915,162 @@ def phase_cells(dev, maps, scan, states):
     return counts.read(), timings
 
 
+def compiled_chain(label, state, noises, eager_fn, jit_fn, graph, counts=None):
+    """The compiled entry against its eager function over chained steps on
+    the same variates: (compare_chain's float diffs, the compiled arms
+    (device counters), the eager and the compiled states, the launch
+    counts of the replays where `counts` (Launches) is given). Checks the
+    arms equal and no host sync inside a replay (SYNCS, sync debug mode
+    "error")."""
+    import torch
+
+    from badger_amcl_tpu_torch.utils import control
+    from badger_amcl_tpu_torch.utils.numerics import SYNCS
+
+    control.ARMS.clear()
+    eager, s = [], state
+    for nz in noises:
+        s = eager_fn(s, nz)
+        eager.append(s)
+    eager_arms = +collections.Counter(control.ARMS)
+    arms0, s0 = graph_arms(graph), SYNCS.count
+    compiled = []
+
+    def run():
+        s = state
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for nz in noises:
+                s = jit_fn(s, nz)
+                compiled.append(s)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+    rose = counts.run(run, len(noises)) if counts is not None else run()
+    syncs = SYNCS.count - s0
+    check(syncs == 0, f"{label}: {syncs} host syncs inside the replays")
+    arms = +(graph_arms(graph) - arms0)
+    check(arms == eager_arms, f"{label}: compiled arms {dict(arms)} != eager {dict(eager_arms)}")
+    return compare_chain(label, eager, compiled), arms, eager, compiled, rose
+
+
+def step_figures(label, state, m, fns, draw, smi, iters=ITERS, warmup=WARMUP, busy_steps=5):
+    """{mode: step_ms, device busy, ops, idle share, host syncs a step} of
+    each (state, noise) -> state function in fns ({mode: fn}) as a pinned
+    step on fresh draws; the compiled mode must take no host sync. With
+    busy_steps 0 the profiler does not run (its processing of a step that
+    runs 256 robots one by one takes tens of seconds): busy "not
+    measured"."""
+    from badger_amcl_tpu_torch.utils.numerics import SYNCS
+
+    out = {}
+    for mode, fn in fns.items():
+        step, _ = pinned_step_fn(lambda st, f=fn: f(st, draw()), state, m)
+        step_ms = cuda_ms(step, iters=iters, warmup=warmup)
+        busy_ms, ops, top = device_busy(step, steps=busy_steps) if busy_steps else (None, 0, [])
+        s0 = SYNCS.count
+        step()
+        out[mode] = dict(step_ms=step_ms, device_busy_ms=busy_ms, device_ops_per_step=ops,
+                         device_idle_share=1.0 - busy_ms / step_ms if ops else None,
+                         host_syncs_per_step=SYNCS.count - s0, top_device_ops=top)
+    check(out["compiled"]["host_syncs_per_step"] == 0,
+          f"{label}: the pinned compiled step took host syncs")
+
+    def busy(row):
+        return (f"{row['device_busy_ms']:.4f} (idle share {row['device_idle_share']:.3f})"
+                if row["device_ops_per_step"] else "not measured")
+
+    co, ea = out["compiled"], out["eager"]
+    log(f"{label}: step_ms compiled {co['step_ms']:.4f} eager {ea['step_ms']:.4f}; device busy "
+        f"ms compiled {busy(co)} eager {busy(ea)}; host syncs per step compiled 0 eager "
+        f"{ea['host_syncs_per_step']} ({smi})")
+    return out
+
+
+def first_call(graph, fn):
+    """fn() (the compiled entry's first call of a key), timed: {first call
+    s, and for a new key its capture s, graph nodes, arm bodies and
+    memory_reserved before and after}."""
+    import torch
+
+    captures0, entries0 = graph.captures, {id(e) for e in graph.entries.values()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # so that a new entry's blocks show in memory_reserved
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    out = dict(first_call_s=time.perf_counter() - t0)
+    new = [e for e in graph.entries.values() if id(e) not in entries0]
+    if graph.captures > captures0 and new:
+        e = new[0]
+        out.update(capture_s=e.capture_s, graph_nodes=e.nodes, arm_bodies=len(e.capture.slots),
+                   reserved_gb_before=reserved0 / 1e9,
+                   reserved_gb_after=torch.cuda.memory_reserved() / 1e9)
+    return out
+
+
+def phase_cells_compiled(dev, maps, scan, states, smi):
+    """The compiled cell contract (`sensor_resample_step_jit(
+    resample_contract="cell")`, one cond "cells.ok" between the cell arm
+    and the pick step) in the CELL_CONTRACT cells at 50,000 x 720:
+    COMPILED_CHAIN chained replays against the eager cell step on the same
+    variates (compare_chain), the device arms equal to the eager arms (the
+    cell arm on every step of the four tight cells, the pick step on every
+    step of the spread one), no host sync inside a replay, one capture a
+    key; compiled and eager step_ms, host syncs a step, device busy and
+    idle share, each new key's capture seconds, graph nodes and
+    memory_reserved. Returns (the path's launch counts, timings)."""
+    import torch
+
+    from badger_amcl_tpu_torch import mcl
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+
+    sp = PlanarScanParams()
+    graph = mcl.sensor_resample_step_jit.graph
+    graph.kernels.update(counters_2d())
+    counts = Launches(counters_2d(), [graph])
+    captures0, keys0 = graph.captures, len(graph.entries)
+    out = {}
+    for key, model in CELL_CONTRACT.items():
+        tag = f"cells_compiled {key} ({model})"
+        omap = maps[model]
+        params, state, pool = states[key]
+        m = params.max_samples
+        kw = dict(laser_model=model, backend="corr", resample_contract="cell")
+        gen = torch.Generator(device=dev).manual_seed(11)
+        noises = [mcl.StepNoise.draw(gen, m, dev, odom=False) for _ in range(COMPILED_CHAIN)]
+
+        def eager_fn(s, nz, omap=omap, pool=pool, params=params):
+            return mcl.sensor_resample_step(s, omap, sp, scan, pool, params, noise=nz, **kw)
+
+        def jit_fn(s, nz, omap=omap, pool=pool, params=params):
+            return mcl.sensor_resample_step_jit(s, omap, sp, scan, pool, params, noise=nz, **kw)
+
+        first = first_call(graph, lambda: jit_fn(state, noises[0]))
+        diff, arms, _, compiled, rose = compiled_chain(tag, state, noises, eager_fn, jit_fn,
+                                                       graph, counts)
+        want = "cells.ok:false" if key == "spread" else "cells.ok:true"
+        check(arms[want] == COMPILED_CHAIN, f"{tag}: {want} taken {arms[want]} times in "
+                                            f"{COMPILED_CHAIN} replays (arms {dict(arms)})")
+        check_state(compiled[-1], params, tag)
+        figs = step_figures(tag, state, m, {"compiled": jit_fn, "eager": eager_fn},
+                            lambda: mcl.StepNoise.draw(gen, m, dev, odom=False), smi)
+        out[key] = dict(figs, arms=dict(arms), chain_stats_diff=diff, **first,
+                        launches=dict(rose))
+        log(f"{tag}: {COMPILED_CHAIN} chained replays equal to the eager cell step (float "
+            f"statistics max diff {diff}); arms {dict(arms)}; launches inside the replays "
+            f"{ {k: v for k, v in rose.items() if v} }; first call {first}")
+    keys = len(graph.entries) - keys0
+    check(graph.captures - captures0 == keys, f"cells_compiled: {graph.captures - captures0} "
+                                              f"captures for {keys} new keys")
+    check(counts.replayed["corr_table"] > 0, "cells_compiled: #1 never launched in a replay")
+    out["new_keys"] = keys
+    return counts.read(), out
+
+
 def phase_cells_reference(dev):
     """The cell contract's step on the card (kernel) against the same step
     on the CPU (plain version), same inputs and draws, at 4096 x 360 on a
@@ -2012,7 +2167,8 @@ def phase_kernels_fleet(dev, omap, fl):
                                  stats_max_clusters=128), means, covs, generator=g, device=dev)
     scans = FleetScan.tile(fl[2].robot(0), r)
     scans.ranges[15] = scans.range_max[15]
-    pre, _, fits, rows, j0 = fleet_window(omap, PlanarScanParams(), scans, states)
+    pre, _, fits, tight, narrow = fleet_window(omap, PlanarScanParams(), scans, states)
+    rows, j0 = ck.window_variant(pre, tight, narrow)
     check(fits, "scattered robots leave the lattice envelope: fits "
                 f"{pre['fits'].tolist()}, t_n {pre['t_n'].tolist()}")
     org = ck.table_origin(pre, j0)
@@ -2050,7 +2206,8 @@ def phase_kernels_fleet(dev, omap, fl):
         f"(nv=0) zero")
 
     params, states, scans = fl[0], fl[1], fl[2]
-    pre, _, fits, rows, j0 = fleet_window(omap, PlanarScanParams(), scans, states)
+    pre, _, fits, tight, narrow = fleet_window(omap, PlanarScanParams(), scans, states)
+    rows, j0 = ck.window_variant(pre, tight, narrow)
     check(fits, "a fleet robot leaves the lattice envelope")
     args = (omap.corr_psi_pad, pre["off"], pre["nv"], pre["t_n"], ck.table_origin(pre, j0),
             FLEET_BEAMS, rows)
@@ -2156,7 +2313,8 @@ def phase_main_path_fleet(dev, omap, fl):
     check_fleet(out, params, "fleet pinned step")
     check(rose["fleet_corr_table"] == 6,
           f"fleet_corr_table launched {rose['fleet_corr_table']} times in 6 fleet steps")
-    pre, _, _, rows, _ = fleet_window(omap, PlanarScanParams(), scans, moved["s"])
+    pre, _, _, tight, narrow = fleet_window(omap, PlanarScanParams(), scans, moved["s"])
+    rows, _ = ck.window_variant(pre, tight, narrow)
     t_n = pre["t_n"].to(torch.float32)
     log(f"main path fleet ({states.poses.shape[0]} x {params.max_samples} x {FLEET_BEAMS}): "
         f"launches { {k: v for k, v in rose.items() if v} }, window rows={rows}, t_n mean "
@@ -2233,6 +2391,150 @@ def phase_timings_fleet(dev, omap, fl):
     return row
 
 
+# the compiled fleet: chained steps against the eager step, and the seed of
+# the spread clouds (REGIMES["spread"]) of its other two fleets
+FLEET_CHAIN = 10
+FLEET_WIDE_SEED = 9
+# the arms each fleet of the compiled-fleet phase must take in its replays
+FLEET_ARMS = {"tight": ("fleet.fits:true", "cluster.fleet_u:true"),
+              "spread_robot": ("fleet.fits:false", "fleet.robot:body"),
+              "wide": ("fleet.fits:false", "fleet.robot:body", "cluster.fleet_u:false")}
+
+
+def fleet_counters():
+    """{name in the kernels line: wrapper} of every kernel a fleet step may
+    launch (the robot-by-robot arm runs the single-robot dispatch)."""
+    from badger_amcl_tpu_torch.ops import cluster_kernel as clk
+    from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.ops import lf_kernel as lk
+    from badger_amcl_tpu_torch.ops import spread_kernel as sk
+
+    return {"fleet_corr_table": ck.fleet_corr_table, "corr_table": ck.corr_table,
+            "spread_term_sums": sk.spread_term_sums, "lf_term_sums": lk.lf_term_sums,
+            "lf_extents": lk.beam_extents, "cluster_labels": clk.cluster_labels}
+
+
+def fleet_cases(dev, fl):
+    """{label: fleet state} of the compiled-fleet phase: the flagship fleet
+    (every robot tight: the batched table, the compacted ranks), the same
+    fleet with robot 0's cloud spread (the robots one by one), and every
+    robot's cloud spread (one by one, and more occupied (robot, bin) keys
+    than cluster.FLEET_U_MAX: the batched grid ranks)."""
+    import torch
+
+    from badger_amcl_tpu_torch import scenario
+
+    wide = scenario.build_fleet(FLEET_ROBOTS, FLEET_PARTICLES, FLEET_BEAMS,
+                                seed=FLEET_WIDE_SEED, pose_cov=REGIMES["spread"],
+                                device=dev)[1]
+    tight = fl[1]
+    first = (torch.arange(FLEET_ROBOTS, device=dev) == 0)[:, None, None]
+    return {"tight": tight,
+            "spread_robot": tight.replace(poses=torch.where(first, wide.poses, tight.poses)),
+            "wide": wide}
+
+
+def phase_fleet_compiled(dev, omap, fl, smi):
+    """The compiled fleet step (`make_fleet_step`: one CUDA graph for the
+    key, every cond a conditional node) at 256 x 10,000 x 180 on the three
+    fleets of `fleet_cases`: FLEET_CHAIN chained replays against eager
+    `fleet_step` on the same FleetNoise (compiled_chain: poses, weights,
+    n_active and the integer statistics bit for bit, the float statistics
+    within STATS_TOL; the device arms equal to the eager arms, FLEET_ARMS
+    among them; no host sync inside a replay), one capture for the key,
+    #5, #3 and the labelling kernel launched inside replays; per fleet
+    compiled and eager step_ms (pinned step, CUDA events), host syncs a
+    step, device busy and idle share; the capture's seconds, graph nodes
+    and memory_reserved. Returns (the path's launch counts, timings)."""
+    import torch
+
+    from badger_amcl_tpu_torch import fleet
+    from badger_amcl_tpu_torch.pf import cluster
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+
+    t_phase = time.perf_counter()
+    params, _, scans, pools, odom_poses, deltas, alphas = fl
+    sp = PlanarScanParams()
+    r, m = FLEET_ROBOTS, FLEET_PARTICLES
+    jit = fleet.make_fleet_step(params, backend="corr")
+    graph = jit.graph
+    counts = Launches(fleet_counters(), [graph])
+    t0 = time.perf_counter()
+    cases = fleet_cases(dev, fl)
+    log(f"fleet_compiled: the spread fleets built in {time.perf_counter() - t0:.2f} s")
+
+    def eager_fn(s, noise):
+        return fleet.fleet_step(s, omap, sp, scans, pools, odom_poses, deltas, deltas, alphas,
+                                params, backend="corr", noise=noise)
+
+    def jit_fn(s, noise):
+        return jit(s, omap, sp, scans, pools, odom_poses, deltas, deltas, alphas, noise=noise)
+
+    out, arms_all = {}, collections.Counter()
+    captures0, keys0 = graph.captures, len(graph.entries)
+    for label, state in cases.items():
+        tag = f"fleet_compiled {label} ({r} x {m} x {FLEET_BEAMS})"
+        gen = torch.Generator(device=dev).manual_seed(FLEET_WIDE_SEED + 1)
+        noises = [fleet.FleetNoise.draw(gen, r, m, dev) for _ in range(FLEET_CHAIN)]
+        first = first_call(graph, lambda: jit_fn(state, noises[0]))
+        if "capture_s" in first:
+            log(f"{tag}: the key captured in {first['capture_s']:.3f} s (first call "
+                f"{first['first_call_s']:.3f} s, warm-up included): {first['graph_nodes']} "
+                f"graph nodes, {first['arm_bodies']} arm bodies; memory_reserved "
+                f"{first['reserved_gb_before']:.3f} GB -> {first['reserved_gb_after']:.3f} GB "
+                f"({smi})")
+        t1 = time.perf_counter()
+        diff, arms, _, compiled, rose = compiled_chain(tag, state, noises, eager_fn, jit_fn,
+                                                       graph, counts)
+        chain_s = time.perf_counter() - t1
+        for a in FLEET_ARMS[label]:
+            check(arms[a] > 0, f"{tag}: {a} not taken inside a replay (arms {dict(arms)})")
+        arms_all.update(arms)
+        check_fleet(compiled[-1], params, tag)
+        occupied = [int(cluster_keys(c, params)) for c in (state, *compiled[:3])]
+        # the spread fleets' eager steps run the robots one by one (~1.2 s):
+        # two timed steps, no profile
+        figs = step_figures(tag, state, m, {"compiled": jit_fn, "eager": eager_fn},
+                            lambda: fleet.FleetNoise.draw(gen, r, m, dev), smi,
+                            **({} if label == "tight" else dict(iters=2, warmup=0,
+                                                                 busy_steps=0)))
+        for row in figs.values():
+            row["robot_steps_per_s"] = r / (row["step_ms"] / 1e3)
+        out[label] = dict(figs, arms=dict(arms), chain_stats_diff=diff, chain_s=chain_s,
+                          occupied_robot_bins=occupied, launches=dict(rose), **first)
+        log(f"{tag}: {FLEET_CHAIN} chained replays equal to eager fleet_step (poses, weights, "
+            f"n_active, integer statistics bit for bit; float statistics max diff {diff}); "
+            f"arms {dict(arms)}; occupied (robot, bin) keys before and after the first steps "
+            f"{occupied} (FLEET_U_MAX {cluster.FLEET_U_MAX}); launches inside the replays "
+            f"{ {k: v for k, v in rose.items() if v} }; both chains {chain_s:.2f} s; "
+            f"robot-steps/s compiled {figs['compiled']['robot_steps_per_s']:.1f} eager "
+            f"{figs['eager']['robot_steps_per_s']:.1f}")
+    check(graph.captures - captures0 == len(graph.entries) - keys0 == 1,
+          f"fleet_compiled: {graph.captures - captures0} captures for "
+          f"{len(graph.entries) - keys0} new keys")
+    for k in ("fleet_corr_table", "cluster_labels", "spread_term_sums"):
+        check(counts.replayed[k] > 0, f"fleet_compiled: {k} never launched inside a replay")
+    out.update(arms=dict(arms_all), replayed_launches=dict(counts.replayed),
+               phase_s=time.perf_counter() - t_phase)
+    log(f"fleet_compiled: arms over the three fleets {dict(arms_all)}; launches inside "
+        f"replays {dict(counts.replayed)}; the phase took {out['phase_s']:.1f} s")
+    return counts.read(), out
+
+
+def cluster_keys(states, params):
+    """The occupied (robot, bin) keys of a fleet's active particles: what
+    cluster.FLEET_U_MAX bounds."""
+    import torch
+
+    from badger_amcl_tpu_torch.pf import kld
+
+    m = states.weights.shape[1]
+    act = torch.arange(m, device=states.poses.device) < states.n_active[:, None]
+    _, flat = kld.grid_cells(kld.bin_keys(states.poses), act, params.hist_shape)
+    gx, gy, ga = params.hist_shape
+    return kld.composite_sort(flat, act, gx * gy * ga)[2].sum()
+
+
 SHARDED_RANKS = 2  # gloo ranks spawned on the one card
 RANK_TIMEOUT_S = 300
 SHARDED_NOISE_SEED = 12
@@ -2272,10 +2574,11 @@ def sharded_steps(group, fl, omap, noises):
 def fleet_rank(rank, world, tmp):
     """One gloo rank of phase_sharded_fleet, in its own process on the one
     card: rebuild the flagship map and the 256-robot fleet from their
-    seeds (the initial poses must equal the parent's), run 3 sharded steps
-    on this rank's rows of the global draws, time pinned steps, and write
-    tmp/rank{rank}.json (match with the parent's one-process rows,
-    fleet_corr_table launches, the group's health)."""
+    seeds (the initial poses must equal the parent's), capture the rank's
+    compiled step, run 3 sharded steps (replays) on this rank's rows of
+    the global draws, time pinned steps, and write tmp/rank{rank}.json
+    (match with the parent's one-process rows, fleet_corr_table launches
+    inside the replays, the capture, the group's health)."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -2294,10 +2597,20 @@ def fleet_rank(rank, world, tmp):
               f"rank {rank}: the rebuilt fleet differs from the parent's")
         r, m = states.weights.shape
         noises = sharded_noises(dev, r, m)
-        ck.fleet_corr_table.launches = 0
-        bind, s = sharded_steps(group, fl, omap, noises)
-        torch.cuda.synchronize()
-        launches = ck.fleet_corr_table.launches
+        graph = fleet.make_fleet_step(params).graph
+        graph.kernels.update(fleet_counters())
+        # the rank's key captured first, so the counted steps are replays
+        sharded_steps(group, fl, omap, noises[:1])
+        counts = Launches({"fleet_corr_table": ck.fleet_corr_table}, [graph])
+        box = {}
+
+        def run():
+            box["bind"], box["s"] = sharded_steps(group, fl, omap, noises)
+            torch.cuda.synchronize()
+
+        launches = counts.run(run, len(noises))["fleet_corr_table"]
+        bind, s = box["bind"], box["s"]
+        entry = next(iter(graph.entries.values()))
         rows = slice(rank * (r // world), (rank + 1) * (r // world))
         close = ((s.poses.cpu() - job["want_poses"][rows]).abs() <= 1e-5).all(-1)
         health = {k: float(v) for k, v in fleet.fleet_health(s, group).items()}
@@ -2305,6 +2618,7 @@ def fleet_rank(rank, world, tmp):
                                  params.max_samples)
         ms = cuda_ms(step, iters=10, warmup=2)
         out = dict(rank=rank, robots=s.poses.shape[0], launches=launches, steps=len(noises),
+                   captures=graph.captures, capture_s=entry.capture_s, graph_nodes=entry.nodes,
                    poses_within_1e5=close.float().mean().item(),
                    n_active_equal=torch.equal(s.n_active.cpu(), job["want_n_active"][rows]),
                    health=health, step_ms=ms)
@@ -2317,16 +2631,19 @@ def fleet_rank(rank, world, tmp):
 
 def phase_sharded_fleet(dev, omap, fl):
     """The sharded fleet (`make_sharded_fleet_step`, `fleet_health(group)`)
-    at 256 x 10,000 x 180: (i) one NCCL rank in this process (a file store
-    in a temporary directory): 3 steps with motion on the one-process
-    `fleet_step`'s variates must equal it, the NCCL health equal the local
-    one (rtol 1e-6), #5 launch once a step; (ii) two gloo ranks spawned on
-    the one card (NCCL refuses two ranks on one device, so gloo is this
-    test's choice), 128 robots each: each rank's robots against its rows
-    of the one-process run (n_active equal, >= 99.9% of particles within
-    1e-5), #5 on every step, the group's health equal to the whole
-    fleet's, and per-rank step ms of two processes sharing one card.
-    Returns (launch counts of (i), timings)."""
+    at 256 x 10,000 x 180, each rank's step the compiled one: (i) one NCCL
+    rank in this process (a file store in a temporary directory): 3 steps
+    with motion on the one-process run's variates must equal the
+    one-process compiled step bit for bit (which must equal `fleet_step`'s
+    poses and n_active), the NCCL health equal the local one (rtol 1e-6),
+    #5 launch once a step inside the replays; (ii) two gloo ranks spawned
+    on the one card (NCCL refuses two ranks on one device, so gloo is this
+    test's choice), 128 robots each, each capturing its own graph: each
+    rank's robots against its rows of the one-process run (n_active
+    equal, >= 99.9% of particles within 1e-5), #5 inside every step's
+    replay, the group's health equal to the whole fleet's, and per-rank
+    step ms of two processes sharing one card. Returns (launch counts of
+    (i), timings)."""
     import tempfile
 
     import torch
@@ -2334,6 +2651,7 @@ def phase_sharded_fleet(dev, omap, fl):
     from badger_amcl_tpu_torch import fleet
     from badger_amcl_tpu_torch.ops import cluster_kernel as clk
     from badger_amcl_tpu_torch.ops import corr_kernel as ck
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
 
     params, states = fl[0], fl[1]
     r, m = states.weights.shape
@@ -2341,9 +2659,18 @@ def phase_sharded_fleet(dev, omap, fl):
     one = states
     for noise in noises:
         one = fleet_step_fn(fl, omap, None, noise)(one)
+    # the one-process compiled step on the same draws
+    compiled_step = fleet.make_fleet_step(params, backend="corr")
+    _, _, scans, pools, odom_poses, deltas, alphas = fl
+    one_c = states
+    for noise in noises:
+        one_c = compiled_step(one_c, omap, PlanarScanParams(), scans, pools, odom_poses, deltas,
+                              deltas, alphas, noise=noise)
+    check(torch.equal(one_c.poses, one.poses) and torch.equal(one_c.n_active, one.n_active),
+          "sharded fleet: the one-process compiled step differs from fleet_step")
     want = {k: float(v) for k, v in fleet.fleet_health(one).items()}
     counts = Launches({"cluster_labels": clk.cluster_labels,
-                       "fleet_corr_table": ck.fleet_corr_table})
+                       "fleet_corr_table": ck.fleet_corr_table}, [compiled_step.graph])
     with tempfile.TemporaryDirectory() as tmp:
         os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
         group = fleet.init_fleet_group(f"file://{tmp}/nccl_store", 1, 0, device="cuda")
@@ -2362,15 +2689,20 @@ def phase_sharded_fleet(dev, omap, fl):
         check(rose["fleet_corr_table"] == len(noises),
               f"sharded fleet (NCCL): #5 launched {rose['fleet_corr_table']} times in "
               f"{len(noises)} steps")
-        check(torch.equal(s.poses, one.poses) and torch.equal(s.n_active, one.n_active),
-              "sharded fleet (NCCL): the one-rank step differs from fleet_step")
+        for f in ("poses", "weights", "n_active", "converged"):
+            check(torch.equal(getattr(s, f), getattr(one_c, f)),
+                  f"sharded fleet (NCCL): the one-rank compiled step's {f} differs from the "
+                  f"one-process compiled step's")
+        check(counts.replayed["fleet_corr_table"] == len(noises),
+              "sharded fleet (NCCL): #5 did not launch inside the replays")
         check(all(v.device.type == "cuda" for v in health.values()),
               "sharded fleet (NCCL): the health was not reduced on the card")
         for k, v in health.items():
             check(math.isclose(float(v), want[k], rel_tol=1e-6),
                   f"sharded fleet (NCCL): {k} {float(v)} vs {want[k]}")
-        log(f"sharded fleet in process (1 NCCL rank, {r} x {m} x {FLEET_BEAMS}, 3 steps): "
-            f"equal to fleet_step, #5 launches {rose['fleet_corr_table']}, health "
+        log(f"sharded fleet in process (1 NCCL rank, {r} x {m} x {FLEET_BEAMS}, 3 compiled "
+            f"steps): bit-equal to the one-process compiled step, which equals fleet_step "
+            f"(poses, n_active); #5 launches inside replays {rose['fleet_corr_table']}, health "
             f"{ {k: round(float(v), 6) for k, v in health.items()} }")
 
         torch.save(dict(init_poses=states.poses.cpu(), want_poses=one.poses.cpu(),
@@ -2404,7 +2736,8 @@ def phase_sharded_fleet(dev, omap, fl):
     for out in ranks:
         tag = f"sharded fleet: gloo rank {out['rank']}"
         check(out["launches"] == out["steps"], f"{tag}: #5 launched {out['launches']} times in "
-                                               f"{out['steps']} steps")
+                                               f"{out['steps']} steps' replays")
+        check(out["captures"] == 1, f"{tag}: {out['captures']} captures of its one key")
         check(out["n_active_equal"], f"{tag}: n_active differs from the one-process run")
         check(out["poses_within_1e5"] >= 0.999,
               f"{tag}: only {out['poses_within_1e5']:.4f} of poses within 1e-5")
@@ -2413,8 +2746,9 @@ def phase_sharded_fleet(dev, omap, fl):
         out["robot_steps_per_s"] = out["robots"] / (out["step_ms"] / 1e3)
         log(f"sharded fleet gloo rank {out['rank']} of {SHARDED_RANKS} ({out['robots']} robots "
             f"x {m} x {FLEET_BEAMS}; two processes sharing one card, not a scaling figure): "
-            f"poses within 1e-5 {out['poses_within_1e5']:.4f}, n_active equal, #5 "
-            f"{out['launches']}/{out['steps']}, step_ms {out['step_ms']:.4f}, "
+            f"compiled (1 capture, {out['capture_s']:.2f} s, {out['graph_nodes']} graph "
+            f"nodes), poses within 1e-5 {out['poses_within_1e5']:.4f}, n_active equal, #5 "
+            f"inside replays {out['launches']}/{out['steps']}, step_ms {out['step_ms']:.4f}, "
             f"robot_steps_per_s {out['robot_steps_per_s']:.1f}")
     log(f"sharded fleet: {SHARDED_RANKS} gloo ranks in {wall:.1f} s wall (start-up included)")
     return counts.read(), dict(ranks=ranks, wall_s=wall, health=want)
@@ -4212,9 +4546,8 @@ def run_twins(make, n, label, counts, strict, graphs, smi, gl_scans=0, receive=N
     counters equal the eager twin's arms), pose errors, keys and captures
     per helper, then a second map receipt (`receive`)."""
     twins = {mode: make(mode) for mode in ("compiled", "eager")}
-    check(twins["compiled"].node.compiled, f"{label}: the node is not compiled "
-                                           f"({twins['compiled'].node.compiled_reason})")
-    twins["eager"].node.compiled, twins["eager"].node.compiled_reason = False, "eager twin"
+    check(twins["compiled"].node.compiled, f"{label}: the node is not compiled")
+    twins["eager"].node.compiled = False
     captures0 = {k: g.captures for k, g in graphs.items()}
     # held, so that no entry of this run takes the id of one released in it
     entries0 = {id(e): e for g in graphs.values() for e in g.entries.values()}
@@ -4338,6 +4671,113 @@ def phase_node_compiled(dev, smi):
     return counts.read(), out
 
 
+# --- the capped statistics ------------------------------------------------------
+
+CAPPED_CLUSTERS = 128  # PFParams.stats_max_clusters, the fleet scenario's
+CAPPED_REGIMES = ("tracking", "spread")
+CAPPED_NODE_SCANS = 20
+
+
+def phase_capped(dev, smi):
+    """The capped statistics (PFParams.stats_max_clusters = CAPPED_CLUSTERS:
+    the capped multinomial arm, the statistics ranked afresh through the
+    "cluster.sorted" cond) compiled, at 50,000 x 720 on the flagship map:
+    `sensor_resample_step_jit` from the tracking and the spread cloud and
+    `mcl_step_2d_jit` from the tracking one, COMPILED_CHAIN chained
+    replays each against the eager step on the same variates
+    (compiled_chain); then a capped 2D node (the flagship config, its
+    PFParams capped) beside an eager twin for CAPPED_NODE_SCANS tracking
+    scans (run_twins: equal at every scan, the arms equal, no host read
+    inside a replay). Returns (the path's launch counts, timings)."""
+    import torch
+
+    from badger_amcl_tpu_torch import mcl, scenario
+    from badger_amcl_tpu_torch.maps.occupancy_2d import OccupancyMap2D
+    from badger_amcl_tpu_torch.node import node as tnode
+    from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
+
+    sp = PlanarScanParams()
+    omap = scenario.build_map(MAP_CELLS, device=dev)
+    scan = scenario.build_scan(N_BEAMS, device=dev)
+    odom = [torch.tensor(v, dtype=torch.float32, device=dev) for v in ODOM[:3]]
+    graphs = {"sensor_resample_step": mcl.sensor_resample_step_jit.graph,
+              "mcl_step_2d": mcl.mcl_step_2d_jit.graph}
+    for g in graphs.values():
+        g.kernels.update(counters_2d())
+    counts = Launches(counters_2d(), graphs.values())
+    out = {}
+    for regime, path in [(r, "sensor_resample_step") for r in CAPPED_REGIMES] + [
+            ("tracking", "mcl_step_2d")]:
+        tag = f"capped {regime}/{path} ({N_PARTICLES} x {N_BEAMS}, {CAPPED_CLUSTERS} clusters)"
+        params, state, pool = scenario.build_filter(N_PARTICLES, pose_cov=REGIMES[regime],
+                                                    min_particles=N_PARTICLES, device=dev)
+        params = dataclasses.replace(params, stats_max_clusters=CAPPED_CLUSTERS)
+        motion = path == "mcl_step_2d"
+        if motion:
+            fns = {f.__name__: (lambda s, nz, f=f: f(s, omap, sp, scan, pool, *odom, ODOM[3],
+                                                     params, backend="corr", noise=nz))
+                   for f in (mcl.mcl_step_2d, mcl.mcl_step_2d_jit)}
+        else:
+            fns = {f.__name__: (lambda s, nz, f=f: f(s, omap, sp, scan, pool, params,
+                                                     backend="corr", noise=nz))
+                   for f in (mcl.sensor_resample_step, mcl.sensor_resample_step_jit)}
+        eager_fn, jit_fn = fns[path], fns[path + "_jit"]
+        gen = torch.Generator(device=dev).manual_seed(17)
+        noises = [mcl.StepNoise.draw(gen, N_PARTICLES, dev, odom=motion)
+                  for _ in range(COMPILED_CHAIN)]
+        first = first_call(graphs[path], lambda: jit_fn(state, noises[0]))
+        diff, arms, _, compiled, rose = compiled_chain(tag, state, noises, eager_fn, jit_fn,
+                                                       graphs[path], counts)
+        check(arms["cluster.sorted:true"] + arms["cluster.sorted:false"] == COMPILED_CHAIN
+              and not arms["resample.u_count:true"] + arms["resample.u_count:false"],
+              f"{tag}: not the capped arms: {dict(arms)}")
+        check_state(compiled[-1], params, tag)
+        check(int(compiled[-1].stats.cluster_count) >= 1
+              and not bool(compiled[-1].stats.cluster_valid[CAPPED_CLUSTERS:].any()),
+              f"{tag}: statistics past the cap")
+        figs = step_figures(tag, state, N_PARTICLES, {"compiled": jit_fn, "eager": eager_fn},
+                            lambda: mcl.StepNoise.draw(gen, N_PARTICLES, dev, odom=motion), smi)
+        out[f"{regime}/{path}"] = dict(figs, arms=dict(arms), chain_stats_diff=diff,
+                                       clusters=int(compiled[-1].stats.cluster_count), **first)
+        log(f"{tag}: {COMPILED_CHAIN} chained replays equal to the eager step (float "
+            f"statistics max diff {diff}); arms {dict(arms)}; clusters after the chain "
+            f"{int(compiled[-1].stats.cluster_count)}; first call {first}")
+    del omap, scan
+
+    # a capped node: no configuration key sets the cap, so the node's
+    # PFParams are capped where it builds them
+    node_graph = node_graphs()
+    for g in node_graph.values():
+        g.kernels.update(counters_2d())
+    node_counts = Launches(counters_2d(), node_graph.values())
+    pf_params = tnode.Node.__dict__["_pf_params"]
+
+    def capped(mode):
+        tnode.Node._pf_params = staticmethod(lambda cfg: dataclasses.replace(
+            pf_params.__func__(cfg), stats_max_clusters=CAPPED_CLUSTERS))
+        try:
+            run = NodeRun(dev, node_config(), world, CAPPED_NODE_SCANS,
+                          init_cov=REGIMES["tracking"])
+        finally:
+            tnode.Node._pf_params = pf_params
+        check(run.node.params.stats_max_clusters == CAPPED_CLUSTERS, "capped node: no cap")
+        return run
+
+    with StrictHelpers() as strict:
+        world = OccupancyMap2D.from_cells(scenario.map_cells(MAP_CELLS, 0),
+                                          scenario.RESOLUTION, device=dev)
+        out["node_2d"] = run_twins(capped, CAPPED_NODE_SCANS,
+                                   f"capped node 2d ({N_PARTICLES} x {N_BEAMS}, "
+                                   f"{CAPPED_CLUSTERS} clusters)", node_counts, strict,
+                                   node_graph, smi)
+        del world
+    check(node_counts.replayed["corr_table"] > 0, "capped node: #1 never launched in a replay")
+    paths = counts.read()
+    for k, (n, steps) in node_counts.read().items():
+        paths[k] = (paths[k][0] + n, paths[k][1] + steps)
+    return paths, out
+
+
 # --- the compiled entries, bounded ---------------------------------------------
 
 ENTRY_SCANS = 40
@@ -4420,8 +4860,7 @@ def phase_entries_bound(dev, smi):
         cfg = node3d_config(tmp, min_particles=NODE3D_PARTICLES, max_particles=NODE3D_PARTICLES)
         run = SizedCloudRun(dev, cfg, payload, read_bt(payload).occupied_centers(), ENTRY_SCANS,
                             sizes, init_cov=REGIMES["tracking"])
-        check(run.node.compiled, f"entries: the 3D node is not compiled "
-                                 f"({run.node.compiled_reason})")
+        check(run.node.compiled, "entries: the 3D node is not compiled")
 
         def scan(label):
             ids0 = {id(e): e for g in graphs.values() for e in g.entries.values()}
@@ -4563,8 +5002,6 @@ def phase_grid_arms(dev, omap, scan, pool):
     from badger_amcl_tpu_torch.pf import cluster
     from badger_amcl_tpu_torch.pf.types import PFParams
     from badger_amcl_tpu_torch.sensors.planar import PlanarScanParams
-    from badger_amcl_tpu_torch.utils import control
-    from badger_amcl_tpu_torch.utils.numerics import SYNCS
 
     sp = PlanarScanParams()
     params = PFParams(min_samples=N_PARTICLES, max_samples=N_PARTICLES)
@@ -4579,36 +5016,22 @@ def phase_grid_arms(dev, omap, scan, pool):
         noises = [mcl.StepNoise.draw(gen, N_PARTICLES, dev, odom=False)
                   for _ in range(COMPILED_CHAIN)]
         captures0 = graph.captures
-        mcl.sensor_resample_step_jit(state, omap_k, sp, scan, pool, params, backend="corr",
-                                     noise=noises[0])
-        control.ARMS.clear()
-        eager, s = [], state
-        for nz in noises:
-            s = mcl.sensor_resample_step(s, omap_k, sp, scan, pool, params, backend="corr",
-                                         noise=nz)
-            eager.append(s)
-        eager_arms = +collections.Counter(control.ARMS)
-        arms0, s0 = graph_arms(graph), SYNCS.count
-        compiled, s = [], state
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            for nz in noises:
-                s = mcl.sensor_resample_step_jit(s, omap_k, sp, scan, pool, params,
-                                                 backend="corr", noise=nz)
-                compiled.append(s)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        syncs = SYNCS.count - s0
-        arms = +(graph_arms(graph) - arms0)
-        check(syncs == 0, f"{label}: {syncs} host syncs inside the replays")
-        check(arms == eager_arms, f"{label}: compiled arms {dict(arms)} != eager "
-                                  f"{dict(eager_arms)}")
-        stats = compare_chain(label, eager, compiled)
+
+        def step(s, nz, f):
+            return f(s, omap_k, sp, scan, pool, params, backend="corr", noise=nz)
+
+        def eager_fn(s, nz):
+            return step(s, nz, mcl.sensor_resample_step)
+
+        def jit_fn(s, nz):
+            return step(s, nz, mcl.sensor_resample_step_jit)
+
+        jit_fn(state, noises[0])
+        stats, arms, eager, compiled, _ = compiled_chain(label, state, noises, eager_fn,
+                                                         jit_fn, graph)
         again, s = [], state
         for nz in noises:
-            s = mcl.sensor_resample_step(s, omap_k, sp, scan, pool, params, backend="corr",
-                                         noise=nz)
+            s = eager_fn(s, nz)
             again.append(s)
         twice = compare_chain(label + " (eager twice)", eager, again)
         clusters = [int(c.stats.cluster_count) for c in compiled]
@@ -4778,6 +5201,7 @@ def main():
     from badger_amcl_tpu_torch import scenario
     from badger_amcl_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -4825,12 +5249,14 @@ def main():
     paths = phase_main_path(dev, maps, scan, states)
     phase_reference(dev)
     timings = phase_timings(dev, maps, scan, states)
-    paths["2d_compiled"], timings["compiled"] = phase_compiled(dev, maps, scan, states)
+    paths["2d_compiled"], timings["compiled"] = phase_compiled(dev, maps, scan, states, smi)
     timings["grid_arms"] = phase_grid_arms(dev, maps["likelihood_field"], scan,
                                            cell_state("spread", states)[2])
     timings["graph_cond"] = phase_graph_cond(dev)
     timings["range_image_bake"] = dict(seconds=bake_s, bytes=bake_bytes)
     paths["2d_cells"], timings["cells"] = phase_cells(dev, maps, scan, states)
+    paths["2d_cells_compiled"], timings["cells_compiled"] = phase_cells_compiled(
+        dev, maps, scan, states, smi)
     phase_cells_reference(dev)
     del bmap, maps, scan, states, built
     torch.cuda.empty_cache()
@@ -4851,7 +5277,15 @@ def main():
     paths["fleet"] = phase_main_path_fleet(dev, omap, fl)
     phase_reference_fleet(dev, omap)
     timings["fleet"] = phase_timings_fleet(dev, omap, fl)
+    # the compiled fleet step's captures attribute these kernels' launches to their arms
+    from badger_amcl_tpu_torch import fleet
+
+    fleet_graph = fleet.make_fleet_step(fl[0]).graph
+    fleet_graph.kernels.update(fleet_counters())
+    paths["fleet_compiled"], timings["fleet_compiled"] = phase_fleet_compiled(dev, omap, fl,
+                                                                              smi)
     paths["sharded_fleet"], timings["sharded_fleet"] = phase_sharded_fleet(dev, omap, fl)
+    fleet_graph.release(omap)
     del omap, fl
     torch.cuda.empty_cache()
 
@@ -4887,6 +5321,7 @@ def main():
     paths["node_3d"], timings["node_3d"] = phase_node_3d(dev, smi)
     paths["cli"], timings["cli"] = phase_cli(dev, smi)
     paths["node_compiled"], timings["node_compiled"] = phase_node_compiled(dev, smi)
+    paths["capped"], timings["capped"] = phase_capped(dev, smi)
     timings["entries"] = phase_entries_bound(dev, smi)
     launches = launch_counts(paths)
 
@@ -4935,7 +5370,10 @@ def main():
          **launches[k], **kernels[k],
          **({"main_path": False, "note": OFF_MAIN_PATH[k]} if k in OFF_MAIN_PATH else {})}
         for k in meta]}
+    timings["command_s"] = time.perf_counter() - t_start
     log(json.dumps({"timings": timings}))
+    log(f"chip_smoke: every phase passed in {timings['command_s']:.1f} s of command time "
+        f"(the interpreter's start aside)")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -105,7 +105,9 @@ def test_port_imports_no_jax():
     """Importing every port module and running a CPU step (2D, eager and
     through `sensor_resample_step_jit`, 3D, the
     maps' distance fields, beam, a corr_q likelihood, a fleet step, a cell-contract step under
-    `profiling.trace`, a one-rank gloo sharded fleet step and its health,
+    `profiling.trace`, the compiled fleet step, the cell contract with the
+    capped statistics through `sensor_resample_step_jit`, a one-rank gloo
+    sharded fleet step and its health,
     corr_q, the prob model, the beam model, beam skipping and the node's
     log-space update through the compiled entries, a
     few Node2D scans with systematic resampling and a few Node3D scans on a
@@ -193,6 +195,11 @@ def test_port_imports_no_jax():
                               torch.zeros(2, 256, 3), torch.zeros(2, 3), odom, odom,
                               [0.05] * 5, fparams, backend="corr", generator=gen)
         assert fs.poses.shape == (2, 256, 3) and torch.isfinite(fs.weights).all()
+        # the compiled fleet step (eager on the CPU) takes the batched table too
+        fs = fleet.make_fleet_step(fparams, backend="corr")(
+            fs, omap, sp, fleet.FleetScan.tile(scan, 2), torch.zeros(2, 256, 3),
+            torch.zeros(2, 3), odom, odom, [0.05] * 5, generator=gen)
+        assert torch.isfinite(fs.weights).all() and control.ARMS["fleet.fits:true"] == 2
         import tempfile
         from badger_amcl_tpu_torch.pf import filter as pf_filter
         from badger_amcl_tpu_torch.utils import profiling
@@ -212,6 +219,13 @@ def test_port_imports_no_jax():
             assert torch.equal(fleet.gather_robots(fs, group).poses, fs.poses)
             torch.distributed.destroy_process_group()
         assert pf_filter.CELL_ARMS["cell"] == 1 and torch.isfinite(out.weights).all()
+        # the cell contract and the capped statistics through the compiled entry
+        import dataclasses
+        out = mcl.sensor_resample_step_jit(state, omap, sp, scan, pool,
+                                           dataclasses.replace(params, stats_max_clusters=8),
+                                           backend="corr", resample_contract="cell",
+                                           generator=gen)
+        assert control.ARMS["cells.ok:true"] == 2 and torch.isfinite(out.weights).all()
         import numpy as np
         from badger_amcl_tpu_torch import config
         from badger_amcl_tpu_torch.node import (checkpoint, make_node, messages,

@@ -363,8 +363,7 @@ DECISIONS = {
 
 def _capped_params(monkeypatch):
     """Nodes built from here on carry a cluster cap (no configuration key
-    sets one: the fleet's scenario does), the one static argument outside
-    the compiled slice a node can meet."""
+    sets one: the fleet's scenario does)."""
     pf_params = tnode.Node._pf_params
     monkeypatch.setattr(tnode.Node, "_pf_params", staticmethod(
         lambda cfg: dataclasses.replace(pf_params(cfg), stats_max_clusters=8)))
@@ -372,18 +371,18 @@ def _capped_params(monkeypatch):
 
 @pytest.mark.parametrize("family", list(DECISIONS) + ["2d_capped", "3d_capped"])
 def test_node_compiled_decision(family, tmp_path, monkeypatch):
-    """Every 2D and 3D configuration runs compiled; only the capped
-    statistics do not."""
+    """Every 2D and 3D configuration runs compiled, the capped statistics
+    too."""
     if family.endswith("_capped"):
-        make_cfg, compiled = DECISIONS[family.replace("capped", "default")][0], False
+        make_cfg, compiled = DECISIONS[family.replace("capped", "default")][0], True
         _capped_params(monkeypatch)
     else:
         make_cfg, compiled = DECISIONS[family]
     cfg = make_cfg().replace(saved_pose_filepath=str(tmp_path / "pose.yaml"))
     node = make_node(cfg, device="cpu")
-    assert node.compiled is compiled, node.compiled_reason
-    if not compiled:
-        assert "slice" in node.compiled_reason and "stats_max_clusters" in node.compiled_reason
+    assert node.compiled is compiled
+    if family.endswith("_capped"):
+        assert node.params.stats_max_clusters == 8
 
 
 def test_reconfigure_decides_again(tmp_path, monkeypatch):
@@ -391,10 +390,10 @@ def test_reconfigure_decides_again(tmp_path, monkeypatch):
     node = make_node(cfg, device="cpu")
     assert node.compiled
     node.reconfigure(cfg.replace(laser_model_type="beam"))
-    assert node.compiled  # the beam model is inside the slice
+    assert node.compiled  # the beam model compiles
     _capped_params(monkeypatch)
     node.reconfigure(cfg.replace(laser_model_type="beam"))
-    assert not node.compiled and "stats_max_clusters" in node.compiled_reason
+    assert node.compiled and node.params.stats_max_clusters == 8  # the cap too
     monkeypatch.undo()
     node.reconfigure(restore_defaults=True)
     assert node.compiled

@@ -98,9 +98,10 @@ _jax_cells = jax.jit(jplanar.planar_likelihood_cells, static_argnames=("model", 
 def test_corr_cells_matches_pallas_interpret(world, model):
     """planar_likelihood_cells (corr_cells over the plain corr_table) against
     JAX's through pallas_corr_interpret: the table, the keys and ok on a
-    tracking cloud; ok False (no table) on a cloud with off-map particles
-    and on one outside the envelope. The table read at the keys is the
-    pick path's folded p, bit for bit."""
+    tracking cloud; ok False on a cloud with off-map particles and on one
+    outside the envelope, whose table is built all the same, as JAX builds
+    it before ok is known. The table read at the keys is the pick path's
+    folded p, bit for bit."""
     jmap, jparams, jscan, tmap, tparams, tscan = world
     for name in ("tracking", "off_map", "spread"):
         poses = _cloud(name)
@@ -111,11 +112,11 @@ def test_corr_cells_matches_pallas_interpret(world, model):
                                                              torch.from_numpy(poses), model)
         assert tck.corr_table.launches == before  # CPU tensors: the plain version
         assert ok_t is bool(ok_j), name
+        assert tbl_t.shape == (tck.T_FLAT_CELLS,) and tbl_t.dtype == torch.float32
+        assert key_t.shape == (M,) and int(key_t.max()) < tck.T_FLAT_CELLS
         if not ok_t:
-            assert tbl_t is None and key_t is None
             continue
         want = np.asarray(tbl_j)
-        assert tbl_t.shape == (tck.T_FLAT_CELLS,) and tbl_t.dtype == torch.float32
         assert np.abs(tbl_t.numpy() - want).max() <= 1e-6 * np.abs(want).max(), name
         np.testing.assert_array_equal(key_t.numpy(), np.asarray(key_j))
         pt = torch.from_numpy(poses)
