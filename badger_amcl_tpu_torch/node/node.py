@@ -33,6 +33,12 @@ node's collection those holding its map and free cells (a module-level
 helper never keeps a dropped node's map alive). The entries keyed on its
 alphas and PFParams go when it replaces them (`reconfigure`) or is
 collected, unless another live node holds the same values.
+
+Tracing (`utils.profiling`): a scan is the root region `scan`; the host
+phases `scan_prep`, `motion_update`, `sensor_update`, `resample` and
+`publish` are `timers` (`PhaseTimer`) phases, each a span under a
+profiler; each round of the uniform pool's score rejection is a span
+`pool_round`.
 """
 
 from __future__ import annotations
@@ -69,10 +75,10 @@ from badger_amcl_tpu_torch.pf import filter as pf_filter
 from badger_amcl_tpu_torch.pf.filter import ResampleModel
 from badger_amcl_tpu_torch.pf.types import PFParams
 from badger_amcl_tpu_torch.sensors import odom as odom_models
+from badger_amcl_tpu_torch.utils import profiling
 from badger_amcl_tpu_torch.utils.angles import shortest_angular_distance
 from badger_amcl_tpu_torch.utils.graph import graph_jit
 from badger_amcl_tpu_torch.utils.numerics import host_arrays, host_bool
-from badger_amcl_tpu_torch.utils.profiling import PhaseTimer
 
 log = logging.getLogger("badger_amcl_tpu_torch")
 
@@ -201,7 +207,7 @@ class Node:
         self.tf = tf_buffer if tf_buffer is not None else TransformBuffer()
         self._outputs: Dict[str, List[Callable]] = {}
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.timers = PhaseTimer()
+        self.timers = profiling.PhaseTimer()
 
         self.state = None  # MCLState, created on the first map (node.cpp:670-709)
         self.map = None
@@ -376,11 +382,12 @@ class Node:
             thr = torch.full((m,), thr0, dtype=torch.float32, device=self.device)
             accepted = torch.zeros((m,), dtype=torch.bool, device=self.device)
             for _ in range(100):
-                accepted = accepted | (self.score_poses(poses) >= thr)
-                if host_bool(accepted.all()):
-                    break
-                poses = torch.where(accepted[:, None], poses, self._draw_pool(m))
-                thr = torch.where(accepted, thr, thr * mult)
+                with profiling.span("pool_round"):
+                    accepted = accepted | (self.score_poses(poses) >= thr)
+                    if host_bool(accepted.all()):
+                        break
+                    poses = torch.where(accepted[:, None], poses, self._draw_pool(m))
+                    thr = torch.where(accepted, thr, thr * mult)
         return poses
 
     def score_poses(self, poses: torch.Tensor) -> torch.Tensor:
@@ -467,30 +474,33 @@ class Node:
 
     def _update_odom(self, pose, delta):
         """updateOdom (node.cpp:1053-1097): pick absolute motion vs delta,
-        publish it, run the motion model on the device."""
-        cfg = self.config
-        if cfg.odom_integrator_enabled:
-            m = self.odom_integrator_absolute_motion
-            if math.hypot(m[0], m[1]) >= 2 * cfg.update_min_d or m[2] >= 2 * cfg.update_min_a:
-                absolute_motion = delta  # too much accumulation: fall back
+        publish it, run the motion model on the device (the phase
+        motion_update)."""
+        with self.timers.phase("motion_update"):
+            cfg = self.config
+            if cfg.odom_integrator_enabled:
+                m = self.odom_integrator_absolute_motion
+                if (math.hypot(m[0], m[1]) >= 2 * cfg.update_min_d
+                        or m[2] >= 2 * cfg.update_min_a):
+                    absolute_motion = delta  # too much accumulation: fall back
+                else:
+                    absolute_motion = m.copy()
+                self._publish("amcl_absolute_motion", Pose2D(
+                    absolute_motion[0], absolute_motion[1], absolute_motion[2]))
             else:
-                absolute_motion = m.copy()
-            self._publish("amcl_absolute_motion",
-                          Pose2D(absolute_motion[0], absolute_motion[1], absolute_motion[2]))
-        else:
-            absolute_motion = delta
-        normals = torch.randn((3, self.params.max_samples), generator=self.generator,
-                              device=self.device)
+                absolute_motion = delta
+            normals = torch.randn((3, self.params.max_samples), generator=self.generator,
+                                  device=self.device)
 
-        def f32(v):
-            return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+            def f32(v):
+                return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
 
-        self.state = self._call(
-            _motion_update_jit, self.state, _ODOM_MODEL_MAP[cfg.odom_model_type],
-            _alphas(cfg), f32(pose), f32(delta), normals,
-            f32(absolute_motion))
-        self.odom_integrator_absolute_motion = np.zeros(3)
-        self.pf_odom_pose = np.asarray(pose, float)
+            self.state = self._call(
+                _motion_update_jit, self.state, _ODOM_MODEL_MAP[cfg.odom_model_type],
+                _alphas(cfg), f32(pose), f32(delta), normals,
+                f32(absolute_motion))
+            self.odom_integrator_absolute_motion = np.zeros(3)
+            self.pf_odom_pose = np.asarray(pose, float)
 
     # ------------------------------------------------------------ resampling
 
@@ -516,13 +526,14 @@ class Node:
 
     def publish_particle_cloud(self, stamp: float) -> None:
         """publishParticleCloud (node.cpp:335-357): the active poses, read
-        in one host sync."""
-        n, poses = host_arrays(self.state.n_active, self.state.poses)
-        poses = poses[:int(n)]
-        self._publish("particlecloud", PoseArray(stamp, self.config.global_frame_id, poses))
-        if self.config.global_alt_frame_id:
-            alt = PoseArray(stamp, self.config.global_alt_frame_id, poses)
-            self._publish("particlecloud_in_" + self.config.global_alt_frame_id, alt)
+        in one host sync (the phase publish)."""
+        with self.timers.phase("publish"):
+            n, poses = host_arrays(self.state.n_active, self.state.poses)
+            poses = poses[:int(n)]
+            self._publish("particlecloud", PoseArray(stamp, self.config.global_frame_id, poses))
+            if self.config.global_alt_frame_id:
+                alt = PoseArray(stamp, self.config.global_alt_frame_id, poses)
+                self._publish("particlecloud_in_" + self.config.global_alt_frame_id, alt)
 
     def get_max_weight_pose(self):
         """getMaxWeightPose (node_2d.cpp:588-617): argmax-weight cluster
@@ -531,12 +542,13 @@ class Node:
         return float(w), np.asarray(mean, float)
 
     def resample_pose(self, stamp: float) -> bool:
-        """resamplePose (node_2d.cpp:572-586)."""
-        max_weight, max_pose = self.get_max_weight_pose()
-        if max_weight > 0.0:
-            return self.update_pose(max_pose, stamp)
-        log.error("No pose!")
-        return False
+        """resamplePose (node_2d.cpp:572-586): the phase publish."""
+        with self.timers.phase("publish"):
+            max_weight, max_pose = self.get_max_weight_pose()
+            if max_weight > 0.0:
+                return self.update_pose(max_pose, stamp)
+            log.error("No pose!")
+            return False
 
     def update_pose(self, max_pose: np.ndarray, stamp: float) -> bool:
         """updatePose (node.cpp:359-433): publish amcl_pose with the overall

@@ -43,6 +43,7 @@ from badger_amcl_tpu_torch.sensors.planar import (
     bake_factor_texture,
     planar_likelihood,
 )
+from badger_amcl_tpu_torch.utils import profiling
 from badger_amcl_tpu_torch.utils.graph import graph_jit
 
 log = logging.getLogger("badger_amcl_tpu_torch")
@@ -162,30 +163,35 @@ class Node2D(Node):
     def map_msg_received(self, msg: OccupancyGrid) -> None:
         """mapMsgReceived (node_2d.cpp:202-221) + initFromNewMap (:223-259):
         the distance field always (recalcWeight reads it for every model),
-        the beam model's range image on the "corr" backends."""
+        the beam model's range image on the "corr" backends. Spans
+        `map.receipt`, `map.field` and `map.free_cells` under a profiler."""
         if self.config.first_map_only and self.first_map_received:
             return
-        log.info("Received a %d X %d occupancy map @ %.3f m/pix", msg.width, msg.height,
-                 msg.resolution)
-        omap = OccupancyMap2D.from_occupancy_grid_msg(
-            msg.width, msg.height, msg.resolution, msg.origin_x, msg.origin_y, msg.data,
-            self.config.map_scale_up_factor, device=self.device)
-        omap = omap.with_distance_field(self.config.laser_likelihood_max_dist)
-        if (self.config.laser_model_type == PlanarModelType.BEAM
-                and self.backend in CORR_BACKENDS and self.config.beam_range_image_bins > 0):
-            log.info("Baking beam-model range image (%d angle bins)...",
-                     self.config.beam_range_image_bins)
-            omap = omap.with_range_image(self.config.beam_range_image_bins)
-        # scanners hold map-dependent state: clear the registry (node_2d.cpp:213-217)
-        self.frame_to_scanner.clear()
-        self.scanner_params = []
-        self.scanners_update = []
-        self.latest_scan = None
-        self._map_version += 1
-        self._corr_tex_key = None
-        self.init_from_new_map(omap, use_initial_pose=not self.first_map_received)
-        self._update_free_space_indices()
-        self.first_map_received = True
+        with profiling.span("map.receipt"):
+            log.info("Received a %d X %d occupancy map @ %.3f m/pix", msg.width, msg.height,
+                     msg.resolution)
+            with profiling.span("map.field"):
+                omap = OccupancyMap2D.from_occupancy_grid_msg(
+                    msg.width, msg.height, msg.resolution, msg.origin_x, msg.origin_y,
+                    msg.data, self.config.map_scale_up_factor, device=self.device)
+                omap = omap.with_distance_field(self.config.laser_likelihood_max_dist)
+                if (self.config.laser_model_type == PlanarModelType.BEAM
+                        and self.backend in CORR_BACKENDS
+                        and self.config.beam_range_image_bins > 0):
+                    log.info("Baking beam-model range image (%d angle bins)...",
+                             self.config.beam_range_image_bins)
+                    omap = omap.with_range_image(self.config.beam_range_image_bins)
+            # scanners hold map-dependent state: clear the registry (node_2d.cpp:213-217)
+            self.frame_to_scanner.clear()
+            self.scanner_params = []
+            self.scanners_update = []
+            self.latest_scan = None
+            self._map_version += 1
+            self._corr_tex_key = None
+            self.init_from_new_map(omap, use_initial_pose=not self.first_map_received)
+            with profiling.span("map.free_cells"):
+                self._update_free_space_indices()
+            self.first_map_received = True
 
     def _update_free_space_indices(self):
         """updateFreeSpaceIndices (node_2d.cpp:318-338)."""
@@ -221,23 +227,25 @@ class Node2D(Node):
             self.map.distances_lut_created
 
     def scan_received(self, scan: LaserScan, now: Optional[float] = None) -> None:
-        """scanReceived (node_2d.cpp:340-360)."""
-        now = scan.stamp if now is None else now
-        self.latest_scan_received_ts = now
-        if not self._is_map_initialized():
-            return
-        if not self.global_localization_active:
-            self.deactivate_global_localization_params()
-        scanner_index = self._get_scanner_index(scan.frame_id)
-        if scanner_index < 0:
-            return
-        success, force_publication = self.update_pf(scan.stamp, self.scanners_update,
-                                                    scanner_index)
-        resampled = False
-        if success and self.scanners_update[scanner_index]:
-            resampled = self._update_scanner(scan, scanner_index)
-        if success and (force_publication or resampled):
-            self.resample_pose(scan.stamp)
+        """scanReceived (node_2d.cpp:340-360): the root region `scan` of
+        utils.profiling."""
+        with profiling.scan():
+            now = scan.stamp if now is None else now
+            self.latest_scan_received_ts = now
+            if not self._is_map_initialized():
+                return
+            if not self.global_localization_active:
+                self.deactivate_global_localization_params()
+            scanner_index = self._get_scanner_index(scan.frame_id)
+            if scanner_index < 0:
+                return
+            success, force_publication = self.update_pf(scan.stamp, self.scanners_update,
+                                                        scanner_index)
+            resampled = False
+            if success and self.scanners_update[scanner_index]:
+                resampled = self._update_scanner(scan, scanner_index)
+            if success and (force_publication or resampled):
+                self.resample_pose(scan.stamp)
 
     def _update_scanner(self, scan: LaserScan, scanner_index: int) -> bool:
         """updateScanner (node_2d.cpp:367-392)."""

@@ -40,6 +40,7 @@ from badger_amcl_tpu_torch.node.node_2d import _f32
 from badger_amcl_tpu_torch.node.transforms import Transform, TransformLookupError
 from badger_amcl_tpu_torch.pf import filter as pf_filter
 from badger_amcl_tpu_torch.sensors.point_cloud import PointCloudParams, point_cloud_likelihood
+from badger_amcl_tpu_torch.utils import profiling
 from badger_amcl_tpu_torch.utils.graph import graph_jit
 
 log = logging.getLogger("badger_amcl_tpu_torch")
@@ -125,34 +126,44 @@ class Node3D(Node):
     def octomap_msg_received(self, msg: OctomapMsg) -> None:
         """octoMapMsgReceived (node_3d.cpp:199-218) + initFromNewMap
         (:220-256): build the OctoMap, bake the EDT now or defer until the
-        occupancy map bounds arrive."""
+        occupancy map bounds arrive. Spans `map.receipt`, `map.field` (the
+        voxel table, and its EDT where it is baked now) and `map.free_cells`
+        under a profiler."""
         if self.config.first_map_only and self.first_octomap_received:
             return
-        log.info("Received a new Octomap")
-        max_dist = self.config.resolved_cloud_likelihood_max_dist
-        if msg.binary_data is not None:
-            omap = OctoMap3D.from_binary_octree(read_bt(msg.binary_data), max_dist,
-                                                self.device)
-        elif msg.full_data is not None:
-            # fullMsgToMap branch (node_3d.cpp:270-273): full probabilistic
-            # tree, leaves thresholded at logodds > 0
-            omap = OctoMap3D.from_binary_octree(read_ot(msg.full_data), max_dist,
-                                                self.device)
-        else:
-            omap = OctoMap3D.from_occupied_points(msg.occupied_centers, msg.resolution,
-                                                  max_dist, device=self.device)
-        self.frame_to_scanner.clear()
-        self.scanner_tfs = []
-        self.scanners_update = []
-        self.latest_points_base = None
-        self.init_from_new_map(omap, use_initial_pose=not self.first_octomap_received)
-        if self.config.wait_for_occupancy_map and self.occupancy_bounds_received:
-            self.map = self.map.set_map_bounds(self.occupancy_map_min, self.occupancy_map_max)
-            self._update_free_space_indices()
-        elif not self.config.wait_for_occupancy_map:
-            self.map = self.map.with_distance_field()
-            self._update_free_space_indices()
-        self.first_octomap_received = True
+        with profiling.span("map.receipt"):
+            log.info("Received a new Octomap")
+            max_dist = self.config.resolved_cloud_likelihood_max_dist
+            with profiling.span("map.field"):
+                if msg.binary_data is not None:
+                    omap = OctoMap3D.from_binary_octree(read_bt(msg.binary_data), max_dist,
+                                                        self.device)
+                elif msg.full_data is not None:
+                    # fullMsgToMap branch (node_3d.cpp:270-273): full probabilistic
+                    # tree, leaves thresholded at logodds > 0
+                    omap = OctoMap3D.from_binary_octree(read_ot(msg.full_data), max_dist,
+                                                        self.device)
+                else:
+                    omap = OctoMap3D.from_occupied_points(msg.occupied_centers,
+                                                          msg.resolution, max_dist,
+                                                          device=self.device)
+            self.frame_to_scanner.clear()
+            self.scanner_tfs = []
+            self.scanners_update = []
+            self.latest_points_base = None
+            self.init_from_new_map(omap, use_initial_pose=not self.first_octomap_received)
+            if self.config.wait_for_occupancy_map and self.occupancy_bounds_received:
+                with profiling.span("map.field"):
+                    self.map = self.map.set_map_bounds(self.occupancy_map_min,
+                                                       self.occupancy_map_max)
+                with profiling.span("map.free_cells"):
+                    self._update_free_space_indices()
+            elif not self.config.wait_for_occupancy_map:
+                with profiling.span("map.field"):
+                    self.map = self.map.with_distance_field()
+                with profiling.span("map.free_cells"):
+                    self._update_free_space_indices()
+            self.first_octomap_received = True
 
     def occupancy_map_msg_received(self, msg: OccupancyGrid) -> None:
         """occupancyMapMsgReceived (node_3d.cpp:178-197): the 2D map supplies
@@ -206,23 +217,25 @@ class Node3D(Node):
             self.map.distances_lut_created
 
     def scan_received(self, cloud: PointCloud2, now: Optional[float] = None) -> None:
-        """scanReceived (node_3d.cpp:320-340)."""
-        now = cloud.stamp if now is None else now
-        self.latest_scan_received_ts = now
-        if not self._is_map_initialized():
-            return
-        if not self.global_localization_active:
-            self.deactivate_global_localization_params()
-        scanner_index = self._get_scanner_index(cloud.frame_id)
-        if scanner_index < 0:
-            return
-        success, force_publication = self.update_pf(cloud.stamp, self.scanners_update,
-                                                    scanner_index)
-        resampled = False
-        if success and self.scanners_update[scanner_index]:
-            resampled = self._update_scanner(cloud, scanner_index)
-        if success and (force_publication or resampled):
-            self.resample_pose(cloud.stamp)
+        """scanReceived (node_3d.cpp:320-340): the root region `scan` of
+        utils.profiling."""
+        with profiling.scan():
+            now = cloud.stamp if now is None else now
+            self.latest_scan_received_ts = now
+            if not self._is_map_initialized():
+                return
+            if not self.global_localization_active:
+                self.deactivate_global_localization_params()
+            scanner_index = self._get_scanner_index(cloud.frame_id)
+            if scanner_index < 0:
+                return
+            success, force_publication = self.update_pf(cloud.stamp, self.scanners_update,
+                                                        scanner_index)
+            resampled = False
+            if success and self.scanners_update[scanner_index]:
+                resampled = self._update_scanner(cloud, scanner_index)
+            if success and (force_publication or resampled):
+                self.resample_pose(cloud.stamp)
 
     def _update_scanner(self, cloud: PointCloud2, scanner_index: int) -> bool:
         """updateScanner (node_3d.cpp:348-365): decimate to max_beams points

@@ -5,7 +5,11 @@ plain C interface (no PyTorch headers, so a build takes seconds), cached
 under `badger_amcl_tpu_torch/_build/` by a hash of the sources and flags,
 and loaded with ctypes. Every entry point takes raw device pointers and a
 CUDA stream (all `c_void_p`) and returns `cudaGetLastError()` after its
-launch; `check` raises on a nonzero code.
+launch; `check` raises on a nonzero code. The first `lib()`, and each
+entry point's first call, is a `library.load` region of
+`utils.profiling` (timed always; the build a `library.build` span under a
+profiler): under CUDA's lazy module loading, the default, an entry
+point's first call is what loads its kernels onto the card.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine class has no nvcc.
@@ -19,6 +23,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from badger_amcl_tpu_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -108,8 +114,16 @@ def build(verbose: bool = False) -> Path:
     out = BUILD_DIR / f"libamcl_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
+    with profiling.span("library.build"):
+        _compile(srcs, out, h.hexdigest()[:16], verbose)
+    return out
+
+
+def _compile(srcs: list, out: Path, digest: str, verbose: bool) -> None:
+    """nvcc: each source to an object, all started together, then the
+    link into `out`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    tag = f"{digest}.{os.getpid()}"
     nvcc = _nvcc()
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     if verbose:
@@ -140,19 +154,37 @@ def build(verbose: bool = False) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
-    return out
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
+class _Library:
+    """The loaded library's entry points, as attributes. Each one's first
+    call is a `library.load` region, after which the attribute is the bare
+    ctypes function."""
+
+    def __init__(self, handle: ctypes.CDLL):
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = handle
+            setattr(self, name, self._first_call(name, fn))
+
+    def _first_call(self, name: str, fn):
+        def first(*args):
+            if getattr(self, name) is not first:  # called again through a held reference
+                return fn(*args)
+            setattr(self, name, fn)
+            with profiling.library(name):
+                return fn(*args)
+
+        return first
+
+
+def lib() -> _Library:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        with profiling.library():
+            _lib = _Library(ctypes.CDLL(str(build())))
     return _lib
 
 

@@ -34,6 +34,12 @@ variates are arguments, drawn before the call. On CPU tensors the step
 runs eagerly through the same helpers, as every kernel wrapper runs its
 plain version on the CPU; on CUDA tensors a call captures or raises and
 never falls back to the eager step.
+
+Every call is a `graph.call` region of `utils.profiling` (the host time
+of the scans' calls, a span under a profiler, tagged with fn's name);
+under a profiler only, its steps are the spans `graph.key`,
+`graph.copy_in`, `graph.replay` (the host launch) and `graph.copy_out`.
+A key's first call is a `graph.capture` region, timed always.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import time
 import torch
 
 from badger_amcl_tpu_torch.ops import graph_cond
-from badger_amcl_tpu_torch.utils import control, tree
+from badger_amcl_tpu_torch.utils import control, profiling, tree
 
 # the arguments held by identity in the key, not copied into buffers
 _REFERENCES = ("omap", "fsi")
@@ -345,6 +351,7 @@ def graph_jit(fn, static_argnames):
     `wrapper.release_where(pred)` every entry whose static arguments
     ({name: value}) pred accepts."""
     sig = inspect.signature(fn)
+    name = fn.__name__
     entries = collections.OrderedDict()
 
     def bind(args, kwargs):
@@ -368,26 +375,55 @@ def graph_jit(fn, static_argnames):
                tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
         return bound, references, spec, leaves, key
 
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
+    def entry_of(key, bound, leaves, spec, references):
+        """The key's entry, captured on its first call, now the most
+        recently used."""
+        entry = entries.get(key)
+        if entry is None:
+            while len(entries) >= MAX_ENTRIES:  # the least recently used goes first
+                _destroy(entries.popitem(last=False)[1], wrapper.dropped_launches)
+                wrapper.evictions += 1
+            wrapper.captures += 1
+            with profiling.capture(name):
+                entry = entries[key] = _capture(fn, bound, leaves, spec, references,
+                                                wrapper.kernels, dict(key[0]))
+        entries.move_to_end(key)
+        return entry
+
+    def run(args, kwargs):
         bound, references, spec, leaves, key = bind(args, kwargs)
         if key is None:
             return fn(**bound.arguments)
         with _deferring_drops():
-            entry = entries.get(key)
-            if entry is None:
-                while len(entries) >= MAX_ENTRIES:  # the least recently used goes first
-                    _destroy(entries.popitem(last=False)[1], wrapper.dropped_launches)
-                    wrapper.evictions += 1
-                wrapper.captures += 1
-                entry = entries[key] = _capture(fn, bound, leaves, spec, references,
-                                                wrapper.kernels, dict(key[0]))
-            entries.move_to_end(key)
+            entry = entry_of(key, bound, leaves, spec, references)
             for buf, t in zip(entry.inputs, leaves):
                 buf.copy_(t)
             entry.graph.replay()
             entry.replays += 1
             return tree.map_tensors(torch.clone, entry.outputs)
+
+    def run_traced(args, kwargs):
+        """run, its steps each a span."""
+        span = profiling.span
+        with span("graph.key"):
+            bound, references, spec, leaves, key = bind(args, kwargs)
+        if key is None:
+            return fn(**bound.arguments)
+        with _deferring_drops():
+            entry = entry_of(key, bound, leaves, spec, references)
+            with span("graph.copy_in"):
+                for buf, t in zip(entry.inputs, leaves):
+                    buf.copy_(t)
+            with span("graph.replay"):
+                entry.graph.replay()
+            entry.replays += 1
+            with span("graph.copy_out"):
+                return tree.map_tensors(torch.clone, entry.outputs)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with profiling.call(name) as call:
+            return (run if call.span is None else run_traced)(args, kwargs)
 
     def drop(key):
         """Drop one entry: its graph, buffers, arm pool and its hold on what

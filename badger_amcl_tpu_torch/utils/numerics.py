@@ -19,13 +19,17 @@ back to the host (`utils.control`). Every read goes through here so a run
 can count them (`SYNCS.count`); several predicates known at once are read
 in one sync.
 `host_arrays` reads whole tensors (the node's published pose, covariance
-and particle cloud) the same way.
+and particle cloud) the same way. Each read is a `sync` region of
+`utils.profiling`: the host time of a scan's reads, a span under a
+profiler.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from badger_amcl_tpu_torch.utils import profiling
 
 
 def fdiv(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -80,9 +84,10 @@ SYNCS = _SyncCounter()
 def host_values(*ts: torch.Tensor) -> list:
     """Read scalar tensors to Python values in one host sync."""
     SYNCS.count += 1
-    if len(ts) == 1:
-        return [ts[0].item()]
-    return torch.stack([t.to(torch.float64) for t in ts]).tolist()
+    with profiling.sync():
+        if len(ts) == 1:
+            return [ts[0].item()]
+        return torch.stack([t.to(torch.float64) for t in ts]).tolist()
 
 
 def host_arrays(*ts: torch.Tensor) -> list:
@@ -90,7 +95,8 @@ def host_arrays(*ts: torch.Tensor) -> list:
     sync (their bytes concatenated on the device, one transfer)."""
     SYNCS.count += 1
     flat = [t.detach().reshape(-1).contiguous() for t in ts]
-    raw = torch.cat([f.view(torch.uint8) for f in flat]).cpu().numpy().tobytes()
+    with profiling.sync():
+        raw = torch.cat([f.view(torch.uint8) for f in flat]).cpu().numpy().tobytes()
     out, off = [], 0
     for t, f in zip(ts, flat):
         nbytes = f.numel() * f.element_size()
