@@ -38,7 +38,7 @@ Tracing (`utils.profiling`): a scan is the root region `scan`; the host
 phases `scan_prep`, `motion_update`, `sensor_update`, `resample` and
 `publish` are `timers` (`PhaseTimer`) phases, each a span under a
 profiler; each round of the uniform pool's score rejection is a span
-`pool_round`.
+`pool_round`, and its stop test a lagged read (`numerics.LaggedFlags`).
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ from badger_amcl_tpu_torch.sensors import odom as odom_models
 from badger_amcl_tpu_torch.utils import profiling
 from badger_amcl_tpu_torch.utils.angles import shortest_angular_distance
 from badger_amcl_tpu_torch.utils.graph import graph_jit
-from badger_amcl_tpu_torch.utils.numerics import host_arrays, host_bool
+from badger_amcl_tpu_torch.utils.numerics import LaggedFlags, host_arrays, host_bool
 
 log = logging.getLogger("badger_amcl_tpu_torch")
 
@@ -208,6 +208,7 @@ class Node:
         self._outputs: Dict[str, List[Callable]] = {}
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.timers = profiling.PhaseTimer()
+        self._pool_flags = LaggedFlags()  # the pool's stop test, read a round late
 
         self.state = None  # MCLState, created on the first map (node.cpp:670-709)
         self.map = None
@@ -370,7 +371,14 @@ class Node:
         """Batched uniformPoseGenerator (node.cpp:847-868): uniform
         free-space poses, optionally score-rejected against the latest scan
         with a per-slot decaying threshold (at most 100 rounds, one host
-        sync each)."""
+        sync each).
+
+        The stop test runs a round behind the work: round r is queued
+        before round r-1's all-accepted flag is read (`LaggedFlags`), so
+        the host queues a round while the card runs the last. A round
+        queued after every slot was accepted keeps every pose; the
+        generator goes back to where the last needed round left it, so the
+        pool and every later draw are those of a test before each draw."""
         if m is None:
             m = self.params.max_samples
         if self.free_space_indices is None:
@@ -379,15 +387,23 @@ class Node:
         thr0 = self.config.uniform_pose_starting_weight_threshold
         mult = self.config.uniform_pose_deweight_multiplier
         if thr0 > 0.0 and 0.0 <= mult < 1.0:
+            gen = self.generator
             thr = torch.full((m,), thr0, dtype=torch.float32, device=self.device)
             accepted = torch.zeros((m,), dtype=torch.bool, device=self.device)
+            last = None  # the last round's flag, and the generator before its draw
             for _ in range(100):
                 with profiling.span("pool_round"):
                     accepted = accepted | (self.score_poses(poses) >= thr)
-                    if host_bool(accepted.all()):
-                        break
+                    flag = self._pool_flags.start(accepted.all())
+                    before = gen.get_state()
                     poses = torch.where(accepted[:, None], poses, self._draw_pool(m))
                     thr = torch.where(accepted, thr, thr * mult)
+                    if last is not None and host_bool(last[0]):
+                        gen.set_state(last[1])
+                        return poses
+                    last = flag, before
+            if host_bool(last[0]):
+                gen.set_state(last[1])
         return poses
 
     def score_poses(self, poses: torch.Tensor) -> torch.Tensor:

@@ -82,6 +82,12 @@ def plain_version(fn):
     return wrapped
 
 
+def reading():
+    """A counted read's own transfer (`numerics.LaggedFlags`' copy of a
+    flag, counted when it is read): `StrictHostReads` lets it through."""
+    return _nested("allowed")
+
+
 def _read_predicates(preds) -> list:
     """Predicates to Python bools in one counted host sync."""
     for mode in _STRICT_MODES:

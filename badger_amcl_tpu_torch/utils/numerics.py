@@ -22,6 +22,11 @@ in one sync.
 and particle cloud) the same way. Each read is a `sync` region of
 `utils.profiling`: the host time of a scan's reads, a span under a
 profiler.
+
+`LaggedFlags`: a loop whose stop test may run behind its work (the
+node's uniform pool) starts each predicate's copy to the host as it is
+computed and reads it after queueing the next step, so the host waits on
+that copy alone and never on the step behind it.
 """
 
 from __future__ import annotations
@@ -106,6 +111,58 @@ def host_arrays(*ts: torch.Tensor) -> list:
     return out
 
 
-def host_bool(t: torch.Tensor) -> bool:
-    """One device predicate as a Python bool (one host sync)."""
+def host_bool(t) -> bool:
+    """One device predicate as a Python bool (one host sync): a 0-dim
+    tensor, or a flag that `LaggedFlags.start` set on its way."""
+    if isinstance(t, LaggedFlag):
+        return t.read()
     return bool(host_values(t)[0])
+
+
+class LaggedFlag:
+    """A 0-dim bool on its way to the host (`LaggedFlags.start`): a pinned
+    host copy and the CUDA event recorded behind it, or, on the CPU, the
+    flag itself."""
+
+    __slots__ = ("value", "event")
+
+    def __init__(self, value: torch.Tensor, event):
+        self.value, self.event = value, event
+
+    def read(self) -> bool:
+        """The flag, in one counted host sync that waits on its copy alone
+        (not on the work queued after it); the recorder counts the read,
+        and whether the copy had still to land (`profiling.lagged_read`)."""
+        SYNCS.count += 1
+        profiling.lagged_read(self.event is not None and not self.event.query())
+        with profiling.sync():
+            if self.event is not None:
+                self.event.synchronize()
+            return bool(self.value.item())
+
+
+class LaggedFlags:
+    """Starts 0-dim device bools on their way to the host, each read later
+    by `host_bool`. A CUDA flag is copied without blocking into one of two
+    pinned slots in turn, an event recorded behind the copy: a flag read
+    after the next one started keeps its slot, and a slot is written again
+    only by the flag after that."""
+
+    def __init__(self):
+        self._slots = None  # (pinned bool, event) x 2, made at the first CUDA flag
+        self._next = 0
+
+    def start(self, flag: torch.Tensor) -> LaggedFlag:
+        if not flag.is_cuda:
+            return LaggedFlag(flag, None)
+        if self._slots is None:
+            self._slots = [(torch.empty((), dtype=torch.bool, pin_memory=True),
+                            torch.cuda.Event()) for _ in range(2)]
+        host, event = self._slots[self._next]
+        self._next ^= 1
+        from badger_amcl_tpu_torch.utils import control  # imports this module
+
+        with control.reading():
+            host.copy_(flag, non_blocking=True)
+        event.record(torch.cuda.current_stream(flag.device))
+        return LaggedFlag(host, event)

@@ -21,6 +21,10 @@ the root region.
   blocked on the device. So `scan_ns - entry_ns - sync_ns` is the node's
   own host time, and the three share `timed_scans` as their denominator;
   the profiler's host slowdown never enters them.
+- `pool_tests`, `pool_stalls`: the timed scans' lagged reads
+  (`numerics.LaggedFlags`, the uniform pool's stop test) and those of
+  them whose copy had not landed when read, so that the host waited on
+  the card; over the same scans as `sync_ns`.
 - `captures`, `capture_ns`: every `graph_jit` warm-up and capture.
 - `library_ns`: loading the kernel library, its nvcc build included, and
   each entry point's first call (`ops/_build.lib`).
@@ -96,7 +100,9 @@ class _Acc:
 
 # the timed scans since the last profiled one; set-up
 _SCANS, _ENTRY, _SYNC, _CAPTURE, _LIBRARY = (_Acc() for _ in range(5))
-_ENTRY_PART, _SYNC_PART = 0, 1  # a timed scan's pending parts
+# a timed scan's pending parts: entry and sync ns, lagged reads, stalls
+_ENTRY_PART, _SYNC_PART, _TESTS_PART, _STALLS_PART = range(4)
+_POOL = [0, 0]  # the timed scans' lagged reads and stalls
 
 
 class Span(NamedTuple):
@@ -127,7 +133,7 @@ class _State:
         self.scan = 0  # the number of the open scan, 0 outside
         self.timing = False  # inside a scan, adding to its pending parts
         self.depth = 0  # open calls and syncs
-        self.parts = [0, 0]  # the open scan's entry and sync ns
+        self.parts = [0, 0, 0, 0]  # the open scan's pending parts
 
 
 _local = threading.local()
@@ -233,7 +239,7 @@ class _Scan:
     def __enter__(self):
         t = _state()
         self.outer = (t.scan, t.timing, t.parts)
-        t.scan, t.timing, t.parts = next(_scans), True, [0, 0]
+        t.scan, t.timing, t.parts = next(_scans), True, [0, 0, 0, 0]
         self.profiled = _profiling()
         self.span = _Span("scan", None).__enter__() if self.profiled else None
         self.setup = (_CAPTURE.count, _LIBRARY.count)
@@ -246,10 +252,13 @@ class _Scan:
         if self.profiled or _profiling():
             for acc in (_SCANS, _ENTRY, _SYNC):
                 acc.clear()
+            _POOL[:] = 0, 0
         elif self.setup == (_CAPTURE.count, _LIBRARY.count):
             _SCANS.add(ns)
             _ENTRY.add(t.parts[_ENTRY_PART])
             _SYNC.add(t.parts[_SYNC_PART])
+            _POOL[0] += t.parts[_TESTS_PART]
+            _POOL[1] += t.parts[_STALLS_PART]
         if self.span is not None:
             self.span.__exit__()
         t.scan, t.timing, t.parts = self.outer
@@ -271,6 +280,15 @@ def sync() -> _Region:
     return _Region("sync", part=_SYNC_PART)
 
 
+def lagged_read(stalled: bool) -> None:
+    """One lagged read (`numerics.LaggedFlag.read`), and whether it found
+    its copy still to land, into the open scan's pending counts."""
+    t = _state()
+    if t.timing:
+        t.parts[_TESTS_PART] += 1
+        t.parts[_STALLS_PART] += stalled
+
+
 def capture(tag: str) -> _Region:
     """A graph_jit key's warm-up and capture."""
     return _Region("graph.capture", tag, _CAPTURE)
@@ -286,7 +304,8 @@ def counters() -> Dict[str, int]:
     """The counters (module docstring)."""
     return {"timed_scans": _SCANS.count, "scan_ns": _SCANS.ns, "entry_ns": _ENTRY.ns,
             "sync_ns": _SYNC.ns, "captures": _CAPTURE.count, "capture_ns": _CAPTURE.ns,
-            "library_ns": _LIBRARY.ns, "spans_dropped": _dropped[0]}
+            "library_ns": _LIBRARY.ns, "spans_dropped": _dropped[0],
+            "pool_tests": _POOL[0], "pool_stalls": _POOL[1]}
 
 
 def spans() -> list:
@@ -304,6 +323,7 @@ def reset(max_spans: Optional[int] = None) -> None:
     (MAX_SPANS) more."""
     for acc in (_SCANS, _ENTRY, _SYNC, _CAPTURE, _LIBRARY):
         acc.clear()
+    _POOL[:] = 0, 0
     _dropped[0] = 0
     _forget_spans(max_spans)
 
