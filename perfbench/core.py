@@ -1,6 +1,7 @@
 """One run of one cell: find the cell's configuration, traffic, driver,
 metrics and limits by name, set up, run the window, read the metrics,
-check what the window produced against the reference.
+check what the window produced (and what the driver adds once the
+metrics are read) against the reference.
 
 Everything a cell needs is a file found by a name in BENCHMARK.json:
 `configs/<config>.json` (its `driver` names `drivers/<driver>.py`),
@@ -141,7 +142,21 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         if run.counts.get("window_captures"):
             log.append(f"WARNING: {run.counts['window_captures']} graph captures inside the "
                        "window")
+        kind = "end_to_end" if not trace else "per_layer"
+        metrics = {}
+        for m in bench[kind]:
+            if not applies(m, workload):
+                continue
+            mod = importlib.import_module(("perfbench.e2e." if kind == "end_to_end"
+                                           else "perfbench.metrics.") + m["name"])
+            value = mod.read(run)
+            if value is not None:
+                metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
         records, map_input, mount = win["records"], driver.map_input, driver.mount
+        for k, recs in driver.after_window().items():
+            records[k] = records.get(k, []) + recs
+        # a sample the traffic asks for that the window left empty compared nothing
+        empty = sorted(k for k in traffic["check"] if not records.get(k))
         driver.close()
         del driver, win
         gc.collect()
@@ -153,20 +168,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         read = check.readings(records, config, map_input, mount, device, control=control)
         log.append(f"reference_s {time.perf_counter() - t_ref:.4f}")
         correct, rows = check.verdict(read["program"], limits)
+        correct = correct and not empty
     finally:
         os.chdir(here)
         shutil.rmtree(workdir, ignore_errors=True)
 
-    kind = "end_to_end" if not trace else "per_layer"
-    metrics = {}
-    for m in bench[kind]:
-        if not applies(m, workload):
-            continue
-        mod = importlib.import_module(("perfbench.e2e." if kind == "end_to_end"
-                                       else "perfbench.metrics.") + m["name"])
-        value = mod.read(run)
-        if value is not None:
-            metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
            "count": wl["chips"] if cuda else 1, "memory_peak_bytes": int(peak)}
@@ -178,7 +184,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         result["breakdown"] = {"device_ops": run.trace.top_ops(),
                                "idle_gaps": run.trace.idle_gaps()}
     result["checks"] = {k: {"value": v, "limit": lim} for k, v, lim in rows}
-    log += [f"compared {read['counts']}"] + [
-        f"check {k}: {'none compared' if v is None else repr(v)} (limit {lim})"
-        for k, v, lim in rows]
+    log.append(f"compared {read['counts']}")
+    glob = read["phases"]["global"]
+    if any(v is not None for v in glob.values()):
+        log.append(f"compared in global localization {read['global_counts']}")
+    if empty:
+        log.append(f"the window left the samples {empty} empty")
+    for k, v, lim in rows:
+        line = f"check {k}: {'none compared' if v is None else repr(v)} (limit {lim}"
+        if glob[k] is not None:
+            line += f"; normal {read['phases']['normal'][k]!r}, global {glob[k]!r}"
+        log.append(line + ")")
     return result, log, read

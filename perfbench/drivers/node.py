@@ -14,10 +14,19 @@ its integrator, then hands the reading to `scan_received`, whose return is
 the scan's latency: the node reads its published outputs to the host
 itself. The timers' work (`spin_once`) follows, outside the latency.
 
+Where the traffic sets `kidnap_every_s`, the stream carries the robot to
+another part of its lap every that many simulated seconds (warm-up
+included), and the driver calls the node's `global_localization()` just
+before that step's `scan_received`, inside its latency: the service call a
+supervisor makes on a kidnap.
+
 The driver watches the node's compiled helpers through the node's own
 `_call` (each call of a helper on the card is one graph replay): it counts
 them, the score-rejection rounds of each resample and the host syncs, and
-keeps a seeded sample of the steps' inputs and outputs for the check.
+keeps a seeded sample of the steps' inputs and outputs for the check, each
+with whether the node's global localization was active at the call (the
+map factors it scored with). After the window, `after_window` scores one
+seeded pool through the node's scoring helper for the check.
 """
 
 from __future__ import annotations
@@ -188,8 +197,12 @@ class NodeDriver:
         self.info["lap"] = dict(metres=round(self.lap.length_m, 3), steps=len(self.lap.poses))
         self.warmup_steps = int(round(t["warmup_s"] * self.rate))
         self.trace_steps = int(round(t["trace_s"] * self.rate))
-        self.stream = route.stream(self.lap, self.warmup_steps + max_steps, self.seed,
-                                   self.rate, t["odom_noise"])
+        every = t["kidnap_every_s"]
+        self.kidnap_every = int(round(every * self.rate)) if every else 0
+        steps = self.warmup_steps + max_steps
+        self.stream = route.stream(self.lap, steps, self.seed, self.rate, t["odom_noise"],
+                                   self.kidnap_every)
+        self.kidnaps = set(route.kidnap_steps(steps, self.kidnap_every).tolist())
         cfg = AMCLConfig.from_params(dict(self.params))
         cfg = cfg.replace(saved_pose_filepath=os.path.join(self.workdir,
                                                            "badger_amcl_saved_pose.yaml"))
@@ -216,8 +229,9 @@ class NodeDriver:
     def _warm_keys(self) -> None:
         """Capture the graph keys of the window that the warm-up missed:
         the 3D node's sensor update and scoring for every decimated cloud
-        size of the lap. Their outputs are dropped; the node's state is
-        untouched."""
+        size of the lap, under the normal map factors and, where the
+        traffic kidnaps, the global localization's too. Their outputs are
+        dropped; the node's state and factors are left as they were."""
         if self.dim != "node_3d" or not self.device.startswith("cuda"):
             return
         import torch
@@ -229,10 +243,18 @@ class NodeDriver:
         upd, score = self._helper("sensor_update"), self._helper("score_poses")
         poses = node.state.poses
         model, backend = self.cfg.point_cloud_model_type.value, node.backend
-        for k in sizes:
-            pts = torch.zeros((k, 3), dtype=torch.float32, device=self.device)
-            upd(node.state, node.map, node.pc_params, pts, model, backend)
-            score(node.map, node.pc_params, pts, poses, model, backend)
+        in_force = node.pc_params
+        node._apply_normal_factors()
+        factor_sets = [node.pc_params]
+        if self.kidnap_every:
+            node._apply_global_localization_factors()
+            factor_sets.append(node.pc_params)
+        node.pc_params = in_force
+        for params in factor_sets:
+            for k in sizes:
+                pts = torch.zeros((k, 3), dtype=torch.float32, device=self.device)
+                upd(node.state, node.map, params, pts, model, backend)
+                score(node.map, params, pts, poses, model, backend)
 
     # ---------------------------------------------------------------- watching
 
@@ -269,24 +291,28 @@ class NodeDriver:
     def _on_helper(self, role, args, kwargs, out) -> None:
         """Keep what the check needs of a helper call: the state before and
         after, the reading, the variates (the motion's normals, the
-        resample's pool and comb uniform) and, for the motion, the stream's
-        odometry from the last update's step to this one."""
+        resample's pool and comb uniform), whether global localization was
+        active and, for the motion, the stream's odometry from the last
+        update's step to this one. The nodes put the normal map factors
+        back at the start of the first scan after global localization
+        ends, so the flag at a likelihood call names the factors it used."""
         cur = self._current
         if cur is None:
             return
+        glob = self.node.global_localization_active
         if role == "motion_update":
             n, last = cur["n"], self._last_motion
             self._last_motion = n
             odom = None if last is None else self.stream.odom[last:n + 1].copy()
             cur["motion"] = dict(state_in=args[0], state_out=out, normals=args[5], odom=odom)
         elif role == "sensor_update":
-            self._latest_msg = cur["msg"]
-            cur["update"] = dict(state_in=args[0], state_out=out, msg=cur["msg"])
+            self._latest_msg, self._latest_n = cur["msg"], cur["n"]
+            cur["update"] = dict(state_in=args[0], state_out=out, msg=cur["msg"], glob=glob)
         elif role == "resample":
             cur["resample"] = dict(state_in=args[0], state_out=out, pool=args[2],
-                                   u_start=kwargs["u_start"])
+                                   u_start=kwargs["u_start"], glob=glob)
         elif role == "score_poses":
-            cur["scores"].append(dict(poses=args[3], out=out, msg=self._latest_msg))
+            cur["scores"].append(dict(poses=args[3], out=out, msg=self._latest_msg, glob=glob))
         if self.recording:
             self.counts["helper_calls"] += 1
             if role == "score_poses" and self._in_resample:
@@ -306,8 +332,10 @@ class NodeDriver:
 
     _current = None
     _latest_msg = None
+    _latest_n = None
     _last_motion = None
     _trace_work = None
+    _scan_glob = False
 
     def step(self) -> float:
         """Deliver the next step of the stream; returns its latency in
@@ -328,8 +356,15 @@ class NodeDriver:
             self.node.integrate_odom(messages.Odometry(stamp, odom.copy()))
         self._current = dict(n=n, msg=msg, scores=[], motion=None, update=None, resample=None,
                              published=None)
+        kidnap = n in self.kidnaps
+        if kidnap:
+            # the node takes its odometry afresh after a global localization
+            self._last_motion = None
         t0 = time.perf_counter()
         with span("scan_received"):
+            if kidnap:
+                self.node.global_localization()
+            self._scan_glob = self.node.global_localization_active
             self.node.scan_received(msg)
         latency = time.perf_counter() - t0
         with span("spin_once"):
@@ -360,10 +395,11 @@ class NodeDriver:
             lat = self.step()
             latencies.append(lat)
             cur = self._current
-            if cur["update"] is not None:
-                samples["updates"].offer(cur)
-            if cur["resample"] is not None:
-                samples["resamples"].offer(cur)
+            for kind, key in (("updates", "update"), ("resamples", "resample")):
+                if cur[key] is not None:
+                    samples[kind].offer(cur)
+                    if cur[key]["glob"] and "global_" + kind in samples:
+                        samples["global_" + kind].offer(cur)
             for sc in cur["scores"]:
                 samples["scores"].offer(sc)
             cur["scores"] = len(cur["scores"])
@@ -394,6 +430,34 @@ class NodeDriver:
                     trace_work=self._trace_work,
                     untraced=None if untraced_from is None else (
                         len(latencies) - untraced_from[0], done - untraced_from[1]))
+
+    def after_window(self) -> dict:
+        """More records for the check, made once the window's counts and
+        metrics have been read: one seeded pool of max_particles poses,
+        half near the true pose of the last reading the node updated on
+        and half anywhere on the map, scored through the node's own
+        scoring helper against that reading, with the map factors the last
+        scan put in force. So every window has a score to compare, whether
+        or not the node ran a score round in it."""
+        import torch
+
+        if self._latest_msg is None:
+            return {}
+        m = self.config["map"]
+        n = int(self.params["max_particles"])
+        kw = dict(dtype=torch.float64, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(self.seed + 50)
+        truth = torch.as_tensor(self.lap.poses[self.stream.lap_index[self._latest_n]], **kw)
+        near = truth + torch.randn((n // 2, 3), generator=gen, **kw) * torch.tensor(
+            [0.3, 0.3, 0.2], **kw)
+        size = torch.tensor([m["cells"][0] * m["resolution"], m["cells"][1] * m["resolution"],
+                             2 * math.pi], **kw)
+        anywhere = torch.rand((n - n // 2, 3), generator=gen, **kw) * size - torch.tensor(
+            [0.0, 0.0, math.pi], **kw)
+        poses = torch.cat([near, anywhere]).float()
+        out = self.node.score_poses(poses)
+        return {"scores": [dict(poses=poses, out=out, msg=self._latest_msg,
+                                glob=self._scan_glob)]}
 
     def _captures(self) -> int:
         return sum(getattr(self._helper(r), "captures", 0) for r in HELPERS)

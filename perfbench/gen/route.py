@@ -10,7 +10,8 @@ constant speed; a run then replays it lap after lap.
 The stream maps each sensor step n (simulated time n / rate) to the lap
 sample the robot is at, from a seeded first one, and to its odometry.
 Odometry integrates the true motion of each step plus seeded Gaussian
-noise, so it drifts as a robot's does; it is continuous across laps.
+noise, so it drifts as a robot's does; it is continuous across laps and
+across kidnaps, where the robot is carried to another part of its lap.
 """
 
 from __future__ import annotations
@@ -90,14 +91,31 @@ def _relative(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.stack([c * dx + s * dy, -s * dx + c * dy, dth], axis=1)
 
 
-def stream(lap: Lap, steps: int, seed: int, rate_hz: float, odom_noise) -> Stream:
-    """`steps` sensor steps along the lap from a seeded sample of it."""
+def kidnap_steps(steps: int, every: int) -> np.ndarray:
+    """The steps at which the robot is kidnapped: every `every`-th step
+    counted from the first (step 0 is never one); none where every is 0
+    or None."""
+    return np.arange(every, steps, every) if every else np.zeros(0, np.int64)
+
+
+def stream(lap: Lap, steps: int, seed: int, rate_hz: float, odom_noise,
+           kidnap_every: int = None) -> Stream:
+    """`steps` sensor steps along the lap from a seeded sample of it. With
+    `kidnap_every`, at each of `kidnap_steps` the robot jumps to a seeded
+    lap sample at least a quarter lap from where it was, and goes on round
+    the lap from there."""
     n = len(lap.poses)
     rng = np.random.default_rng(seed + 20)
     first = int(rng.integers(0, n))
     idx = (first + np.arange(steps)) % n
-    # the odometry of a step is the lap's own step, with noise
-    step = _relative(lap.poses[np.roll(idx, 1)], lap.poses[idx])
+    at = kidnap_steps(steps, kidnap_every)
+    if len(at):
+        jump = np.zeros(steps, np.int64)
+        jump[at] = np.random.default_rng(seed + 22).integers(n // 4, n - n // 4 + 1, len(at))
+        idx = (idx + np.cumsum(jump)) % n
+    # the odometry of a step is the lap's own step into the step's sample,
+    # with noise: wheel odometry does not see a kidnap
+    step = _relative(lap.poses[(idx - 1) % n], lap.poses[idx])
     step += np.random.default_rng(seed + 21).standard_normal((steps, 3)) * np.asarray(odom_noise)
     step[0] = 0.0
     x0, y0, th0 = lap.poses[first]

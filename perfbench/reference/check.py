@@ -13,7 +13,8 @@ reference follows it from that state. Each sampled step gives:
   particle, relative to the larger of its reference weight and the
   median one;
 - `score_rel`: the measurement model's raw per-pose output in a round of
-  the uniform pool's score rejection, the same way;
+  the uniform pool's score rejection, or on the pool the driver scores
+  after the window, the same way;
 - `kld_count`: the gap of the particle count a resample drew to the
   reference's KLD count of the set it resampled (any count a bin edge
   within float32 rounding of a pose allows);
@@ -33,6 +34,11 @@ reference follows it from that state. Each sampled step gives:
   resampled set (where clusters tie for the heaviest, the nearest);
 - `cov_abs`: the published covariance (xx, xy, yy, yaw) against the
   reference's statistics of the whole set, the widest absolute gap.
+
+Each record says whether the node's global localization was active at
+the call (`glob`); the likelihood then takes the global localization's map
+factors, read from the configuration's parameters as the upstream nodes
+read them, and its readings are kept apart as the global phase's.
 """
 
 from __future__ import annotations
@@ -60,6 +66,20 @@ def _angle(a: float, b: float) -> float:
     return abs(math.atan2(math.sin(a - b), math.cos(a - b)))
 
 
+def global_factors(p: dict) -> tuple:
+    """The map factors of global localization as the upstream nodes read
+    them from their parameters, 1.0 (their default) for one left unset:
+    the 2D node's off map and not free space, with the normal radius; the
+    3D node's off map (`global_localization_scanner_off_map_factor`: the
+    3D launch file's `global_localization_point_cloud_scanner_*` spellings
+    are declared there but never read, node_3d.cpp:75-77)."""
+    if p.get("map_type", 2) == 3:
+        return (float(p.get("global_localization_scanner_off_map_factor", 1.0)),)
+    return (float(p.get("global_localization_laser_off_map_factor", 1.0)),
+            float(p.get("global_localization_laser_non_free_space_factor", 1.0)),
+            float(p["laser_non_free_space_radius"]))
+
+
 class Model:
     """The reference's map and measurement model of one configuration in
     one dtype, built from the raw map the node was given."""
@@ -67,7 +87,8 @@ class Model:
     def __init__(self, config: dict, map_input: dict, mount, dtype, device):
         p = config["params"]
         self.p, self.dtype, self.mount = p, dtype, mount
-        self.factors = config["factors"]
+        self.factors = {"normal": tuple(config["factors"]["normal"]),
+                        "global": global_factors(p)}
         if p["odom_model_type"] != "gaussian" or p["resample_model_type"] != "systematic":
             raise ValueError("the reference has the Gaussian odometry model and systematic "
                              "resampling only")
@@ -84,8 +105,10 @@ class Model:
             self.map = amcl.VoxelMap(map_input["cells"], map_input["resolution"],
                                      p["laser_likelihood_max_dist"], dtype, device)
 
-    def likelihood(self, msg, poses: torch.Tensor) -> torch.Tensor:
-        fac = self.factors["normal"]
+    def likelihood(self, msg, poses: torch.Tensor, glob: bool = False) -> torch.Tensor:
+        """Per pose, under the normal map factors or (glob) the global
+        localization's."""
+        fac = self.factors["global" if glob else "normal"]
         if self.planar:
             r, a, v = amcl.planar_beams(msg.ranges, msg.angle_min, msg.angle_increment,
                                         msg.range_min, msg.range_max,
@@ -109,28 +132,63 @@ def _heaviest(stats) -> list:
             for i in torch.nonzero(w >= top * (1 - 1e-9)).flatten().tolist()]
 
 
+class _Gaps:
+    """Each compared number's readings, kept apart by the phase of the
+    step they came from: normal tracking or global localization."""
+
+    def __init__(self):
+        self.by = {k: {False: [], True: []} for k in NAMES}
+
+    def add(self, name: str, value, glob: bool) -> None:
+        self.by[name][bool(glob)].append(value)
+
+    def widest(self, phases=(False, True)) -> dict:
+        """{name: the widest reading of those phases, or None}."""
+        out = {}
+        for k, v in self.by.items():
+            vals = [x for ph in phases for x in v[ph]]
+            out[k] = max(vals) if vals else None
+        return out
+
+    def counts(self, phases=(False, True)) -> dict:
+        return {k: sum(len(v[ph]) for ph in phases) for k, v in self.by.items()}
+
+
+def _merged(records: dict, kind: str) -> list:
+    """A kind's records with its global phase's sample ("global_<kind>"),
+    each record once."""
+    out, seen = [], set()
+    for rec in records.get(kind, []) + records.get("global_" + kind, []):
+        if id(rec) not in seen:
+            seen.add(id(rec))
+            out.append(rec)
+    return out
+
+
 def readings(records: dict, config: dict, map_input: dict, mount, device,
              control: bool = False) -> dict:
-    """{"program": {name: value or None}, "control": ... (with control)}:
-    the widest gap of each number over the sampled steps (None where the
-    window gave none to compare)."""
+    """{"program": {name: value or None}, "counts": {name: readings},
+    "phases": {"normal": ..., "global": ...}, "global_counts": ...,
+    "control": ... (with control)}: the widest gap of each number over the
+    sampled steps (None where the window gave none to compare), overall
+    and by phase."""
     p = config["params"]
     f64 = torch.float64
     ref = Model(config, map_input, mount, f64, device)
     low = Model(config, map_input, mount, torch.bfloat16, device) if control else None
-    prog = {k: [] for k in NAMES}
-    ctl = {k: [] for k in NAMES}
-    for rec in records.get("updates", []):
+    prog, ctl = _Gaps(), _Gaps()
+    for rec in _merged(records, "updates"):
         u = rec["update"]
+        glob = u["glob"]
         st_in, st_out = u["state_in"], u["state_out"]
         n = int(st_in.n_active)
         poses = st_in.poses[:n].to(device)
         w_in = st_in.weights[:n].to(device)
-        w_ref = amcl.normalize(w_in, ref.likelihood(u["msg"], poses), n)
-        prog["weights_rel"].append(_rel_gap(st_out.weights[:n].to(device), w_ref))
+        w_ref = amcl.normalize(w_in, ref.likelihood(u["msg"], poses, glob), n)
+        prog.add("weights_rel", _rel_gap(st_out.weights[:n].to(device), w_ref), glob)
         if low:
-            w_low = amcl.normalize(w_in, low.likelihood(u["msg"], poses), n)
-            ctl["weights_rel"].append(_rel_gap(w_low, w_ref))
+            w_low = amcl.normalize(w_in, low.likelihood(u["msg"], poses, glob), n)
+            ctl.add("weights_rel", _rel_gap(w_low, w_ref), glob)
         mo = rec.get("motion")
         if mo is not None and mo["odom"] is not None:
             motion = amcl.odometry_motion(mo["odom"], float(p["update_min_d"]),
@@ -145,41 +203,44 @@ def readings(records: dict, config: dict, map_input: dict, mount, device,
                                                   torch.bfloat16), ctl))
             for got, into in outs:
                 got = got.double()
-                into["motion_m"].append(float(torch.hypot(got[:, 0] - want[:, 0],
-                                                          got[:, 1] - want[:, 1]).max()))
-                into["motion_yaw_rel"].append(float(
-                    ((got[:, 2] - want[:, 2]).abs() / want[:, 2].abs().clamp(min=1.0)).max()))
+                into.add("motion_m", float(torch.hypot(got[:, 0] - want[:, 0],
+                                                       got[:, 1] - want[:, 1]).max()), glob)
+                into.add("motion_yaw_rel", float(
+                    ((got[:, 2] - want[:, 2]).abs() / want[:, 2].abs().clamp(min=1.0)).max()),
+                    glob)
     for sc in records.get("scores", []):
         poses = sc["poses"].to(device)
-        p_ref = ref.likelihood(sc["msg"], poses)
-        prog["score_rel"].append(_rel_gap(sc["out"].to(device), p_ref))
+        p_ref = ref.likelihood(sc["msg"], poses, sc["glob"])
+        prog.add("score_rel", _rel_gap(sc["out"].to(device), p_ref), sc["glob"])
         if low:
-            ctl["score_rel"].append(_rel_gap(low.likelihood(sc["msg"], poses), p_ref))
+            ctl.add("score_rel", _rel_gap(low.likelihood(sc["msg"], poses, sc["glob"]), p_ref),
+                    sc["glob"])
     kld = (int(p["min_particles"]), int(p["max_particles"]), float(p["kld_err"]),
            float(p["kld_z"]))
-    for rec in records.get("resamples", []):
+    for rec in _merged(records, "resamples"):
         r = rec["resample"]
+        glob = r["glob"]
         st_in, st_out = r["state_in"], r["state_out"]
         n_in, n_out = int(st_in.n_active), int(st_out.n_active)
         ws, wf = float(st_in.w_slow), float(st_in.w_fast)
         poses_in = st_in.poses.to(device)
         want = amcl.kld_counts(poses_in, n_in, ws, wf, *kld, f64)
-        prog["kld_count"].append(min(abs(n_out - c) for c in want))
+        prog.add("kld_count", min(abs(n_out - c) for c in want), glob)
         if low:
             got = amcl.kld_counts(poses_in, n_in, ws, wf, *kld, torch.bfloat16, slack=0.0,
                                   rel=0.0)
-            ctl["kld_count"].append(min(abs(g - c) for g in got for c in want))
+            ctl.add("kld_count", min(abs(g - c) for g in got for c in want), glob)
         # the draw: the program's count, the pool's share of it from w_diff
         weights_in, pool = st_in.weights.to(device), r["pool"].to(device)
         u = float(r["u_start"])
         w_diff = max(0.0, 1.0 - wf / ws) if ws > 0 else 0.0
         drawn = st_out.poses[:n_out].to(device)
-        prog["draw_gap"].append(amcl.draw_gap(poses_in, weights_in, pool, drawn, u,
-                                              int(w_diff * n_out)))
+        prog.add("draw_gap", amcl.draw_gap(poses_in, weights_in, pool, drawn, u,
+                                           int(w_diff * n_out)), glob)
         if low:
             k = int(torch.tensor(w_diff, dtype=torch.bfloat16) * n_out)
             mine = amcl.comb_draw(poses_in, weights_in, pool, u, n_out, k, torch.bfloat16)
-            ctl["draw_gap"].append(amcl.draw_gap(poses_in, weights_in, pool, mine, u, k))
+            ctl.add("draw_gap", amcl.draw_gap(poses_in, weights_in, pool, mine, u, k), glob)
         if rec["published"] is None:
             continue
         poses_out = st_out.poses.to(device)
@@ -194,13 +255,14 @@ def readings(records: dict, config: dict, map_input: dict, mount, device,
                          s_low["cov"].double().cpu().numpy(), ctl))
         for pose, cov, into in outs:
             best = min(cands, key=lambda m: math.hypot(pose[0] - m[0], pose[1] - m[1]))
-            into["pose_m"].append(math.hypot(pose[0] - best[0], pose[1] - best[1]))
-            into["pose_rad"].append(_angle(pose[2], best[2]))
-            into["cov_abs"].append(float(np.max(np.abs(np.asarray(cov) - cov_ref))))
-    out = {"program": {k: (max(v) if v else None) for k, v in prog.items()},
-           "counts": {k: len(v) for k, v in prog.items()}}
+            into.add("pose_m", math.hypot(pose[0] - best[0], pose[1] - best[1]), glob)
+            into.add("pose_rad", _angle(pose[2], best[2]), glob)
+            into.add("cov_abs", float(np.max(np.abs(np.asarray(cov) - cov_ref))), glob)
+    out = {"program": prog.widest(), "counts": prog.counts(),
+           "phases": {"normal": prog.widest((False,)), "global": prog.widest((True,))},
+           "global_counts": prog.counts((True,))}
     if control:
-        out["control"] = {k: (max(v) if v else None) for k, v in ctl.items()}
+        out["control"] = ctl.widest()
     return out
 
 
