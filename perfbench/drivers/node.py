@@ -51,13 +51,22 @@ HELPERS = {
 }
 
 
+# the resampler's variates as the node passes them to its helper:
+# systematic's comb start, multinomial's injection and pick uniforms
+VARIATES = ("u_start", "u_inject", "u_pick")
+
+
 @contextlib.contextmanager
 def _no_span(name):
     yield
 
 
-def _stride(n: int, max_beams: int) -> int:
-    """The node's decimation stride of a reading of n beams or points."""
+def _stride(n: int, max_beams: int, model: str = None) -> int:
+    """The node's decimation stride of a reading of n beams or points:
+    ceil(n / max_beams) for the prob model's scan, else (n - 1) //
+    (max_beams - 1)."""
+    if model == "likelihood_field_prob":
+        return max(1, math.ceil(n / max_beams))
     return max(1, (n - 1) // max(1, max_beams - 1))
 
 
@@ -290,12 +299,14 @@ class NodeDriver:
 
     def _on_helper(self, role, args, kwargs, out) -> None:
         """Keep what the check needs of a helper call: the state before and
-        after, the reading, the variates (the motion's normals, the
-        resample's pool and comb uniform), whether global localization was
-        active and, for the motion, the stream's odometry from the last
-        update's step to this one. The nodes put the normal map factors
-        back at the start of the first scan after global localization
-        ends, so the flag at a likelihood call names the factors it used."""
+        after (the state before holds the convergence flag that gates beam
+        skipping), the reading, the variates (the motion's normals, the
+        resample's pool and its comb uniform or its per-slot injection and
+        pick uniforms), whether global localization was active and, for
+        the motion, the stream's odometry from the last update's step to
+        this one. The nodes put the normal map factors back at the start of
+        the first scan after global localization ends, so the flag at a
+        likelihood call names the factors it used."""
         cur = self._current
         if cur is None:
             return
@@ -309,8 +320,10 @@ class NodeDriver:
             self._latest_msg, self._latest_n = cur["msg"], cur["n"]
             cur["update"] = dict(state_in=args[0], state_out=out, msg=cur["msg"], glob=glob)
         elif role == "resample":
-            cur["resample"] = dict(state_in=args[0], state_out=out, pool=args[2],
-                                   u_start=kwargs["u_start"], glob=glob)
+            # the resampler's variates: the comb's start, or each slot's
+            # injection and pick uniforms
+            cur["resample"] = dict(state_in=args[0], state_out=out, pool=args[2], glob=glob,
+                                   **{k: kwargs[k] for k in VARIATES if k in kwargs})
         elif role == "score_poses":
             cur["scores"].append(dict(poses=args[3], out=out, msg=self._latest_msg, glob=glob))
         if self.recording:
@@ -476,11 +489,13 @@ class NodeDriver:
 
     def work(self, role: str, n_poses: int, msg) -> tuple:
         """(pairs, texel bytes a pair) of one likelihood evaluation: poses
-        times valid beams (2D) or kept points (3D)."""
+        times valid beams (2D, with the model's decimation) or kept points
+        (3D)."""
         if self.sensor["kind"] == "laser":
             r = np.asarray(msg.ranges, np.float64)
             r = np.where(r <= self.sensor["range_min"], self.sensor["range_max"], r)
-            kept = r[::_stride(len(r), int(self.params["laser_max_beams"]))]
+            kept = r[::_stride(len(r), int(self.params["laser_max_beams"]),
+                               self.params.get("laser_model_type"))]
             return n_poses * int(np.sum(kept < self.sensor["range_max"])), 4
         return n_poses * _kept(len(msg.points), int(self.params["laser_max_beams"])), 1
 

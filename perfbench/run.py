@@ -7,6 +7,10 @@ result as one JSON object; the last lines of standard error name each
 number the output check compared, with its limit. Exits 2 without a CUDA
 card (or with fewer than the cell asks for), and 3 if the process holds a
 JAX module once the window has closed.
+
+The run keeps PyTorch's and the BLAS libraries' CPU thread pools at one
+thread: the node's host work is one thread, and on a host whose cores
+are shared a pool's idle threads only take time from it.
 """
 
 import time
@@ -21,6 +25,9 @@ import sys  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
+# read by the thread pools when torch and numpy load, so set before either
+for _pool in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+    os.environ[_pool] = "1"
 
 
 def main(argv=None) -> int:
@@ -37,6 +44,7 @@ def main(argv=None) -> int:
     workload, _ = core.cell(bench, args.workload)
     import torch
 
+    torch.set_num_threads(1)
     if not torch.cuda.is_available() or torch.cuda.device_count() < workload["chips"]:
         print(f"{args.workload} needs {workload['chips']} CUDA device(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",

@@ -3,13 +3,18 @@ leaves the track traffic's stream as it was; a relocalizing node comes
 out correct with its global localization's steps compared under the map
 factors it used, and the same records held to the normal factors do not;
 and every window has a score to compare, whether or not the node ran a
-score round, without the window's counts seeing it."""
+score round, without the window's counts seeing it. The check of the
+Gompertz cells is handed and reads what it did before it had the node's
+other models, bit for bit."""
 
 import copy
+import dataclasses
+import hashlib
 import types
 
 import numpy as np
 import pytest
+import torch
 
 from perfbench import core
 from perfbench.drivers import node as node_driver
@@ -101,15 +106,95 @@ def _spy_records(monkeypatch):
 TRACK_STEPS = {"updates": [45, 159, 106, 208, 202, 117, 166, 173, 147, 184, 151, 249],
                "resamples": [205, 246, 198, 219, 72, 79, 86, 92, 163, 141, 169, 192, 45]}
 
+# what the check of the two Gompertz cells was handed and read in that
+# window before the check had the node's other models: the sha256 of each
+# sample's tensors, arrays and values (`_digest`), and the program's
+# readings; with and without the uniform pool's score rounds
+PARENT = {
+    ("amcl_2d_store.track", False): (
+        {"resamples": "9933d086530eef294ee26339cc7fcdc67280d072c5c96d6de06286f1a9a51d95",
+         "scores": "539f9e75b8d9675cb6a2e98910d4dae09233adec31b6f7d988ba67e7bd4498f8",
+         "updates": "65de9d12a570116d902af747ff90386b0deb30f3e463506de50abc4fae362084"},
+        {"weights_rel": 0.004633771620241563, "score_rel": 3.7857154396736114e-07,
+         "kld_count": 0, "draw_gap": 0.0, "motion_m": 2.845392946918704e-06,
+         "motion_yaw_rel": 1.0160660170404574e-07, "pose_m": 9.973247001525273e-07,
+         "pose_rad": 6.64322352683655e-08, "cov_abs": 2.2781205075261823e-05}),
+    ("amcl_2d_store.track", True): (
+        {"resamples": "d6df70856e76e22ff8bbd26fb7d369001e1911e9b5f74154b402e425e02f6155",
+         "scores": "2041359d829ec46367642974cf28eb4740ac042810cb1d0f39d146b1ba693886",
+         "updates": "83339747bec4d7c1140485b6762d1d3c843e46585af9ce3d0e32ef7f07cb77dc"},
+        {"weights_rel": 0.00394187191419528, "score_rel": 4.808627882693899e-07,
+         "kld_count": 0, "draw_gap": 0.0, "motion_m": 2.776201410831646e-06,
+         "motion_yaw_rel": 1.0183946824105596e-07, "pose_m": 1.5322443738756345e-06,
+         "pose_rad": 7.980744864966029e-08, "cov_abs": 6.119649236779878e-05}),
+    ("amcl_3d_store.track", False): (
+        {"resamples": "f369eef930827dd54b5f723c176b6742e67e53476ba3c92f3d818aa2fa71a0dd",
+         "scores": "488b92104e81dde8835389b751b957283d0dada0e9c49007c1c2a7107bc2f2e2",
+         "updates": "48ce7e9140ce33168338b67a9e548dc75053348f85df0b5e15b64b72c6e73452"},
+        {"weights_rel": 0.0031025825931574554, "score_rel": 9.138241898868328e-07,
+         "kld_count": 0, "draw_gap": 0.0, "motion_m": 2.7951920536202304e-06,
+         "motion_yaw_rel": 9.204761106803853e-08, "pose_m": 1.4785884315262283e-06,
+         "pose_rad": 1.1021127344079673e-07, "cov_abs": 5.1594430146906234e-05}),
+    ("amcl_3d_store.track", True): (
+        {"resamples": "2165fb4bf3a119fc3409d6ec74adc4f17aae460c178932b6f8a3b4c6bebed6ab",
+         "scores": "d4ccf21e0bc1a388cd83e35031cf1ba5de40022bad852427e9d6ab9abb707613",
+         "updates": "d893b46ffa067b503819e0ef5ae9169a080f4f1f998663b53456b93d51b33b4b"},
+        {"weights_rel": 0.008504993273350532, "score_rel": 9.138241898868328e-07,
+         "kld_count": 0, "draw_gap": 0.0, "motion_m": 2.8300437823700626e-06,
+         "motion_yaw_rel": 9.727292831443066e-08, "pose_m": 1.8835156209094677e-06,
+         "pose_rad": 9.847511339700077e-08, "cov_abs": 4.337435569823356e-05}),
+}
 
-def test_the_track_windows_sample_is_as_before(monkeypatch):
+
+def _feed(h, obj) -> None:
+    """Hash obj into h: tensors and arrays by dtype, shape and bytes; dicts
+    by sorted key; lists and dataclasses in order; anything else by its
+    repr."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu().contiguous()
+        h.update(f"T{t.dtype}{tuple(t.shape)}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+    elif isinstance(obj, np.ndarray):
+        a = np.ascontiguousarray(obj)
+        h.update(f"A{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            h.update(f"K{k}".encode())
+            _feed(h, obj[k])
+    elif isinstance(obj, (list, tuple)):
+        h.update(f"L{len(obj)}".encode())
+        for v in obj:
+            _feed(h, v)
+    elif dataclasses.is_dataclass(obj):
+        h.update(type(obj).__name__.encode())
+        for f in dataclasses.fields(obj):
+            h.update(f"F{f.name}".encode())
+            _feed(h, getattr(obj, f.name))
+    else:
+        h.update(repr(obj).encode())
+
+
+def _digest(samples) -> str:
+    h = hashlib.sha256()
+    _feed(h, samples)
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("workload,score_rounds", sorted(PARENT))
+def test_the_track_windows_sample_is_as_before(monkeypatch, workload, score_rounds):
     _step_clock(monkeypatch)
     seen = _spy_records(monkeypatch)
-    ov = copy.deepcopy(SMALL_2D)
-    ov["config"]["params"]["uniform_pose_starting_weight_threshold"] = 0.0
-    core.run_cell("amcl_2d_store.track", SEED, 0.6, False, device="cpu", overrides=ov)
-    got = {k: [r["n"] for r in seen["records"][k]] for k in TRACK_STEPS}
-    assert got == TRACK_STEPS
+    ov = copy.deepcopy(CELLS[workload])
+    if not score_rounds:
+        ov["config"]["params"]["uniform_pose_starting_weight_threshold"] = 0.0
+    _, _, read = core.run_cell(workload, SEED, 0.6, False, device="cpu", overrides=ov)
+    if (workload, score_rounds) == ("amcl_2d_store.track", False):
+        got = {k: [r["n"] for r in seen["records"][k]] for k in TRACK_STEPS}
+        assert got == TRACK_STEPS
+    digests, program = PARENT[workload, score_rounds]
+    assert {k: _digest(v) for k, v in seen["records"].items()} == digests
+    assert read["program"] == program
 
 
 @pytest.fixture(scope="module")
