@@ -346,6 +346,13 @@ def _w_diff(state: MCLState, log_averages: bool) -> torch.Tensor:
         0.0)
 
 
+def injects(state: MCLState, log_averages: bool) -> torch.Tensor:
+    """Whether a resample of `state` can put pool poses in its set: w_diff
+    > 0 (0-dim bool). At w_diff 0 the comb takes no pool pose and no
+    multinomial slot's injection uniform falls below it."""
+    return _w_diff(state, log_averages) > 0.0
+
+
 def resample(state: MCLState, params: PFParams, random_pose_pool: torch.Tensor,
              u_inject=None, u_pick=None,
              model: ResampleModel = ResampleModel.MULTINOMIAL,

@@ -25,6 +25,9 @@ the root region.
   (`numerics.LaggedFlags`, the uniform pool's stop test) and those of
   them whose copy had not landed when read, so that the host waited on
   the card; over the same scans as `sync_ns`.
+- `pool_builds`, `pool_skips`: the timed scans' resamples that built the
+  uniform pool, and those that passed a zero pool since no slot could
+  take a pool pose (w_diff 0); over the same scans.
 - `captures`, `capture_ns`: every `graph_jit` warm-up and capture.
 - `library_ns`: loading the kernel library, its nvcc build included, and
   each entry point's first call (`ops/_build.lib`).
@@ -100,9 +103,10 @@ class _Acc:
 
 # the timed scans since the last profiled one; set-up
 _SCANS, _ENTRY, _SYNC, _CAPTURE, _LIBRARY = (_Acc() for _ in range(5))
-# a timed scan's pending parts: entry and sync ns, lagged reads, stalls
-_ENTRY_PART, _SYNC_PART, _TESTS_PART, _STALLS_PART = range(4)
-_POOL = [0, 0]  # the timed scans' lagged reads and stalls
+# a timed scan's pending parts: entry and sync ns, lagged reads, stalls,
+# pool builds and skips
+_ENTRY_PART, _SYNC_PART, _TESTS_PART, _STALLS_PART, _BUILDS_PART, _SKIPS_PART = range(6)
+_POOL = [0, 0, 0, 0]  # the timed scans' lagged reads, stalls, pool builds, skips
 
 
 class Span(NamedTuple):
@@ -133,7 +137,7 @@ class _State:
         self.scan = 0  # the number of the open scan, 0 outside
         self.timing = False  # inside a scan, adding to its pending parts
         self.depth = 0  # open calls and syncs
-        self.parts = [0, 0, 0, 0]  # the open scan's pending parts
+        self.parts = [0] * 6  # the open scan's pending parts
 
 
 _local = threading.local()
@@ -239,7 +243,7 @@ class _Scan:
     def __enter__(self):
         t = _state()
         self.outer = (t.scan, t.timing, t.parts)
-        t.scan, t.timing, t.parts = next(_scans), True, [0, 0, 0, 0]
+        t.scan, t.timing, t.parts = next(_scans), True, [0] * 6
         self.profiled = _profiling()
         self.span = _Span("scan", None).__enter__() if self.profiled else None
         self.setup = (_CAPTURE.count, _LIBRARY.count)
@@ -252,13 +256,13 @@ class _Scan:
         if self.profiled or _profiling():
             for acc in (_SCANS, _ENTRY, _SYNC):
                 acc.clear()
-            _POOL[:] = 0, 0
+            _POOL[:] = 0, 0, 0, 0
         elif self.setup == (_CAPTURE.count, _LIBRARY.count):
             _SCANS.add(ns)
             _ENTRY.add(t.parts[_ENTRY_PART])
             _SYNC.add(t.parts[_SYNC_PART])
-            _POOL[0] += t.parts[_TESTS_PART]
-            _POOL[1] += t.parts[_STALLS_PART]
+            for i in range(4):
+                _POOL[i] += t.parts[_TESTS_PART + i]
         if self.span is not None:
             self.span.__exit__()
         t.scan, t.timing, t.parts = self.outer
@@ -289,6 +293,14 @@ def lagged_read(stalled: bool) -> None:
         t.parts[_STALLS_PART] += stalled
 
 
+def pool_decision(built: bool) -> None:
+    """One resample's uniform pool, built or skipped, into the open scan's
+    pending counts."""
+    t = _state()
+    if t.timing:
+        t.parts[_BUILDS_PART if built else _SKIPS_PART] += 1
+
+
 def capture(tag: str) -> _Region:
     """A graph_jit key's warm-up and capture."""
     return _Region("graph.capture", tag, _CAPTURE)
@@ -305,7 +317,8 @@ def counters() -> Dict[str, int]:
     return {"timed_scans": _SCANS.count, "scan_ns": _SCANS.ns, "entry_ns": _ENTRY.ns,
             "sync_ns": _SYNC.ns, "captures": _CAPTURE.count, "capture_ns": _CAPTURE.ns,
             "library_ns": _LIBRARY.ns, "spans_dropped": _dropped[0],
-            "pool_tests": _POOL[0], "pool_stalls": _POOL[1]}
+            "pool_tests": _POOL[0], "pool_stalls": _POOL[1], "pool_builds": _POOL[2],
+            "pool_skips": _POOL[3]}
 
 
 def spans() -> list:
@@ -323,7 +336,7 @@ def reset(max_spans: Optional[int] = None) -> None:
     (MAX_SPANS) more."""
     for acc in (_SCANS, _ENTRY, _SYNC, _CAPTURE, _LIBRARY):
         acc.clear()
-    _POOL[:] = 0, 0
+    _POOL[:] = 0, 0, 0, 0
     _dropped[0] = 0
     _forget_spans(max_spans)
 

@@ -269,14 +269,20 @@ REJECTION = dict(resample_interval=2, uniform_pose_starting_weight_threshold=0.8
 
 @pytest.fixture
 def node_reads(monkeypatch):
-    """The node's host reads by the node method that makes them."""
+    """The node's host reads by the node method that makes them; the
+    flags `resample_particles` read, in order, under `reads.flags`."""
     reads = collections.Counter()
+    reads.flags = []
 
     def counted(fn):
         def read(*ts):
-            reads[sys._getframe(1).f_code.co_name] += 1
+            name = sys._getframe(1).f_code.co_name
+            reads[name] += 1
             with control._nested("allowed"):
-                return fn(*ts)
+                out = fn(*ts)
+            if name == "resample_particles":
+                reads.flags.append(out)
+            return out
         return read
 
     monkeypatch.setattr(tnode, "host_arrays", counted(tnode.host_arrays))
@@ -286,12 +292,14 @@ def node_reads(monkeypatch):
 
 def _strict_scans(node, feed, steps, reads):
     """Feed each step under StrictHostReads: per scan (resampled, the
-    node's reads, the predicate reads); asserts that nothing else reads
-    the host (a tensor made from host data, the scan and the odometry, is
-    an upload) and that SYNCS counts every read."""
+    node's reads, the predicate reads, the flags resample_particles read);
+    asserts that nothing else reads the host (a tensor made from host
+    data, the scan and the odometry, is an upload) and that SYNCS counts
+    every read."""
     out = []
     for step in steps:
         reads.clear()
+        reads.flags = []
         r0, s0 = node.resample_count, SYNCS.count
         with control.StrictHostReads(raise_on_read=False) as mode:
             feed(step)
@@ -299,19 +307,23 @@ def _strict_scans(node, feed, steps, reads):
         assert SYNCS.count - s0 == mode.reads + sum(reads.values())
         assert set(reads) <= set(NODE_READS), reads
         resampled = node.resample_count > r0 and node.resample_count % 2 == 0
-        out.append((resampled, dict(reads), mode.reads))
+        out.append((resampled, dict(reads), mode.reads, reads.flags))
     return out
 
 
-def _check_scan_kinds(rows):
-    """Update-only scans read the particle cloud; resampling scans also run
-    at least one rejection round and publish the pose."""
-    kinds = {r[0] for r in rows}
-    assert kinds == {True, False}, rows
-    for resampled, reads, _ in rows:
+def _check_scan_kinds(rows, global_localization=False):
+    """Update-only scans read the particle cloud; resampling scans read
+    w_diff > 0 once (in global localization the convergence flag after
+    it, until that holds), run at least one rejection round if and only
+    if w_diff > 0, and publish the pose."""
+    if not global_localization:
+        assert {r[0] for r in rows} == {True, False}, rows
+    for resampled, reads, _, flags in rows:
         if resampled:
-            assert reads.get("random_pose_pool", 0) >= 1 and reads["get_max_weight_pose"] == 1
-            assert reads["update_pose"] == 1
+            assert reads["resample_particles"] == len(flags) in (
+                (1, 2) if global_localization else (1,)), rows
+            assert (reads.get("random_pose_pool", 0) >= 1) == flags[0], rows
+            assert reads["get_max_weight_pose"] == 1 and reads["update_pose"] == 1
         elif reads:
             assert reads.get("publish_particle_cloud", 0) <= 1
             assert "random_pose_pool" not in reads
@@ -328,7 +340,8 @@ def test_strict_node_scans_2d(stream, node_reads):
     tn.global_localization()
     rows = _strict_scans(tn, lambda s: n2._feed(tn, ttf, Transform, s, True), steps[7:10],
                          node_reads)
-    assert any(r[1].get("resample_particles") for r in rows if r[0])
+    _check_scan_kinds(rows, global_localization=True)
+    assert any(len(r[3]) == 2 for r in rows if r[0])
 
 
 def test_strict_node_scans_3d(world, node_reads):
@@ -565,9 +578,11 @@ def test_cloud_sizes_beyond_the_bound(world, fake_graphs, monkeypatch):
 
 
 def _node_with_entries(tmp_path, **kw):
-    """A CPU 2D node after two scans through its helpers, compiled on fake
-    graphs: entries that hold its map and free cells, and entries keyed on
-    its alphas and PFParams (`kw` overrides the configuration)."""
+    """A CPU 2D node after two scans through its helpers and a uniform
+    pool, compiled on fake graphs: entries that hold its map and free
+    cells, and entries keyed on its alphas and PFParams (`kw` overrides
+    the configuration). The pool is built here since a resample builds it
+    only where w_diff > 0."""
     cfg = config.AMCLConfig(max_particles=500, min_particles=100, laser_max_beams=30,
                             resample_interval=1, saved_pose_filepath=str(tmp_path / "pose.yaml"),
                             uniform_pose_starting_weight_threshold=0.0)
@@ -581,6 +596,7 @@ def _node_with_entries(tmp_path, **kw):
         node.tf.set_transform("odom", "base_link", 0.1 * k, Transform.from_pose2d(pose))
         node.integrate_odom(tnode.Odometry(0.1 * k, pose))
         node.scan_received(scenario.laser_scan(omap, pose, angles, 0.1 * k))
+    node.random_pose_pool()
     return node
 
 
