@@ -45,7 +45,8 @@ phases `scan_prep`, `motion_update`, `sensor_update`, `resample` and
 `publish` are `timers` (`PhaseTimer`) phases, each a span under a
 profiler; each round of the uniform pool's score rejection is a span
 `pool_round`, and its stop test a lagged read (`numerics.LaggedFlags`);
-each resample counts its pool as built or skipped (`pool_decision`).
+each resample counts its pool as built or skipped (the tallies
+`pool_builds`, `pool_skips`).
 """
 
 from __future__ import annotations
@@ -536,7 +537,7 @@ class Node:
         with self.timers.phase("resample"):
             m, gen, dev = self.params.max_samples, self.generator, self.device
             build = host_bool(pf_filter.injects(self.state, self._log_space))
-            profiling.pool_decision(build)
+            profiling.tally("pool_builds" if build else "pool_skips")
             if build:
                 pool = self.random_pose_pool()
             else:

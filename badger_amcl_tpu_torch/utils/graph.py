@@ -37,9 +37,9 @@ never falls back to the eager step.
 
 Every call is a `graph.call` region of `utils.profiling` (the host time
 of the scans' calls, a span under a profiler, tagged with fn's name);
-under a profiler only, its steps are the spans `graph.key`,
-`graph.copy_in`, `graph.replay` (the host launch) and `graph.copy_out`.
-A key's first call is a `graph.capture` region, timed always.
+its steps are the spans `graph.key`, `graph.copy_in`, `graph.replay`
+(the host launch) and `graph.copy_out`, each the shared no-op without a
+profiler. A key's first call is a `graph.capture` region, timed always.
 """
 
 from __future__ import annotations
@@ -360,7 +360,9 @@ def graph_jit(fn, static_argnames):
         step eagerly."""
         bound = sig.bind(*args, **kwargs)
         bound.apply_defaults()
-        static = tuple((k, bound.arguments[k]) for k in static_argnames)
+        # tuples of lists, not of generators, which cost more to start: on
+        # the hot call this pays for its four spans (NOOP without a profiler)
+        static = tuple([(k, bound.arguments[k]) for k in static_argnames])
         references = {k: bound.arguments[k] for k in _REFERENCES if k in bound.arguments}
         dynamic = {k: v for k, v in bound.arguments.items()
                    if k not in static_argnames and k not in references}
@@ -371,8 +373,8 @@ def graph_jit(fn, static_argnames):
                              f"{sorted(map(str, devices))}")
         if not _captures_on(devices.pop()):
             return bound, references, spec, leaves, None
-        key = (static, tuple((k, id(v)) for k, v in references.items()), spec,
-               tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+        key = (static, tuple([(k, id(v)) for k, v in references.items()]), spec,
+               tuple([(tuple(t.shape), t.dtype, t.device) for t in leaves]))
         return bound, references, spec, leaves, key
 
     def entry_of(key, bound, leaves, spec, references):
@@ -390,40 +392,25 @@ def graph_jit(fn, static_argnames):
         entries.move_to_end(key)
         return entry
 
-    def run(args, kwargs):
-        bound, references, spec, leaves, key = bind(args, kwargs)
-        if key is None:
-            return fn(**bound.arguments)
-        with _deferring_drops():
-            entry = entry_of(key, bound, leaves, spec, references)
-            for buf, t in zip(entry.inputs, leaves):
-                buf.copy_(t)
-            entry.graph.replay()
-            entry.replays += 1
-            return tree.map_tensors(torch.clone, entry.outputs)
-
-    def run_traced(args, kwargs):
-        """run, its steps each a span."""
-        span = profiling.span
-        with span("graph.key"):
-            bound, references, spec, leaves, key = bind(args, kwargs)
-        if key is None:
-            return fn(**bound.arguments)
-        with _deferring_drops():
-            entry = entry_of(key, bound, leaves, spec, references)
-            with span("graph.copy_in"):
-                for buf, t in zip(entry.inputs, leaves):
-                    buf.copy_(t)
-            with span("graph.replay"):
-                entry.graph.replay()
-            entry.replays += 1
-            with span("graph.copy_out"):
-                return tree.map_tensors(torch.clone, entry.outputs)
+    span = profiling.span
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        with profiling.call(name) as call:
-            return (run if call.span is None else run_traced)(args, kwargs)
+        with profiling.call(name):
+            with span("graph.key"):
+                bound, references, spec, leaves, key = bind(args, kwargs)
+            if key is None:
+                return fn(**bound.arguments)
+            with _deferring_drops():
+                entry = entry_of(key, bound, leaves, spec, references)
+                with span("graph.copy_in"):
+                    for buf, t in zip(entry.inputs, leaves):
+                        buf.copy_(t)
+                with span("graph.replay"):
+                    entry.graph.replay()
+                entry.replays += 1
+                with span("graph.copy_out"):
+                    return tree.map_tensors(torch.clone, entry.outputs)
 
     def drop(key):
         """Drop one entry: its graph, buffers, arm pool and its hold on what

@@ -132,9 +132,11 @@ class LaggedFlag:
     def read(self) -> bool:
         """The flag, in one counted host sync that waits on its copy alone
         (not on the work queued after it); the recorder counts the read,
-        and whether the copy had still to land (`profiling.lagged_read`)."""
+        and whether the copy had still to land (the tallies `pool_tests`,
+        `pool_stalls`)."""
         SYNCS.count += 1
-        profiling.lagged_read(self.event is not None and not self.event.query())
+        profiling.tally("pool_tests")
+        profiling.tally("pool_stalls", self.event is not None and not self.event.query())
         with profiling.sync():
             if self.event is not None:
                 self.event.synchronize()

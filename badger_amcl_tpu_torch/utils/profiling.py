@@ -3,17 +3,20 @@ runs, a node's phase timers, and the Chrome-trace exporter (counterpart
 of badger_amcl_tpu.utils.profiling).
 
 Every timed block is a `_Region`: a span under a profiler, and its host
-time on `perf_counter_ns` into an accumulator (`_Acc`: count, total,
-longest) when it closes. A scan (`scan()`, the nodes' `scan_received`) is
-the root region.
+time on `perf_counter_ns`, when it closes, into an accumulator (`_Acc`:
+count, total, longest) or into a tally of the open scan. A scan
+(`scan()`, the nodes' `scan_received`) is the root region.
 
-**Counters** (`counters()`) are always on:
+**Counters** (`counters()`) are always on. The tallies (TALLIES) count
+over the timed scans: a scan keeps its own by name while it is open, and
+its close adds them to one store. A scan is timed where no
+`torch.profiler` was active around it and it captured no graph and
+loaded nothing of the kernel library (set-up, counted below). A profiled
+scan empties the store, so after a profiler stops the tallies cover the
+scans since; so does `reset`. A new tally is a name in TALLIES and a
+`tally(name)` at its site.
 
-- `timed_scans`, `scan_ns`: the timed scans and their host time. A scan
-  is timed where no `torch.profiler` was active around it and it
-  captured no graph and loaded nothing of the kernel library (set-up,
-  counted below). A profiled scan restarts these three counters, so after
-  a profiler stops they cover the scans since.
+- `timed_scans`, `scan_ns`: the timed scans and their host time.
 - `entry_ns`: the host time of the timed scans' outermost `graph_jit`
   calls (key, copy-in, launch, clone).
 - `sync_ns`: the host time of the timed scans' reads outside a
@@ -24,10 +27,10 @@ the root region.
 - `pool_tests`, `pool_stalls`: the timed scans' lagged reads
   (`numerics.LaggedFlags`, the uniform pool's stop test) and those of
   them whose copy had not landed when read, so that the host waited on
-  the card; over the same scans as `sync_ns`.
+  the card.
 - `pool_builds`, `pool_skips`: the timed scans' resamples that built the
   uniform pool, and those that passed a zero pool since no slot could
-  take a pool pose (w_diff 0); over the same scans.
+  take a pool pose (w_diff 0).
 - `captures`, `capture_ns`: every `graph_jit` warm-up and capture.
 - `library_ns`: loading the kernel library, its nvcc build included, and
   each entry point's first call (`ops/_build.lib`).
@@ -101,12 +104,12 @@ class _Acc:
     clear = __init__
 
 
-# the timed scans since the last profiled one; set-up
-_SCANS, _ENTRY, _SYNC, _CAPTURE, _LIBRARY = (_Acc() for _ in range(5))
-# a timed scan's pending parts: entry and sync ns, lagged reads, stalls,
-# pool builds and skips
-_ENTRY_PART, _SYNC_PART, _TESTS_PART, _STALLS_PART, _BUILDS_PART, _SKIPS_PART = range(6)
-_POOL = [0, 0, 0, 0]  # the timed scans' lagged reads, stalls, pool builds, skips
+# set-up
+_CAPTURE, _LIBRARY = _Acc(), _Acc()
+# the tallies of the timed scans (module docstring)
+TALLIES = ("timed_scans", "scan_ns", "entry_ns", "sync_ns", "pool_tests", "pool_stalls",
+           "pool_builds", "pool_skips")
+_TALLIED = dict.fromkeys(TALLIES, 0)  # summed over the timed scans since the last profiled one
 
 
 class Span(NamedTuple):
@@ -130,14 +133,13 @@ _dropped = [0]
 class _State:
     """One thread's open spans and scan."""
 
-    __slots__ = ("stack", "scan", "timing", "depth", "parts")
+    __slots__ = ("stack", "scan", "depth", "pending")
 
     def __init__(self):
         self.stack = []  # ids of the open spans
         self.scan = 0  # the number of the open scan, 0 outside
-        self.timing = False  # inside a scan, adding to its pending parts
         self.depth = 0  # open calls and syncs
-        self.parts = [0] * 6  # the open scan's pending parts
+        self.pending = None  # the open scan's tallies ({name: n}), None outside
 
 
 _local = threading.local()
@@ -152,12 +154,14 @@ def _state() -> _State:
 
 
 class _Noop:
+    # __exit__ takes its three arguments by name, which calls faster than
+    # *args: a graph_jit call opens four of these blocks
     __slots__ = ()
 
     def __enter__(self):
         return self
 
-    def __exit__(self, *exc):
+    def __exit__(self, typ, value, tb):
         return False
 
 
@@ -201,49 +205,49 @@ def span(name: str, tag: Optional[str] = None):
 
 class _Region:
     """A span under a profiler, and the block's host time into `acc` on
-    exit; or, where `part` names one, into that pending part of the open
-    timed scan, by the outermost call or sync only."""
+    exit; or, where `tally` names one, into that tally of the open scan,
+    by the outermost call or sync only."""
 
-    __slots__ = ("span", "acc", "part", "state", "t0")
+    __slots__ = ("span", "acc", "tally", "state", "t0")
 
     def __init__(self, name: str, tag: Optional[str] = None, acc: Optional[_Acc] = None,
-                 part: Optional[int] = None):
+                 tally: Optional[str] = None):
         self.span = _Span(name, tag) if _profiling() else None
-        self.acc, self.part = acc, part
+        self.acc, self.tally = acc, tally
 
     def __enter__(self):
         if self.span is not None:
             self.span.__enter__()
-        if self.part is not None:
+        if self.tally is not None:
             t = self.state = _state()
             t.depth += 1
         self.t0 = _clock()
         return self
 
-    def __exit__(self, *exc):
+    def __exit__(self, typ, value, tb):
         ns = _clock() - self.t0
-        if self.part is None:
+        if self.tally is None:
             self.acc.add(ns)
         else:
             t = self.state
             t.depth -= 1
-            if t.timing and not t.depth:
-                t.parts[self.part] += ns
+            if t.pending is not None and not t.depth:
+                t.pending[self.tally] += ns
         if self.span is not None:
             self.span.__exit__()
         return False
 
 
 class _Scan:
-    """The root of one scan: its number, its span, and its host time into
-    the timed-scan counters where nothing profiled or set up inside it."""
+    """The root of one scan: its number, its span, and its tallies into the
+    store where nothing profiled or set up inside it."""
 
     __slots__ = ("outer", "span", "setup", "profiled", "t0")
 
     def __enter__(self):
         t = _state()
-        self.outer = (t.scan, t.timing, t.parts)
-        t.scan, t.timing, t.parts = next(_scans), True, [0] * 6
+        self.outer = (t.scan, t.pending)
+        t.scan, t.pending = next(_scans), dict.fromkeys(TALLIES, 0)
         self.profiled = _profiling()
         self.span = _Span("scan", None).__enter__() if self.profiled else None
         self.setup = (_CAPTURE.count, _LIBRARY.count)
@@ -254,18 +258,15 @@ class _Scan:
         ns = _clock() - self.t0
         t = _state()
         if self.profiled or _profiling():
-            for acc in (_SCANS, _ENTRY, _SYNC):
-                acc.clear()
-            _POOL[:] = 0, 0, 0, 0
+            _TALLIED.update(dict.fromkeys(TALLIES, 0))
         elif self.setup == (_CAPTURE.count, _LIBRARY.count):
-            _SCANS.add(ns)
-            _ENTRY.add(t.parts[_ENTRY_PART])
-            _SYNC.add(t.parts[_SYNC_PART])
-            for i in range(4):
-                _POOL[i] += t.parts[_TESTS_PART + i]
+            pending = t.pending
+            pending["timed_scans"], pending["scan_ns"] = 1, ns
+            for name, n in pending.items():
+                _TALLIED[name] += n
         if self.span is not None:
             self.span.__exit__()
-        t.scan, t.timing, t.parts = self.outer
+        t.scan, t.pending = self.outer
         return False
 
 
@@ -276,29 +277,20 @@ def scan():
 
 def call(tag: str) -> _Region:
     """A graph_jit call of the helper `tag`."""
-    return _Region("graph.call", tag, part=_ENTRY_PART)
+    return _Region("graph.call", tag, tally="entry_ns")
 
 
 def sync() -> _Region:
     """One counted host read of device values."""
-    return _Region("sync", part=_SYNC_PART)
+    return _Region("sync", tally="sync_ns")
 
 
-def lagged_read(stalled: bool) -> None:
-    """One lagged read (`numerics.LaggedFlag.read`), and whether it found
-    its copy still to land, into the open scan's pending counts."""
-    t = _state()
-    if t.timing:
-        t.parts[_TESTS_PART] += 1
-        t.parts[_STALLS_PART] += stalled
-
-
-def pool_decision(built: bool) -> None:
-    """One resample's uniform pool, built or skipped, into the open scan's
-    pending counts."""
-    t = _state()
-    if t.timing:
-        t.parts[_BUILDS_PART if built else _SKIPS_PART] += 1
+def tally(name: str, n: int = 1) -> None:
+    """n events into the open scan's tally `name` (one of TALLIES); none
+    outside a scan."""
+    pending = _state().pending
+    if pending is not None:
+        pending[name] += n
 
 
 def capture(tag: str) -> _Region:
@@ -314,11 +306,8 @@ def library(tag: Optional[str] = None) -> _Region:
 
 def counters() -> Dict[str, int]:
     """The counters (module docstring)."""
-    return {"timed_scans": _SCANS.count, "scan_ns": _SCANS.ns, "entry_ns": _ENTRY.ns,
-            "sync_ns": _SYNC.ns, "captures": _CAPTURE.count, "capture_ns": _CAPTURE.ns,
-            "library_ns": _LIBRARY.ns, "spans_dropped": _dropped[0],
-            "pool_tests": _POOL[0], "pool_stalls": _POOL[1], "pool_builds": _POOL[2],
-            "pool_skips": _POOL[3]}
+    return dict(_TALLIED, captures=_CAPTURE.count, capture_ns=_CAPTURE.ns,
+                library_ns=_LIBRARY.ns, spans_dropped=_dropped[0])
 
 
 def spans() -> list:
@@ -334,9 +323,9 @@ def _forget_spans(max_spans: Optional[int] = None) -> None:
 def reset(max_spans: Optional[int] = None) -> None:
     """Zero the counters, drop the kept spans, keep at most max_spans
     (MAX_SPANS) more."""
-    for acc in (_SCANS, _ENTRY, _SYNC, _CAPTURE, _LIBRARY):
-        acc.clear()
-    _POOL[:] = 0, 0, 0, 0
+    _TALLIED.update(dict.fromkeys(TALLIES, 0))
+    _CAPTURE.clear()
+    _LIBRARY.clear()
     _dropped[0] = 0
     _forget_spans(max_spans)
 

@@ -259,25 +259,28 @@ def test_after_a_global_localization_the_kept_averages_build_the_pool(calls, dim
     assert "_score_poses_jit" not in _names(calls) and "_uniform_pool_jit" not in _names(calls)
 
 
-def test_the_decisions_count_as_the_lagged_reads_do():
-    """pool_builds and pool_skips count the timed scans' resamples: none
+@pytest.mark.parametrize("first,second", [("pool_builds", "pool_skips"),
+                                           ("pool_tests", "pool_stalls")])
+def test_the_decisions_count_as_the_lagged_reads_do(first, second):
+    """Each pair of tallies (the resamples' pool builds and skips, the
+    lagged reads and their stalls) counts the timed scans' events: none
     outside a scan, restarted by a profiled scan and by reset."""
     from torch.profiler import ProfilerActivity, profile
 
     profiling.reset()
     with profiling.scan():
-        for built in (True, False, False):
-            profiling.pool_decision(built)
-    profiling.pool_decision(True)  # outside every scan
+        for name in (first, second, second):
+            profiling.tally(name)
+    profiling.tally(first)  # outside every scan
     c = profiling.counters()
-    assert (c["pool_builds"], c["pool_skips"], c["timed_scans"]) == (1, 2, 1)
+    assert (c[first], c[second], c["timed_scans"]) == (1, 2, 1)
     with profile(activities=[ProfilerActivity.CPU]):
         with profiling.scan():
-            profiling.pool_decision(False)
+            profiling.tally(second)
     c = profiling.counters()
-    assert (c["pool_builds"], c["pool_skips"], c["timed_scans"]) == (0, 0, 0)
+    assert (c[first], c[second], c["timed_scans"]) == (0, 0, 0)
     with profiling.scan():
-        profiling.pool_decision(False)
-    assert profiling.counters()["pool_skips"] == 1
+        profiling.tally(second)
+    assert profiling.counters()[second] == 1
     profiling.reset()
-    assert profiling.counters()["pool_skips"] == 0
+    assert profiling.counters()[second] == 0

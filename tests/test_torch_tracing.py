@@ -10,6 +10,7 @@ points are timed at their first call only. `profiling.trace` writes the
 spans into the Chrome trace it exports, each trace with room for the cap.
 """
 
+import collections
 import json
 import os
 import tempfile
@@ -23,7 +24,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from badger_amcl_tpu_torch import config, scenario
 from badger_amcl_tpu_torch.node import make_node, messages, transforms
 from badger_amcl_tpu_torch.ops import _build
-from badger_amcl_tpu_torch.utils import numerics, profiling
+from badger_amcl_tpu_torch.utils import graph, numerics, profiling
 
 TIMED = ("timed_scans", "scan_ns", "entry_ns", "sync_ns")
 ANGLES = np.linspace(-2.35, 2.35, 32).astype(np.float32)
@@ -183,24 +184,51 @@ def test_spans_stand_on_the_profilers_clock():
             assert abs(start - s.start_ns) < 1_000_000 and abs(end - s.end_ns) < 1_000_000
 
 
-def test_the_program_adds_no_event_to_the_profiler():
-    def work(spans):
-        for _ in range(3):
-            with (profiling.span("outer") if spans else profiling.NOOP):
-                with (profiling.call("helper") if spans else profiling.NOOP):
-                    torch.ones(8).add_(1)
-                if spans:
-                    numerics.host_values(torch.ones(()))
-                else:  # the same read, uncounted
-                    torch.ones(()).item()
+def _regions(program):
+    for _ in range(3):
+        with (profiling.span("outer") if program else profiling.NOOP):
+            with (profiling.call("helper") if program else profiling.NOOP):
+                torch.ones(8).add_(1)
+            if program:
+                numerics.host_values(torch.ones(()))
+            else:  # the same read, uncounted
+                torch.ones(()).item()
 
+
+def _shift(x, by):
+    return x + by
+
+
+_shift_jit = graph.graph_jit(_shift, static_argnames=("by",))
+
+
+def _helper(program):
+    """A graph_jit helper on CPU tensors (its step run eagerly), or the
+    step it wraps."""
+    for _ in range(3):
+        (_shift_jit if program else _shift_jit.__wrapped__)(torch.ones(8), by=1.0)
+
+
+@pytest.mark.parametrize("work,kept", [
+    (_regions, {"outer": 3, "graph.call": 3, "sync": 3}),
+    (_helper, {"graph.call": 3, "graph.key": 3}),
+], ids=["regions", "graph_jit"])
+def test_the_program_adds_no_event_to_the_profiler(work, kept):
     counts = []
-    for spans in (False, True, False, True):
+    for program in (False, True, False, True):
         with profile(activities=[ProfilerActivity.CPU]) as prof:
-            work(spans)
+            work(program)
         counts.append(len(list(prof.profiler.kineto_results.events())))
     assert counts[0] == counts[1] == counts[2] == counts[3]
-    assert len(profiling.spans()) == 2 * 3 * 3  # outer, graph.call, sync; twice
+    spans = profiling.spans()
+    assert collections.Counter(s.name for s in spans) == {k: 2 * n for k, n in kept.items()}
+    if work is _helper:  # each key span inside its call's, tagged with the step
+        by_id = {s.id: s for s in spans}
+        for s in spans:
+            if s.name == "graph.key":
+                assert by_id[s.parent].name == "graph.call"
+            else:
+                assert s.tag == "_shift" and s.parent == 0
 
 
 def test_the_span_cap_drops_and_counts():
