@@ -17,8 +17,15 @@ The first call of a key
    conditional nodes, `Capture`), then replays it.
 
 Every call copies its tensors into the key's buffers, replays the graph
-and returns fresh copies of the outputs, as JAX returns new arrays: no
-host read happens inside a replay, which a caller can hold it to with
+and returns fresh copies of the outputs, as JAX returns new arrays. It
+moves them by dtype group, not tensor by tensor: the copy-in is one
+`torch._foreach_copy_` per dtype over the call's contiguous tensors (a
+non-contiguous one is copied alone), and the outputs are `Packed`: the
+capture's last nodes copy them into one flat buffer per dtype, each in a
+slot of its own at a multiple of ALIGN bytes, and a call clones each flat
+buffer once and returns the outputs as views into the clones. Two calls
+share no storage, and a returned tensor's slot is its own. No host read
+happens inside a replay, which a caller can hold it to with
 `torch.cuda.set_sync_debug_mode("error")`; a capture, which reads
 predicates and synchronises, runs with the mode off. The launch counts of
 the kernel wrappers in `.kernels` move with the warm-up's launches only:
@@ -39,7 +46,9 @@ Every call is a `graph.call` region of `utils.profiling` (the host time
 of the scans' calls, a span under a profiler, tagged with fn's name);
 its steps are the spans `graph.key`, `graph.copy_in`, `graph.replay`
 (the host launch) and `graph.copy_out`, each the shared no-op without a
-profiler. A key's first call is a `graph.capture` region, timed always.
+profiler. It tallies the tensors it moved in and out (`entry_leaves`)
+and those of them moved in a grouped transfer (`entry_grouped`). A key's
+first call is a `graph.capture` region, timed always.
 """
 
 from __future__ import annotations
@@ -67,6 +76,11 @@ _REFERENCES = ("omap", "fsi")
 # sizes: 16 keeps such a stream resident and caps what ever-new sizes pin
 # at ~0.2 GB a helper
 MAX_ENTRIES = 16
+# each packed output starts at a multiple of this many bytes of its flat
+# buffer (which the caching allocator starts at a multiple of 512), so no
+# kernel reading it sees a pointer less aligned for its vector loads than
+# a tensor of its own would give
+ALIGN = 256
 
 
 class Capture:
@@ -224,20 +238,106 @@ class Capture:
         return out
 
 
+def dtype_groups(tensors) -> list:
+    """The indices of `tensors` by dtype: a list per dtype, in the order
+    the dtypes first come, each in the tensors' order."""
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    return list(groups.values())
+
+
+def _strides(shape) -> tuple:
+    """The strides of a contiguous tensor of this shape."""
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= max(d, 1)
+    return tuple(reversed(out))
+
+
+class Packed:
+    """A structure's tensors laid out by dtype: one flat buffer per dtype
+    group (`dtype_groups`) on their device, each tensor in a contiguous
+    slot of its own that starts at a multiple of ALIGN bytes. `pack`
+    copies tensors of the same shapes and dtypes into the slots (a
+    capture's last nodes); `unpack` clones each flat buffer once and
+    returns the structure of views into the clones."""
+
+    def __init__(self, spec, tensors: list):
+        self.spec = spec
+        self.n = len(tensors)
+        self.groups = []  # (indices, flat buffer, each slot's (shape, strides, offset))
+        for index in dtype_groups(tensors):
+            first = tensors[index[0]]
+            step = max(ALIGN // first.dtype.itemsize, 1)
+            slots, end = [], 0
+            for i in index:
+                shape = tuple(tensors[i].shape)
+                slots.append((shape, _strides(shape), end))
+                end += -(-tensors[i].numel() // step) * step
+            flat = torch.empty((end,), dtype=first.dtype, device=first.device)
+            self.groups.append((index, flat, slots))
+
+    def pack(self, tensors: list) -> None:
+        """Copy `tensors` (in `flatten`'s order) into their slots: one
+        `_foreach_copy_` per dtype group."""
+        for index, flat, slots in self.groups:
+            torch._foreach_copy_([flat.as_strided(*s) for s in slots],
+                                 [tensors[i] for i in index])
+
+    def unpack(self):
+        """The structure, its tensors views into one fresh clone of each
+        flat buffer: no later pack or unpack writes them."""
+        out = [None] * self.n
+        for index, flat, slots in self.groups:
+            view = flat.clone().as_strided
+            for i, s in zip(index, slots):
+                out[i] = view(*s)
+        return tree.unflatten(self.spec, out)
+
+
+def copy_in(groups: list, leaves: list) -> int:
+    """Copy a call's tensors into the key's buffers by dtype group
+    (`Entry.groups`): one `torch._foreach_copy_` over a group's
+    contiguous tensors, a lone `copy_` for each other. Returns how many
+    moved grouped."""
+    grouped = 0
+    for index, bufs in groups:
+        dst, src = [], []
+        for i, buf in zip(index, bufs):
+            t = leaves[i]
+            if t.is_contiguous():
+                dst.append(buf)
+                src.append(t)
+            else:
+                buf.copy_(t)
+        if dst:
+            torch._foreach_copy_(dst, src)
+            grouped += len(dst)
+    return grouped
+
+
 @dataclasses.dataclass
 class Entry:
-    """One static key's graph: its input buffers, outputs, capture record
-    and counts."""
+    """One static key's graph: its input buffers (contiguous; `groups`
+    holds each dtype group's indices and buffers), its `Packed` outputs,
+    capture record and counts."""
 
     graph: torch.cuda.CUDAGraph
     inputs: list
-    outputs: object
+    outputs: Packed
     capture: Capture
     references: dict
     capture_s: float
     nodes: int = 0  # the graph's nodes, every arm body's included
     replays: int = 0
     static: dict = dataclasses.field(default_factory=dict)
+    groups: list = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.groups = [(index, [self.inputs[i] for i in index])
+                       for index in dtype_groups(self.inputs)]
 
 
 # while a call runs, from its lookup to its replay (_deferring_drops): the
@@ -305,7 +405,7 @@ def _capture(fn, bound, leaves, spec, references, kernels, static) -> Entry:
     and synchronises)."""
     with _sync_mode(0):
         graph_cond.load_library()
-        inputs = [t.clone() for t in leaves]
+        inputs = [t.clone(memory_format=torch.contiguous_format) for t in leaves]
         args = dict(bound.arguments, **tree.unflatten(spec, inputs))
         dev = inputs[0].device
         side = torch.cuda.Stream(device=dev)
@@ -319,7 +419,9 @@ def _capture(fn, bound, leaves, spec, references, kernels, static) -> Entry:
         counted = {k: k_fn.launches for k, k_fn in cap.kernels.items()}
         t0 = time.perf_counter()
         with cap.recording(), torch.cuda.graph(graph):
-            outputs = fn(**args)
+            out_spec, out_leaves = tree.flatten(fn(**args))
+            outputs = Packed(out_spec, out_leaves)
+            outputs.pack(out_leaves)
             top = graph_cond.capture_nodes(dev)
         torch.cuda.synchronize(dev)
         for k, k_fn in cap.kernels.items():  # recorded, not launched
@@ -404,13 +506,16 @@ def graph_jit(fn, static_argnames):
             with _deferring_drops():
                 entry = entry_of(key, bound, leaves, spec, references)
                 with span("graph.copy_in"):
-                    for buf, t in zip(entry.inputs, leaves):
-                        buf.copy_(t)
+                    grouped = copy_in(entry.groups, leaves)
                 with span("graph.replay"):
                     entry.graph.replay()
                 entry.replays += 1
                 with span("graph.copy_out"):
-                    return tree.map_tensors(torch.clone, entry.outputs)
+                    out = entry.outputs.unpack()
+                n_out = entry.outputs.n  # every output moves in its group's clone
+                profiling.tally("entry_leaves", len(leaves) + n_out)
+                profiling.tally("entry_grouped", grouped + n_out)
+                return out
 
     def drop(key):
         """Drop one entry: its graph, buffers, arm pool and its hold on what

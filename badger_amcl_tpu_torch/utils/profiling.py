@@ -19,6 +19,10 @@ scans since; so does `reset`. A new tally is a name in TALLIES and a
 - `timed_scans`, `scan_ns`: the timed scans and their host time.
 - `entry_ns`: the host time of the timed scans' outermost `graph_jit`
   calls (key, copy-in, launch, clone).
+- `entry_leaves`, `entry_grouped`: the tensors the timed scans'
+  `graph_jit` calls moved in and out of their graphs, and those of them
+  moved in a transfer of their dtype group (`utils.graph`): every output,
+  and every input but a non-contiguous one, which is copied alone.
 - `sync_ns`: the host time of the timed scans' reads outside a
   `graph_jit` call (`numerics.host_values`, `host_arrays`): the host
   blocked on the device. So `scan_ns - entry_ns - sync_ns` is the node's
@@ -108,7 +112,7 @@ class _Acc:
 _CAPTURE, _LIBRARY = _Acc(), _Acc()
 # the tallies of the timed scans (module docstring)
 TALLIES = ("timed_scans", "scan_ns", "entry_ns", "sync_ns", "pool_tests", "pool_stalls",
-           "pool_builds", "pool_skips")
+           "pool_builds", "pool_skips", "entry_leaves", "entry_grouped")
 _TALLIED = dict.fromkeys(TALLIES, 0)  # summed over the timed scans since the last profiled one
 
 

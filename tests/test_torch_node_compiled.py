@@ -61,7 +61,7 @@ from badger_amcl_tpu_torch.pf.filter import ResampleModel
 from badger_amcl_tpu_torch.sensors import odom as todom
 from badger_amcl_tpu_torch.sensors import point_cloud
 from badger_amcl_tpu_torch.utils import control, graph, tree
-from badger_amcl_tpu_torch.utils.graph import Entry, graph_jit
+from badger_amcl_tpu_torch.utils.graph import Entry, Packed, graph_jit
 from badger_amcl_tpu_torch.utils.numerics import SYNCS
 
 torch.set_num_threads(1)
@@ -453,20 +453,20 @@ class FakeCapture:
 
 class FakeGraph:
     """A replay without a card: the function run again on the entry's
-    buffers, its outputs copied into the entry's."""
+    buffers, its outputs packed into the entry's slots."""
 
     def __init__(self, run, outputs):
         self.run, self.outputs = run, outputs
 
     def replay(self):
-        for out, new in zip(tree.leaves(self.outputs), tree.leaves(self.run())):
-            out.copy_(new)
+        self.outputs.pack(tree.leaves(self.run()))
 
 
 def _fake_capture(fn, bound, leaves, spec, references, kernels, static):
-    inputs = [t.clone() for t in leaves]
+    inputs = [t.clone(memory_format=torch.contiguous_format) for t in leaves]
     args = dict(bound.arguments, **tree.unflatten(spec, inputs))
-    outputs = fn(**args)
+    out_spec, out_leaves = tree.flatten(fn(**args))
+    outputs = Packed(out_spec, out_leaves)
     return Entry(FakeGraph(lambda: fn(**args), outputs), inputs, outputs, FakeCapture(),
                  references, 0.0, static=static)
 
@@ -528,12 +528,16 @@ def test_graph_jit_defers_a_release_inside_a_call(where, fake_graphs, monkeypatc
         victim.references["omap"] = "m"
 
         class Releasing:
-            """An input buffer whose copy fires the release."""
+            """A graph whose replay fires the release, then replays."""
 
-            def copy_(self, t):
+            def __init__(self, graph):
+                self.graph = graph
+
+            def replay(self):
                 assert jit.release("m") == 1 and jit.entries[key] is victim
+                self.graph.replay()
 
-        victim.inputs = [Releasing()]
+        victim.graph = Releasing(victim.graph)
     assert torch.equal(jit(x), torch.ones(2))
     assert all(e is not victim for e in jit.entries.values()) and victim.capture.released == 1
     assert not graph._PENDING and not graph._DEFERRED and not graph._busy[0]

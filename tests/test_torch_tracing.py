@@ -8,9 +8,14 @@ to its trace. A profiled scan restarts the timed-scan counters and a scan
 that sets something up is left out of them; the kernel library's entry
 points are timed at their first call only. `profiling.trace` writes the
 spans into the Chrome trace it exports, each trace with room for the cap.
+The tallies of what `graph_jit` calls move are counters; on a card (the
+cases skip without one) a compiled node helper's returned state is its
+own, unchanged by the next call, and bit for bit what a copy per tensor
+in and a clone per tensor out of the same graph give.
 """
 
 import collections
+import inspect
 import json
 import os
 import tempfile
@@ -23,8 +28,11 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from badger_amcl_tpu_torch import config, scenario
 from badger_amcl_tpu_torch.node import make_node, messages, transforms
+from badger_amcl_tpu_torch.node import node as tnode
 from badger_amcl_tpu_torch.ops import _build
-from badger_amcl_tpu_torch.utils import graph, numerics, profiling
+from badger_amcl_tpu_torch.pf.filter import ResampleModel
+from badger_amcl_tpu_torch.sensors.odom import OdomModel
+from badger_amcl_tpu_torch.utils import graph, numerics, profiling, tree
 
 TIMED = ("timed_scans", "scan_ns", "entry_ns", "sync_ns")
 ANGLES = np.linspace(-2.35, 2.35, 32).astype(np.float32)
@@ -325,3 +333,79 @@ def test_each_library_entry_points_first_call_is_timed():
     with profiling.scan():  # a first call inside a scan is set-up: not timed
         getattr(lib, list(_build._SIGNATURES)[1])()
     assert profiling.counters()["timed_scans"] == 1
+
+
+def test_the_entry_tallies_are_counters():
+    assert {"entry_leaves", "entry_grouped"} <= set(profiling.TALLIES)
+    c = profiling.counters()
+    assert c["entry_leaves"] == c["entry_grouped"] == 0
+    with profiling.scan():
+        profiling.tally("entry_leaves", 38)
+        profiling.tally("entry_grouped", 37)
+    c = profiling.counters()
+    assert (c["entry_leaves"], c["entry_grouped"]) == (38, 37)
+
+
+@pytest.fixture
+def card():
+    """The CUDA device, or a skip where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _helper_call(which, device, k):
+    """(helper, args, kwargs) of the k-th call of a node helper on one key:
+    the motion update (the state and four f32 tensors in) or the
+    systematic resample (the state, the pool and the comb's start), each on
+    a 2,000-particle cloud, with the variates drawn from seed k."""
+    params, state, pool = scenario.build_filter(2000, device=device)
+    g = torch.Generator(device=device).manual_seed(k)
+    if which == "motion_update":
+        def f32(*v):
+            return torch.tensor(v, dtype=torch.float32, device=device)
+
+        normals = torch.randn((3, params.max_samples), generator=g, device=device)
+        return tnode._motion_update_jit, (
+            state, OdomModel.DIFF, tnode._alphas(config.AMCLConfig()), f32(0.1 * k, 0.0, 0.0),
+            f32(0.1, 0.02, 0.01), normals, f32(0.1, 0.02, 0.01)), {}
+    return tnode._resample_jit, (state, params, pool), dict(
+        model=ResampleModel.SYSTEMATIC, log_averages=False,
+        u_start=torch.rand((), generator=g, device=device))
+
+
+@pytest.mark.parametrize("which", ["motion_update", "resample"])
+def test_a_compiled_helpers_output_is_its_own(which, card):
+    helper, args, kwargs = _helper_call(which, card, 1)
+    first = helper(*args, **kwargs)
+    kept = tree.map_tensors(torch.clone, first)
+    helper, args, kwargs = _helper_call(which, card, 2)
+    second = helper(*args, **kwargs)
+    for a, b in zip(tree.leaves(first), tree.leaves(kept)):
+        assert torch.equal(a, b)
+    assert not torch.equal(first.poses, second.poses)
+
+
+def _bytes(t):
+    return t if t.dtype == torch.bool else t.reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("which", ["motion_update", "resample"])
+def test_a_compiled_helper_moves_what_a_copy_per_tensor_moves(which, card):
+    helper, args, kwargs = _helper_call(which, card, 3)
+    out = helper(*args, **kwargs)
+    entry = next(reversed(helper.entries.values()))  # the call's, the most recently used
+    bound = inspect.signature(helper.__wrapped__).bind(*args, **kwargs)
+    bound.apply_defaults()
+    _, leaves = tree.flatten({k: v for k, v in bound.arguments.items()
+                              if k not in entry.static and k not in entry.references})
+    assert len(leaves) == len(entry.inputs)
+    for buf, t in zip(entry.inputs, leaves):
+        buf.copy_(t)
+    entry.graph.replay()
+    per_tensor = [None] * entry.outputs.n
+    for index, flat, slots in entry.outputs.groups:
+        for i, slot in zip(index, slots):
+            per_tensor[i] = flat.as_strided(*slot).clone()
+    for a, b in zip(tree.leaves(out), per_tensor, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bytes(a), _bytes(b))
